@@ -1,0 +1,24 @@
+from .kv_cache import QuantizedKVCache
+from .linear import DenseLinear, QuantizedLinear
+from .moe import (
+    DispatchPlan,
+    MoEINT4,
+    RoutingResult,
+    combine,
+    dispatch,
+    make_dispatch_plan,
+    topk_route,
+)
+
+__all__ = [
+    "DenseLinear",
+    "DispatchPlan",
+    "MoEINT4",
+    "QuantizedKVCache",
+    "QuantizedLinear",
+    "RoutingResult",
+    "combine",
+    "dispatch",
+    "make_dispatch_plan",
+    "topk_route",
+]

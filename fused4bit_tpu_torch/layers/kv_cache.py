@@ -1,0 +1,166 @@
+"""INT4-quantized KV cache, sequence-pair-packed.
+
+Counterpart of ``fused4bit_tpu/layers/kv_cache.py``, with the same bytes:
+
+* ``k_packed``/``v_packed`` [B, H_kv, S/2, D] u8: byte (s', d) holds position
+  2s' in its low nibble and position 2s'+1, XOR 8, in its high nibble;
+* ``k_scale``/``k_zp``/``v_scale``/``v_zp`` [B, H_kv, S] f32, per position;
+* ``lengths`` [B] i32, the filled positions of each slot.
+
+Quantization is the weight quantizer's affine spec per (head, position)
+vector over head_dim. Unlike the JAX cache, which is immutable, this one is
+updated IN PLACE: :meth:`QuantizedKVCache.append`, :meth:`reset_slot` and
+:meth:`merge_slot` write into the existing tensors and return ``self``, and
+:meth:`slice_slot` returns views that share memory with the full cache.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from ..quant.core import _affine_params
+
+__all__ = ["QuantizedKVCache"]
+
+_MAXQ = 15
+
+
+def _affine(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-vector codes q in [0, 15] (u8), scale and zp (f32). x: [..., D]."""
+    x = x.float()
+    scale, zp = _affine_params(x, dim=-1, max_val=_MAXQ)
+    q = torch.clamp(torch.round(x / scale[..., None] + zp[..., None]), 0, _MAXQ)
+    return q.to(torch.uint8), scale, zp
+
+
+def _unpack_pairs(packed: torch.Tensor) -> torch.Tensor:
+    """[B, H, S/2, D] bytes -> [B, H, S, D] u4 codes (positions interleaved back)."""
+    b, h, s2, d = packed.shape
+    lo = packed & 0x0F
+    hi = (packed >> 4) ^ 0x8
+    return torch.stack([lo, hi], dim=3).reshape(b, h, s2 * 2, d)
+
+
+def _merge_packed(buf: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> None:
+    """Insert T new position codes into a pair-packed buffer, in place.
+
+    buf: [B, H, S/2, D] u8; q: [B, H, T, D] u8 codes; s: [B] start positions.
+    Row b is written at positions [s[b], s[b] + T). Odd starts and odd T
+    read-modify-write the boundary bytes (keep one nibble, set the other).
+    The touched window of byte rows is clamped into the buffer the way
+    ``jax.lax.dynamic_slice`` clamps it, and positions are derived from the
+    clamped window, as in the JAX package.
+    """
+    b, h, s2, d = buf.shape
+    t_new = q.shape[2]
+    t2 = min(t_new // 2 + 1, s2)
+    s = s.long()
+    r0 = torch.clamp(torch.div(s, 2, rounding_mode="floor"), max=s2 - t2)  # [B]
+    rows = r0[:, None] + torch.arange(t2, device=buf.device)                # [B, t2]
+    row_idx = rows[:, None, :, None].expand(b, h, t2, d)
+    cur = torch.gather(buf, 2, row_idx)                                     # [B, H, t2, D]
+    pos = 2 * rows[:, :, None] + torch.arange(2, device=buf.device)         # [B, t2, 2]
+    rel = pos - s[:, None, None]
+    valid = (rel >= 0) & (rel < t_new)
+    src = rel.clamp(0, t_new - 1).reshape(b, 1, t2 * 2, 1).expand(b, h, t2 * 2, d)
+    newq = torch.gather(q, 2, src).reshape(b, h, t2, 2, d)
+    lo = torch.where(valid[:, None, :, 0, None], newq[:, :, :, 0], cur & 0x0F)
+    hi = torch.where(valid[:, None, :, 1, None], newq[:, :, :, 1], (cur >> 4) ^ 0x8)
+    buf.scatter_(2, row_idx, ((hi ^ 0x8) << 4) | lo)
+
+
+def _update_positions(plane: torch.Tensor, val: torch.Tensor, s: torch.Tensor) -> None:
+    """plane [B, H, S] <- val [B, H, T] at [s[b], s[b] + T), in place, with the
+    start clamped to S - T as ``jax.lax.dynamic_update_slice`` clamps it."""
+    b, h, s_max = plane.shape
+    t = val.shape[2]
+    start = torch.clamp(s.long(), 0, s_max - t)
+    cols = (start[:, None] + torch.arange(t, device=plane.device))[:, None, :]
+    plane.scatter_(2, cols.expand(b, h, t), val)
+
+
+@dataclasses.dataclass
+class QuantizedKVCache:
+    """Per-layer INT4 KV cache with static capacity and per-slot lengths."""
+
+    k_packed: torch.Tensor   # [B, H, S/2, D] u8 pair-packed
+    v_packed: torch.Tensor
+    k_scale: torch.Tensor    # [B, H, S] f32
+    k_zp: torch.Tensor
+    v_scale: torch.Tensor
+    v_zp: torch.Tensor
+    lengths: torch.Tensor    # [B] i32
+
+    _FIELDS = ("k_packed", "v_packed", "k_scale", "k_zp", "v_scale", "v_zp", "lengths")
+
+    @classmethod
+    def init(cls, batch: int, num_kv_heads: int, max_seq: int, head_dim: int,
+             device: Optional[torch.device] = None) -> "QuantizedKVCache":
+        if max_seq % 2:
+            raise ValueError(f"max_seq={max_seq} must be even (pair packing)")
+        def z8():
+            return torch.zeros((batch, num_kv_heads, max_seq // 2, head_dim),
+                               dtype=torch.uint8, device=device)
+        def zf():
+            return torch.zeros((batch, num_kv_heads, max_seq), dtype=torch.float32,
+                               device=device)
+        return cls(z8(), z8(), zf(), zf(), zf(), zf(),
+                   torch.zeros((batch,), dtype=torch.int32, device=device))
+
+    @property
+    def max_seq(self) -> int:
+        return self.k_packed.shape[2] * 2
+
+    @property
+    def head_dim(self) -> int:
+        return self.k_packed.shape[3]
+
+    def append(self, k: torch.Tensor, v: torch.Tensor,
+               start: Optional[torch.Tensor] = None) -> "QuantizedKVCache":
+        """Quantize and insert new steps, in place; returns ``self``.
+
+        k, v: [B, H, T_new, D]; row b is written at positions
+        [start[b], start[b] + T_new), ``start`` defaulting to the row's length.
+        """
+        t_new = k.shape[2]
+        qk, ks, kz = _affine(k)
+        qv, vs, vz = _affine(v)
+        start = (self.lengths if start is None else start).to(self.lengths.device)
+        new_lengths = (start + t_new).to(torch.int32)
+        _merge_packed(self.k_packed, qk, start)
+        _merge_packed(self.v_packed, qv, start)
+        for plane, val in ((self.k_scale, ks), (self.k_zp, kz),
+                           (self.v_scale, vs), (self.v_zp, vz)):
+            _update_positions(plane, val, start)
+        self.lengths.copy_(new_lengths)
+        return self
+
+    def reset_slot(self, slot: int) -> "QuantizedKVCache":
+        """Mark one batch slot empty (its stale data is masked by length)."""
+        self.lengths[slot] = 0
+        return self
+
+    def slice_slot(self, slot: int) -> "QuantizedKVCache":
+        """Batch-1 view of one slot; writes to it land in this cache."""
+        return QuantizedKVCache(*(getattr(self, f)[slot:slot + 1] for f in self._FIELDS))
+
+    def merge_slot(self, part: "QuantizedKVCache", slot: int) -> "QuantizedKVCache":
+        """Write a batch-1 cache back into ``slot`` (nothing to copy when
+        ``part`` is this slot's own :meth:`slice_slot` view)."""
+        for f in self._FIELDS:
+            dst = getattr(self, f)[slot:slot + 1]
+            src = getattr(part, f)
+            if dst.data_ptr() != src.data_ptr():
+                dst.copy_(src)
+        return self
+
+    def dequantize(self, dtype=torch.bfloat16):
+        """Dense K, V [B, H, S, D] (positions past a slot's length are junk)."""
+        def dq(packed, scale, zp):
+            q = _unpack_pairs(packed).float()
+            return ((q - zp[..., None]) * scale[..., None]).to(dtype)
+
+        return (dq(self.k_packed, self.k_scale, self.k_zp),
+                dq(self.v_packed, self.v_scale, self.v_zp))

@@ -1,0 +1,153 @@
+"""Mixture-of-Experts routing, dispatch/combine, and the INT4 expert module.
+
+Counterpart of ``fused4bit_tpu/layers/moe.py`` (the dropless tile-packed
+path): top-k softmax routing with renormalized weights, a sort-by-expert
+dispatch plan in which every expert's group is padded to a ``tile_m``
+boundary inside a buffer of static size ``cdiv(T*k, tile_m)*tile_m +
+E*tile_m``, and the weighted combine. Everything runs as tensor ops on the
+device with no device-to-host sync, so the grouped kernel K2 sees one launch
+per projection.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from ..ops.grouped_matmul import grouped_int4_matmul
+from ..quant.core import QuantizedTensor, quantize
+
+__all__ = [
+    "RoutingResult",
+    "DispatchPlan",
+    "topk_route",
+    "make_dispatch_plan",
+    "dispatch",
+    "combine",
+    "MoEINT4",
+]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class RoutingResult:
+    expert_indices: torch.Tensor        # [T, k] i32
+    expert_weights: torch.Tensor        # [T, k] f32, renormalized over k
+    tokens_per_expert: torch.Tensor     # [E] i32
+    expert_token_offsets: torch.Tensor  # [E+1] i32 (unpadded, cumulative)
+
+
+def topk_route(logits: torch.Tensor, top_k: int, num_experts: int) -> RoutingResult:
+    """Softmax-of-logits top-k routing with renormalized weights."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    weights, indices = torch.topk(probs, top_k, dim=-1)
+    weights = weights / weights.sum(dim=-1, keepdim=True)
+    flat = indices.reshape(-1)
+    # scatter_add, not bincount: bincount reads the max back to the host
+    tokens_per_expert = torch.zeros(num_experts, dtype=torch.int32, device=logits.device)
+    tokens_per_expert.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    offsets = torch.zeros(num_experts + 1, dtype=torch.int32, device=logits.device)
+    offsets[1:] = torch.cumsum(tokens_per_expert, 0)
+    return RoutingResult(indices.to(torch.int32), weights, tokens_per_expert, offsets)
+
+
+@dataclasses.dataclass(frozen=True)
+class DispatchPlan:
+    """Static-shape routing plan feeding the grouped kernel.
+
+    rows:            [T*k] i64 - destination row in the padded buffer of each
+                     (token, k) pair, in flat token-major order.
+    tile_group_ids:  [num_tiles] i32 - expert of each m-tile.
+    t_pad:           padded buffer length.
+    tile_m:          m-tile size.
+    """
+
+    rows: torch.Tensor
+    tile_group_ids: torch.Tensor
+    t_pad: int
+    tile_m: int
+
+
+def make_dispatch_plan(routing: RoutingResult, num_experts: int, tile_m: int = 64) -> DispatchPlan:
+    """Destination rows and the tile->expert map for sorted dispatch."""
+    flat_ids = routing.expert_indices.reshape(-1).long()
+    tk = flat_ids.shape[0]
+    device = flat_ids.device
+    t_pad = _cdiv(tk, tile_m) * tile_m + num_experts * tile_m
+    num_tiles = t_pad // tile_m
+
+    padded_sizes = (routing.tokens_per_expert.long() + tile_m - 1) // tile_m * tile_m
+    padded_offsets = torch.zeros(num_experts + 1, dtype=torch.long, device=device)
+    padded_offsets[1:] = torch.cumsum(padded_sizes, 0)
+
+    # Rank of each (token, k) pair within its expert, in flat order: stable
+    # argsort by expert id, then invert.
+    sort_idx = torch.argsort(flat_ids, stable=True)
+    ranks_sorted = (torch.arange(tk, device=device)
+                    - routing.expert_token_offsets.long()[flat_ids[sort_idx]])
+    ranks = torch.empty_like(ranks_sorted)
+    ranks[sort_idx] = ranks_sorted
+    rows = padded_offsets[flat_ids] + ranks
+
+    # Tile t belongs to expert e iff padded_offsets[e] <= t*tile_m <
+    # padded_offsets[e+1]; tiles past the last group map to expert E-1 and
+    # carry only zero rows.
+    tile_starts = torch.arange(num_tiles, device=device) * tile_m
+    tile_group_ids = torch.searchsorted(
+        padded_offsets[1:].contiguous(), tile_starts, right=True
+    ).clamp(0, num_experts - 1).to(torch.int32)
+    return DispatchPlan(rows, tile_group_ids, t_pad, tile_m)
+
+
+def dispatch(x: torch.Tensor, routing: RoutingResult, plan: DispatchPlan) -> torch.Tensor:
+    """Scatter tokens into the sorted, tile-aligned buffer [T_pad, H]; each
+    token appears once per selected expert."""
+    k = routing.expert_indices.shape[1]
+    x_rep = x.repeat_interleave(k, dim=0)   # token-major [T*k, H]
+    buf = torch.zeros((plan.t_pad, x.shape[1]), dtype=x.dtype, device=x.device)
+    return buf.index_copy_(0, plan.rows, x_rep)
+
+
+def combine(expert_out: torch.Tensor, routing: RoutingResult, plan: DispatchPlan) -> torch.Tensor:
+    """Gather back to token order and weight-sum over the top-k."""
+    t, k = routing.expert_weights.shape
+    per_pair = expert_out.index_select(0, plan.rows).reshape(t, k, -1)
+    w = routing.expert_weights.to(per_pair.dtype)[..., None]
+    return (per_pair * w).sum(dim=1)
+
+
+class MoEINT4(nn.Module):
+    """Stacked per-expert INT4 weights [E, N, K] applied by the grouped
+    kernel to pre-routed, tile-packed inputs."""
+
+    def __init__(self, weight: QuantizedTensor):
+        super().__init__()
+        if weight.granularity != "per_row" or weight.layout != "planar":
+            raise NotImplementedError("only per_row/planar expert weights are ported")
+        self.register_buffer("packed", weight.packed)
+        self.register_buffer("scales", weight.scales)
+        self.register_buffer("zero_points", weight.zero_points)
+        self.shape = tuple(weight.shape)
+        self.bits = weight.bits
+
+    @classmethod
+    def from_dense(cls, weights: torch.Tensor) -> "MoEINT4":
+        """Quantize stacked dense expert weights [E, N, K]."""
+        return cls(quantize(weights))
+
+    @property
+    def weight(self) -> QuantizedTensor:
+        return QuantizedTensor(self.packed, self.scales, self.zero_points, self.shape,
+                               block_k=self.shape[-1], bits=self.bits)
+
+    @property
+    def num_experts(self) -> int:
+        return self.shape[0]
+
+    def forward(self, x_sorted: torch.Tensor, tile_group_ids: torch.Tensor,
+                *, tile_m: int = 64) -> torch.Tensor:
+        return grouped_int4_matmul(x_sorted, tile_group_ids, self.weight, tile_m=tile_m)

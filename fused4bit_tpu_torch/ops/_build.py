@@ -1,0 +1,115 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared library
+with a plain C interface, loaded with :mod:`ctypes`. The build runs at first
+use (the first kernel launch, or an explicit :func:`library` call) into
+``fused4bit_tpu_torch/_build/``; the library's file name carries a hash of
+the sources and flags, so a changed source is rebuilt and an unchanged one is
+loaded as it is. Nothing here includes PyTorch's headers: the C functions
+take raw pointers and the CUDA stream as ``void*`` and return
+``cudaGetLastError()`` as an int.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+import torch
+
+__all__ = ["library", "check", "stream_of", "BUILD_DIR", "CSRC"]
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points and their argument types; every pointer and the stream are
+# void*, every size an int, and each returns a cudaError_t as an int.
+_SIGNATURES = {
+    "f4b_int4_matmul_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "f4b_int4_matmul_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "f4b_grouped_int4_matmul_bf16": [_P] * 7 + [_I] * 4 + [_P],
+    "f4b_grouped_int4_matmul_f32": [_P] * 7 + [_I] * 4 + [_P],
+    "f4b_int4_attention_bf16": [_P] * 10 + [_I] * 7 + [_P],
+    "f4b_int4_attention_f32": [_P] * 10 + [_I] * 7 + [_P],
+}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    cus, headers = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in cus + headers:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_log() -> str:
+    """The compiler's output (ptxas registers, shared memory, spills) of the
+    library :func:`library` loads; empty before the first build."""
+    log = BUILD_DIR / f"libfused4bit_{_digest()}.log"
+    return log.read_text() if log.exists() else ""
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """Build (if the sources changed) and load the kernel library, once per
+    process."""
+    digest = _digest()
+    so = BUILD_DIR / f"libfused4bit_{digest}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        cus, _ = _sources()
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cus)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            )
+        (BUILD_DIR / f"libfused4bit_{digest}.log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.f4b_error_string.argtypes = [_I]
+    lib.f4b_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        msg = library().f4b_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as a pointer-sized int."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,128 @@
+"""Grouped INT4 product for the MoE experts, over kernel K2.
+
+Counterpart of ``fused4bit_tpu/ops/grouped_matmul.py:grouped_int4_matmul``:
+``out[t] = x_sorted[t] @ dequant(W[tile_group_ids[t // tile_m]])^T`` over
+tokens sorted by expert, each expert's group zero-padded to a multiple of
+``tile_m``. On a CUDA tensor the wrapper launches ``csrc/grouped_matmul.cu``
+(the port of the TPU kernel ``_grouped_kernel``) once, with no host loop and
+no device-to-host sync; on a CPU tensor it runs the plain version,
+:func:`grouped_int4_matmul_reference`.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..quant.core import QuantizedTensor, dequantize
+from ..quant.reference import full_precision
+from . import _build
+
+__all__ = ["grouped_int4_matmul", "grouped_int4_matmul_reference"]
+
+_KERNELS = {
+    torch.bfloat16: "f4b_grouped_int4_matmul_bf16",
+    torch.float32: "f4b_grouped_int4_matmul_f32",
+}
+# x rows per CTA of the kernel (csrc/int4_rows.cuh: RowsTile): an m-tile must
+# hold a whole number of them.
+_KERNEL_ROWS = {torch.bfloat16: 16, torch.float32: 8}
+
+
+def _check(x_sorted, tile_group_ids, qt: QuantizedTensor, tile_m: int):
+    if qt.granularity != "per_row":
+        raise NotImplementedError("the grouped kernel requires per_row scales")
+    if qt.layout != "planar":
+        raise ValueError("the grouped kernel requires the planar layout")
+    if len(qt.shape) != 3:
+        raise ValueError(f"expected stacked [E, N, K] weights, got {qt.shape}")
+    t_pad, k = x_sorted.shape
+    if k != qt.shape[2]:
+        raise ValueError(f"x K={k} != weight K={qt.shape[2]}")
+    if t_pad % tile_m != 0 or tile_group_ids.shape != (t_pad // tile_m,):
+        raise ValueError(
+            f"T_pad={t_pad} must be tile_group_ids.numel()={tile_group_ids.numel()} "
+            f"tiles of tile_m={tile_m}"
+        )
+
+
+def grouped_int4_matmul_reference(
+    x_sorted: torch.Tensor, tile_group_ids: torch.Tensor, qt: QuantizedTensor,
+    *, tile_m: int = 64,
+) -> torch.Tensor:
+    """Plain version of K2: per expert, dequantize and run a float32 matmul
+    over that expert's tiles; x.dtype out."""
+    grouped_int4_matmul_reference.calls += 1
+    _check(x_sorted, tile_group_ids, qt, tile_m)
+    e, n, k = qt.shape
+    xt = x_sorted.reshape(-1, tile_m, k).float()
+    out = torch.zeros((xt.shape[0], tile_m, n), dtype=torch.float32, device=x_sorted.device)
+    for ex in range(e):
+        tiles = (tile_group_ids == ex).nonzero().flatten()
+        if tiles.numel() == 0:
+            continue
+        w = dequantize(dataclasses.replace(
+            qt, packed=qt.packed[ex], scales=qt.scales[ex],
+            zero_points=qt.zero_points[ex], shape=(n, k),
+        ))
+        with full_precision():
+            out[tiles] = torch.matmul(xt[tiles], w.t())
+    return out.reshape(-1, n).to(x_sorted.dtype)
+
+
+grouped_int4_matmul_reference.calls = 0
+
+
+def grouped_int4_matmul(
+    x_sorted: torch.Tensor,
+    tile_group_ids: torch.Tensor,
+    qt: QuantizedTensor,
+    *,
+    tile_m: int = 64,
+) -> torch.Tensor:
+    """Grouped ``x @ dequant(W[g])^T`` over tile-aligned token groups.
+
+    x_sorted: [T_pad, K] bf16 or f32; tile_group_ids: [T_pad // tile_m] i32;
+    qt: stacked per_row planar [E, N, K]. Returns [T_pad, N] in x.dtype.
+    """
+    if not x_sorted.is_cuda:
+        return grouped_int4_matmul_reference(x_sorted, tile_group_ids, qt, tile_m=tile_m)
+    _check(x_sorted, tile_group_ids, qt, tile_m)
+    e, n, k = qt.shape
+    t_pad = x_sorted.shape[0]
+    dtype = x_sorted.dtype
+    if dtype not in _KERNELS:
+        raise TypeError(f"K2 takes bf16 or f32 activations, got {dtype}")
+    if tile_m % _KERNEL_ROWS[dtype] != 0:
+        raise ValueError(f"K2 needs tile_m % {_KERNEL_ROWS[dtype]} == 0 for {dtype}")
+    if k % 32 != 0:
+        raise ValueError(f"K2 needs K % 32 == 0 (16-byte packed rows), got K={k}")
+    for name, t, want in (
+        ("tile_group_ids", tile_group_ids, torch.int32),
+        ("packed", qt.packed, torch.uint8),
+        ("scales", qt.scales, torch.float32),
+        ("zero_points", qt.zero_points, torch.float32),
+    ):
+        if t.device != x_sorted.device or t.dtype != want or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {want} tensor on {x_sorted.device}")
+    x_sorted = x_sorted.contiguous()
+    if x_sorted.data_ptr() % 16:  # the kernel reads x with 16-byte loads
+        x_sorted = x_sorted.clone()
+    y = torch.empty((t_pad, n), dtype=dtype, device=x_sorted.device)
+    if t_pad == 0:
+        return y
+    # scratch: rows in use per block of kernel rows (the zero padding is skipped)
+    rows_used = torch.empty((-(-t_pad // _KERNEL_ROWS[dtype]),), dtype=torch.int32,
+                            device=x_sorted.device)
+    with torch.cuda.device(x_sorted.device):
+        err = getattr(_build.library(), _KERNELS[dtype])(
+            x_sorted.data_ptr(), tile_group_ids.data_ptr(), qt.packed.data_ptr(),
+            qt.scales.data_ptr(), qt.zero_points.data_ptr(), rows_used.data_ptr(),
+            y.data_ptr(), t_pad, n, k, tile_m, _build.stream_of(x_sorted),
+        )
+    _build.check(err, "grouped_int4_matmul")
+    grouped_int4_matmul.launches += 1
+    return y
+
+
+grouped_int4_matmul.launches = 0

@@ -11,14 +11,25 @@ Phases, each of which raises on failure:
   2. build the kernels of fused4bit_tpu_torch/csrc (nvcc, sm_90a);
   3. hold each kernel against its plain PyTorch version at the shapes the
      `layer2` serving path gives it (Mixtral-8x7B layer width), and time both
-     with CUDA events (L2 flushed before each launch);
+     with CUDA events (L2 flushed before each launch); time the integer-GEMM
+     paths (resident i8 and transient unpack) at a prefill shape;
   4. serve 12 requests on the `layer2` model (random weights from a seeded
-     generator) with 8 slots, and check that the serving run launched every
-     kernel and no plain version;
-  5. run the `tiny` model with the same weights on the card and on the CPU,
-     and compare the logits.
-The line before the last is a JSON summary of the kernels; the last line is
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+     generator) with 8 slots, in the default (w4a16) mode and then, on the
+     same weights, in the `as_u4_turbo` (w4a8) mode, and check that each run
+     launched the kernels of its mode and no plain version;
+  5. call the w4a8 op entry points whose kernels no serving path of `layer2`
+     takes: the linear at deep K (K4) and the grouped product with the
+     quantization fused (K11);
+  6. run one 2 x 320-token forward of `layer2` in the default mode and in
+     each w4a8 mode, check that each took its prefill paths (transient
+     unpack and capacity MoE, or K5 and K10, or resident i8), that the w4a8
+     modes agree with each other, and print their cosines against the
+     default mode;
+  7. run the `tiny` model with the same weights on the card and on the CPU,
+     in the default mode and in each w4a8 mode, and compare the logits.
+The line before the last is a JSON summary of the kernels, with each
+kernel's launches counted over the phase that drives it (4 or 5); the last
+line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -30,11 +41,19 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from fused4bit_tpu_torch import ops
 from fused4bit_tpu_torch.layers import QuantizedKVCache, dispatch, make_dispatch_plan, topk_route
-from fused4bit_tpu_torch.models import QuantizedTransformer, flagship_model_config
+from fused4bit_tpu_torch.models import (
+    QuantizedTransformer,
+    as_turbo,
+    as_u4_turbo,
+    as_xla_turbo,
+    flagship_model_config,
+)
 from fused4bit_tpu_torch.ops import _build
+from fused4bit_tpu_torch.ops.int8_xla import _quantize_acts
 from fused4bit_tpu_torch.quant import quantize
 from fused4bit_tpu_torch.serving import GenerationRequest, ServingEngine
 
@@ -49,8 +68,22 @@ from fused4bit_tpu_torch.serving import GenerationRequest, ServingEngine
 BF16_REL_TOL = 1e-2
 F32_ABS_TOL = 1e-2
 ATTN_ABS_TOL = 2e-2
+# - w4a8 kernels (K4, K5, K10, K11): the same quantization and an exact
+#   integer dot on both sides, then the same f32 epilogue, operation by
+#   operation: max|d| <= 1e-6 * max|y_plain| in f32, one bf16 ulp
+#   (2^-7 * max|y_plain|) in bf16.
+A8_F32_REL_TOL = 1e-6
+A8_BF16_REL_TOL = 2.0 ** -7
 # Whole model on the card vs the CPU: bf16 activations through 2 layers.
 MODEL_REL_TOL = 2e-2
+# Long prefill, turbo (w4a8 kernels) vs u4_turbo (integer GEMMs), cosine of
+# each row's last-position logits and of all its positions together. The
+# two modes compute the same integers but round their f32 epilogues and
+# activation scales in another order, which flips the routing of a share of
+# the tokens with random weights, in the JAX package as in the port
+# (tests/test_torch_model.py): bars below the readings of 0.998 and 0.986.
+PREFILL_COS_LAST = 0.995
+PREFILL_COS_ALL = 0.98
 
 SOURCES = {
     "int4_matmul": ("fused4bit_tpu_torch/csrc/int4_matmul.cu",
@@ -59,6 +92,25 @@ SOURCES = {
                             "fused4bit_tpu/ops/grouped_matmul.py:59"),
     "int4_attention": ("fused4bit_tpu_torch/csrc/decode_attention.cu",
                        "fused4bit_tpu/ops/decode_attention.py:71"),
+    "int4_matmul_a8": ("fused4bit_tpu_torch/csrc/int4_matmul_a8.cu",
+                       "fused4bit_tpu/ops/int4_matmul.py:1039"),
+    "int4_matmul_a8_fused": ("fused4bit_tpu_torch/csrc/int4_matmul_a8.cu",
+                             "fused4bit_tpu/ops/int4_matmul.py:1094"),
+    "grouped_int4_matmul_a8": ("fused4bit_tpu_torch/csrc/grouped_matmul_a8.cu",
+                               "fused4bit_tpu/ops/grouped_matmul.py:500"),
+    "grouped_int4_matmul_a8_fused": ("fused4bit_tpu_torch/csrc/grouped_matmul_a8.cu",
+                                     "fused4bit_tpu/ops/grouped_matmul.py:552"),
+}
+# Each kernel's decode shape on the serving path: its ms / plain_ms in the
+# JSON summary.
+MAIN_SHAPE = {
+    "int4_matmul": "M=8 N=4096 K=4096 bf16",
+    "grouped_int4_matmul": "T=8 tile_m=16 N=14336 K=4096",
+    "int4_attention": "decode B=8 lengths [1, 2, 37, 255]",
+    "int4_matmul_a8": "M=8 N=4096 K=4096 bf16",
+    "int4_matmul_a8_fused": "M=8 N=4096 K=4096 bf16",
+    "grouped_int4_matmul_a8": "T=8 tile_m=32 N=14336 K=4096",
+    "grouped_int4_matmul_a8_fused": "T=8 tile_m=32 N=14336 K=4096",
 }
 
 
@@ -119,13 +171,13 @@ class Timer:
         return statistics.median(times)
 
 
-def _compare(name, shape, y, ref, tol, results, timer, fn, ref_fn):
+def _compare(name, shape, y, ref, tol, results, timer, fn, ref_fn, iters=20):
     torch.cuda.synchronize()
     if not torch.isfinite(y).all():
         raise AssertionError(f"{name} {shape}: non-finite output")
     err = (y.float() - ref.float()).abs().max().item()
-    ms = timer(fn) if timer else float("nan")
-    plain_ms = timer(ref_fn, iters=5) if timer else float("nan")
+    ms = timer(fn, iters=iters) if timer else float("nan")
+    plain_ms = timer(ref_fn, iters=min(iters, 5)) if timer else float("nan")
     ok = err <= tol
     print(f"  {name:20s} {shape:34s} max|d| {err:.3e} (tol {tol:.3e}) "
           f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms {'ok' if ok else 'FAIL'}")
@@ -194,6 +246,96 @@ def check_grouped(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
         del qt
 
 
+A8_NAMES = {False: ("int4_matmul_a8", "grouped_int4_matmul_a8"),          # K4, K10
+            True: ("int4_matmul_a8_fused", "grouped_int4_matmul_a8_fused")}  # K5, K11
+
+
+def _a8_tol(ref):
+    rel = A8_F32_REL_TOL if ref.dtype == torch.float32 else A8_BF16_REL_TOL
+    return rel * ref.float().abs().max().item()
+
+
+def check_linear_a8(device, results, timer, gen):
+    """K4 and K5 at the layer2 linear shapes (K4 also at deep K), each against
+    the plain version with its own quantizer; K5 also at M=640, the rows of
+    the long prefill (phase 6) in the turbo mode."""
+    for n, k in ((4096, 4096), (1024, 4096), (8, 4096), (8192, 4096), (4096, 14336)):
+        qt = quantize(torch.randn((n, k), generator=gen, device=device) * k ** -0.5)
+        for m in ((1, 8, 32, 640) if k == 4096 else (8,)):
+            x = torch.randn((m, k), generator=gen, device=device).bfloat16()
+            xs = (x, x.float()) if n == 1024 and m == 8 else (x,)  # + the f32 instantiation
+            for xx in xs:
+                dt = "bf16" if xx.dtype == torch.bfloat16 else "f32"
+                fuses = (False,) if k > 4096 else (True,) if m == 640 else (False, True)
+                for fuse in fuses:
+                    ref = ops.int4_matmul_a8_reference(xx, qt, fuse_quant=fuse)
+                    timed = xx is x
+                    _compare(A8_NAMES[fuse][0], f"M={m} N={n} K={k} {dt}",
+                             ops.int4_matmul_a8(xx, qt, fuse_quant=fuse), ref, _a8_tol(ref),
+                             results, timer if timed else None,
+                             lambda: ops.int4_matmul_a8(xx, qt, fuse_quant=fuse),
+                             lambda: ops.int4_matmul_a8_reference(xx, qt, fuse_quant=fuse),
+                             iters=5 if m == 640 else 20)
+            if (m, n, k) == (8, 4096, 4096) and timer:
+                # the input of the fuse gate: K4's time above includes the
+                # host quantizer's launches, timed here alone
+                q_ms = timer(lambda: _quantize_acts(x))
+                print(f"    host quantizer alone M={m} K={k}: {q_ms:.4f} ms")
+                results.append(dict(name="host_quantizer", shape=f"M={m} K={k}", err=0.0,
+                                    ms=q_ms, plain_ms=float("nan")))
+        del qt
+
+
+def check_grouped_a8(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
+    """K10 and K11 at the expert shapes: u4_turbo decode (T=8, tile_m 32) and
+    turbo prefill (T=600, tile_m 128), skewed routing."""
+    for n, k in ((ffn, hidden), (hidden, ffn)):       # gate/up, then down
+        qt = quantize(torch.randn((e, n, k), generator=gen, device=device) * k ** -0.5)
+        for t, tile_m in ((8, 32), (600, 128)):
+            routing, plan = _skewed_plan(t, e, 2, tile_m, gen, device)
+            xs = dispatch(torch.randn((t, k), generator=gen, device=device).bfloat16(),
+                          routing, plan)
+            gids = plan.tile_group_ids
+            pad = xs.abs().sum(dim=1) == 0
+            iters = 20 if t == 8 else 5
+            for xx in ((xs, xs.float()) if t == 8 else (xs,)):  # + f32 at decode
+                f32 = xx.dtype == torch.float32
+                for fuse in (False, True):
+                    name = A8_NAMES[fuse][1]
+                    ref = ops.grouped_int4_matmul_a8_reference(xx, gids, qt, tile_m=tile_m,
+                                                               fuse_quant=fuse)
+                    y = ops.grouped_int4_matmul_a8(xx, gids, qt, tile_m=tile_m, fuse_quant=fuse)
+                    torch.cuda.synchronize()
+                    if not bool((y[pad] == 0).all()):
+                        raise AssertionError(f"{name}: padding rows are not exactly zero")
+                    _compare(name, f"T={t} tile_m={tile_m} N={n} K={k}" + (" f32" if f32 else ""),
+                             y, ref, _a8_tol(ref), results, None if f32 else timer,
+                             lambda: ops.grouped_int4_matmul_a8(xx, gids, qt, tile_m=tile_m,
+                                                                fuse_quant=fuse),
+                             lambda: ops.grouped_int4_matmul_a8_reference(
+                                 xx, gids, qt, tile_m=tile_m, fuse_quant=fuse),
+                             iters=iters)
+            print(f"    tokens per expert {routing.tokens_per_expert.tolist()}, "
+                  f"T_pad {plan.t_pad}")
+        del qt
+
+
+def check_int8_paths(device, results, timer, gen, m=640, n=4096, k=4096):
+    """The integer-GEMM prefill paths (no kernel of their own: torch._int_mm)
+    at one prefill shape: the resident i8 copy (xla_turbo) against the
+    transient unpack (u4_turbo). Both compute the same integers."""
+    qt = quantize(torch.randn((n, k), generator=gen, device=device) * k ** -0.5)
+    w8 = ops.to_int8_resident(qt)
+    x = torch.randn((m, k), generator=gen, device=device).bfloat16()
+    y_res, y_tr = ops.int8_linear(x, w8), ops.int4_linear_transient(x, qt)
+    if not torch.equal(y_res, y_tr):
+        raise AssertionError("int8_linear and int4_linear_transient differ")
+    ref = ops.int4_matmul_a8_reference(x, qt)
+    _compare("int8_linear", f"M={m} N={n} K={k} bf16", y_res, ref, _a8_tol(ref), results, timer,
+             lambda: ops.int8_linear(x, w8), lambda: ops.int4_linear_transient(x, qt))
+    print("    (plain = int4_linear_transient: unpack to i8 per call, then the same GEMM)")
+
+
 def _filled_cache(b, h_kv, s_max, d, lengths, gen, device):
     cache = QuantizedKVCache.init(b, h_kv, s_max, d, device=device)
     kv = torch.randn((2, b, h_kv, s_max - 1, d), generator=gen, device=device)
@@ -226,6 +368,18 @@ def check_attention(device, results, timer, gen, b=8, hq=32, h_kv=8, d=128, s_ma
     _compare("int4_attention", f"prefill B={b} T={t} starts odd", y, ref, ATTN_ABS_TOL,
              results, timer, lambda: ops.int4_prefill_attention(q, cache, starts),
              lambda: ops.int4_attention_reference(q, cache, starts))
+    # the long prefill of phase 6: 2 rows of 320 tokens from position 0
+    b, t = 2, 320
+    cache = QuantizedKVCache.init(b, h_kv, t, d, device=device)
+    kv = torch.randn((2, b, h_kv, t, d), generator=gen, device=device)
+    starts = torch.zeros(b, dtype=torch.int32, device=device)
+    cache.append(kv[0], kv[1], start=starts)
+    q = torch.randn((b, hq, t, d), generator=gen, device=device).bfloat16()
+    ref = ops.int4_attention_reference(q, cache, starts)
+    _compare("int4_attention", f"prefill B={b} T={t} start 0", ops.int4_prefill_attention(
+             q, cache, starts), ref, ATTN_ABS_TOL, results, timer,
+             lambda: ops.int4_prefill_attention(q, cache, starts),
+             lambda: ops.int4_attention_reference(q, cache, starts), iters=5)
 
 
 def check_kernels(device="cuda", timing=True):
@@ -236,28 +390,71 @@ def check_kernels(device="cuda", timing=True):
     check_linear(device, results, timer, gen)
     check_grouped(device, results, timer, gen)
     check_attention(device, results, timer, gen)
+    check_linear_a8(device, results, timer, gen)
+    check_grouped_a8(device, results, timer, gen)
+    check_int8_paths(device, results, timer, gen)
     torch.cuda.empty_cache()
     return results
+
+
+_REFERENCES = (ops.int4_matmul_reference, ops.grouped_int4_matmul_reference,
+               ops.int4_attention_reference, ops.int4_matmul_a8_reference,
+               ops.grouped_int4_matmul_a8_reference)
+_PATH_CALLS = (ops.int4_linear_transient, ops.int4_grouped_transient, ops.int8_linear,
+               ops.int8_grouped_capacity)
 
 
 def _reset_counts():
     ops.int4_matmul.launches = 0
     ops.grouped_int4_matmul.launches = 0
     ops.int4_attention.launches = 0
-    ops.int4_matmul_reference.calls = 0
-    ops.grouped_int4_matmul_reference.calls = 0
-    ops.int4_attention_reference.calls = 0
+    for fn in (ops.int4_matmul_a8, ops.grouped_int4_matmul_a8):
+        fn.launches = fn.fused_launches = 0
+    for fn in _REFERENCES + _PATH_CALLS:
+        fn.calls = 0
 
 
-def serve(device="cuda", scale="layer2", card_line=""):
-    """Phase 4: the continuous-batching server on the layer2 model."""
+def _launch_counts() -> dict:
+    return {
+        "int4_matmul": ops.int4_matmul.launches,
+        "grouped_int4_matmul": ops.grouped_int4_matmul.launches,
+        "int4_attention": ops.int4_attention.launches,
+        "int4_matmul_a8": ops.int4_matmul_a8.launches,
+        "int4_matmul_a8_fused": ops.int4_matmul_a8.fused_launches,
+        "grouped_int4_matmul_a8": ops.grouped_int4_matmul_a8.launches,
+        "grouped_int4_matmul_a8_fused": ops.grouped_int4_matmul_a8.fused_launches,
+    }
+
+
+def _plain_calls() -> int:
+    return sum(fn.calls for fn in _REFERENCES)
+
+
+def _expect_launches(what, launches, launched, idle):
+    """Raise unless every kernel in ``launched`` ran and none in ``idle`` did."""
+    missing = [k for k in launched if launches[k] == 0]
+    extra = [k for k in idle if launches[k] != 0]
+    if missing or extra:
+        raise AssertionError(f"{what}: never launched {missing}, launched unexpectedly {extra}: "
+                             f"{launches}")
+    if _plain_calls():
+        raise AssertionError(f"{what}: ran a plain version {_plain_calls()} times")
+
+
+def build_layer2(device="cuda", scale="layer2"):
     cfg = flagship_model_config(scale)
     t0 = time.perf_counter()
     model = QuantizedTransformer.init(cfg, generator=torch.Generator(device=device).manual_seed(0),
                                       device=device)
     torch.cuda.synchronize()
-    print(f"serve: {cfg.name} built in {time.perf_counter() - t0:.1f} s, "
+    print(f"{cfg.name} built in {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return model, cfg
+
+
+def serve(model, cfg, mode, card_line=""):
+    """Phase 4: the continuous-batching server, 12 requests on 8 slots.
+    Returns the kernel launches of the run."""
     rng = np.random.default_rng(0)
     lengths = [3, 70, 12, 33, 45, 64, 7, 20, 50, 66, 5, 31]     # 1 to 3 prefill chunks
     budgets = [8 + (5 * i) % 9 for i in range(len(lengths))]   # 8..16 new tokens
@@ -277,14 +474,7 @@ def serve(device="cuda", scale="layer2", card_line=""):
             if len(eng.queue) == queued:  # no admission: a pure decode step
                 decode_ms.append((time.perf_counter() - s0) * 1e3)
     wall = time.perf_counter() - t0
-    launches = {
-        "int4_matmul": ops.int4_matmul.launches,
-        "grouped_int4_matmul": ops.grouped_int4_matmul.launches,
-        "int4_attention": ops.int4_attention.launches,
-    }
-    plain = (ops.int4_matmul_reference.calls
-             + ops.grouped_int4_matmul_reference.calls
-             + ops.int4_attention_reference.calls)
+    launches = _launch_counts()
     out = eng.finished
     for uid, want in enumerate(budgets):
         got = out.get(uid)
@@ -293,24 +483,122 @@ def serve(device="cuda", scale="layer2", card_line=""):
         if not all(0 <= tok < cfg.vocab_size for tok in got):
             raise AssertionError(f"uid {uid}: token out of the vocabulary")
     tokens = sum(budgets)
-    print(f"serve: {len(lengths)} requests, {tokens} tokens in {wall:.2f} s wall "
+    print(f"serve [{mode}]: {len(lengths)} requests, {tokens} tokens in {wall:.2f} s wall "
           f"({tokens / wall:.1f} tok/s), decode {statistics.median(decode_ms):.2f} ms/step median "
           f"over {len(decode_ms)} steps, taken on {card_line}")
-    print(f"serve: kernel launches {launches}, plain-version calls {plain}")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel of the serving path was never launched: {launches}")
-    if plain:
-        raise AssertionError(f"the serving path ran a plain version {plain} times")
-    del eng, model
+    print(f"serve [{mode}]: kernel launches {launches}, plain-version calls {_plain_calls()}")
+    return launches
+
+
+def a8_entry_points(device="cuda", gen=None, e=8, ffn=14336, hidden=4096):
+    """Phase 5: the w4a8 op entry points whose kernels the layer2 serving
+    paths do not take, called as a user would at layer2 widths: the linear
+    at deep K, where the fuse gate picks K4 by itself, and the grouped
+    product with ``fuse_quant=True`` (K11). Returns the kernel launches."""
+    gen = gen or torch.Generator(device=device).manual_seed(3)
+    qt = quantize(torch.randn((hidden, ffn), generator=gen, device=device) * ffn ** -0.5)
+    x = torch.randn((8, ffn), generator=gen, device=device).bfloat16()
+    routing, plan = _skewed_plan(8, e, 2, 32, gen, device)
+    xs = dispatch(torch.randn((8, hidden), generator=gen, device=device).bfloat16(), routing, plan)
+    qe = quantize(torch.randn((e, ffn, hidden), generator=gen, device=device) * hidden ** -0.5)
+    _reset_counts()
+    y = ops.int4_matmul_a8(x, qt)
+    ye = ops.grouped_int4_matmul_a8(xs, plan.tile_group_ids, qe, tile_m=32, fuse_quant=True)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    if not (torch.isfinite(y).all() and torch.isfinite(ye).all()):
+        raise AssertionError("w4a8 entry points: non-finite output")
+    _expect_launches("w4a8 entry points", launches,
+                     ("int4_matmul_a8", "grouped_int4_matmul_a8_fused"),
+                     ("int4_matmul_a8_fused", "grouped_int4_matmul_a8"))
+    print(f"w4a8 entry points: kernel launches {launches}")
+    del qt, qe
     torch.cuda.empty_cache()
     return launches
 
 
-def whole_model(device="cuda"):
-    """Phase 5: the tiny model, same weights, card (kernels) vs CPU (plain)."""
+def _prefill_logits(model, cfg, tokens):
+    b, t = tokens.shape
+    caches = model.init_cache(cfg, b, t)
+    positions = torch.arange(t, dtype=torch.int32, device=tokens.device)
+    logits, _ = model(tokens, caches, positions)
+    return logits.float()
+
+
+# Long prefill, per mode: the converter, the kernels it must launch, and the
+# integer-GEMM paths it must call at 640 rows.
+PREFILL_MODES = (
+    ("u4_turbo", as_u4_turbo, (), ("int4_linear_transient", "int4_grouped_transient")),
+    ("turbo", as_turbo, ("int4_matmul_a8_fused", "grouped_int4_matmul_a8"), ()),
+    ("xla_turbo", as_xla_turbo, (), ("int8_linear", "int8_grouped_capacity")),
+)
+
+
+def long_prefill(model, cfg, device="cuda", b=2, t=320):
+    """Phase 6: one forward of b x t tokens (640 rows: past the 256-row
+    transient gate and the 512-row MoE prefill threshold) per w4a8 mode.
+
+    Checks that each mode took its prefill paths, that xla_turbo (resident
+    i8) and u4_turbo (transient i8) give the same logits bit for bit, and
+    that turbo (kernels K5 and K10) agrees with u4_turbo (integer GEMMs and
+    the capacity layout) to the cosine bar, over each row's last-position
+    logits and over all its positions. The cosines against the default
+    (w4a16) mode are printed: with random weights the router flips the
+    expert pair of a share of the tokens between w4a16 and w4a8, in the JAX
+    package as in the port (tests/test_torch_model.py), so they are
+    measurements here, not bars."""
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(1, cfg.vocab_size, (b, t))
+                              ).to(device)
+    logits = {}
+    with torch.no_grad():
+        base = _prefill_logits(model, cfg, tokens)
+        for mode, conv, launched, called in PREFILL_MODES:
+            _reset_counts()
+            got = _prefill_logits(conv(model), cfg, tokens)
+            torch.cuda.synchronize()
+            launches = _launch_counts()
+            paths = {fn.__name__: fn.calls for fn in _PATH_CALLS}
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"long prefill [{mode}]: non-finite logits")
+            if not all(paths[name] for name in called):
+                raise AssertionError(f"long prefill [{mode}]: prefill paths not taken {paths}")
+            _expect_launches(f"long prefill [{mode}]", launches, launched,
+                             ("int4_matmul", "grouped_int4_matmul"))
+            print(f"long prefill [{mode}] {b}x{t}: vs default, {_cosines(got, base)[2]}; "
+                  f"launches {launches}, integer-GEMM calls {paths}")
+            logits[mode] = got
+    if not torch.equal(logits["xla_turbo"], logits["u4_turbo"]):
+        raise AssertionError("long prefill: xla_turbo and u4_turbo logits differ")
+    last, rows, text = _cosines(logits["turbo"], logits["u4_turbo"])
+    print(f"long prefill: xla_turbo == u4_turbo bit for bit; turbo vs u4_turbo, "
+          f"{text} (bars {PREFILL_COS_LAST} on the last position, "
+          f"{PREFILL_COS_ALL} on all positions)")
+    if last.min().item() <= PREFILL_COS_LAST or rows.min().item() <= PREFILL_COS_ALL:
+        raise AssertionError(f"long prefill: turbo vs u4_turbo cos {last.tolist()}, "
+                             f"{rows.tolist()}")
+
+
+def _cosines(got, ref):
+    """Cosines of two [B, T, V] logits: each row's last position and each
+    row's T positions together, and a line that adds the spread of the B*T
+    per-position cosines."""
+    b = got.shape[0]
+    last = F.cosine_similarity(got[:, -1], ref[:, -1], dim=-1)
+    rows = F.cosine_similarity(got.reshape(b, -1), ref.reshape(b, -1), dim=-1)
+    per_pos = F.cosine_similarity(got, ref, dim=-1)
+    return last, rows, (f"cos of last-position logits {last.tolist()}, of all positions "
+                        f"{rows.tolist()}, per position min {per_pos.min().item():.4f} and "
+                        f"share < 0.98 {(per_pos < 0.98).float().mean().item():.4f}")
+
+
+def whole_model(device="cuda", mode="kernel", convert=None):
+    """Phase 7: the tiny model, same weights, card (kernels) vs CPU (plain),
+    after the converter of ``mode`` on each side."""
     cfg = flagship_model_config("tiny")
     cpu = QuantizedTransformer.init(cfg, generator=torch.Generator().manual_seed(0))
     gpu = copy.deepcopy(cpu).to(device)
+    if convert is not None:
+        cpu, gpu = convert(cpu), convert(gpu)
     b, t, max_seq = 2, 12, 64
     tokens = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (b, t)))
     caches_c, caches_g = cpu.init_cache(cfg, b, max_seq), gpu.init_cache(cfg, b, max_seq)
@@ -333,11 +621,12 @@ def whole_model(device="cuda"):
                                      f"argmax {nxt.tolist()} vs CPU top-2 {top2.tolist()}")
             tokens = ref[:, -1].argmax(dim=-1)[:, None]
             positions = torch.tensor([t + step], dtype=torch.int32)
-    print(f"tiny model: card vs CPU over prefill + 3 decode steps, worst max|d|/tol {worst:.3f}, "
-          f"argmax in CPU top-2: ok")
+    print(f"tiny model [{mode}]: card vs CPU over prefill + 3 decode steps, "
+          f"worst max|d|/tol {worst:.3f}, argmax in CPU top-2: ok")
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     card_line = require_card()
     build()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -345,19 +634,34 @@ def main() -> None:
     with torch.no_grad():
         print(f"kernels vs plain versions (times: median, L2 flushed, on {card_line}):")
         results = check_kernels()
-    launches = serve(card_line=card_line)
-    whole_model()
-    # ms / plain_ms: each kernel at its decode shape on the serving path
-    main_shape = {"int4_matmul": "M=8 N=4096 K=4096 bf16",
-                  "grouped_int4_matmul": "T=8 tile_m=16 N=14336 K=4096",
-                  "int4_attention": "decode B=8 lengths [1, 2, 37, 255]"}
+    model, cfg = build_layer2()
+    launches = serve(model, cfg, "default", card_line)
+    _expect_launches("serve [default]", launches,
+                     ("int4_matmul", "grouped_int4_matmul", "int4_attention"),
+                     ("int4_matmul_a8_fused", "grouped_int4_matmul_a8"))
+    launches_u4 = serve(as_u4_turbo(model), cfg, "u4_turbo", card_line)
+    _expect_launches("serve [u4_turbo]", launches_u4,
+                     ("int4_matmul_a8_fused", "grouped_int4_matmul_a8", "int4_attention"),
+                     ("int4_matmul", "grouped_int4_matmul"))
+    for name in ("int4_matmul_a8_fused", "grouped_int4_matmul_a8"):
+        launches[name] = launches_u4[name]
+    launches_ops = a8_entry_points()
+    for name in ("int4_matmul_a8", "grouped_int4_matmul_a8_fused"):
+        launches[name] = launches_ops[name]
+    long_prefill(model, cfg)
+    del model
+    torch.cuda.empty_cache()
+    for mode, convert in (("kernel", None), ("u4_turbo", as_u4_turbo), ("turbo", as_turbo),
+                          ("xla_turbo", as_xla_turbo)):
+        whole_model(mode=mode, convert=convert)
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         rows = [r for r in results if r["name"] == name]
-        main_row = next(r for r in rows if r["shape"] == main_shape[name])
+        main_row = next(r for r in rows if r["shape"] == MAIN_SHAPE[name])
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=launches[name], max_abs_err=max(r["err"] for r in rows),
                             ms=main_row["ms"], plain_ms=main_row["plain_ms"]))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

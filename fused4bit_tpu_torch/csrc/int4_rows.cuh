@@ -192,10 +192,9 @@ __global__ void __launch_bounds__(kThreads) int4_rows_kernel(
 
 // rows_used[b] = 1 + the last row of block b (MT rows of x) that holds a
 // nonzero bit, 0 for an all-zero block. One CTA per block.
-template <typename T>
+template <typename T, int MT = RowsTile<T>::kMt>
 __global__ void __launch_bounds__(kThreads) rows_in_use_kernel(
     const T* __restrict__ x, int M, int K, int32_t* __restrict__ rows_used) {
-  constexpr int MT = RowsTile<T>::kMt;
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));
   __shared__ int last;
   if (threadIdx.x == 0) last = 0;

@@ -6,6 +6,8 @@ from .moe import (
     RoutingResult,
     combine,
     dispatch,
+    expert_load_stats,
+    make_capacity_plan,
     make_dispatch_plan,
     topk_route,
 )
@@ -19,6 +21,8 @@ __all__ = [
     "RoutingResult",
     "combine",
     "dispatch",
+    "expert_load_stats",
+    "make_capacity_plan",
     "make_dispatch_plan",
     "topk_route",
 ]

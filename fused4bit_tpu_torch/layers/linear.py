@@ -1,9 +1,19 @@
 """QuantizedLinear and DenseLinear as ``nn.Module``s.
 
 Counterpart of ``fused4bit_tpu/layers/linear.py``. The packed weight, its
-scales and zero points are registered buffers, so ``.to(device)`` moves them
-and ``state_dict()`` holds them. The forward runs ``ops.int4_matmul``: kernel
-K1 on a CUDA tensor, its plain version on a CPU tensor.
+scales and zero points (and, in the xla_turbo mode, the i8-resident copy)
+are registered buffers, so ``.to(device)`` moves them and ``state_dict()``
+holds them. The forward follows the JAX layer's ``activation`` dispatch:
+
+* ``"bf16"`` (default): ``ops.int4_matmul``, kernel K1;
+* ``"int8"``: ``ops.int4_matmul_a8``, kernel K5 (or K4 at deep K);
+* ``"int8_auto"`` (``as_u4_turbo``): ``"int8"`` below ``_AUTO_PREFILL_M``
+  rows, ``"int8_transient"`` from there on;
+* ``"int8_transient"``: ``ops.int4_linear_transient`` (unpack, int8 GEMM);
+* ``"int8_xla"`` (``as_xla_turbo``): ``ops.int8_linear`` on the resident i8
+  copy.
+
+Each op runs its kernel on a CUDA tensor and its plain version on a CPU one.
 """
 from __future__ import annotations
 
@@ -12,10 +22,13 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.int4_matmul import int4_matmul
+from ..ops.int4_matmul import int4_matmul, int4_matmul_a8
+from ..ops.int8_xla import Int8Resident, int4_linear_transient, int8_linear, to_int8_resident
 from ..quant.core import QuantizedTensor, quantize
 
 __all__ = ["QuantizedLinear", "DenseLinear"]
+
+ACTIVATIONS = ("bf16", "int8", "int8_auto", "int8_transient", "int8_xla")
 
 
 class DenseLinear(nn.Module):
@@ -34,6 +47,9 @@ class DenseLinear(nn.Module):
     def out_dim(self) -> int:
         return self.weight.shape[0]
 
+    def as_xla_turbo(self) -> "DenseLinear":
+        return self  # already a plain dense matmul
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x @ self.weight.t().to(x.dtype)
         if self.bias is not None:
@@ -45,8 +61,14 @@ class QuantizedLinear(nn.Module):
     """INT4 weight-only linear layer: ``y = x @ dequant(W)^T (+ b)``.
 
     ``out_features``: the logical output width when the stored rows are
-    padded; outputs are sliced back to it.
+    padded; outputs are sliced back to it. ``activation``: the execution
+    mode (module docstring); ``w8``: the i8-resident copy of the same
+    weights that ``"int8_xla"`` runs on.
     """
+
+    # Rows at which "int8_auto" leaves the w4a8 kernel for the transient
+    # unpack + int8 GEMM (the JAX package's value, a TPU measurement).
+    _AUTO_PREFILL_M = 256
 
     def __init__(
         self,
@@ -54,17 +76,24 @@ class QuantizedLinear(nn.Module):
         bias: Optional[torch.Tensor] = None,
         *,
         out_features: Optional[int] = None,
+        activation: str = "bf16",
+        w8: Optional[Int8Resident] = None,
     ):
         super().__init__()
         if weight.granularity != "per_row" or weight.layout != "planar":
             raise NotImplementedError("only per_row/planar weights are ported")
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"activation={activation!r} is not one of {ACTIVATIONS}")
         self.register_buffer("packed", weight.packed)
         self.register_buffer("scales", weight.scales)
         self.register_buffer("zero_points", weight.zero_points)
         self.register_buffer("bias", bias)
+        self.register_buffer("w8_q8", None if w8 is None else w8.q8)
+        self.register_buffer("w8_scales", None if w8 is None else w8.scales)
         self.shape: Tuple[int, ...] = tuple(weight.shape)
         self.bits = weight.bits
         self.out_features = out_features
+        self.activation = activation
 
     @classmethod
     def from_dense(cls, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
@@ -87,6 +116,10 @@ class QuantizedLinear(nn.Module):
                                block_k=self.shape[-1], bits=self.bits)
 
     @property
+    def w8(self) -> Optional[Int8Resident]:
+        return None if self.w8_q8 is None else Int8Resident(self.w8_q8, self.w8_scales)
+
+    @property
     def in_dim(self) -> int:
         return self.shape[-1]
 
@@ -94,8 +127,35 @@ class QuantizedLinear(nn.Module):
     def out_dim(self) -> int:
         return self.out_features or self.shape[-2]
 
+    def as_xla_turbo(self) -> "QuantizedLinear":
+        """Switch this layer, in place, to the i8-resident mode: attach
+        ``w8`` (unless it holds one already) and return the layer. The packed
+        weights stay; serving memory grows by the i8 copy (2x packed)."""
+        if self.w8_q8 is None:
+            w8 = to_int8_resident(self.weight)
+            self.w8_q8, self.w8_scales = w8.q8, w8.scales
+        self.activation = "int8_xla"
+        return self
+
+    def as_u4_turbo(self) -> "QuantizedLinear":
+        """Switch this layer, in place, to regime-dispatched w4a8 with packed
+        residency (``"int8_auto"``) and return it."""
+        self.activation = "int8_auto"
+        return self
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = int4_matmul(x, self.weight)
+        activation = self.activation
+        if activation == "int8_auto":
+            m = x.numel() // x.shape[-1]
+            activation = "int8_transient" if m >= self._AUTO_PREFILL_M else "int8"
+        if activation == "int8_transient":
+            y = int4_linear_transient(x, self.weight)
+        elif activation == "int8_xla" and self.w8_q8 is not None:
+            y = int8_linear(x, self.w8)
+        elif activation == "int8":
+            y = int4_matmul_a8(x, self.weight)
+        else:
+            y = int4_matmul(x, self.weight)
         if self.out_features and y.shape[-1] != self.out_features:
             y = y[..., : self.out_features]
         if self.bias is not None:
@@ -104,4 +164,5 @@ class QuantizedLinear(nn.Module):
 
     def extra_repr(self) -> str:
         return (f"in={self.in_dim}, out={self.out_dim}, bits={self.bits}, "
-                f"granularity=per_row, bias={self.bias is not None}")
+                f"granularity=per_row, bias={self.bias is not None}, "
+                f"activation={self.activation}")

@@ -1,21 +1,29 @@
 """Mixture-of-Experts routing, dispatch/combine, and the INT4 expert module.
 
-Counterpart of ``fused4bit_tpu/layers/moe.py`` (the dropless tile-packed
-path): top-k softmax routing with renormalized weights, a sort-by-expert
-dispatch plan in which every expert's group is padded to a ``tile_m``
-boundary inside a buffer of static size ``cdiv(T*k, tile_m)*tile_m +
-E*tile_m``, and the weighted combine. Everything runs as tensor ops on the
-device with no device-to-host sync, so the grouped kernel K2 sees one launch
-per projection.
+Counterpart of ``fused4bit_tpu/layers/moe.py``: top-k softmax routing with
+renormalized weights, and two dispatch plans:
+
+* dropless (``make_dispatch_plan``): every expert's group is padded to a
+  ``tile_m`` boundary inside a buffer of static size
+  ``cdiv(T*k, tile_m)*tile_m + E*tile_m``;
+* capacity (``make_capacity_plan``): every expert owns a fixed segment of
+  ``capacity`` rows; pairs past it are dropped (Switch semantics), marked by
+  the out-of-range row ``t_pad``, which ``dispatch`` discards and ``combine``
+  reads as zero.
+
+Everything runs as tensor ops on the device with no device-to-host sync, so
+the grouped kernels see one launch per projection.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch import nn
 
-from ..ops.grouped_matmul import grouped_int4_matmul
+from ..ops.grouped_matmul import grouped_int4_matmul, grouped_int4_matmul_a8
+from ..ops.int8_xla import Int8Resident
 from ..quant.core import QuantizedTensor, quantize
 
 __all__ = [
@@ -23,6 +31,8 @@ __all__ = [
     "DispatchPlan",
     "topk_route",
     "make_dispatch_plan",
+    "make_capacity_plan",
+    "expert_load_stats",
     "dispatch",
     "combine",
     "MoEINT4",
@@ -64,12 +74,16 @@ class DispatchPlan:
     tile_group_ids:  [num_tiles] i32 - expert of each m-tile.
     t_pad:           padded buffer length.
     tile_m:          m-tile size.
+    drops:           whether rows may hold t_pad (a dropped pair): set by
+                     make_capacity_plan, so dropless plans keep the plain
+                     scatter and gather.
     """
 
     rows: torch.Tensor
     tile_group_ids: torch.Tensor
     t_pad: int
     tile_m: int
+    drops: bool = False
 
 
 def make_dispatch_plan(routing: RoutingResult, num_experts: int, tile_m: int = 64) -> DispatchPlan:
@@ -103,36 +117,84 @@ def make_dispatch_plan(routing: RoutingResult, num_experts: int, tile_m: int = 6
     return DispatchPlan(rows, tile_group_ids, t_pad, tile_m)
 
 
+def make_capacity_plan(routing: RoutingResult, num_experts: int, capacity: int,
+                       tile_m: int = 16) -> DispatchPlan:
+    """Capacity plan: expert e owns rows [e*capacity, (e+1)*capacity) of a
+    buffer of E*capacity rows; a pair past its expert's capacity gets row
+    t_pad and is dropped. The layout reshapes to [E, capacity, H]."""
+    if capacity % tile_m != 0:
+        raise ValueError(f"capacity={capacity} must be a multiple of tile_m={tile_m}")
+    flat_ids = routing.expert_indices.reshape(-1).long()
+    device = flat_ids.device
+    sort_idx = torch.argsort(flat_ids, stable=True)
+    ranks_sorted = (torch.arange(flat_ids.shape[0], device=device)
+                    - routing.expert_token_offsets.long()[flat_ids[sort_idx]])
+    ranks = torch.empty_like(ranks_sorted)
+    ranks[sort_idx] = ranks_sorted
+    t_pad = num_experts * capacity
+    rows = torch.where(ranks < capacity, flat_ids * capacity + ranks,
+                       torch.full_like(ranks, t_pad))
+    tile_group_ids = torch.arange(num_experts, dtype=torch.int32, device=device
+                                  ).repeat_interleave(capacity // tile_m)
+    return DispatchPlan(rows, tile_group_ids, t_pad, tile_m, drops=True)
+
+
+def expert_load_stats(routing: RoutingResult, capacity: int = 0) -> dict:
+    """Per-expert load fraction [E], max-over-mean imbalance, and (capacity
+    > 0) the number of pairs past capacity, as device tensors."""
+    tpe = routing.tokens_per_expert.float()
+    load = tpe / tpe.sum().clamp(min=1.0)
+    imbalance = tpe.max() / tpe.mean().clamp(min=1e-9)
+    if capacity > 0:
+        dropped = (routing.tokens_per_expert - capacity).clamp(min=0).sum().to(torch.int32)
+    else:
+        dropped = torch.zeros((), dtype=torch.int32, device=tpe.device)
+    return dict(load_fraction=load, imbalance=imbalance, dropped=dropped)
+
+
 def dispatch(x: torch.Tensor, routing: RoutingResult, plan: DispatchPlan) -> torch.Tensor:
     """Scatter tokens into the sorted, tile-aligned buffer [T_pad, H]; each
-    token appears once per selected expert."""
+    token appears once per selected expert. Dropped pairs (row t_pad) land in
+    one extra row that is cut off."""
     k = routing.expert_indices.shape[1]
     x_rep = x.repeat_interleave(k, dim=0)   # token-major [T*k, H]
-    buf = torch.zeros((plan.t_pad, x.shape[1]), dtype=x.dtype, device=x.device)
-    return buf.index_copy_(0, plan.rows, x_rep)
+    rows = plan.t_pad + 1 if plan.drops else plan.t_pad
+    buf = torch.zeros((rows, x.shape[1]), dtype=x.dtype, device=x.device)
+    return buf.index_copy_(0, plan.rows, x_rep)[: plan.t_pad]
 
 
 def combine(expert_out: torch.Tensor, routing: RoutingResult, plan: DispatchPlan) -> torch.Tensor:
-    """Gather back to token order and weight-sum over the top-k."""
+    """Gather back to token order and weight-sum over the top-k. Dropped
+    pairs (row t_pad) read a zero row."""
     t, k = routing.expert_weights.shape
+    if plan.drops:
+        expert_out = torch.cat([expert_out, expert_out.new_zeros((1, expert_out.shape[1]))])
     per_pair = expert_out.index_select(0, plan.rows).reshape(t, k, -1)
     w = routing.expert_weights.to(per_pair.dtype)[..., None]
     return (per_pair * w).sum(dim=1)
 
 
 class MoEINT4(nn.Module):
-    """Stacked per-expert INT4 weights [E, N, K] applied by the grouped
-    kernel to pre-routed, tile-packed inputs."""
+    """Stacked per-expert INT4 weights [E, N, K] applied by a grouped kernel
+    to pre-routed, tile-packed inputs: K2 with ``activation="bf16"``, K10
+    with ``"int8"``. ``w8``: the i8-resident copy the xla_turbo capacity
+    path runs on."""
 
-    def __init__(self, weight: QuantizedTensor):
+    def __init__(self, weight: QuantizedTensor, *, activation: str = "bf16",
+                 w8: Optional[Int8Resident] = None):
         super().__init__()
         if weight.granularity != "per_row" or weight.layout != "planar":
             raise NotImplementedError("only per_row/planar expert weights are ported")
+        if activation not in ("bf16", "int8"):
+            raise ValueError(f"activation={activation!r} is not 'bf16' or 'int8'")
         self.register_buffer("packed", weight.packed)
         self.register_buffer("scales", weight.scales)
         self.register_buffer("zero_points", weight.zero_points)
+        self.register_buffer("w8_q8", None if w8 is None else w8.q8)
+        self.register_buffer("w8_scales", None if w8 is None else w8.scales)
         self.shape = tuple(weight.shape)
         self.bits = weight.bits
+        self.activation = activation
 
     @classmethod
     def from_dense(cls, weights: torch.Tensor) -> "MoEINT4":
@@ -145,9 +207,15 @@ class MoEINT4(nn.Module):
                                block_k=self.shape[-1], bits=self.bits)
 
     @property
+    def w8(self) -> Optional[Int8Resident]:
+        return None if self.w8_q8 is None else Int8Resident(self.w8_q8, self.w8_scales)
+
+    @property
     def num_experts(self) -> int:
         return self.shape[0]
 
     def forward(self, x_sorted: torch.Tensor, tile_group_ids: torch.Tensor,
                 *, tile_m: int = 64) -> torch.Tensor:
+        if self.activation == "int8":
+            return grouped_int4_matmul_a8(x_sorted, tile_group_ids, self.weight, tile_m=tile_m)
         return grouped_int4_matmul(x_sorted, tile_group_ids, self.weight, tile_m=tile_m)

@@ -5,6 +5,9 @@ from .transformer import (
     MoEBlock,
     QuantizedTransformer,
     TransformerBlock,
+    as_turbo,
+    as_u4_turbo,
+    as_xla_turbo,
     rms_norm,
     rotary_embedding,
 )
@@ -16,6 +19,9 @@ __all__ = [
     "MoEConfig",
     "QuantizedTransformer",
     "TransformerBlock",
+    "as_turbo",
+    "as_u4_turbo",
+    "as_xla_turbo",
     "flagship_model_config",
     "get_config_by_name",
     "kv_cache_from_jax",

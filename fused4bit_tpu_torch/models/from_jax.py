@@ -5,11 +5,14 @@ The input is a flat ``{keypath: numpy array}`` dict whose keys are the
 ``.blocks[0].attn.wq.weight.packed``, ``[0].k_packed``, ...), as
 ``jax.tree_util.tree_flatten_with_path`` produces them. The arrays are
 taken byte for byte: both packages then compute the same function on the
-same bytes. This module imports no JAX.
+same bytes. Every leaf is consumed or the conversion raises, so nothing the
+JAX model holds is lost silently. A JAX execution mode is partly static
+(fields that are not leaves), so it is named by ``mode``. This module
+imports no JAX.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -17,13 +20,45 @@ import torch
 from ..layers.kv_cache import QuantizedKVCache
 from ..layers.linear import QuantizedLinear
 from ..layers.moe import MoEINT4
+from ..ops.int8_xla import Int8Resident
 from ..quant.core import QuantizedTensor
 from .config import ModelConfig
-from .transformer import Attention, MoEBlock, QuantizedTransformer, TransformerBlock
+from .transformer import (
+    Attention,
+    MoEBlock,
+    QuantizedTransformer,
+    TransformerBlock,
+    as_turbo,
+    as_u4_turbo,
+    as_xla_turbo,
+)
 
 __all__ = ["model_from_jax", "kv_cache_from_jax"]
 
 Params = Dict[str, np.ndarray]
+
+_CONVERTERS = {
+    "kernel": lambda model: model,
+    "u4_turbo": as_u4_turbo,
+    "turbo": as_turbo,
+    "xla_turbo": as_xla_turbo,
+}
+
+
+class _Reader:
+    """The leaves, with a record of which keys were read."""
+
+    def __init__(self, params: Params, device):
+        self.params = params
+        self.device = device
+        self.used = set()
+
+    def __call__(self, key: str) -> torch.Tensor:
+        self.used.add(key)
+        return _tensor(self.params[key], self.device)
+
+    def get(self, key: str) -> Optional[torch.Tensor]:
+        return self(key) if key in self.params else None
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -33,49 +68,77 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
-def _qt(params: Params, prefix: str, device) -> QuantizedTensor:
-    packed = _tensor(params[f"{prefix}.packed"], device)
+def _qt(read: _Reader, prefix: str) -> QuantizedTensor:
+    packed = read(f"{prefix}.packed")
     shape = tuple(packed.shape[:-1]) + (packed.shape[-1] * 2,)
     return QuantizedTensor(
         packed=packed,
-        scales=_tensor(params[f"{prefix}.scales"], device).float(),
-        zero_points=_tensor(params[f"{prefix}.zero_points"], device).float(),
+        scales=read(f"{prefix}.scales").float(),
+        zero_points=read(f"{prefix}.zero_points").float(),
         shape=shape,
         block_k=shape[-1],
     )
 
 
-def _linear(params: Params, prefix: str, device) -> QuantizedLinear:
-    bias = params.get(f"{prefix}.bias")
-    return QuantizedLinear(_qt(params, f"{prefix}.weight", device),
-                           None if bias is None else _tensor(bias, device))
+def _w8(read: _Reader, prefix: str, with_w8: bool) -> Optional[Int8Resident]:
+    """The JAX i8-resident copy, byte for byte (xla_turbo only)."""
+    if not with_w8 or f"{prefix}.w8.q8" not in read.params:
+        return None
+    return Int8Resident(read(f"{prefix}.w8.q8"), read(f"{prefix}.w8.scales"))
 
 
-def model_from_jax(params: Params, cfg: ModelConfig, device=None) -> QuantizedTransformer:
-    """The port's ``QuantizedTransformer`` holding the JAX model's leaves."""
+def _linear(read: _Reader, prefix: str, with_w8: bool) -> QuantizedLinear:
+    return QuantizedLinear(_qt(read, f"{prefix}.weight"), read.get(f"{prefix}.bias"),
+                           w8=_w8(read, prefix, with_w8))
+
+
+def _experts(read: _Reader, prefix: str, with_w8: bool) -> MoEINT4:
+    return MoEINT4(_qt(read, f"{prefix}.weight"), w8=_w8(read, prefix, with_w8))
+
+
+def model_from_jax(params: Params, cfg: ModelConfig, device=None, *,
+                   mode: str = "kernel") -> QuantizedTransformer:
+    """The port's ``QuantizedTransformer`` holding the JAX model's leaves.
+
+    ``mode``: the JAX execution mode the leaves come from ("kernel", the
+    default; "u4_turbo", "turbo" or "xla_turbo", the JAX converters of the
+    same names). The model is built from the bytes, then the port's converter
+    of that name is applied; for "xla_turbo" the JAX ``.w8.q8`` /
+    ``.w8.scales`` leaves are loaded as the i8-resident copies, not
+    recomputed. Raises ``ValueError`` naming any leaf left unconsumed (for
+    example ``.w8`` leaves passed with another mode).
+    """
+    if mode not in _CONVERTERS:
+        raise ValueError(f"mode={mode!r} is not one of {sorted(_CONVERTERS)}")
+    read = _Reader(params, device)
+    with_w8 = mode == "xla_turbo"
     blocks = []
     for i in range(cfg.num_layers):
         p = f".blocks[{i}]"
         attn = Attention(
-            *(_linear(params, f"{p}.attn.{w}", device) for w in ("wq", "wk", "wv", "wo")),
+            *(_linear(read, f"{p}.attn.{w}", with_w8) for w in ("wq", "wk", "wv", "wo")),
             num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
             head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
         )
         moe = MoEBlock(
-            _linear(params, f"{p}.moe.router", device),
-            *(MoEINT4(_qt(params, f"{p}.moe.{w}.weight", device))
-              for w in ("w_gate", "w_up", "w_down")),
+            _linear(read, f"{p}.moe.router", with_w8),
+            *(_experts(read, f"{p}.moe.{w}", with_w8) for w in ("w_gate", "w_up", "w_down")),
             num_experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
         )
         blocks.append(TransformerBlock(
-            _tensor(params[f"{p}.attn_norm"], device), attn,
-            _tensor(params[f"{p}.moe_norm"], device), moe, rms_eps=cfg.rms_eps,
+            read(f"{p}.attn_norm"), attn, read(f"{p}.moe_norm"), moe, rms_eps=cfg.rms_eps,
         ))
-    return QuantizedTransformer(
-        _tensor(params[".embed"], device), blocks,
-        _tensor(params[".final_norm"], device),
-        _linear(params, ".lm_head", device), rms_eps=cfg.rms_eps,
+    model = QuantizedTransformer(
+        read(".embed"), blocks, read(".final_norm"), _linear(read, ".lm_head", with_w8),
+        rms_eps=cfg.rms_eps,
     )
+    unread = sorted(set(params) - read.used)
+    if unread:
+        raise ValueError(
+            f"model_from_jax(mode={mode!r}) left {len(unread)} leaves unconsumed: "
+            f"{unread[:8]}{' ...' if len(unread) > 8 else ''}"
+        )
+    return _CONVERTERS[mode](model)
 
 
 def kv_cache_from_jax(params: Params, prefix: str = "", device=None) -> QuantizedKVCache:

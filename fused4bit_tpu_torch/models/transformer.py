@@ -1,15 +1,22 @@
 """Mixtral-style INT4 decoder (the serving slice) as ``nn.Module``s.
 
-Counterpart of ``fused4bit_tpu/models/transformer.py`` on the default
-execution mode: GQA attention with RoPE over the INT4 KV cache, SwiGLU MoE
-blocks on the grouped INT4 kernel, RMSNorm, every projection a
-``QuantizedLinear``. Weights, norms and the embedding are registered
-buffers (the package serves; it does not train). KV caches are updated in
-place (``layers.kv_cache``); ``forward`` still returns them, as the JAX
-model does.
+Counterpart of ``fused4bit_tpu/models/transformer.py``: GQA attention with
+RoPE over the INT4 KV cache, SwiGLU MoE blocks on the grouped INT4 kernels,
+RMSNorm, every projection a ``QuantizedLinear``. Weights, norms and the
+embedding are registered buffers (the package serves; it does not train).
+KV caches are updated in place (``layers.kv_cache``); ``forward`` still
+returns them, as the JAX model does.
+
+Execution modes, as in the JAX package: the default (w4a16 kernels K1, K2),
+and the converters ``as_turbo`` (w4a8 kernels K5/K4 and K10 everywhere),
+``as_u4_turbo`` (w4a8 kernels at decode; transient i8 unpack + integer GEMM
+and the capacity MoE layout at prefill) and ``as_xla_turbo`` (i8-resident
+weight copies and integer GEMMs).
 """
 from __future__ import annotations
 
+import copy
+import itertools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -19,13 +26,22 @@ from torch import nn
 
 from ..layers.kv_cache import QuantizedKVCache
 from ..layers.linear import QuantizedLinear
-from ..layers.moe import MoEINT4, combine, dispatch, make_dispatch_plan, topk_route
+from ..layers.moe import (
+    MoEINT4,
+    combine,
+    dispatch,
+    make_capacity_plan,
+    make_dispatch_plan,
+    topk_route,
+)
 from ..ops.decode_attention import int4_decode_attention, int4_prefill_attention
+from ..ops.int8_xla import int4_grouped_transient, int8_grouped_capacity, to_int8_resident
+from ..quant.core import dequantize
 from .config import ModelConfig
 
 __all__ = [
     "QuantizedTransformer", "TransformerBlock", "MoEBlock", "Attention",
-    "rms_norm", "rotary_embedding",
+    "rms_norm", "rotary_embedding", "as_turbo", "as_u4_turbo", "as_xla_turbo",
 ]
 
 
@@ -111,25 +127,37 @@ class Attention(nn.Module):
 
 
 class MoEBlock(nn.Module):
-    """SwiGLU experts on the grouped INT4 kernel, dropless tile-packed
-    dispatch at every batch size: ``tile_m`` rows per tile up to
-    ``prefill_threshold`` tokens, ``prefill_tile_m`` above."""
+    """SwiGLU experts on the grouped INT4 kernels.
+
+    ``moe_impl="kernel"``: dropless tile-packed dispatch, ``tile_m`` rows per
+    tile up to ``prefill_threshold`` tokens; above it ``prefill_impl``
+    picks the dropless grouped kernel at ``prefill_tile_m`` ("grouped") or
+    the capacity layout with dequantize-once einsums ("einsum").
+    ``"u4_turbo"`` / ``"xla_turbo"``: dropless grouped kernel up to the
+    threshold; above it the capacity layout (pairs past ``capacity_factor``
+    x the mean load are dropped) with integer GEMMs on transient (u4) or
+    resident (xla) i8 weights.
+    """
 
     def __init__(self, router: QuantizedLinear, w_gate: MoEINT4, w_up: MoEINT4,
                  w_down: MoEINT4, *, num_experts: int, top_k: int, tile_m: int = 16,
                  prefill_threshold: int = 512, prefill_impl: str = "grouped",
-                 prefill_tile_m: int = 128, moe_impl: str = "kernel"):
+                 prefill_tile_m: int = 128, capacity_factor: float = 2.0,
+                 moe_impl: str = "kernel"):
         super().__init__()
-        if prefill_impl != "grouped":
-            raise NotImplementedError(f"prefill_impl={prefill_impl!r} is not ported yet")
-        if moe_impl != "kernel":
-            raise NotImplementedError(f"moe_impl={moe_impl!r} is not ported yet")
+        if prefill_impl not in ("grouped", "einsum"):
+            raise ValueError(f"prefill_impl={prefill_impl!r} is not 'grouped' or 'einsum'")
+        if moe_impl not in ("kernel", "u4_turbo", "xla_turbo"):
+            raise ValueError(f"moe_impl={moe_impl!r} is not 'kernel', 'u4_turbo' or 'xla_turbo'")
         self.router, self.w_gate, self.w_up, self.w_down = router, w_gate, w_up, w_down
         self.num_experts = num_experts
         self.top_k = top_k
         self.tile_m = tile_m
         self.prefill_threshold = prefill_threshold
+        self.prefill_impl = prefill_impl
         self.prefill_tile_m = prefill_tile_m
+        self.capacity_factor = capacity_factor
+        self.moe_impl = moe_impl
 
     @classmethod
     def init(cls, num_experts: int, hidden: int, ffn: int, top_k: int, tile_m: int = 16,
@@ -147,8 +175,15 @@ class MoEBlock(nn.Module):
         b, t, h = x.shape
         xf = x.reshape(b * t, h)
         routing = topk_route(self.router(xf), self.top_k, self.num_experts)
-        tile_m = self.prefill_tile_m if b * t > self.prefill_threshold else self.tile_m
-        return self._grouped_forward(xf, routing, tile_m).reshape(b, t, h)
+        if b * t <= self.prefill_threshold:
+            out = self._grouped_forward(xf, routing, self.tile_m)
+        elif self.moe_impl != "kernel":
+            out = self._capacity_i8_forward(xf, routing, transient=self.moe_impl == "u4_turbo")
+        elif self.prefill_impl == "einsum":
+            out = self._prefill_forward(xf, routing)
+        else:
+            out = self._grouped_forward(xf, routing, self.prefill_tile_m)
+        return out.reshape(b, t, h)
 
     def _grouped_forward(self, xf, routing, tile_m: int) -> torch.Tensor:
         """Dropless path: tile-packed dispatch -> grouped kernel -> combine."""
@@ -159,6 +194,46 @@ class MoEBlock(nn.Module):
         hsw = (F.silu(g.float()) * u.float()).to(xs.dtype)
         d = self.w_down(hsw, plan.tile_group_ids, tile_m=tile_m)
         return combine(d, routing, plan)
+
+    def _capacity_plan(self, xf, routing):
+        """Capacity ``cf x mean load``, rounded up to ``tile_m``, by the JAX
+        package's own float expression, and its plan."""
+        tk = xf.shape[0] * self.top_k
+        cf = self.capacity_factor
+        cap = int(-(-cf * tk // self.num_experts // self.tile_m)) * self.tile_m
+        plan = make_capacity_plan(routing, self.num_experts, capacity=cap, tile_m=self.tile_m)
+        return cap, plan
+
+    def _capacity_i8_forward(self, xf, routing, *, transient: bool) -> torch.Tensor:
+        """Capacity layout + integer GEMMs per expert: on transient i8 weights
+        unpacked from the packed bytes (u4_turbo), or on the resident i8
+        copies (xla_turbo)."""
+        cap, plan = self._capacity_plan(xf, routing)
+        xs = dispatch(xf, routing, plan)                       # [E*C, H]
+        xe = xs.reshape(self.num_experts, cap, -1)
+        if transient:
+            def mm(a, lin):
+                return int4_grouped_transient(a, lin.weight)
+        else:
+            def mm(a, lin):
+                return int8_grouped_capacity(a, lin.w8)
+        g = mm(xe, self.w_gate)
+        u = mm(xe, self.w_up)
+        hsw = (F.silu(g.float()) * u.float()).to(xs.dtype)
+        d = mm(hsw, self.w_down)
+        return combine(d.reshape(self.num_experts * cap, -1), routing, plan)
+
+    def _prefill_forward(self, xf, routing) -> torch.Tensor:
+        """Capacity layout + dequantize-once einsums (prefill_impl="einsum")."""
+        cap, plan = self._capacity_plan(xf, routing)
+        xs = dispatch(xf, routing, plan)
+        xe = xs.reshape(self.num_experts, cap, -1)
+        dt = xs.dtype
+        g = torch.einsum("ech,enh->ecn", xe, dequantize(self.w_gate.weight, dtype=dt))
+        u = torch.einsum("ech,enh->ecn", xe, dequantize(self.w_up.weight, dtype=dt))
+        hsw = (F.silu(g.float()) * u.float()).to(dt)
+        d = torch.einsum("ecn,ehn->ech", hsw, dequantize(self.w_down.weight, dtype=dt))
+        return combine(d.reshape(self.num_experts * cap, -1), routing, plan)
 
 
 class TransformerBlock(nn.Module):
@@ -233,3 +308,79 @@ class QuantizedTransformer(nn.Module):
             new_caches.append(cache)
         x = rms_norm(x, self.final_norm, self.rms_eps)
         return self.lm_head(x), tuple(new_caches)
+
+
+def _converted_copy(model: QuantizedTransformer) -> QuantizedTransformer:
+    """A copy of the module tree that shares every weight tensor with
+    ``model``: the converters switch modes on it and leave ``model`` as it
+    was."""
+    memo = {id(t): t for t in itertools.chain(model.parameters(), model.buffers())}
+    return copy.deepcopy(model, memo)
+
+
+def _linears(model: QuantizedTransformer):
+    for blk in model.blocks:
+        yield from (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.attn.wo, blk.moe.router)
+    yield model.lm_head
+
+
+def _experts(model: QuantizedTransformer):
+    for blk in model.blocks:
+        yield from (blk.moe.w_gate, blk.moe.w_up, blk.moe.w_down)
+
+
+def as_u4_turbo(model: QuantizedTransformer) -> QuantizedTransformer:
+    """The model in packed-residency, regime-dispatched w4a8 mode.
+
+    Returns a converted copy that shares the packed weights with ``model``
+    (which is left as it was); no weight copy is made. Linears run the w4a8
+    kernel below 256 rows and the transient i8 unpack + integer GEMM from
+    there on; experts run the w4a8 grouped kernel (K10) at ``tile_m = 32``
+    up to the prefill threshold, and the capacity layout on transient i8
+    weights above it.
+    """
+    model = _converted_copy(model)
+    for lin in _linears(model):
+        if isinstance(lin, QuantizedLinear):
+            lin.as_u4_turbo()
+    for ex in _experts(model):
+        ex.activation = "int8"
+    for blk in model.blocks:
+        blk.moe.tile_m = 32
+        blk.moe.moe_impl = "u4_turbo"
+    return model
+
+
+def as_turbo(model: QuantizedTransformer) -> QuantizedTransformer:
+    """The model in w4a8 mode: every linear on the w4a8 kernel (K5, or K4 at
+    deep K) and every expert on the w4a8 grouped kernel (K10) at
+    ``tile_m = 32`` (``prefill_tile_m`` above the prefill threshold).
+    Returns a converted copy that shares the weights with ``model``."""
+    model = _converted_copy(model)
+    for lin in _linears(model):
+        if isinstance(lin, QuantizedLinear):
+            lin.activation = "int8"
+    for ex in _experts(model):
+        ex.activation = "int8"
+    for blk in model.blocks:
+        blk.moe.tile_m = 32
+    return model
+
+
+def as_xla_turbo(model: QuantizedTransformer) -> QuantizedTransformer:
+    """The model in i8-resident mode: every linear gains an i8 copy of its
+    weights (2x the packed bytes) and runs ``int8_linear``; every MoE block
+    keeps the dropless w4a16 grouped kernel up to the prefill threshold and
+    runs the capacity layout on resident i8 expert copies above it.
+    Returns a converted copy that shares the packed weights with ``model``;
+    an i8 copy the model already holds (``model_from_jax``) is kept."""
+    model = _converted_copy(model)
+    for lin in _linears(model):
+        lin.as_xla_turbo()
+    for ex in _experts(model):
+        if ex.w8_q8 is None:
+            w8 = to_int8_resident(ex.weight)
+            ex.w8_q8, ex.w8_scales = w8.q8, w8.scales
+    for blk in model.blocks:
+        blk.moe.moe_impl = "xla_turbo"
+    return model

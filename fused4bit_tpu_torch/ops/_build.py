@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with :mod:`ctypes`. The build runs at first
+The sources are compiled by ``nvcc`` for ``sm_90a``, one ``nvcc`` per source,
+all started together, and linked into one shared library with a plain C
+interface, loaded with :mod:`ctypes`. The build runs at first
 use (the first kernel launch, or an explicit :func:`library` call) into
 ``fused4bit_tpu_torch/_build/``; the library's file name carries a hash of
 the sources and flags, so a changed source is rebuilt and an unchanged one is
@@ -18,6 +19,8 @@ import os
 import pathlib
 import shutil
 import subprocess
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -29,7 +32,7 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -44,6 +47,14 @@ _SIGNATURES = {
     "f4b_grouped_int4_matmul_f32": [_P] * 7 + [_I] * 4 + [_P],
     "f4b_int4_attention_bf16": [_P] * 10 + [_I] * 7 + [_P],
     "f4b_int4_attention_f32": [_P] * 10 + [_I] * 7 + [_P],
+    "f4b_int4_matmul_a8_bf16": [_P] * 6 + [_I] * 3 + [_P],
+    "f4b_int4_matmul_a8_f32": [_P] * 6 + [_I] * 3 + [_P],
+    "f4b_int4_matmul_a8_fused_bf16": [_P] * 5 + [_I] * 3 + [_P],
+    "f4b_int4_matmul_a8_fused_f32": [_P] * 5 + [_I] * 3 + [_P],
+    "f4b_grouped_int4_matmul_a8_bf16": [_P] * 8 + [_I] * 4 + [_P],
+    "f4b_grouped_int4_matmul_a8_f32": [_P] * 8 + [_I] * 4 + [_P],
+    "f4b_grouped_int4_matmul_a8_fused_bf16": [_P] * 7 + [_I] * 4 + [_P],
+    "f4b_grouped_int4_matmul_a8_fused_f32": [_P] * 7 + [_I] * 4 + [_P],
 }
 
 
@@ -75,6 +86,15 @@ def build_log() -> str:
     return log.read_text() if log.exists() else ""
 
 
+def _run(cmd) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    return proc.stdout + proc.stderr
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """Build (if the sources changed) and load the kernel library, once per
@@ -84,15 +104,17 @@ def library() -> ctypes.CDLL:
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         cus, _ = _sources()
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cus)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-            )
-        (BUILD_DIR / f"libfused4bit_{digest}.log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+            objs = [pathlib.Path(tmpdir) / f"{cu.stem}.o" for cu in cus]
+            with ThreadPoolExecutor(max_workers=len(cus)) as pool:
+                logs = list(pool.map(
+                    _run, [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(cu)]
+                           for cu, o in zip(cus, objs)]))
+            tmp = pathlib.Path(tmpdir) / so.name
+            logs.append(_run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)]))
+            (BUILD_DIR / f"libfused4bit_{digest}.log").write_text("".join(logs))
+            os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -1,24 +1,35 @@
-"""Grouped INT4 product for the MoE experts, over kernel K2.
+"""Grouped INT4 product for the MoE experts, over kernels K2, K10, K11.
 
-Counterpart of ``fused4bit_tpu/ops/grouped_matmul.py:grouped_int4_matmul``:
+Counterpart of ``fused4bit_tpu/ops/grouped_matmul.py``:
 ``out[t] = x_sorted[t] @ dequant(W[tile_group_ids[t // tile_m]])^T`` over
 tokens sorted by expert, each expert's group zero-padded to a multiple of
-``tile_m``. On a CUDA tensor the wrapper launches ``csrc/grouped_matmul.cu``
-(the port of the TPU kernel ``_grouped_kernel``) once, with no host loop and
-no device-to-host sync; on a CPU tensor it runs the plain version,
-:func:`grouped_int4_matmul_reference`.
+``tile_m``. Each wrapper launches once on a CUDA tensor, with no host loop
+and no device-to-host sync, and runs its plain version on a CPU tensor:
+
+* ``grouped_int4_matmul`` (w4a16): ``csrc/grouped_matmul.cu``, the port of
+  the TPU kernel ``_grouped_kernel``;
+* ``grouped_int4_matmul_a8`` (w4a8, per-row int8 activations, exact integer
+  dot): ``csrc/grouped_matmul_a8.cu``, K10 (the port of
+  ``_grouped_a8_kernel``) on activations quantized before the launch, or
+  K11 (the port of ``_grouped_a8_fused_kernel``) quantizing in the kernel.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from ..quant.core import QuantizedTensor, dequantize
 from ..quant.reference import full_precision
 from . import _build
+from .int4_matmul import _a8_product
+from .int8_xla import _quantize_acts
 
-__all__ = ["grouped_int4_matmul", "grouped_int4_matmul_reference"]
+__all__ = [
+    "grouped_int4_matmul", "grouped_int4_matmul_reference",
+    "grouped_int4_matmul_a8", "grouped_int4_matmul_a8_reference",
+]
 
 _KERNELS = {
     torch.bfloat16: "f4b_grouped_int4_matmul_bf16",
@@ -27,6 +38,15 @@ _KERNELS = {
 # x rows per CTA of the kernel (csrc/int4_rows.cuh: RowsTile): an m-tile must
 # hold a whole number of them.
 _KERNEL_ROWS = {torch.bfloat16: 16, torch.float32: 8}
+_A8_KERNELS = {
+    torch.bfloat16: "f4b_grouped_int4_matmul_a8_bf16",
+    torch.float32: "f4b_grouped_int4_matmul_a8_f32",
+}
+_A8_FUSED_KERNELS = {
+    torch.bfloat16: "f4b_grouped_int4_matmul_a8_fused_bf16",
+    torch.float32: "f4b_grouped_int4_matmul_a8_fused_f32",
+}
+_A8_KERNEL_ROWS = 16  # x rows per CTA of csrc/int4_rows_a8.cuh
 
 
 def _check(x_sorted, tile_group_ids, qt: QuantizedTensor, tile_m: int):
@@ -44,6 +64,17 @@ def _check(x_sorted, tile_group_ids, qt: QuantizedTensor, tile_m: int):
             f"T_pad={t_pad} must be tile_group_ids.numel()={tile_group_ids.numel()} "
             f"tiles of tile_m={tile_m}"
         )
+
+
+def _check_device_operands(x_sorted, tile_group_ids, qt: QuantizedTensor) -> None:
+    for name, t, want in (
+        ("tile_group_ids", tile_group_ids, torch.int32),
+        ("packed", qt.packed, torch.uint8),
+        ("scales", qt.scales, torch.float32),
+        ("zero_points", qt.zero_points, torch.float32),
+    ):
+        if t.device != x_sorted.device or t.dtype != want or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {want} tensor on {x_sorted.device}")
 
 
 def grouped_int4_matmul_reference(
@@ -97,14 +128,7 @@ def grouped_int4_matmul(
         raise ValueError(f"K2 needs tile_m % {_KERNEL_ROWS[dtype]} == 0 for {dtype}")
     if k % 32 != 0:
         raise ValueError(f"K2 needs K % 32 == 0 (16-byte packed rows), got K={k}")
-    for name, t, want in (
-        ("tile_group_ids", tile_group_ids, torch.int32),
-        ("packed", qt.packed, torch.uint8),
-        ("scales", qt.scales, torch.float32),
-        ("zero_points", qt.zero_points, torch.float32),
-    ):
-        if t.device != x_sorted.device or t.dtype != want or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {want} tensor on {x_sorted.device}")
+    _check_device_operands(x_sorted, tile_group_ids, qt)
     x_sorted = x_sorted.contiguous()
     if x_sorted.data_ptr() % 16:  # the kernel reads x with 16-byte loads
         x_sorted = x_sorted.clone()
@@ -126,3 +150,95 @@ def grouped_int4_matmul(
 
 
 grouped_int4_matmul.launches = 0
+
+
+def _check_a8(x_sorted, tile_group_ids, qt: QuantizedTensor, tile_m: int) -> None:
+    if tile_m % 32 != 0:
+        raise ValueError(f"tile_m={tile_m} must be a multiple of 32 for int8")
+    _check(x_sorted, tile_group_ids, qt, tile_m)
+
+
+def grouped_int4_matmul_a8_reference(
+    x_sorted: torch.Tensor, tile_group_ids: torch.Tensor, qt: QuantizedTensor,
+    *, tile_m: int = 32, fuse_quant: bool = False,
+) -> torch.Tensor:
+    """Plain version of K10 and K11: quantize (with K11's quantizer when
+    ``fuse_quant``, see :func:`~.int8_xla._quantize_acts`), then per expert
+    the exact dot and JAX's epilogue over that expert's tiles; x.dtype out."""
+    grouped_int4_matmul_a8_reference.calls += 1
+    _check_a8(x_sorted, tile_group_ids, qt, tile_m)
+    e, n, k = qt.shape
+    xq, sx = _quantize_acts(x_sorted, fused=fuse_quant)
+    xqt, sxt = xq.reshape(-1, tile_m, k), sx.reshape(-1, tile_m, 1)
+    out = torch.zeros((xqt.shape[0], tile_m, n), dtype=torch.float32, device=x_sorted.device)
+    for ex in range(e):
+        tiles = (tile_group_ids == ex).nonzero().flatten()
+        if tiles.numel() == 0:
+            continue
+        y = _a8_product(xqt[tiles].reshape(-1, k), sxt[tiles].reshape(-1, 1),
+                        qt.packed[ex], qt.scales[ex], qt.zero_points[ex])
+        out[tiles] = y.reshape(-1, tile_m, n)
+    return out.reshape(-1, n).to(x_sorted.dtype)
+
+
+grouped_int4_matmul_a8_reference.calls = 0
+
+
+def grouped_int4_matmul_a8(
+    x_sorted: torch.Tensor,
+    tile_group_ids: torch.Tensor,
+    qt: QuantizedTensor,
+    *,
+    tile_m: int = 32,
+    fuse_quant: Optional[bool] = None,
+) -> torch.Tensor:
+    """w4a8 grouped ``x @ dequant(W[g])^T`` over tile-aligned token groups.
+
+    x_sorted: [T_pad, K] bf16 or f32; tile_group_ids: [T_pad // tile_m] i32;
+    qt: stacked per_row planar [E, N, K]; tile_m a multiple of 32. Returns
+    [T_pad, N] in x.dtype. ``fuse_quant``: quantize inside the kernel (K11)
+    rather than before it (K10); None means False, as in JAX. On a CPU tensor
+    the plain version runs with the quantizer of the kernel it picks.
+    """
+    fuse_quant = bool(fuse_quant)
+    if not x_sorted.is_cuda:
+        return grouped_int4_matmul_a8_reference(x_sorted, tile_group_ids, qt, tile_m=tile_m,
+                                                fuse_quant=fuse_quant)
+    _check_a8(x_sorted, tile_group_ids, qt, tile_m)
+    e, n, k = qt.shape
+    t_pad = x_sorted.shape[0]
+    dtype = x_sorted.dtype
+    if dtype not in _A8_KERNELS:
+        raise TypeError(f"K10/K11 take bf16 or f32 activations, got {dtype}")
+    if k % 32 != 0:
+        raise ValueError(f"K10/K11 need K % 32 == 0 (16-byte packed rows), got K={k}")
+    _check_device_operands(x_sorted, tile_group_ids, qt)
+    x_sorted = x_sorted.contiguous()
+    if x_sorted.data_ptr() % 16:  # the kernel reads x with 16-byte loads
+        x_sorted = x_sorted.clone()
+    y = torch.empty((t_pad, n), dtype=dtype, device=x_sorted.device)
+    if t_pad == 0:
+        return y
+    # scratch: rows in use per block of kernel rows (the zero padding is skipped)
+    rows_used = torch.empty((-(-t_pad // _A8_KERNEL_ROWS),), dtype=torch.int32,
+                            device=x_sorted.device)
+    lib = _build.library()
+    tail = (tile_group_ids.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(),
+            qt.zero_points.data_ptr(), rows_used.data_ptr(), y.data_ptr(), t_pad, n, k, tile_m,
+            _build.stream_of(x_sorted))
+    with torch.cuda.device(x_sorted.device):
+        if fuse_quant:
+            err = getattr(lib, _A8_FUSED_KERNELS[dtype])(x_sorted.data_ptr(), *tail)
+        else:
+            xq, sx = _quantize_acts(x_sorted)
+            err = getattr(lib, _A8_KERNELS[dtype])(xq.data_ptr(), sx.data_ptr(), *tail)
+    _build.check(err, "grouped_int4_matmul_a8")
+    if fuse_quant:
+        grouped_int4_matmul_a8.fused_launches += 1
+    else:
+        grouped_int4_matmul_a8.launches += 1
+    return y
+
+
+grouped_int4_matmul_a8.launches = 0        # K10
+grouped_int4_matmul_a8.fused_launches = 0  # K11

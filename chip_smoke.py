@@ -13,20 +13,30 @@ Phases, each of which raises on failure:
      `layer2` serving path gives it (Mixtral-8x7B layer width), and time both
      with CUDA events (L2 flushed before each launch); time the integer-GEMM
      paths (resident i8 and transient unpack) at a prefill shape;
+     The per-group kernels (K7, K8, K13, K14) are checked the same way, on
+     weights quantized per group of 128 columns (planar_groups). Beside each
+     kernel's time at its main shape stand its bound (the least time the card
+     could take: bytes over 3.35 TB/s or operations over the peak of their
+     type) and, where one PyTorch call computes the same function, that
+     call's time, its output first held against the plain version at the
+     kernel's bar;
   4. serve 12 requests on the `layer2` model (random weights from a seeded
      generator) with 8 slots, in the default (w4a16) mode and then, on the
-     same weights, in the `as_u4_turbo` (w4a8) mode, and check that each run
-     launched the kernels of its mode and no plain version;
+     same weights, in the `as_u4_turbo` (w4a8), `as_per_group` (w4a16,
+     per-group) and `as_turbo(as_per_group)` (w4a8, per-group: the serving
+     benchmark's pg_turbo) modes, and check that each run launched the
+     kernels of its mode and no plain version;
   5. call the w4a8 op entry points whose kernels no serving path of `layer2`
      takes: the linear at deep K (K4) and the grouped product with the
      quantization fused (K11);
   6. run one 2 x 320-token forward of `layer2` in the default mode and in
-     each w4a8 mode, check that each took its prefill paths (transient
-     unpack and capacity MoE, or K5 and K10, or resident i8), that the w4a8
-     modes agree with each other, and print their cosines against the
-     default mode;
+     each w4a8 and per-group mode, check that each took its prefill paths
+     (transient unpack and capacity MoE, or K5 and K10, or resident i8, or
+     K7/K8 at 640 rows and K13/K14 at tile_m 128), that the w4a8 modes agree
+     with each other, and print their cosines against the default mode;
   7. run the `tiny` model with the same weights on the card and on the CPU,
-     in the default mode and in each w4a8 mode, and compare the logits.
+     in the default mode and in each w4a8 and per-group mode, and compare
+     the logits.
 The line before the last is a JSON summary of the kernels, with each
 kernel's launches counted over the phase that drives it (4 or 5); the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -47,6 +57,7 @@ from fused4bit_tpu_torch import ops
 from fused4bit_tpu_torch.layers import QuantizedKVCache, dispatch, make_dispatch_plan, topk_route
 from fused4bit_tpu_torch.models import (
     QuantizedTransformer,
+    as_per_group,
     as_turbo,
     as_u4_turbo,
     as_xla_turbo,
@@ -54,7 +65,7 @@ from fused4bit_tpu_torch.models import (
 )
 from fused4bit_tpu_torch.ops import _build
 from fused4bit_tpu_torch.ops.int8_xla import _quantize_acts
-from fused4bit_tpu_torch.quant import quantize
+from fused4bit_tpu_torch.quant import planar_groups_to_planar, quantize, unpack_planar
 from fused4bit_tpu_torch.serving import GenerationRequest, ServingEngine
 
 # Tolerances, kernel vs plain version on the same inputs:
@@ -100,6 +111,14 @@ SOURCES = {
                                "fused4bit_tpu/ops/grouped_matmul.py:500"),
     "grouped_int4_matmul_a8_fused": ("fused4bit_tpu_torch/csrc/grouped_matmul_a8.cu",
                                      "fused4bit_tpu/ops/grouped_matmul.py:552"),
+    "int4_matmul_per_group": ("fused4bit_tpu_torch/csrc/int4_matmul_pg.cu",
+                              "fused4bit_tpu/ops/int4_matmul.py:587"),
+    "int4_matmul_per_group_a8": ("fused4bit_tpu_torch/csrc/int4_matmul_pg.cu",
+                                 "fused4bit_tpu/ops/int4_matmul.py:761"),
+    "grouped_int4_matmul_per_group": ("fused4bit_tpu_torch/csrc/grouped_matmul_pg.cu",
+                                      "fused4bit_tpu/ops/grouped_matmul.py:994"),
+    "grouped_int4_matmul_per_group_a8": ("fused4bit_tpu_torch/csrc/grouped_matmul_pg.cu",
+                                         "fused4bit_tpu/ops/grouped_matmul.py:1101"),
 }
 # Each kernel's decode shape on the serving path: its ms / plain_ms in the
 # JSON summary.
@@ -111,7 +130,73 @@ MAIN_SHAPE = {
     "int4_matmul_a8_fused": "M=8 N=4096 K=4096 bf16",
     "grouped_int4_matmul_a8": "T=8 tile_m=32 N=14336 K=4096",
     "grouped_int4_matmul_a8_fused": "T=8 tile_m=32 N=14336 K=4096",
+    "int4_matmul_per_group": "M=8 N=4096 K=4096 bf16",
+    "int4_matmul_per_group_a8": "M=8 N=4096 K=4096 bf16",
+    "grouped_int4_matmul_per_group": "T=8 tile_m=16 N=14336 K=4096",
+    "grouped_int4_matmul_per_group_a8": "T=8 tile_m=32 N=14336 K=4096",
 }
+# The card's published rates (NVIDIA's H100 SXM data sheet, dense, at the
+# 700 W limit): HBM bytes/s and operations/s by operand type. A kernel's bound
+# is the larger of its bytes over HBM_BPS and its operations over the peak of
+# their type.
+HBM_BPS = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_: float, ops: float, kind: str) -> dict:
+    """The least time the card could take for ``bytes_`` moved and ``ops``
+    operations of type ``kind``, in ms, and which of the two bounds it."""
+    by_bytes, by_ops = bytes_ / HBM_BPS * 1e3, ops / PEAK_OPS[kind] * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops
+                else "operations")
+
+
+def _op_kind(x: torch.Tensor, a8: bool) -> str:
+    return "int8" if a8 else ("bf16" if x.dtype == torch.bfloat16 else "f32")
+
+
+def linear_bound(x, qt, a8=False) -> dict:
+    """x [M, K] @ W[N, K]^T: x, the packed weight and its scales/zero points
+    read once, y written once; 2*M*N*K operations."""
+    m, n, k = x.shape[0], qt.out_dim, qt.in_dim
+    return bound(nbytes(x, qt.packed, qt.scales, qt.zero_points) + m * n * x.element_size(),
+                 2.0 * m * n * k, _op_kind(x, a8))
+
+
+def grouped_bound(xs, gids, qt, rows, a8=False) -> dict:
+    """The grouped product at this routing: x_sorted and the tile map read
+    once, the weights of the experts the routing hits read once, y written
+    once; 2*rows*N*K operations over the rows that hold a token."""
+    e, n, k = qt.shape
+    hit = torch.unique(gids[(xs.reshape(gids.shape[0], -1).abs().sum(dim=1) != 0)]).numel()
+    per_expert = nbytes(qt.packed, qt.scales, qt.zero_points) / e
+    return bound(nbytes(xs, gids) + hit * per_expert + xs.shape[0] * n * xs.element_size(),
+                 2.0 * rows * n * k, _op_kind(xs, a8))
+
+
+def int4pack_yardstick(x, qt):
+    """One PyTorch call that computes the same w4a16 linear (a library
+    yardstick, used nowhere in the port): ``torch._weight_int4pack_mm`` on the
+    same 4-bit codes after a one-time ``_convert_weight_to_int4pack``, with
+    bf16 scales and zeros (8 - zp) * s per group of 128 columns (per_row
+    weights as equal groups). None where this PyTorch lacks it."""
+    if not hasattr(torch, "_weight_int4pack_mm") or x.dtype != torch.bfloat16:
+        return None
+    n, k = qt.out_dim, qt.in_dim
+    gs = qt.group_size or 128
+    w = qt.packed if qt.layout == "planar" else planar_groups_to_planar(qt.packed)
+    codes = unpack_planar(w).to(torch.int32)                        # [N, K]
+    packed = (codes[:, ::2] << 4 | codes[:, 1::2]).to(torch.uint8)
+    wp = torch._convert_weight_to_int4pack(packed, 8)
+    s, z = qt.scales, qt.zero_points
+    if qt.granularity == "per_row":
+        s, z = s[:, None].expand(n, k // gs), z[:, None].expand(n, k // gs)
+    sz = torch.stack([s, (8.0 - z) * s], dim=-1).transpose(0, 1).contiguous().bfloat16()
+    return lambda: torch._weight_int4pack_mm(x, wp, gs, sz)
 
 
 def card() -> str:
@@ -171,19 +256,35 @@ class Timer:
         return statistics.median(times)
 
 
-def _compare(name, shape, y, ref, tol, results, timer, fn, ref_fn, iters=20):
+def _compare(name, shape, y, ref, tol, results, timer, fn, ref_fn, iters=20, work=None,
+             library=None):
+    """Hold a kernel's output ``y`` against its plain version's ``ref``; with
+    a timer, time both (and the library call ``library``, where given, after
+    holding its output against ``ref`` at the same bar, so that it times the
+    same function); with ``work`` (see :func:`bound`), record the bound at
+    this shape."""
     torch.cuda.synchronize()
     if not torch.isfinite(y).all():
         raise AssertionError(f"{name} {shape}: non-finite output")
     err = (y.float() - ref.float()).abs().max().item()
+    if library is not None:
+        lib_err = (library().float().reshape(ref.shape) - ref.float()).abs().max().item()
+        print(f"    library call {shape}: max|d| {lib_err:.3e} against the plain version "
+              f"(tol {tol:.3e})")
+        if not lib_err <= tol:
+            raise AssertionError(f"{name} {shape}: the library call is off by {lib_err} > {tol}")
     ms = timer(fn, iters=iters) if timer else float("nan")
     plain_ms = timer(ref_fn, iters=min(iters, 5)) if timer else float("nan")
+    library_ms = timer(library, iters=iters) if timer and library else None
     ok = err <= tol
+    extra = "" if work is None else f" bound {work['bound_ms']:.4f} ms ({work['bound_by']})"
+    extra += "" if library_ms is None else f" library {library_ms:.4f} ms"
     print(f"  {name:20s} {shape:34s} max|d| {err:.3e} (tol {tol:.3e}) "
-          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms {'ok' if ok else 'FAIL'}")
+          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms{extra} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} {shape}: max|d| {err} > {tol}")
-    results.append(dict(name=name, shape=shape, err=err, ms=ms, plain_ms=plain_ms))
+    results.append(dict(name=name, shape=shape, err=err, ms=ms, plain_ms=plain_ms,
+                        library_ms=library_ms, **(work or {})))
 
 
 def check_linear(device, results, timer, gen):
@@ -195,10 +296,12 @@ def check_linear(device, results, timer, gen):
             ref = ops.int4_matmul_reference(x, qt)
             y = ops.int4_matmul(x, qt)
             torch.cuda.synchronize()
+            main = (m, n) == (8, 4096)
             _compare("int4_matmul", f"M={m} N={n} K={k} bf16", y, ref,
                      BF16_REL_TOL * ref.float().abs().max().item(), results, timer,
                      lambda: ops.int4_matmul(x, qt),
-                     lambda: ops.int4_matmul_reference(x, qt))
+                     lambda: ops.int4_matmul_reference(x, qt), work=linear_bound(x, qt),
+                     library=int4pack_yardstick(x, qt) if main else None)
         if n == 1024:
             x = torch.randn((8, k), generator=gen, device=device)
             ref = ops.int4_matmul_reference(x, qt)
@@ -235,7 +338,8 @@ def check_grouped(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
                      f"T={t} tile_m={tile_m} N={n} K={k}", y, ref,
                      BF16_REL_TOL * ref.float().abs().max().item(), results, timer,
                      lambda: ops.grouped_int4_matmul(xs, gids, qt, tile_m=tile_m),
-                     lambda: ops.grouped_int4_matmul_reference(xs, gids, qt, tile_m=tile_m))
+                     lambda: ops.grouped_int4_matmul_reference(xs, gids, qt, tile_m=tile_m),
+                     work=grouped_bound(xs, gids, qt, 2 * t))
             print(f"    tokens per expert {loads}, T_pad {plan.t_pad}")
             if t == 8:  # the f32 instantiation, at the decode shape
                 xf = xs.float()
@@ -275,7 +379,7 @@ def check_linear_a8(device, results, timer, gen):
                              results, timer if timed else None,
                              lambda: ops.int4_matmul_a8(xx, qt, fuse_quant=fuse),
                              lambda: ops.int4_matmul_a8_reference(xx, qt, fuse_quant=fuse),
-                             iters=5 if m == 640 else 20)
+                             iters=5 if m == 640 else 20, work=linear_bound(xx, qt, a8=True))
             if (m, n, k) == (8, 4096, 4096) and timer:
                 # the input of the fuse gate: K4's time above includes the
                 # host quantizer's launches, timed here alone
@@ -314,7 +418,80 @@ def check_grouped_a8(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
                                                                 fuse_quant=fuse),
                              lambda: ops.grouped_int4_matmul_a8_reference(
                                  xx, gids, qt, tile_m=tile_m, fuse_quant=fuse),
-                             iters=iters)
+                             iters=iters, work=grouped_bound(xx, gids, qt, 2 * t, a8=True))
+            print(f"    tokens per expert {routing.tokens_per_expert.tolist()}, "
+                  f"T_pad {plan.t_pad}")
+        del qt
+
+
+def _pg_quantize(w):
+    return quantize(w, granularity="per_group", layout="planar_groups", group_size=128)
+
+
+def check_linear_pg(device, results, timer, gen):
+    """K7 and K8 at the layer2 linear shapes, weights per group of 128
+    (planar_groups): the decode rows (8) and the long prefill's (640), bf16,
+    and the f32 instantiations at one shape."""
+    for n, k in ((4096, 4096), (1024, 4096), (8192, 4096)):
+        qt = _pg_quantize(torch.randn((n, k), generator=gen, device=device) * k ** -0.5)
+        for m in (8, 640):
+            x = torch.randn((m, k), generator=gen, device=device).bfloat16()
+            for xx in ((x, x.float()) if (m, n) == (8, 1024) else (x,)):
+                f32 = xx.dtype == torch.float32
+                dt = "f32" if f32 else "bf16"
+                main = (m, n) == (8, 4096)
+                iters = 5 if m == 640 else 20
+                ref = ops.int4_matmul_per_group_reference(xx, qt)
+                tol = F32_ABS_TOL if f32 else BF16_REL_TOL * ref.float().abs().max().item()
+                _compare("int4_matmul_per_group", f"M={m} N={n} K={k} {dt}",
+                         ops.int4_matmul_per_group(xx, qt), ref, tol, results,
+                         None if f32 else timer, lambda: ops.int4_matmul_per_group(xx, qt),
+                         lambda: ops.int4_matmul_per_group_reference(xx, qt), iters=iters,
+                         work=linear_bound(xx, qt),
+                         library=int4pack_yardstick(xx, qt) if main else None)
+                ref = ops.int4_matmul_per_group_a8_reference(xx, qt)
+                _compare("int4_matmul_per_group_a8", f"M={m} N={n} K={k} {dt}",
+                         ops.int4_matmul_per_group_a8(xx, qt), ref, _a8_tol(ref), results,
+                         None if f32 else timer, lambda: ops.int4_matmul_per_group_a8(xx, qt),
+                         lambda: ops.int4_matmul_per_group_a8_reference(xx, qt), iters=iters,
+                         work=linear_bound(xx, qt, a8=True))
+        del qt
+
+
+def check_grouped_pg(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
+    """K13 and K14 at the expert shapes, per group of 128: decode (T=8) at
+    tile_m 16 (K13, the per_group mode) and 32 (K14, pg_turbo), and the
+    prefill (T=600) at tile_m 128, skewed routing."""
+    for n, k in ((ffn, hidden), (hidden, ffn)):       # gate/up (Gh=16), then down (Gh=56)
+        qt = _pg_quantize(torch.randn((e, n, k), generator=gen, device=device) * k ** -0.5)
+        for t, tile_m, kernels in ((8, 16, (False,)), (8, 32, (True,)), (600, 128, (False, True))):
+            routing, plan = _skewed_plan(t, e, 2, tile_m, gen, device)
+            xs = dispatch(torch.randn((t, k), generator=gen, device=device).bfloat16(),
+                          routing, plan)
+            gids = plan.tile_group_ids
+            pad = xs.abs().sum(dim=1) == 0
+            iters = 20 if t == 8 else 3
+            for a8 in kernels:
+                op = ops.grouped_int4_matmul_per_group_a8 if a8 else ops.grouped_int4_matmul_per_group
+                plain = (ops.grouped_int4_matmul_per_group_a8_reference if a8
+                         else ops.grouped_int4_matmul_per_group_reference)
+                for xx in ((xs, xs.float()) if t == 8 else (xs,)):  # + f32 at decode
+                    f32 = xx.dtype == torch.float32
+                    ref = plain(xx, gids, qt, tile_m=tile_m)
+                    y = op(xx, gids, qt, tile_m=tile_m)
+                    torch.cuda.synchronize()
+                    if not bool((y[pad] == 0).all()):
+                        raise AssertionError(f"{op.__name__}: padding rows are not exactly zero")
+                    if a8:
+                        tol = _a8_tol(ref)
+                    else:
+                        tol = F32_ABS_TOL if f32 else BF16_REL_TOL * ref.float().abs().max().item()
+                    _compare(op.__name__,
+                             f"T={t} tile_m={tile_m} N={n} K={k}" + (" f32" if f32 else ""),
+                             y, ref, tol, results, None if f32 else timer,
+                             lambda: op(xx, gids, qt, tile_m=tile_m),
+                             lambda: plain(xx, gids, qt, tile_m=tile_m), iters=iters,
+                             work=grouped_bound(xx, gids, qt, 2 * t, a8=a8))
             print(f"    tokens per expert {routing.tokens_per_expert.tolist()}, "
                   f"T_pad {plan.t_pad}")
         del qt
@@ -344,6 +521,33 @@ def _filled_cache(b, h_kv, s_max, d, lengths, gen, device):
     return cache
 
 
+def attention_bound(q, cache, starts, t) -> dict:
+    """Attention of t query rows per slot from ``starts``: q and the packed
+    K/V bytes and scale/zero-point planes of the positions in use read once,
+    the output written once; 4*D operations per (query head, query, key)
+    pair under the causal mask."""
+    b, hq, d = q.shape[0], q.shape[1], q.shape[-1]
+    h_kv = cache.k_packed.shape[1]
+    used = sum(int(s) + t for s in starts.tolist())
+    pairs = sum(t * int(s) + t * (t + 1) // 2 for s in starts.tolist())
+    kv = 2 * h_kv * used * (d // 2 + 2 * 4)    # K and V: D/2 packed bytes + scale + zp
+    return bound(2 * nbytes(q) + nbytes(cache.lengths) + kv, 4.0 * hq * d * pairs, "bf16")
+
+
+def sdpa_yardstick(q, cache):
+    """One PyTorch call for decode attention (a library yardstick, used
+    nowhere in the port): ``scaled_dot_product_attention`` over the cache
+    dequantized to q's type beforehand (K/V heads repeated to the query
+    heads), with each slot's length as the mask. It reads bf16 K/V, four
+    times the packed bytes."""
+    kd, vd = cache.dequantize(dtype=q.dtype)
+    rep = q.shape[1] // kd.shape[1]
+    kd, vd = kd.repeat_interleave(rep, dim=1), vd.repeat_interleave(rep, dim=1)
+    mask = (torch.arange(kd.shape[2], device=q.device)[None, None, None, :]
+            < cache.lengths[:, None, None, None])
+    return lambda: F.scaled_dot_product_attention(q[:, :, None], kd, vd, attn_mask=mask)
+
+
 def check_attention(device, results, timer, gen, b=8, hq=32, h_kv=8, d=128, s_max=256):
     lengths = [(1, 2, 37, 255)[i % 4] for i in range(b)]
     cache = _filled_cache(b, h_kv, s_max, d, lengths, gen, device)
@@ -352,7 +556,9 @@ def check_attention(device, results, timer, gen, b=8, hq=32, h_kv=8, d=128, s_ma
     y = ops.int4_decode_attention(q, cache)
     _compare("int4_attention", f"decode B={b} lengths {sorted(set(lengths))}", y, ref,
              ATTN_ABS_TOL, results, timer, lambda: ops.int4_decode_attention(q, cache),
-             lambda: ops.int4_attention_reference(q[:, :, None], cache, cache.lengths - 1))
+             lambda: ops.int4_attention_reference(q[:, :, None], cache, cache.lengths - 1),
+             work=attention_bound(q, cache, cache.lengths - 1, 1),
+             library=sdpa_yardstick(q, cache))
     qf = q.float()  # the f32 instantiation
     _compare("int4_attention", f"decode B={b} f32", ops.int4_decode_attention(qf, cache),
              ops.int4_attention_reference(qf[:, :, None], cache, cache.lengths - 1)[:, :, 0],
@@ -367,7 +573,8 @@ def check_attention(device, results, timer, gen, b=8, hq=32, h_kv=8, d=128, s_ma
     y = ops.int4_prefill_attention(q, cache, starts)
     _compare("int4_attention", f"prefill B={b} T={t} starts odd", y, ref, ATTN_ABS_TOL,
              results, timer, lambda: ops.int4_prefill_attention(q, cache, starts),
-             lambda: ops.int4_attention_reference(q, cache, starts))
+             lambda: ops.int4_attention_reference(q, cache, starts),
+             work=attention_bound(q, cache, starts, t))
     # the long prefill of phase 6: 2 rows of 320 tokens from position 0
     b, t = 2, 320
     cache = QuantizedKVCache.init(b, h_kv, t, d, device=device)
@@ -379,7 +586,8 @@ def check_attention(device, results, timer, gen, b=8, hq=32, h_kv=8, d=128, s_ma
     _compare("int4_attention", f"prefill B={b} T={t} start 0", ops.int4_prefill_attention(
              q, cache, starts), ref, ATTN_ABS_TOL, results, timer,
              lambda: ops.int4_prefill_attention(q, cache, starts),
-             lambda: ops.int4_attention_reference(q, cache, starts), iters=5)
+             lambda: ops.int4_attention_reference(q, cache, starts), iters=5,
+             work=attention_bound(q, cache, starts, t))
 
 
 def check_kernels(device="cuda", timing=True):
@@ -392,6 +600,8 @@ def check_kernels(device="cuda", timing=True):
     check_attention(device, results, timer, gen)
     check_linear_a8(device, results, timer, gen)
     check_grouped_a8(device, results, timer, gen)
+    check_linear_pg(device, results, timer, gen)
+    check_grouped_pg(device, results, timer, gen)
     check_int8_paths(device, results, timer, gen)
     torch.cuda.empty_cache()
     return results
@@ -399,7 +609,13 @@ def check_kernels(device="cuda", timing=True):
 
 _REFERENCES = (ops.int4_matmul_reference, ops.grouped_int4_matmul_reference,
                ops.int4_attention_reference, ops.int4_matmul_a8_reference,
-               ops.grouped_int4_matmul_a8_reference)
+               ops.grouped_int4_matmul_a8_reference, ops.int4_matmul_per_group_reference,
+               ops.int4_matmul_per_group_a8_reference,
+               ops.grouped_int4_matmul_per_group_reference,
+               ops.grouped_int4_matmul_per_group_a8_reference)
+# the per-group kernels, each with one launch counter
+_PG_OPS = (ops.int4_matmul_per_group, ops.int4_matmul_per_group_a8,
+           ops.grouped_int4_matmul_per_group, ops.grouped_int4_matmul_per_group_a8)
 _PATH_CALLS = (ops.int4_linear_transient, ops.int4_grouped_transient, ops.int8_linear,
                ops.int8_grouped_capacity)
 
@@ -410,6 +626,8 @@ def _reset_counts():
     ops.int4_attention.launches = 0
     for fn in (ops.int4_matmul_a8, ops.grouped_int4_matmul_a8):
         fn.launches = fn.fused_launches = 0
+    for fn in _PG_OPS:
+        fn.launches = 0
     for fn in _REFERENCES + _PATH_CALLS:
         fn.calls = 0
 
@@ -423,6 +641,7 @@ def _launch_counts() -> dict:
         "int4_matmul_a8_fused": ops.int4_matmul_a8.fused_launches,
         "grouped_int4_matmul_a8": ops.grouped_int4_matmul_a8.launches,
         "grouped_int4_matmul_a8_fused": ops.grouped_int4_matmul_a8.fused_launches,
+        **{fn.__name__: fn.launches for fn in _PG_OPS},
     }
 
 
@@ -525,18 +744,30 @@ def _prefill_logits(model, cfg, tokens):
     return logits.float()
 
 
-# Long prefill, per mode: the converter, the kernels it must launch, and the
-# integer-GEMM paths it must call at 640 rows.
+def as_pg_turbo(model):
+    """The serving benchmark's pg_turbo mode: w4a8 over per-group weights."""
+    return as_turbo(as_per_group(model))
+
+
+# Long prefill, per mode: the converter (from the default model and its
+# per-group copy), the kernels it must launch, and the integer-GEMM paths it
+# must call at 640 rows.
 PREFILL_MODES = (
-    ("u4_turbo", as_u4_turbo, (), ("int4_linear_transient", "int4_grouped_transient")),
-    ("turbo", as_turbo, ("int4_matmul_a8_fused", "grouped_int4_matmul_a8"), ()),
-    ("xla_turbo", as_xla_turbo, (), ("int8_linear", "int8_grouped_capacity")),
+    ("u4_turbo", lambda m, pg: as_u4_turbo(m), (),
+     ("int4_linear_transient", "int4_grouped_transient")),
+    ("turbo", lambda m, pg: as_turbo(m), ("int4_matmul_a8_fused", "grouped_int4_matmul_a8"), ()),
+    ("xla_turbo", lambda m, pg: as_xla_turbo(m), (), ("int8_linear", "int8_grouped_capacity")),
+    ("per_group", lambda m, pg: pg,
+     ("int4_matmul_per_group", "grouped_int4_matmul_per_group"), ()),
+    ("pg_turbo", lambda m, pg: as_turbo(pg),
+     ("int4_matmul_per_group_a8", "grouped_int4_matmul_per_group_a8"), ()),
 )
 
 
-def long_prefill(model, cfg, device="cuda", b=2, t=320):
+def long_prefill(model, pg, cfg, device="cuda", b=2, t=320):
     """Phase 6: one forward of b x t tokens (640 rows: past the 256-row
-    transient gate and the 512-row MoE prefill threshold) per w4a8 mode.
+    transient gate and the 512-row MoE prefill threshold) per w4a8 and
+    per-group mode. Returns the kernel launches of each mode's run.
 
     Checks that each mode took its prefill paths, that xla_turbo (resident
     i8) and u4_turbo (transient i8) give the same logits bit for bit, and
@@ -545,16 +776,18 @@ def long_prefill(model, cfg, device="cuda", b=2, t=320):
     logits and over all its positions. The cosines against the default
     (w4a16) mode are printed: with random weights the router flips the
     expert pair of a share of the tokens between w4a16 and w4a8, in the JAX
-    package as in the port (tests/test_torch_model.py), so they are
-    measurements here, not bars."""
+    package as in the port (tests/test_torch_model.py), and per-group
+    requantization moves every weight, so they are measurements here, not
+    bars. The per-group modes must run K7/K8 at 640 rows and K13/K14 at
+    tile_m 128 and give finite logits."""
     tokens = torch.from_numpy(np.random.default_rng(4).integers(1, cfg.vocab_size, (b, t))
                               ).to(device)
-    logits = {}
+    logits, all_launches = {}, {}
     with torch.no_grad():
         base = _prefill_logits(model, cfg, tokens)
         for mode, conv, launched, called in PREFILL_MODES:
             _reset_counts()
-            got = _prefill_logits(conv(model), cfg, tokens)
+            got = _prefill_logits(conv(model, pg), cfg, tokens)
             torch.cuda.synchronize()
             launches = _launch_counts()
             paths = {fn.__name__: fn.calls for fn in _PATH_CALLS}
@@ -567,6 +800,7 @@ def long_prefill(model, cfg, device="cuda", b=2, t=320):
             print(f"long prefill [{mode}] {b}x{t}: vs default, {_cosines(got, base)[2]}; "
                   f"launches {launches}, integer-GEMM calls {paths}")
             logits[mode] = got
+            all_launches[mode] = launches
     if not torch.equal(logits["xla_turbo"], logits["u4_turbo"]):
         raise AssertionError("long prefill: xla_turbo and u4_turbo logits differ")
     last, rows, text = _cosines(logits["turbo"], logits["u4_turbo"])
@@ -576,6 +810,8 @@ def long_prefill(model, cfg, device="cuda", b=2, t=320):
     if last.min().item() <= PREFILL_COS_LAST or rows.min().item() <= PREFILL_COS_ALL:
         raise AssertionError(f"long prefill: turbo vs u4_turbo cos {last.tolist()}, "
                              f"{rows.tolist()}")
+    print(f"long prefill: pg_turbo vs per_group, {_cosines(logits['pg_turbo'], logits['per_group'])[2]}")
+    return all_launches
 
 
 def _cosines(got, ref):
@@ -595,7 +831,7 @@ def whole_model(device="cuda", mode="kernel", convert=None):
     """Phase 7: the tiny model, same weights, card (kernels) vs CPU (plain),
     after the converter of ``mode`` on each side."""
     cfg = flagship_model_config("tiny")
-    cpu = QuantizedTransformer.init(cfg, generator=torch.Generator().manual_seed(0))
+    cpu = QuantizedTransformer.init(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     gpu = copy.deepcopy(cpu).to(device)
     if convert is not None:
         cpu, gpu = convert(cpu), convert(gpu)
@@ -635,24 +871,49 @@ def main() -> None:
         print(f"kernels vs plain versions (times: median, L2 flushed, on {card_line}):")
         results = check_kernels()
     model, cfg = build_layer2()
+    pg_kernels = tuple(fn.__name__ for fn in _PG_OPS)
     launches = serve(model, cfg, "default", card_line)
     _expect_launches("serve [default]", launches,
                      ("int4_matmul", "grouped_int4_matmul", "int4_attention"),
-                     ("int4_matmul_a8_fused", "grouped_int4_matmul_a8"))
+                     ("int4_matmul_a8_fused", "grouped_int4_matmul_a8") + pg_kernels)
     launches_u4 = serve(as_u4_turbo(model), cfg, "u4_turbo", card_line)
     _expect_launches("serve [u4_turbo]", launches_u4,
                      ("int4_matmul_a8_fused", "grouped_int4_matmul_a8", "int4_attention"),
-                     ("int4_matmul", "grouped_int4_matmul"))
+                     ("int4_matmul", "grouped_int4_matmul") + pg_kernels)
     for name in ("int4_matmul_a8_fused", "grouped_int4_matmul_a8"):
         launches[name] = launches_u4[name]
+    t0 = time.perf_counter()
+    pg = as_per_group(model)       # requantized on the card, per group of 128
+    torch.cuda.synchronize()
+    print(f"as_per_group(layer2): {time.perf_counter() - t0:.2f} s")
+    # per_group: K7 for every linear but the router (K1), K13 for the experts
+    launches_pg = serve(pg, cfg, "per_group", card_line)
+    _expect_launches("serve [per_group]", launches_pg,
+                     ("int4_matmul_per_group", "grouped_int4_matmul_per_group",
+                      "int4_attention", "int4_matmul"),
+                     ("grouped_int4_matmul", "int4_matmul_per_group_a8",
+                      "grouped_int4_matmul_per_group_a8"))
+    # pg_turbo: K8 for every linear but the router (K5), K14 for the experts
+    launches_pgt = serve(as_turbo(pg), cfg, "pg_turbo", card_line)
+    _expect_launches("serve [pg_turbo]", launches_pgt,
+                     ("int4_matmul_per_group_a8", "grouped_int4_matmul_per_group_a8",
+                      "int4_attention", "int4_matmul_a8_fused"),
+                     ("grouped_int4_matmul", "grouped_int4_matmul_a8", "int4_matmul_per_group",
+                      "grouped_int4_matmul_per_group"))
+    for name, runs in (("int4_matmul_per_group", launches_pg),
+                       ("grouped_int4_matmul_per_group", launches_pg),
+                       ("int4_matmul_per_group_a8", launches_pgt),
+                       ("grouped_int4_matmul_per_group_a8", launches_pgt)):
+        launches[name] = runs[name]
     launches_ops = a8_entry_points()
     for name in ("int4_matmul_a8", "grouped_int4_matmul_a8_fused"):
         launches[name] = launches_ops[name]
-    long_prefill(model, cfg)
-    del model
+    long_prefill(model, pg, cfg)
+    del model, pg
     torch.cuda.empty_cache()
     for mode, convert in (("kernel", None), ("u4_turbo", as_u4_turbo), ("turbo", as_turbo),
-                          ("xla_turbo", as_xla_turbo)):
+                          ("xla_turbo", as_xla_turbo), ("per_group", as_per_group),
+                          ("pg_turbo", as_pg_turbo)):
         whole_model(mode=mode, convert=convert)
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -660,7 +921,9 @@ def main() -> None:
         main_row = next(r for r in rows if r["shape"] == MAIN_SHAPE[name])
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=launches[name], max_abs_err=max(r["err"] for r in rows),
-                            ms=main_row["ms"], plain_ms=main_row["plain_ms"]))
+                            ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+                            bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+                            library_ms=main_row["library_ms"]))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,7 +6,9 @@ as the reference. Same byte formats; the Pallas kernels of the serving path
 (w4a16 and w4a8 linear and grouped products, INT4-KV attention) are CUDA C++
 kernels in ``csrc/``, built with nvcc at first use (``ops._build``). The
 execution modes of the JAX package are the converters ``as_turbo``,
-``as_u4_turbo`` and ``as_xla_turbo``. Imports PyTorch and NumPy, never JAX.
+``as_u4_turbo``, ``as_xla_turbo`` and ``as_per_group``. Entry points that
+allocate build on the CUDA card unless given ``device="cpu"``. Imports
+PyTorch and NumPy, never JAX.
 """
 from .layers import (
     DenseLinear,
@@ -26,6 +28,7 @@ from .models import (
     ModelConfig,
     MoEConfig,
     QuantizedTransformer,
+    as_per_group,
     as_turbo,
     as_u4_turbo,
     as_xla_turbo,
@@ -37,11 +40,15 @@ from .ops import (
     Int8Resident,
     grouped_int4_matmul,
     grouped_int4_matmul_a8,
+    grouped_int4_matmul_per_group,
+    grouped_int4_matmul_per_group_a8,
     int4_decode_attention,
     int4_grouped_transient,
     int4_linear_transient,
     int4_matmul,
     int4_matmul_a8,
+    int4_matmul_per_group,
+    int4_matmul_per_group_a8,
     int4_prefill_attention,
     int8_grouped_capacity,
     int8_linear,
@@ -65,6 +72,7 @@ __all__ = [
     "RoutingResult",
     "Sampler",
     "ServingEngine",
+    "as_per_group",
     "as_turbo",
     "as_u4_turbo",
     "as_xla_turbo",
@@ -76,11 +84,15 @@ __all__ = [
     "generate",
     "grouped_int4_matmul",
     "grouped_int4_matmul_a8",
+    "grouped_int4_matmul_per_group",
+    "grouped_int4_matmul_per_group_a8",
     "int4_decode_attention",
     "int4_grouped_transient",
     "int4_linear_transient",
     "int4_matmul",
     "int4_matmul_a8",
+    "int4_matmul_per_group",
+    "int4_matmul_per_group_a8",
     "int4_prefill_attention",
     "int8_grouped_capacity",
     "int8_linear",

@@ -1,0 +1,57 @@
+// K13 and K14: grouped per-group INT4 product for the MoE experts,
+//   y[t] = x_sorted[t] @ dequant(W[gid[t / tile_m]])^T  for every row t,
+// with stacked planar_groups expert weights [E, Gh, N, gs].
+//
+// K13 replaces fused4bit_tpu/ops/grouped_matmul.py:_grouped_pg_bp_kernel
+// (w4a16); K14 replaces _grouped_pg_bp_a8_kernel (w4a8, int8 activations and
+// their scales in). Both run the kernels of int4_rows_pg.cuh with the expert
+// chosen per CTA from tile_group_ids, K2's contract: one launch, no host loop
+// and no device-to-host sync, every column of N written (also past 256), zero
+// padding rows written as exactly 0.
+//
+// What bounds it on the H100: at decode (T = 8 tokens, top-2) a tile holds a
+// token or two, so the op streams each selected expert's packed weights
+// (N*K/2 bytes, plus N*K/gs*8 bytes of scales and zero points) for a handful
+// of rows: bound by HBM bytes. A first pass finds the zero padding rows at the
+// end of each block of MT rows, and an all-padding block streams no weights.
+// At prefill (tile_m = 128) each weight byte serves MT rows per read and the
+// CUDA-core loop (FMA in K13, __dp4a in K14) becomes the bound; tensor-core
+// MMA is later work.
+#include "int4_rows_pg.cuh"
+
+// K13: x [T, K] bf16 or f32; rows_used: int32 scratch of ceil(T / MT), MT = 16
+// (bf16) or 8 (f32).
+extern "C" int f4b_grouped_int4_matmul_pg_bf16(const void* x, const void* gids,
+                                               const void* packed, const void* scales,
+                                               const void* zps, void* rows_used, void* y, int T,
+                                               int N, int K, int gs, int tile_m, void* stream) {
+  return f4b::launch_int4_pg_rows<__nv_bfloat16>(x, packed, scales, zps, gids, tile_m,
+                                                 rows_used, y, T, N, K, gs, stream);
+}
+
+extern "C" int f4b_grouped_int4_matmul_pg_f32(const void* x, const void* gids,
+                                              const void* packed, const void* scales,
+                                              const void* zps, void* rows_used, void* y, int T,
+                                              int N, int K, int gs, int tile_m, void* stream) {
+  return f4b::launch_int4_pg_rows<float>(x, packed, scales, zps, gids, tile_m, rows_used, y,
+                                         T, N, K, gs, stream);
+}
+
+// K14: xq [T, K] int8, sx [T] f32; rows_used: int32 scratch of ceil(T / 16).
+extern "C" int f4b_grouped_int4_matmul_pg_a8_bf16(const void* xq, const void* sx,
+                                                  const void* gids, const void* packed,
+                                                  const void* scales, const void* zps,
+                                                  void* rows_used, void* y, int T, int N, int K,
+                                                  int gs, int tile_m, void* stream) {
+  return f4b::launch_int4_pg_a8_rows<__nv_bfloat16>(xq, sx, packed, scales, zps, gids, tile_m,
+                                                    rows_used, y, T, N, K, gs, stream);
+}
+
+extern "C" int f4b_grouped_int4_matmul_pg_a8_f32(const void* xq, const void* sx,
+                                                 const void* gids, const void* packed,
+                                                 const void* scales, const void* zps,
+                                                 void* rows_used, void* y, int T, int N, int K,
+                                                 int gs, int tile_m, void* stream) {
+  return f4b::launch_int4_pg_a8_rows<float>(xq, sx, packed, scales, zps, gids, tile_m,
+                                            rows_used, y, T, N, K, gs, stream);
+}

@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .._device import resolve_device
 from ..quant.core import _affine_params
 
 __all__ = ["QuantizedKVCache"]
@@ -98,8 +99,11 @@ class QuantizedKVCache:
     @classmethod
     def init(cls, batch: int, num_kv_heads: int, max_seq: int, head_dim: int,
              device: Optional[torch.device] = None) -> "QuantizedKVCache":
+        """An empty cache on ``device`` (None: the CUDA card)."""
         if max_seq % 2:
             raise ValueError(f"max_seq={max_seq} must be even (pair packing)")
+        device = resolve_device(device)
+
         def z8():
             return torch.zeros((batch, num_kv_heads, max_seq // 2, head_dim),
                                dtype=torch.uint8, device=device)

@@ -13,6 +13,13 @@ holds them. The forward follows the JAX layer's ``activation`` dispatch:
 * ``"int8_xla"`` (``as_xla_turbo``): ``ops.int8_linear`` on the resident i8
   copy.
 
+Per-group weights in the planar_groups layout run ``ops.int4_matmul_per_group``
+(K7) or, with ``"int8"``, ``ops.int4_matmul_per_group_a8`` (K8), at every row
+count; ``"int8_auto"`` never sends them to the transient path. A per-group
+weight no kernel serves (a group size that is not a multiple of 128) takes
+the golden path, dequantize and matmul, as in the JAX package: the counted
+plain version ``ops.int4_matmul_per_group_reference``.
+
 Each op runs its kernel on a CUDA tensor and its plain version on a CPU one.
 """
 from __future__ import annotations
@@ -22,13 +29,30 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.int4_matmul import int4_matmul, int4_matmul_a8
+from .._device import resolve_device
+from ..ops.int4_matmul import (
+    int4_matmul,
+    int4_matmul_a8,
+    int4_matmul_per_group,
+    int4_matmul_per_group_a8,
+    int4_matmul_per_group_reference,
+)
 from ..ops.int8_xla import Int8Resident, int4_linear_transient, int8_linear, to_int8_resident
 from ..quant.core import QuantizedTensor, quantize
 
 __all__ = ["QuantizedLinear", "DenseLinear"]
 
 ACTIVATIONS = ("bf16", "int8", "int8_auto", "int8_transient", "int8_xla")
+_FORMATS = (("per_row", "planar"), ("per_group", "planar"), ("per_group", "planar_groups"))
+
+
+def per_group_layout(k: int, granularity: str, group_size: int) -> str:
+    """The layout ``from_dense`` packs: planar_groups for per_group weights
+    when the batched-partials kernels take them (``gs % 128 == 0`` and
+    ``gs | K/2``), else planar."""
+    if granularity == "per_group" and group_size % 128 == 0 and (k // 2) % group_size == 0:
+        return "planar_groups"
+    return "planar"
 
 
 class DenseLinear(nn.Module):
@@ -80,8 +104,9 @@ class QuantizedLinear(nn.Module):
         w8: Optional[Int8Resident] = None,
     ):
         super().__init__()
-        if weight.granularity != "per_row" or weight.layout != "planar":
-            raise NotImplementedError("only per_row/planar weights are ported")
+        if (weight.granularity, weight.layout) not in _FORMATS:
+            raise NotImplementedError(
+                f"{weight.granularity}/{weight.layout} weights are not ported")
         if activation not in ACTIVATIONS:
             raise ValueError(f"activation={activation!r} is not one of {ACTIVATIONS}")
         self.register_buffer("packed", weight.packed)
@@ -92,19 +117,34 @@ class QuantizedLinear(nn.Module):
         self.register_buffer("w8_scales", None if w8 is None else w8.scales)
         self.shape: Tuple[int, ...] = tuple(weight.shape)
         self.bits = weight.bits
+        self.granularity = weight.granularity
+        self.layout = weight.layout
+        self.group_size = weight.group_size
         self.out_features = out_features
         self.activation = activation
 
     @classmethod
-    def from_dense(cls, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+    def from_dense(cls, weight: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                   granularity: str = "per_row", group_size: int = 128, device=None,
                    **kw) -> "QuantizedLinear":
-        """Quantize a dense [N, K] weight (per_row, planar)."""
-        return cls(quantize(weight), bias, **kw)
+        """Quantize a dense [N, K] weight, per_row or per_group (planar_groups
+        where the batched-partials kernels take it, else planar). The layer
+        lives on the weight's device, or on ``device`` when one is given
+        (None there means the weight's own)."""
+        if device is not None:
+            device = resolve_device(device)
+            weight = weight.to(device)
+            bias = None if bias is None else bias.to(device)
+        layout = per_group_layout(weight.shape[-1], granularity, group_size)
+        return cls(quantize(weight, granularity=granularity, layout=layout,
+                            group_size=group_size), bias, **kw)
 
     @classmethod
     def init(cls, in_dim: int, out_dim: int, *, generator: Optional[torch.Generator] = None,
              device=None, bias: bool = False) -> "QuantizedLinear":
-        """Random N(0, 1/in_dim) weight, drawn from ``generator`` on ``device``."""
+        """Random N(0, 1/in_dim) weight, drawn from ``generator`` on ``device``
+        (None: the CUDA card)."""
+        device = resolve_device(device)
         w = torch.randn((out_dim, in_dim), generator=generator, device=device,
                         dtype=torch.float32) * (in_dim ** -0.5)
         b = torch.zeros((out_dim,), device=device) if bias else None
@@ -113,7 +153,9 @@ class QuantizedLinear(nn.Module):
     @property
     def weight(self) -> QuantizedTensor:
         return QuantizedTensor(self.packed, self.scales, self.zero_points, self.shape,
-                               block_k=self.shape[-1], bits=self.bits)
+                               granularity=self.granularity, layout=self.layout,
+                               block_k=self.shape[-1], group_size=self.group_size,
+                               bits=self.bits)
 
     @property
     def w8(self) -> Optional[Int8Resident]:
@@ -144,18 +186,27 @@ class QuantizedLinear(nn.Module):
         return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        per_row = w.granularity == "per_row"
         activation = self.activation
         if activation == "int8_auto":
             m = x.numel() // x.shape[-1]
-            activation = "int8_transient" if m >= self._AUTO_PREFILL_M else "int8"
+            transient = m >= self._AUTO_PREFILL_M and per_row and w.layout == "planar"
+            activation = "int8_transient" if transient else "int8"
         if activation == "int8_transient":
-            y = int4_linear_transient(x, self.weight)
+            y = int4_linear_transient(x, w)
         elif activation == "int8_xla" and self.w8_q8 is not None:
             y = int8_linear(x, self.w8)
-        elif activation == "int8":
-            y = int4_matmul_a8(x, self.weight)
+        elif per_row and activation == "int8":
+            y = int4_matmul_a8(x, w)
+        elif per_row:
+            y = int4_matmul(x, w)
+        elif activation == "int8" and w.layout == "planar_groups":
+            y = int4_matmul_per_group_a8(x, w)
+        elif w.group_size % 128 == 0 and (w.in_dim // 2) % w.group_size == 0:
+            y = int4_matmul_per_group(x, w)   # raises for the planar layout (K6)
         else:
-            y = int4_matmul(x, self.weight)
+            y = int4_matmul_per_group_reference(x, w)  # no kernel, as in JAX: golden
         if self.out_features and y.shape[-1] != self.out_features:
             y = y[..., : self.out_features]
         if self.bias is not None:
@@ -164,5 +215,5 @@ class QuantizedLinear(nn.Module):
 
     def extra_repr(self) -> str:
         return (f"in={self.in_dim}, out={self.out_dim}, bits={self.bits}, "
-                f"granularity=per_row, bias={self.bias is not None}, "
+                f"granularity={self.granularity}, bias={self.bias is not None}, "
                 f"activation={self.activation}")

@@ -22,9 +22,17 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.grouped_matmul import grouped_int4_matmul, grouped_int4_matmul_a8
+from .._device import resolve_device
+from ..ops.grouped_matmul import (
+    grouped_int4_matmul,
+    grouped_int4_matmul_a8,
+    grouped_int4_matmul_per_group,
+    grouped_int4_matmul_per_group_a8,
+    grouped_int4_matmul_per_group_reference,
+)
 from ..ops.int8_xla import Int8Resident
 from ..quant.core import QuantizedTensor, quantize
+from .linear import _FORMATS, per_group_layout
 
 __all__ = [
     "RoutingResult",
@@ -176,15 +184,17 @@ def combine(expert_out: torch.Tensor, routing: RoutingResult, plan: DispatchPlan
 
 class MoEINT4(nn.Module):
     """Stacked per-expert INT4 weights [E, N, K] applied by a grouped kernel
-    to pre-routed, tile-packed inputs: K2 with ``activation="bf16"``, K10
-    with ``"int8"``. ``w8``: the i8-resident copy the xla_turbo capacity
-    path runs on."""
+    to pre-routed, tile-packed inputs: per_row weights on K2 with
+    ``activation="bf16"`` and K10 with ``"int8"``; per_group planar_groups
+    weights on K13 and K14. ``w8``: the i8-resident copy the xla_turbo
+    capacity path runs on."""
 
     def __init__(self, weight: QuantizedTensor, *, activation: str = "bf16",
                  w8: Optional[Int8Resident] = None):
         super().__init__()
-        if weight.granularity != "per_row" or weight.layout != "planar":
-            raise NotImplementedError("only per_row/planar expert weights are ported")
+        if (weight.granularity, weight.layout) not in _FORMATS:
+            raise NotImplementedError(
+                f"{weight.granularity}/{weight.layout} expert weights are not ported")
         if activation not in ("bf16", "int8"):
             raise ValueError(f"activation={activation!r} is not 'bf16' or 'int8'")
         self.register_buffer("packed", weight.packed)
@@ -194,17 +204,30 @@ class MoEINT4(nn.Module):
         self.register_buffer("w8_scales", None if w8 is None else w8.scales)
         self.shape = tuple(weight.shape)
         self.bits = weight.bits
+        self.granularity = weight.granularity
+        self.layout = weight.layout
+        self.group_size = weight.group_size
         self.activation = activation
 
     @classmethod
-    def from_dense(cls, weights: torch.Tensor) -> "MoEINT4":
-        """Quantize stacked dense expert weights [E, N, K]."""
-        return cls(quantize(weights))
+    def from_dense(cls, weights: torch.Tensor, *, granularity: str = "per_row",
+                   group_size: int = 128, device=None, **kw) -> "MoEINT4":
+        """Quantize stacked dense expert weights [E, N, K], per_row or
+        per_group (planar_groups where the batched-partials kernels take it).
+        The module lives on the weights' device, or on ``device`` when one is
+        given."""
+        if device is not None:
+            weights = weights.to(resolve_device(device))
+        layout = per_group_layout(weights.shape[-1], granularity, group_size)
+        return cls(quantize(weights, granularity=granularity, layout=layout,
+                            group_size=group_size), **kw)
 
     @property
     def weight(self) -> QuantizedTensor:
         return QuantizedTensor(self.packed, self.scales, self.zero_points, self.shape,
-                               block_k=self.shape[-1], bits=self.bits)
+                               granularity=self.granularity, layout=self.layout,
+                               block_k=self.shape[-1], group_size=self.group_size,
+                               bits=self.bits)
 
     @property
     def w8(self) -> Optional[Int8Resident]:
@@ -216,6 +239,16 @@ class MoEINT4(nn.Module):
 
     def forward(self, x_sorted: torch.Tensor, tile_group_ids: torch.Tensor,
                 *, tile_m: int = 64) -> torch.Tensor:
-        if self.activation == "int8":
-            return grouped_int4_matmul_a8(x_sorted, tile_group_ids, self.weight, tile_m=tile_m)
-        return grouped_int4_matmul(x_sorted, tile_group_ids, self.weight, tile_m=tile_m)
+        w = self.weight
+        if w.granularity == "per_row":
+            if self.activation == "int8":
+                return grouped_int4_matmul_a8(x_sorted, tile_group_ids, w, tile_m=tile_m)
+            return grouped_int4_matmul(x_sorted, tile_group_ids, w, tile_m=tile_m)
+        if self.activation == "int8" and w.layout == "planar_groups":
+            return grouped_int4_matmul_per_group_a8(x_sorted, tile_group_ids, w, tile_m=tile_m)
+        if w.group_size % 128 == 0 and (w.in_dim // 2) % w.group_size == 0:
+            # raises for the planar layout (K12)
+            return grouped_int4_matmul_per_group(x_sorted, tile_group_ids, w, tile_m=tile_m)
+        # no kernel, as in JAX: the golden dequantize-and-matmul per expert
+        return grouped_int4_matmul_per_group_reference(x_sorted, tile_group_ids, w,
+                                                       tile_m=tile_m)

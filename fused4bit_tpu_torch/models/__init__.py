@@ -5,6 +5,7 @@ from .transformer import (
     MoEBlock,
     QuantizedTransformer,
     TransformerBlock,
+    as_per_group,
     as_turbo,
     as_u4_turbo,
     as_xla_turbo,
@@ -19,6 +20,7 @@ __all__ = [
     "MoEConfig",
     "QuantizedTransformer",
     "TransformerBlock",
+    "as_per_group",
     "as_turbo",
     "as_u4_turbo",
     "as_xla_turbo",

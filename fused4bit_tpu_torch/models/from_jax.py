@@ -7,8 +7,11 @@ The input is a flat ``{keypath: numpy array}`` dict whose keys are the
 taken byte for byte: both packages then compute the same function on the
 same bytes. Every leaf is consumed or the conversion raises, so nothing the
 JAX model holds is lost silently. A JAX execution mode is partly static
-(fields that are not leaves), so it is named by ``mode``. This module
-imports no JAX.
+(fields that are not leaves), so it is named by ``mode``. So is a weight's
+format: granularity, layout and group size are static fields of the JAX
+``QuantizedTensor``, so each weight's format is read from its site (a linear
+or an expert stack) and its leaves' shapes, and a shape that fits no format
+of the site raises. This module imports no JAX.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..layers.kv_cache import QuantizedKVCache
 from ..layers.linear import QuantizedLinear
 from ..layers.moe import MoEINT4
@@ -28,6 +32,7 @@ from .transformer import (
     MoEBlock,
     QuantizedTransformer,
     TransformerBlock,
+    as_per_group,
     as_turbo,
     as_u4_turbo,
     as_xla_turbo,
@@ -42,16 +47,21 @@ _CONVERTERS = {
     "u4_turbo": as_u4_turbo,
     "turbo": as_turbo,
     "xla_turbo": as_xla_turbo,
+    "per_group": as_per_group,
+    "pg_turbo": lambda model, group_size=128: as_turbo(as_per_group(model, group_size)),
 }
+_PER_GROUP_MODES = ("per_group", "pg_turbo")
 
 
 class _Reader:
     """The leaves, with a record of which keys were read."""
 
-    def __init__(self, params: Params, device):
+    def __init__(self, params: Params, device, per_group: bool):
         self.params = params
         self.device = device
+        self.per_group = per_group  # whether per-group leaves may be read
         self.used = set()
+        self.group_sizes = set()
 
     def __call__(self, key: str) -> torch.Tensor:
         self.used.add(key)
@@ -68,16 +78,31 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
-def _qt(read: _Reader, prefix: str) -> QuantizedTensor:
+def _qt(read: _Reader, prefix: str, lead: int) -> QuantizedTensor:
+    """The QuantizedTensor at ``prefix``: a linear (``lead`` 0) or an expert
+    stack (``lead`` 1). per_row planar: packed [*lead, N, K/2], scales
+    [*lead, N]. per_group planar_groups: packed [*lead, Gh, N, gs], scales
+    [*lead, N, 2*Gh]."""
     packed = read(f"{prefix}.packed")
-    shape = tuple(packed.shape[:-1]) + (packed.shape[-1] * 2,)
-    return QuantizedTensor(
-        packed=packed,
-        scales=read(f"{prefix}.scales").float(),
-        zero_points=read(f"{prefix}.zero_points").float(),
-        shape=shape,
-        block_k=shape[-1],
-    )
+    scales = read(f"{prefix}.scales").float()
+    zero_points = read(f"{prefix}.zero_points").float()
+    p, sc = tuple(packed.shape), tuple(scales.shape)
+    ok = tuple(zero_points.shape) == sc and packed.dtype == torch.uint8
+    if ok and len(p) == lead + 2 and sc == p[:-1]:
+        return QuantizedTensor(packed, scales, zero_points, p[:-1] + (2 * p[-1],),
+                               block_k=2 * p[-1])
+    if ok and len(p) == lead + 3 and sc == p[:lead] + (p[-2], 2 * p[-3]):
+        if not read.per_group:
+            raise ValueError(f"{prefix}.packed holds per-group weights {p}: read them with "
+                             f"mode={_PER_GROUP_MODES}")
+        gh, n, gs = p[-3:]
+        read.group_sizes.add(gs)
+        shape = p[:lead] + (n, 2 * gh * gs)
+        return QuantizedTensor(packed, scales, zero_points, shape, granularity="per_group",
+                               layout="planar_groups", block_k=shape[-1], group_size=gs)
+    raise ValueError(f"{prefix}: packed {p} {packed.dtype}, scales {sc}, zero_points "
+                     f"{tuple(zero_points.shape)} fit neither per_row planar nor per_group "
+                     "planar_groups")
 
 
 def _w8(read: _Reader, prefix: str, with_w8: bool) -> Optional[Int8Resident]:
@@ -88,12 +113,12 @@ def _w8(read: _Reader, prefix: str, with_w8: bool) -> Optional[Int8Resident]:
 
 
 def _linear(read: _Reader, prefix: str, with_w8: bool) -> QuantizedLinear:
-    return QuantizedLinear(_qt(read, f"{prefix}.weight"), read.get(f"{prefix}.bias"),
+    return QuantizedLinear(_qt(read, f"{prefix}.weight", 0), read.get(f"{prefix}.bias"),
                            w8=_w8(read, prefix, with_w8))
 
 
 def _experts(read: _Reader, prefix: str, with_w8: bool) -> MoEINT4:
-    return MoEINT4(_qt(read, f"{prefix}.weight"), w8=_w8(read, prefix, with_w8))
+    return MoEINT4(_qt(read, f"{prefix}.weight", 1), w8=_w8(read, prefix, with_w8))
 
 
 def model_from_jax(params: Params, cfg: ModelConfig, device=None, *,
@@ -102,15 +127,20 @@ def model_from_jax(params: Params, cfg: ModelConfig, device=None, *,
 
     ``mode``: the JAX execution mode the leaves come from ("kernel", the
     default; "u4_turbo", "turbo" or "xla_turbo", the JAX converters of the
-    same names). The model is built from the bytes, then the port's converter
-    of that name is applied; for "xla_turbo" the JAX ``.w8.q8`` /
-    ``.w8.scales`` leaves are loaded as the i8-resident copies, not
-    recomputed. Raises ``ValueError`` naming any leaf left unconsumed (for
-    example ``.w8`` leaves passed with another mode).
+    same names; "per_group", ``as_per_group``, and "pg_turbo", ``as_turbo``
+    after ``as_per_group``). The model is built from the bytes, then the
+    port's converter of that name is applied (``as_per_group`` keeps the
+    leaves that are per-group already: it requantizes nothing the JAX model
+    converted); for "xla_turbo" the JAX ``.w8.q8`` / ``.w8.scales`` leaves
+    are loaded as the i8-resident copies, not recomputed. Raises
+    ``ValueError`` naming any leaf left unconsumed (for example ``.w8``
+    leaves passed with another mode), any weight whose shapes fit no format
+    of its site, and per-group weights under a per-row mode. ``device``:
+    None means the CUDA card.
     """
     if mode not in _CONVERTERS:
         raise ValueError(f"mode={mode!r} is not one of {sorted(_CONVERTERS)}")
-    read = _Reader(params, device)
+    read = _Reader(params, resolve_device(device), mode in _PER_GROUP_MODES)
     with_w8 = mode == "xla_turbo"
     blocks = []
     for i in range(cfg.num_layers):
@@ -138,12 +168,18 @@ def model_from_jax(params: Params, cfg: ModelConfig, device=None, *,
             f"model_from_jax(mode={mode!r}) left {len(unread)} leaves unconsumed: "
             f"{unread[:8]}{' ...' if len(unread) > 8 else ''}"
         )
+    if mode in _PER_GROUP_MODES:
+        if len(read.group_sizes) > 1:
+            raise ValueError(f"per-group leaves of several group sizes {sorted(read.group_sizes)}")
+        return _CONVERTERS[mode](model, *read.group_sizes)
     return _CONVERTERS[mode](model)
 
 
 def kv_cache_from_jax(params: Params, prefix: str = "", device=None) -> QuantizedKVCache:
     """The port's ``QuantizedKVCache`` holding a JAX cache's leaves; ``prefix``
-    selects one layer of a tuple of caches (``"[0]"``)."""
+    selects one layer of a tuple of caches (``"[0]"``); ``device`` None means
+    the CUDA card."""
+    device = resolve_device(device)
     return QuantizedKVCache(*(
         _tensor(params[f"{prefix}.{f}"], device) for f in QuantizedKVCache._FIELDS
     ))

@@ -11,7 +11,10 @@ Execution modes, as in the JAX package: the default (w4a16 kernels K1, K2),
 and the converters ``as_turbo`` (w4a8 kernels K5/K4 and K10 everywhere),
 ``as_u4_turbo`` (w4a8 kernels at decode; transient i8 unpack + integer GEMM
 and the capacity MoE layout at prefill) and ``as_xla_turbo`` (i8-resident
-weight copies and integer GEMMs).
+weight copies and integer GEMMs); ``as_per_group`` requantizes the weights
+per group (kernels K7 and K13, or K8 and K14 after ``as_turbo``).
+
+Every constructor builds on the CUDA card unless ``device`` names another.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .._device import resolve_device
 from ..layers.kv_cache import QuantizedKVCache
 from ..layers.linear import QuantizedLinear
 from ..layers.moe import (
@@ -36,12 +40,13 @@ from ..layers.moe import (
 )
 from ..ops.decode_attention import int4_decode_attention, int4_prefill_attention
 from ..ops.int8_xla import int4_grouped_transient, int8_grouped_capacity, to_int8_resident
-from ..quant.core import dequantize
+from ..quant.core import dequantize, quantize
 from .config import ModelConfig
 
 __all__ = [
     "QuantizedTransformer", "TransformerBlock", "MoEBlock", "Attention",
     "rms_norm", "rotary_embedding", "as_turbo", "as_u4_turbo", "as_xla_turbo",
+    "as_per_group",
 ]
 
 
@@ -82,7 +87,7 @@ class Attention(nn.Module):
     @classmethod
     def init(cls, cfg: ModelConfig, hidden: int, *, generator=None, device=None) -> "Attention":
         hd, nh, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=resolve_device(device))
         return cls(
             QuantizedLinear.init(hidden, nh * hd, **kw),
             QuantizedLinear.init(hidden, nkv * hd, **kw),
@@ -162,6 +167,8 @@ class MoEBlock(nn.Module):
     @classmethod
     def init(cls, num_experts: int, hidden: int, ffn: int, top_k: int, tile_m: int = 16,
              *, generator=None, device=None) -> "MoEBlock":
+        device = resolve_device(device)
+
         def experts(n, k):
             w = torch.randn((num_experts, n, k), generator=generator, device=device,
                             dtype=torch.float32) * (k ** -0.5)
@@ -175,9 +182,15 @@ class MoEBlock(nn.Module):
         b, t, h = x.shape
         xf = x.reshape(b * t, h)
         routing = topk_route(self.router(xf), self.top_k, self.num_experts)
+        # per_group scales cannot fold past an integer dot: under u4_turbo
+        # such experts take the dropless grouped path at every size (JAX's
+        # transient_ok rule)
+        transient_ok = self.w_gate.granularity == "per_row"
+        capacity_i8 = self.moe_impl == "xla_turbo" or (self.moe_impl == "u4_turbo"
+                                                        and transient_ok)
         if b * t <= self.prefill_threshold:
             out = self._grouped_forward(xf, routing, self.tile_m)
-        elif self.moe_impl != "kernel":
+        elif capacity_i8:
             out = self._capacity_i8_forward(xf, routing, transient=self.moe_impl == "u4_turbo")
         elif self.prefill_impl == "einsum":
             out = self._prefill_forward(xf, routing)
@@ -268,7 +281,9 @@ class QuantizedTransformer(nn.Module):
     @classmethod
     def init(cls, cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
              device=None, dtype=torch.bfloat16) -> "QuantizedTransformer":
-        """Random weights drawn from ``generator``, built on ``device``."""
+        """Random weights drawn from ``generator``, built on ``device`` (None:
+        the CUDA card; ``device="cpu"`` builds for the plain versions)."""
+        device = resolve_device(device)
         hidden = cfg.num_heads * cfg.head_dim
         kw = dict(generator=generator, device=device)
         blocks = [
@@ -383,4 +398,46 @@ def as_xla_turbo(model: QuantizedTransformer) -> QuantizedTransformer:
             ex.w8_q8, ex.w8_scales = w8.q8, w8.scales
     for blk in model.blocks:
         blk.moe.moe_impl = "xla_turbo"
+    return model
+
+
+def _requantized(qt, group_size: int):
+    """``qt`` requantized per group through its dequantized values, or None
+    where JAX's ``as_per_group`` leaves it (already per_group, or groups
+    that would straddle the planar halves)."""
+    if qt.granularity == "per_group" or (qt.in_dim // 2) % group_size:
+        return None
+    return quantize(dequantize(qt, dtype=torch.float32), granularity="per_group",
+                    group_size=group_size,
+                    layout="planar_groups" if group_size % 128 == 0 else "planar")
+
+
+def as_per_group(model: QuantizedTransformer, group_size: int = 128) -> QuantizedTransformer:
+    """The model with every INT4 weight requantized per group of
+    ``group_size`` columns, the JAX package's production granularity.
+
+    Returns a converted copy (``model`` is left as it was). Requantization
+    goes through the dequantized values, as in JAX; the routers stay per_row;
+    tensors already per_group, and those whose K/2 the group size does not
+    divide, are kept. With ``group_size % 128 == 0`` the weights pack
+    planar_groups and run K7/K13, or K8/K14 under :func:`as_turbo` (the
+    serving benchmark's ``pg_turbo`` mode is ``as_turbo(as_per_group(m))``).
+    """
+    model = _converted_copy(model)
+
+    def linear(lin):
+        qt = _requantized(lin.weight, group_size) if isinstance(lin, QuantizedLinear) else None
+        return lin if qt is None else QuantizedLinear(
+            qt, lin.bias, out_features=lin.out_features, activation=lin.activation, w8=lin.w8)
+
+    def experts(ex):
+        qt = _requantized(ex.weight, group_size)
+        return ex if qt is None else MoEINT4(qt, activation=ex.activation, w8=ex.w8)
+
+    for blk in model.blocks:
+        for name in ("wq", "wk", "wv", "wo"):
+            setattr(blk.attn, name, linear(getattr(blk.attn, name)))
+        for name in ("w_gate", "w_up", "w_down"):
+            setattr(blk.moe, name, experts(getattr(blk.moe, name)))
+    model.lm_head = linear(model.lm_head)
     return model

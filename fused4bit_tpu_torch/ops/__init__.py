@@ -11,9 +11,22 @@ from .grouped_matmul import (
     grouped_int4_matmul,
     grouped_int4_matmul_a8,
     grouped_int4_matmul_a8_reference,
+    grouped_int4_matmul_per_group,
+    grouped_int4_matmul_per_group_a8,
+    grouped_int4_matmul_per_group_a8_reference,
+    grouped_int4_matmul_per_group_reference,
     grouped_int4_matmul_reference,
 )
-from .int4_matmul import int4_matmul, int4_matmul_a8, int4_matmul_a8_reference, int4_matmul_reference
+from .int4_matmul import (
+    int4_matmul,
+    int4_matmul_a8,
+    int4_matmul_a8_reference,
+    int4_matmul_per_group,
+    int4_matmul_per_group_a8,
+    int4_matmul_per_group_a8_reference,
+    int4_matmul_per_group_reference,
+    int4_matmul_reference,
+)
 from .int8_xla import (
     Int8Resident,
     int4_grouped_transient,
@@ -28,6 +41,10 @@ __all__ = [
     "grouped_int4_matmul",
     "grouped_int4_matmul_a8",
     "grouped_int4_matmul_a8_reference",
+    "grouped_int4_matmul_per_group",
+    "grouped_int4_matmul_per_group_a8",
+    "grouped_int4_matmul_per_group_a8_reference",
+    "grouped_int4_matmul_per_group_reference",
     "grouped_int4_matmul_reference",
     "int4_attention",
     "int4_attention_reference",
@@ -37,6 +54,10 @@ __all__ = [
     "int4_matmul",
     "int4_matmul_a8",
     "int4_matmul_a8_reference",
+    "int4_matmul_per_group",
+    "int4_matmul_per_group_a8",
+    "int4_matmul_per_group_a8_reference",
+    "int4_matmul_per_group_reference",
     "int4_matmul_reference",
     "int4_prefill_attention",
     "int8_grouped_capacity",

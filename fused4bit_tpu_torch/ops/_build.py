@@ -55,6 +55,14 @@ _SIGNATURES = {
     "f4b_grouped_int4_matmul_a8_f32": [_P] * 8 + [_I] * 4 + [_P],
     "f4b_grouped_int4_matmul_a8_fused_bf16": [_P] * 7 + [_I] * 4 + [_P],
     "f4b_grouped_int4_matmul_a8_fused_f32": [_P] * 7 + [_I] * 4 + [_P],
+    "f4b_int4_matmul_pg_bf16": [_P] * 5 + [_I] * 4 + [_P],
+    "f4b_int4_matmul_pg_f32": [_P] * 5 + [_I] * 4 + [_P],
+    "f4b_int4_matmul_pg_a8_bf16": [_P] * 6 + [_I] * 4 + [_P],
+    "f4b_int4_matmul_pg_a8_f32": [_P] * 6 + [_I] * 4 + [_P],
+    "f4b_grouped_int4_matmul_pg_bf16": [_P] * 7 + [_I] * 5 + [_P],
+    "f4b_grouped_int4_matmul_pg_f32": [_P] * 7 + [_I] * 5 + [_P],
+    "f4b_grouped_int4_matmul_pg_a8_bf16": [_P] * 8 + [_I] * 5 + [_P],
+    "f4b_grouped_int4_matmul_pg_a8_f32": [_P] * 8 + [_I] * 5 + [_P],
 }
 
 

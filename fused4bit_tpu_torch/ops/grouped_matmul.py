@@ -1,4 +1,5 @@
-"""Grouped INT4 product for the MoE experts, over kernels K2, K10, K11.
+"""Grouped INT4 product for the MoE experts, over kernels K2, K10, K11, K13
+and K14.
 
 Counterpart of ``fused4bit_tpu/ops/grouped_matmul.py``:
 ``out[t] = x_sorted[t] @ dequant(W[tile_group_ids[t // tile_m]])^T`` over
@@ -11,7 +12,13 @@ and no device-to-host sync, and runs its plain version on a CPU tensor:
 * ``grouped_int4_matmul_a8`` (w4a8, per-row int8 activations, exact integer
   dot): ``csrc/grouped_matmul_a8.cu``, K10 (the port of
   ``_grouped_a8_kernel``) on activations quantized before the launch, or
-  K11 (the port of ``_grouped_a8_fused_kernel``) quantizing in the kernel.
+  K11 (the port of ``_grouped_a8_fused_kernel``) quantizing in the kernel;
+* ``grouped_int4_matmul_per_group`` (w4a16, per-group experts in the
+  planar_groups layout): ``csrc/grouped_matmul_pg.cu``, K13 (the port of
+  ``_grouped_pg_bp_kernel``);
+* ``grouped_int4_matmul_per_group_a8`` (w4a8, the same experts): K14 (the
+  port of ``_grouped_pg_bp_a8_kernel``) on activations quantized before the
+  launch, as the TPU wrapper does.
 """
 from __future__ import annotations
 
@@ -23,12 +30,19 @@ import torch
 from ..quant.core import QuantizedTensor, dequantize
 from ..quant.reference import full_precision
 from . import _build
-from .int4_matmul import _a8_product
+from .int4_matmul import (
+    _a8_product,
+    _check_per_group,
+    _check_pg_operands,
+    _pg_a8_product,
+)
 from .int8_xla import _quantize_acts
 
 __all__ = [
     "grouped_int4_matmul", "grouped_int4_matmul_reference",
     "grouped_int4_matmul_a8", "grouped_int4_matmul_a8_reference",
+    "grouped_int4_matmul_per_group", "grouped_int4_matmul_per_group_reference",
+    "grouped_int4_matmul_per_group_a8", "grouped_int4_matmul_per_group_a8_reference",
 ]
 
 _KERNELS = {
@@ -47,6 +61,14 @@ _A8_FUSED_KERNELS = {
     torch.float32: "f4b_grouped_int4_matmul_a8_fused_f32",
 }
 _A8_KERNEL_ROWS = 16  # x rows per CTA of csrc/int4_rows_a8.cuh
+_PG_KERNELS = {
+    torch.bfloat16: "f4b_grouped_int4_matmul_pg_bf16",
+    torch.float32: "f4b_grouped_int4_matmul_pg_f32",
+}
+_PG_A8_KERNELS = {
+    torch.bfloat16: "f4b_grouped_int4_matmul_pg_a8_bf16",
+    torch.float32: "f4b_grouped_int4_matmul_pg_a8_f32",
+}
 
 
 def _check(x_sorted, tile_group_ids, qt: QuantizedTensor, tile_m: int):
@@ -54,6 +76,10 @@ def _check(x_sorted, tile_group_ids, qt: QuantizedTensor, tile_m: int):
         raise NotImplementedError("the grouped kernel requires per_row scales")
     if qt.layout != "planar":
         raise ValueError("the grouped kernel requires the planar layout")
+    _check_tiles(x_sorted, tile_group_ids, qt, tile_m)
+
+
+def _check_tiles(x_sorted, tile_group_ids, qt: QuantizedTensor, tile_m: int):
     if len(qt.shape) != 3:
         raise ValueError(f"expected stacked [E, N, K] weights, got {qt.shape}")
     t_pad, k = x_sorted.shape
@@ -85,6 +111,15 @@ def grouped_int4_matmul_reference(
     over that expert's tiles; x.dtype out."""
     grouped_int4_matmul_reference.calls += 1
     _check(x_sorted, tile_group_ids, qt, tile_m)
+    return _grouped_golden(x_sorted, tile_group_ids, qt, tile_m)
+
+
+grouped_int4_matmul_reference.calls = 0
+
+
+def _grouped_golden(x_sorted, tile_group_ids, qt: QuantizedTensor, tile_m: int) -> torch.Tensor:
+    """Per expert, dequantize and run a float32 matmul over that expert's
+    tiles; x.dtype out."""
     e, n, k = qt.shape
     xt = x_sorted.reshape(-1, tile_m, k).float()
     out = torch.zeros((xt.shape[0], tile_m, n), dtype=torch.float32, device=x_sorted.device)
@@ -99,9 +134,6 @@ def grouped_int4_matmul_reference(
         with full_precision():
             out[tiles] = torch.matmul(xt[tiles], w.t())
     return out.reshape(-1, n).to(x_sorted.dtype)
-
-
-grouped_int4_matmul_reference.calls = 0
 
 
 def grouped_int4_matmul(
@@ -242,3 +274,147 @@ def grouped_int4_matmul_a8(
 
 grouped_int4_matmul_a8.launches = 0        # K10
 grouped_int4_matmul_a8.fused_launches = 0  # K11
+
+
+# --- per-group experts in the planar_groups layout: K13 (w4a16), K14 (w4a8) ---
+
+
+def _check_pg(x_sorted, tile_group_ids, qt: QuantizedTensor, tile_m: int, *,
+              a8: bool = False) -> None:
+    if a8 and tile_m % 32 != 0:
+        raise ValueError(f"tile_m={tile_m} must be a multiple of 32 for int8")
+    _check_per_group(qt, planar_kernel=None if a8 else "K12 (_grouped_pg_kernel)")
+    _check_tiles(x_sorted, tile_group_ids, qt, tile_m)
+
+
+def _launch_pg(kernels, what, xin, sx, x_sorted, tile_group_ids, qt, tile_m, rows):
+    """One launch of K13 (sx None) or K14 over every tile; rows per CTA
+    ``rows``."""
+    _check_device_operands(x_sorted, tile_group_ids, qt)
+    _check_pg_operands(x_sorted, qt, what)
+    if tile_m % rows != 0:
+        raise ValueError(f"{what} needs tile_m % {rows} == 0 for {x_sorted.dtype}")
+    e, n, k = qt.shape
+    t_pad = x_sorted.shape[0]
+    y = torch.empty((t_pad, n), dtype=x_sorted.dtype, device=x_sorted.device)
+    if t_pad == 0:
+        return y
+    # scratch: rows in use per block of kernel rows (the zero padding is skipped)
+    rows_used = torch.empty((-(-t_pad // rows),), dtype=torch.int32, device=x_sorted.device)
+    head = (xin.data_ptr(),) if sx is None else (xin.data_ptr(), sx.data_ptr())
+    with torch.cuda.device(x_sorted.device):
+        err = getattr(_build.library(), kernels[x_sorted.dtype])(
+            *head, tile_group_ids.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(),
+            qt.zero_points.data_ptr(), rows_used.data_ptr(), y.data_ptr(), t_pad, n, k,
+            qt.group_size, tile_m, _build.stream_of(x_sorted),
+        )
+    _build.check(err, what)
+    return y
+
+
+def _aligned_rows(x_sorted: torch.Tensor) -> torch.Tensor:
+    x_sorted = x_sorted.contiguous()
+    return x_sorted.clone() if x_sorted.data_ptr() % 16 else x_sorted  # 16-byte loads
+
+
+def grouped_int4_matmul_per_group_reference(
+    x_sorted: torch.Tensor, tile_group_ids: torch.Tensor, qt: QuantizedTensor,
+    *, tile_m: int = 64,
+) -> torch.Tensor:
+    """Plain version of K13: per expert, dequantize and run a float32 matmul
+    over that expert's tiles; x.dtype out. Any per_group stack: it is also
+    the golden path of the per-group group sizes no kernel serves
+    (``MoEINT4``, as in JAX)."""
+    grouped_int4_matmul_per_group_reference.calls += 1
+    _check_tiles(x_sorted, tile_group_ids, qt, tile_m)
+    return _grouped_golden(x_sorted, tile_group_ids, qt, tile_m)
+
+
+grouped_int4_matmul_per_group_reference.calls = 0
+
+
+def grouped_int4_matmul_per_group(
+    x_sorted: torch.Tensor,
+    tile_group_ids: torch.Tensor,
+    qt: QuantizedTensor,
+    *,
+    tile_m: int = 64,
+) -> torch.Tensor:
+    """Grouped ``x @ dequant(W[g])^T`` over per-group experts.
+
+    x_sorted: [T_pad, K] bf16 or f32; tile_group_ids: [T_pad // tile_m] i32;
+    qt: stacked per_group planar_groups [E, N, K], gs a multiple of 16
+    dividing K/2 (see ``int4_matmul._check_per_group``). Returns [T_pad, N]
+    in x.dtype.
+    """
+    _check_pg(x_sorted, tile_group_ids, qt, tile_m)
+    if not x_sorted.is_cuda:
+        return grouped_int4_matmul_per_group_reference(x_sorted, tile_group_ids, qt,
+                                                       tile_m=tile_m)
+    if x_sorted.dtype not in _PG_KERNELS:
+        raise TypeError(f"K13 takes bf16 or f32 activations, got {x_sorted.dtype}")
+    x_sorted = _aligned_rows(x_sorted)
+    y = _launch_pg(_PG_KERNELS, "grouped_int4_matmul_per_group", x_sorted, None, x_sorted,
+                   tile_group_ids, qt, tile_m, _KERNEL_ROWS[x_sorted.dtype])
+    grouped_int4_matmul_per_group.launches += 1
+    return y
+
+
+grouped_int4_matmul_per_group.launches = 0  # K13
+
+
+def grouped_int4_matmul_per_group_a8_reference(
+    x_sorted: torch.Tensor, tile_group_ids: torch.Tensor, qt: QuantizedTensor,
+    *, tile_m: int = 64,
+) -> torch.Tensor:
+    """Plain version of K14: the TPU wrapper's quantizer, then per expert
+    :func:`~.int4_matmul._pg_a8_product` over that expert's tiles; x.dtype
+    out."""
+    grouped_int4_matmul_per_group_a8_reference.calls += 1
+    _check_pg(x_sorted, tile_group_ids, qt, tile_m, a8=True)
+    e, n, k = qt.shape
+    xq, sx = _quantize_acts(x_sorted, fused=True)
+    xqt, sxt = xq.reshape(-1, tile_m, k), sx.reshape(-1, tile_m, 1)
+    out = torch.zeros((xqt.shape[0], tile_m, n), dtype=torch.float32, device=x_sorted.device)
+    for ex in range(e):
+        tiles = (tile_group_ids == ex).nonzero().flatten()
+        if tiles.numel() == 0:
+            continue
+        y = _pg_a8_product(xqt[tiles].reshape(-1, k), sxt[tiles].reshape(-1, 1),
+                           qt.packed[ex], qt.scales[ex], qt.zero_points[ex])
+        out[tiles] = y.reshape(-1, tile_m, n)
+    return out.reshape(-1, n).to(x_sorted.dtype)
+
+
+grouped_int4_matmul_per_group_a8_reference.calls = 0
+
+
+def grouped_int4_matmul_per_group_a8(
+    x_sorted: torch.Tensor,
+    tile_group_ids: torch.Tensor,
+    qt: QuantizedTensor,
+    *,
+    tile_m: int = 64,
+) -> torch.Tensor:
+    """w4a8 grouped ``x @ dequant(W[g])^T`` over per-group experts.
+
+    x_sorted: [T_pad, K] bf16 or f32; tile_group_ids: [T_pad // tile_m] i32;
+    qt: stacked per_group planar_groups [E, N, K] with ``127*128*gs < 2**24``;
+    tile_m a multiple of 32. Returns [T_pad, N] in x.dtype. The activations
+    are quantized before the launch with the TPU wrapper's quantizer
+    (``_quantize_acts(x, fused=True)``, see ``int4_matmul_per_group_a8``).
+    """
+    _check_pg(x_sorted, tile_group_ids, qt, tile_m, a8=True)
+    if not x_sorted.is_cuda:
+        return grouped_int4_matmul_per_group_a8_reference(x_sorted, tile_group_ids, qt,
+                                                          tile_m=tile_m)
+    if x_sorted.dtype not in _PG_A8_KERNELS:
+        raise TypeError(f"K14 takes bf16 or f32 activations, got {x_sorted.dtype}")
+    xq, sx = _quantize_acts(x_sorted, fused=True)
+    y = _launch_pg(_PG_A8_KERNELS, "grouped_int4_matmul_per_group_a8", xq, sx, x_sorted,
+                   tile_group_ids, qt, tile_m, _A8_KERNEL_ROWS)
+    grouped_int4_matmul_per_group_a8.launches += 1
+    return y
+
+
+grouped_int4_matmul_per_group_a8.launches = 0  # K14

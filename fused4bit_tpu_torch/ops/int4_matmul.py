@@ -1,4 +1,5 @@
-"""INT4 weight-only linear, ``x @ dequant(W)^T``, over kernels K1, K4, K5.
+"""INT4 weight-only linear, ``x @ dequant(W)^T``, over kernels K1, K4, K5,
+K7 and K8.
 
 Counterpart of ``fused4bit_tpu/ops/int4_matmul.py``:
 
@@ -14,6 +15,14 @@ Counterpart of ``fused4bit_tpu/ops/int4_matmul.py``:
   :func:`~.int8_xla._quantize_acts`, or K5 (the port of
   ``_int4_a8_fused_kernel``) which quantizes inside the kernel. On a CPU
   tensor it runs :func:`int4_matmul_a8_reference`.
+* ``int4_matmul_per_group`` (w4a16, per-group weights in the planar_groups
+  layout): on a CUDA tensor it launches ``csrc/int4_matmul_pg.cu``, K7 (the
+  port of ``_int4_group_bp_kernel``), at every row count; on a CPU tensor it
+  runs :func:`int4_matmul_per_group_reference`.
+* ``int4_matmul_per_group_a8`` (w4a8, the same weights): the activations are
+  quantized before the launch, as the TPU wrapper does, then K8 (the port of
+  ``_int4_group_bp_a8_kernel``); on a CPU tensor it runs
+  :func:`int4_matmul_per_group_a8_reference`.
 """
 from __future__ import annotations
 
@@ -21,18 +30,27 @@ from typing import Optional
 
 import torch
 
-from ..quant.core import QuantizedTensor, dequantize, unpack_planar
-from ..quant.reference import reference_linear_qt
+from ..quant.core import QuantizedTensor, dequantize, planar_groups_to_planar, unpack_planar
+from ..quant.reference import full_precision, reference_linear_qt
 from . import _build
 from .int8_xla import _quantize_acts
 
-__all__ = ["int4_matmul", "int4_matmul_reference", "int4_matmul_a8", "int4_matmul_a8_reference"]
+__all__ = [
+    "int4_matmul", "int4_matmul_reference", "int4_matmul_a8", "int4_matmul_a8_reference",
+    "int4_matmul_per_group", "int4_matmul_per_group_reference",
+    "int4_matmul_per_group_a8", "int4_matmul_per_group_a8_reference",
+]
 
 _KERNELS = {torch.bfloat16: "f4b_int4_matmul_bf16", torch.float32: "f4b_int4_matmul_f32"}
 _A8_KERNELS = {torch.bfloat16: "f4b_int4_matmul_a8_bf16", torch.float32: "f4b_int4_matmul_a8_f32"}
 _A8_FUSED_KERNELS = {
     torch.bfloat16: "f4b_int4_matmul_a8_fused_bf16",
     torch.float32: "f4b_int4_matmul_a8_fused_f32",
+}
+_PG_KERNELS = {torch.bfloat16: "f4b_int4_matmul_pg_bf16", torch.float32: "f4b_int4_matmul_pg_f32"}
+_PG_A8_KERNELS = {
+    torch.bfloat16: "f4b_int4_matmul_pg_a8_bf16",
+    torch.float32: "f4b_int4_matmul_pg_a8_f32",
 }
 # The JAX fuse gate (int4_matmul.py:1289-1299), kept as it stands: fuse the
 # quantization at K <= 2 * _SHALLOW_KH while the raw-x block and its i8 copy
@@ -207,3 +225,210 @@ def int4_matmul_a8(
 
 int4_matmul_a8.launches = 0        # K4
 int4_matmul_a8.fused_launches = 0  # K5
+
+
+# --- per-group weights in the planar_groups layout: K7 (w4a16), K8 (w4a8) ---
+
+
+def _check_per_group(qt: QuantizedTensor, *, planar_kernel: Optional[str] = None) -> None:
+    """The format checks of the four per-group wrappers (K7, K8, K13, K14),
+    made before the CPU/CUDA split so both devices accept the same weights.
+
+    Every wrapper reads per_group planar_groups weights with ``gs % 16 == 0``
+    dividing K/2 (the kernels' 16-byte runs never cross a group). Per-group
+    weights in the planar layout are the input of the TPU's scale-expansion
+    kernel ``planar_kernel`` (K6 for the linear, K12 for the experts), which
+    is not ported: they raise NotImplementedError, or, with a group size
+    that kernel refuses too, ValueError. ``planar_kernel=None`` marks the
+    w4a8 wrappers, which take planar_groups only, as in JAX, and hold the
+    exactness bound ``127 * 128 * gs < 2**24`` (the TPU kernels' int32 -> f32
+    cast)."""
+    gs, kh = qt.group_size, qt.in_dim // 2
+    layouts = ("planar_groups",) if planar_kernel is None else ("planar", "planar_groups")
+    if qt.granularity != "per_group" or qt.layout not in layouts:
+        raise ValueError(f"requires per_group + {'/'.join(layouts)} weights")
+    if qt.layout == "planar":
+        if gs % 128 != 0 or kh % gs != 0:
+            raise ValueError(f"group_size={gs} must be a multiple of 128 dividing K/2={kh}")
+        raise NotImplementedError(
+            f"per_group weights in the planar layout run the TPU kernel {planar_kernel}, "
+            "which is not ported (ROADMAP queue 2); quantize with layout='planar_groups'"
+        )
+    if gs % 16 != 0 or kh % gs != 0:
+        raise ValueError(f"group_size={gs} must be a multiple of 16 dividing K/2={kh}")
+    if planar_kernel is None and 127 * 128 * gs >= 1 << 24:
+        raise ValueError(
+            f"group_size={gs}: the w4a8 per-group partials (up to 127*128*gs) "
+            "are not exact in f32 at or above 2**24"
+        )
+
+
+def _check_pg_operands(x2: torch.Tensor, qt: QuantizedTensor, what: str) -> None:
+    """Device, type and shape checks of the per-group kernels' operands."""
+    gs = qt.group_size
+    want = (*qt.shape[:-2], qt.in_dim // 2 // gs, qt.out_dim, gs)
+    if tuple(qt.packed.shape) != want:
+        raise ValueError(f"packed shape {tuple(qt.packed.shape)} != {want}")
+    for name, t, dtype in (
+        ("packed", qt.packed, torch.uint8),
+        ("scales", qt.scales, torch.float32),
+        ("zero_points", qt.zero_points, torch.float32),
+    ):
+        if t.device != x2.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor on {x2.device}")
+
+
+def int4_matmul_per_group_reference(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """Plain version of K7: dequantize, then a float32 matmul; x.dtype out.
+    Any per_group weight: it is also the golden path of the per-group group
+    sizes no kernel serves (``QuantizedLinear``, as in JAX)."""
+    int4_matmul_per_group_reference.calls += 1
+    return reference_linear_qt(x, qt, dtype=x.dtype)
+
+
+int4_matmul_per_group_reference.calls = 0
+
+
+def int4_matmul_per_group(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """``x @ dequant(qt)^T`` for per-group weights, at every row count (the
+    JAX per-group linear has no dequantize fallback).
+
+    x: [..., K] (bf16 or f32); qt: per_group planar_groups [N, K]. Returns
+    [..., N] in x.dtype.
+    """
+    _check_per_group(qt, planar_kernel="K6 (_int4_group_kernel)")
+    n, k = qt.out_dim, qt.in_dim
+    if x.shape[-1] != k:
+        raise ValueError(f"x.shape[-1]={x.shape[-1]} != K={k}")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, k)
+    if not x.is_cuda:
+        return int4_matmul_per_group_reference(x2, qt).reshape(*lead, n)
+    if x2.dtype not in _PG_KERNELS:
+        raise TypeError(f"K7 takes bf16 or f32 activations, got {x2.dtype}")
+    _check_pg_operands(x2, qt, "K7")
+    m = x2.shape[0]
+    if m == 0:
+        return x.new_empty((*lead, n))
+    x2 = _aligned(x2)
+    y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+    with torch.cuda.device(x2.device):
+        err = getattr(_build.library(), _PG_KERNELS[x2.dtype])(
+            x2.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(), qt.zero_points.data_ptr(),
+            y.data_ptr(), m, n, k, qt.group_size, _build.stream_of(x2),
+        )
+    _build.check(err, "int4_matmul_per_group")
+    int4_matmul_per_group.launches += 1
+    return y.reshape(*lead, n)
+
+
+int4_matmul_per_group.launches = 0  # K7
+
+_LANES = 32   # lanes of a warp, each over its own runs of 16 packed bytes
+_RUN = 16
+
+
+def _pg_a8_product(xq: torch.Tensor, sx: torch.Tensor, packed3: torch.Tensor,
+                   scales: torch.Tensor, zero_points: torch.Tensor) -> torch.Tensor:
+    """The w4a8 per-group product in plain torch, f32 out, operation by
+    operation as K8/K14 compute it (``csrc/int4_rows_pg.cuh``).
+
+    xq [M, K] i8, sx [M, 1] f32, packed3 [Gh, N, gs] u8, scales/zero_points
+    [N, 2Gh]. For each run of 16 packed bytes (one lane's load) the exact
+    integers P_lo = xq_lo . q_lo, X_lo = sum xq_lo, P_hi = xq_hi . vhi and
+    X_hi; each lane folds its runs in chunk order into an f32 sum,
+    ``acc += a_lo*P_lo; acc += c_lo*X_lo; acc += a_hi*P_hi; acc += c_hi*X_hi``
+    with a = (s_lo, s_hi/16), c = (-s_lo*zp_lo, s_hi*(8 - zp_hi)); the 32
+    lane sums meet in the warp's xor butterfly; y = acc * sx. The integer dots
+    run as float32 matmuls in full precision, exact since every partial sum
+    is an integer below 2^24."""
+    m, k = xq.shape
+    gh, n, gs = packed3.shape
+    kh = gh * gs
+    runs = kh // _RUN
+    chunks = -(-runs // _LANES)
+    pad = chunks * _LANES - runs
+    codes = unpack_planar(planar_groups_to_planar(packed3)).float()          # [N, K]
+    q_lo = codes[:, :kh].reshape(n, runs, _RUN).transpose(0, 1)              # [runs, N, 16]
+    q_hi = codes[:, kh:].reshape(n, runs, _RUN).transpose(0, 1)
+    group = torch.arange(runs, device=xq.device) * _RUN // gs                # group of each run
+    s, z = scales.float(), zero_points.float()
+    s_lo, z_lo = s[:, group].t(), z[:, group].t()                            # [runs, N]
+    s_hi, z_hi = s[:, gh + group].t(), z[:, gh + group].t()
+    fold = [s_lo, (-s_lo) * z_lo, s_hi * 0.0625, s_hi * (8.0 - z_hi)]        # a_lo, c_lo, a_hi, c_hi
+    fold = [torch.nn.functional.pad(f, (0, 0, 0, pad)).reshape(chunks, _LANES, n) for f in fold]
+    lanes = torch.arange(_LANES, device=xq.device)
+    out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
+    for m0 in range(0, m, 16):  # 16 rows at a time bound the [rows, runs, N] partials
+        xb = xq[m0:m0 + 16].float()
+        rows = xb.shape[0]
+        x_lo = xb[:, :kh].reshape(rows, runs, _RUN).transpose(0, 1)          # [runs, rows, 16]
+        x_hi = xb[:, kh:].reshape(rows, runs, _RUN).transpose(0, 1)
+        with full_precision():
+            p_lo = torch.bmm(x_lo, q_lo.transpose(1, 2))                     # [runs, rows, N]
+            qh = torch.bmm(x_hi, q_hi.transpose(1, 2))
+        xs_lo = x_lo.sum(-1, keepdim=True).expand(-1, -1, n)                 # exact integers
+        xs_hi = x_hi.sum(-1, keepdim=True)
+        p_hi = 16.0 * (qh - 8.0 * xs_hi)
+        xs_hi = xs_hi.expand(-1, -1, n)
+        terms = [torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)).reshape(chunks, _LANES, rows, n)
+                 for t in (p_lo, xs_lo, p_hi, xs_hi)]
+        acc = torch.zeros((_LANES, rows, n), dtype=torch.float32, device=xq.device)
+        for c in range(chunks):
+            for f, t in zip(fold, terms):
+                acc = acc + f[c][:, None, :] * t[c]
+        for off in (16, 8, 4, 2, 1):  # the warp's xor butterfly
+            acc = acc + acc[lanes ^ off]
+        out[m0:m0 + rows] = acc[0] * sx[m0:m0 + 16].float()
+    return out
+
+
+def int4_matmul_per_group_a8_reference(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """Plain version of K8: the TPU wrapper's activation quantizer, then
+    :func:`_pg_a8_product`; x.dtype out."""
+    int4_matmul_per_group_a8_reference.calls += 1
+    xq, sx = _quantize_acts(x, fused=True)
+    return _pg_a8_product(xq, sx, qt.packed, qt.scales, qt.zero_points).to(x.dtype)
+
+
+int4_matmul_per_group_a8_reference.calls = 0
+
+
+def int4_matmul_per_group_a8(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """w4a8 linear for per-group weights: per-row int8 activations, exact
+    integer partials per run, at every row count.
+
+    x: [..., K] (bf16 or f32); qt: per_group planar_groups [N, K] with
+    ``127 * 128 * gs < 2**24``. Returns [..., N] in x.dtype. The activations
+    are quantized before the launch by the TPU wrapper's quantizer, which XLA
+    compiles with ``amax / 127.0`` folded into a multiply by f32(1/127):
+    ``_quantize_acts(x, fused=True)``.
+    """
+    _check_per_group(qt)
+    n, k = qt.out_dim, qt.in_dim
+    if x.shape[-1] != k:
+        raise ValueError(f"x.shape[-1]={x.shape[-1]} != K={k}")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, k)
+    if not x.is_cuda:
+        return int4_matmul_per_group_a8_reference(x2, qt).reshape(*lead, n)
+    if x2.dtype not in _PG_A8_KERNELS:
+        raise TypeError(f"K8 takes bf16 or f32 activations, got {x2.dtype}")
+    _check_pg_operands(x2, qt, "K8")
+    m = x2.shape[0]
+    if m == 0:
+        return x.new_empty((*lead, n))
+    xq, sx = _quantize_acts(x2, fused=True)
+    y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+    with torch.cuda.device(x2.device):
+        err = getattr(_build.library(), _PG_A8_KERNELS[x2.dtype])(
+            xq.data_ptr(), sx.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(),
+            qt.zero_points.data_ptr(), y.data_ptr(), m, n, k, qt.group_size,
+            _build.stream_of(x2),
+        )
+    _build.check(err, "int4_matmul_per_group_a8")
+    int4_matmul_per_group_a8.launches += 1
+    return y.reshape(*lead, n)
+
+
+int4_matmul_per_group_a8.launches = 0  # K8

@@ -1,4 +1,12 @@
-from .core import QuantizedTensor, dequantize, pack_planar, quantize, unpack_planar
+from .core import (
+    QuantizedTensor,
+    dequantize,
+    pack_planar,
+    planar_groups_to_planar,
+    planar_to_planar_groups,
+    quantize,
+    unpack_planar,
+)
 from .reference import full_precision, reference_linear_qt
 
 __all__ = [
@@ -6,6 +14,8 @@ __all__ = [
     "dequantize",
     "full_precision",
     "pack_planar",
+    "planar_groups_to_planar",
+    "planar_to_planar_groups",
     "quantize",
     "reference_linear_qt",
     "unpack_planar",

@@ -1,0 +1,96 @@
+#!/usr/bin/env python3
+"""Where a `layer2` decode step's time goes, per execution mode, on one GPU.
+
+Run from the repository root:
+
+    python3 scripts/profile_decode.py
+
+Builds `layer2` (random weights from a seed) once, fills SLOTS slots with
+PROMPT-token prompts through the serving engine, then per mode and round:
+times STEPS decode steps on the host clock (each ends in a device sync),
+and runs STEPS more under `torch.profiler` to sum the device kernel time.
+The four modes alternate within each of ROUNDS rounds, so they share the
+card's state. Prints one JSON line per (round, mode): wall ms/step, device
+ms/step, busy share (device / wall), kernels per step and the five kernels
+with the most device time. Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from fused4bit_tpu_torch.models import (
+    QuantizedTransformer,
+    as_per_group,
+    as_turbo,
+    as_u4_turbo,
+    flagship_model_config,
+)
+from fused4bit_tpu_torch.serving import GenerationRequest, ServingEngine
+
+ROUNDS = 2
+STEPS = 10    # decode steps timed, and as many profiled, per mode and round
+SLOTS = 8
+PROMPT = 20   # tokens per prompt
+
+
+def _modes(model):
+    pg = as_per_group(model)
+    return {"default": model, "u4_turbo": as_u4_turbo(model), "per_group": pg,
+            "pg_turbo": as_turbo(pg)}
+
+
+def _engine(model, cfg):
+    rng = np.random.default_rng(0)
+    eng = ServingEngine(model, cfg, num_slots=SLOTS, max_seq=256, prefill_bucket=32)
+    for uid in range(SLOTS):
+        eng.submit(GenerationRequest(uid=uid, prompt=rng.integers(1, cfg.vocab_size, PROMPT).tolist(),
+                                     max_new_tokens=200))
+    eng.step()          # admits every slot (one prefill each), then one decode step
+    for _ in range(3):  # warm-up decode steps
+        eng.step()
+    torch.cuda.synchronize()
+    return eng
+
+
+def _profile(eng) -> dict:
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        eng.step()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / STEPS
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(STEPS):
+            eng.step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = sum(e.self_device_time_total for e in kernels) / 1e3 / STEPS
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return dict(wall_ms_per_step=wall, device_ms_per_step=device, busy=device / wall,
+                kernels_per_step=sum(e.count for e in kernels) / STEPS,
+                top=[(e.key[:60], e.self_device_time_total / 1e3 / STEPS, e.count // STEPS)
+                     for e in top])
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_decode: no CUDA device")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    cfg = flagship_model_config("layer2")
+    model = QuantizedTransformer.init(cfg, generator=torch.Generator("cuda").manual_seed(0),
+                                      device="cuda")
+    engines = {m: _engine(mm, cfg) for m, mm in _modes(model).items()}
+    for rnd in range(ROUNDS):
+        for m, eng in engines.items():
+            row = dict(round=rnd, mode=m, card=card, **_profile(eng))
+            print(json.dumps(row), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -31,7 +31,7 @@ def _assert_same_cache(cache, jcache):
 def _filled(rng, steps):
     """Both caches after the same appends; steps = [(starts, T), ...]."""
     jc = JaxKVCache.init(B, HKV, S, D)
-    c = QuantizedKVCache.init(B, HKV, S, D)
+    c = QuantizedKVCache.init(B, HKV, S, D, device="cpu")
     for starts, t in steps:
         k = rng.standard_normal((B, HKV, t, D)).astype(np.float32)
         v = rng.standard_normal((B, HKV, t, D)).astype(np.float32)
@@ -54,7 +54,7 @@ def test_kv_append_bytes_equal_jax(rng, steps):
 
 def test_kv_cache_converted_from_jax_is_the_same(rng):
     _, jc = _filled(rng, [([0, 1], 9)])
-    _assert_same_cache(kv_cache_from_jax(_params(jc)), jc)
+    _assert_same_cache(kv_cache_from_jax(_params(jc), device="cpu"), jc)
 
 
 def test_slot_slice_merge_reset(rng):
@@ -62,7 +62,7 @@ def test_slot_slice_merge_reset(rng):
     part = c.slice_slot(1)
     part.append(torch.randn(1, HKV, 3, D), torch.randn(1, HKV, 3, D))
     assert c.lengths.tolist() == [6, 9]          # the slice is a view
-    other = QuantizedKVCache.init(B, HKV, S, D).merge_slot(part, 0)
+    other = QuantizedKVCache.init(B, HKV, S, D, device="cpu").merge_slot(part, 0)
     assert torch.equal(other.k_packed[0], c.k_packed[1])
     assert other.lengths.tolist() == [9, 0]
     c.reset_slot(1)
@@ -71,7 +71,8 @@ def test_slot_slice_merge_reset(rng):
 
 def test_attention_golden_path_matches_fused(rng):
     cfg = flagship_model_config("tiny")
-    fused = Attention.init(cfg, cfg.num_heads * cfg.head_dim, generator=torch.Generator().manual_seed(0))
+    fused = Attention.init(cfg, cfg.num_heads * cfg.head_dim, generator=torch.Generator().manual_seed(0),
+                           device="cpu")
     golden = Attention(fused.wq, fused.wk, fused.wv, fused.wo, num_heads=cfg.num_heads,
                        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
                        rope_theta=cfg.rope_theta, use_fused_attention=False)
@@ -79,7 +80,7 @@ def test_attention_golden_path_matches_fused(rng):
     pos = torch.tensor([[0, 1, 2, 3, 4, 5], [3, 4, 5, 6, 7, 8]], dtype=torch.int32)
     outs = []
     for attn in (fused, golden):
-        cache = QuantizedKVCache.init(B, cfg.num_kv_heads, S, cfg.head_dim)
+        cache = QuantizedKVCache.init(B, cfg.num_kv_heads, S, cfg.head_dim, device="cpu")
         cache.lengths[1] = 3   # row 1 continues a sequence at position 3
         out, cache = attn(x, cache, pos)
         assert cache.lengths.tolist() == [6, 9]

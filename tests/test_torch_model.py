@@ -49,7 +49,7 @@ def _prefill_and_decode_match(jmodel, model, cfg):
 def test_tiny_model_prefill_and_decode_match_jax():
     cfg = flagship_model_config("tiny")
     jmodel = JaxTransformer.init(jax.random.PRNGKey(0), cfg)
-    _prefill_and_decode_match(jmodel, model_from_jax(_params(jmodel), cfg), cfg)
+    _prefill_and_decode_match(jmodel, model_from_jax(_params(jmodel), cfg, device="cpu"), cfg)
 
 
 @pytest.fixture(scope="module")
@@ -62,7 +62,7 @@ def tiny_jax_model():
 def test_tiny_model_modes_match_jax(tiny_jax_model, mode):
     cfg, jmodel = tiny_jax_model
     jmodel = getattr(jax_transformer, f"as_{mode}")(jmodel)
-    model = model_from_jax(_params(jmodel), cfg, mode=mode)
+    model = model_from_jax(_params(jmodel), cfg, mode=mode, device="cpu")
     blk = model.blocks[0]
     want = {"u4_turbo": ("int8_auto", "int8", "u4_turbo", 32),
             "turbo": ("int8", "int8", "kernel", 32),
@@ -77,7 +77,7 @@ def test_tiny_model_u4_turbo_capacity_prefill_matches_jax(tiny_jax_model):
     the capacity layout on transient i8 expert weights."""
     cfg, jmodel = tiny_jax_model
     jmodel = jax_transformer.as_u4_turbo(jmodel)
-    model = model_from_jax(_params(jmodel), cfg, mode="u4_turbo")
+    model = model_from_jax(_params(jmodel), cfg, mode="u4_turbo", device="cpu")
     jmodel = dataclasses.replace(jmodel, blocks=tuple(
         dataclasses.replace(b, moe=dataclasses.replace(b.moe, prefill_threshold=2))
         for b in jmodel.blocks))
@@ -117,7 +117,7 @@ def test_wide_w4a8_prefill_departs_from_default_as_in_jax():
     for mode in ("kernel", "u4_turbo", "turbo"):
         jmodel = jbase if mode == "kernel" else getattr(jax_transformer, f"as_{mode}")(jbase)
         jl, _ = jmodel(jnp.asarray(tokens), jmodel.init_cache(cfg, b, t), jnp.asarray(positions))
-        model = model_from_jax(_params(jmodel), cfg, mode=mode)
+        model = model_from_jax(_params(jmodel), cfg, mode=mode, device="cpu")
         with torch.no_grad():
             tl, _ = model(torch.from_numpy(tokens), model.init_cache(cfg, b, t),
                           torch.from_numpy(positions))
@@ -145,12 +145,12 @@ def test_model_from_jax_refuses_unconsumed_leaves(tiny_jax_model):
     cfg, jmodel = tiny_jax_model
     params = _params(jax_transformer.as_xla_turbo(jmodel))
     with pytest.raises(ValueError, match=r"\.w8\.q8"):
-        model_from_jax(params, cfg)                      # mode="kernel" drops the .w8 leaves
+        model_from_jax(params, cfg, device="cpu")        # mode="kernel" drops the .w8 leaves
     with pytest.raises(ValueError, match="unconsumed"):
-        model_from_jax({**_params(jmodel), ".extra": np.zeros(1)}, cfg)
+        model_from_jax({**_params(jmodel), ".extra": np.zeros(1)}, cfg, device="cpu")
     with pytest.raises(ValueError, match="mode"):
-        model_from_jax(_params(jmodel), cfg, mode="pg_turbo")
-    model = model_from_jax(params, cfg, mode="xla_turbo")
+        model_from_jax(_params(jmodel), cfg, mode="fp4", device="cpu")
+    model = model_from_jax(params, cfg, mode="xla_turbo", device="cpu")
     for lin, key in ((model.blocks[0].attn.wq, ".blocks[0].attn.wq"),
                      (model.lm_head, ".lm_head"),
                      (model.blocks[1].moe.w_down, ".blocks[1].moe.w_down")):

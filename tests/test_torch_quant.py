@@ -52,5 +52,9 @@ def test_pack_planar_roundtrip(rng):
 
 
 def test_only_per_row_planar_is_ported():
+    """per_row and per_group are ported (tests/test_torch_per_group.py);
+    per_tensor and the interleaved layouts are not."""
     with pytest.raises(NotImplementedError):
-        quantize(torch.zeros(4, 8), granularity="per_group")
+        quantize(torch.zeros(4, 8), granularity="per_tensor")
+    with pytest.raises(NotImplementedError):
+        quantize(torch.zeros(4, 8), layout="interleaved")

@@ -11,7 +11,8 @@ PROMPTS = [[5, 17, 300, 2], list(range(40, 51)), [9] * 19]   # 1, 2 and 3 prefil
 @pytest.fixture(scope="module")
 def tiny():
     cfg = flagship_model_config("tiny")
-    return QuantizedTransformer.init(cfg, generator=torch.Generator().manual_seed(0)), cfg
+    return QuantizedTransformer.init(cfg, generator=torch.Generator().manual_seed(0),
+                                     device="cpu"), cfg
 
 
 def _greedy(model, cfg, prompt, n, max_seq):

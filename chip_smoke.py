@@ -19,13 +19,23 @@ Phases, each of which raises on failure:
      could take: bytes over 3.35 TB/s or operations over the peak of their
      type) and, where one PyTorch call computes the same function, that
      call's time, its output first held against the plain version at the
-     kernel's bar;
+     kernel's bar. K3' runs on a page pool holding a contiguous cache's
+     bytes in shuffled page order and must equal K3 on that cache bit for
+     bit;
   4. serve 12 requests on the `layer2` model (random weights from a seeded
      generator) with 8 slots, in the default (w4a16) mode and then, on the
      same weights, in the `as_u4_turbo` (w4a8), `as_per_group` (w4a16,
      per-group) and `as_turbo(as_per_group)` (w4a8, per-group: the serving
      benchmark's pg_turbo) modes, and check that each run launched the
-     kernels of its mode and no plain version;
+     kernels of its mode and no plain version; after the default run, serve
+     the same requests on a paged cache whose pool is too small for all 8
+     slots (K3', admission waits; first tokens equal the contiguous run's),
+     8 requests sharing a 128-token prompt prefix (prefix caching), the 12
+     with decode_block=8 (contiguous, and paged across a page boundary;
+     tokens equal decode_block=1's) and speculatively with the model as its
+     own draft (acceptance 1.0, tokens equal), then run speculative_generate
+     with the `small` model as an independent draft (teacher-forced greedy
+     check);
   5. call the w4a8 op entry points whose kernels no serving path of `layer2`
      takes: the linear at deep K (K4) and the grouped product with the
      quantization fused (K11);
@@ -35,10 +45,11 @@ Phases, each of which raises on failure:
      K7/K8 at 640 rows and K13/K14 at tile_m 128), that the w4a8 modes agree
      with each other, and print their cosines against the default mode;
   7. run the `tiny` model with the same weights on the card and on the CPU,
-     in the default mode and in each w4a8 and per-group mode, and compare
-     the logits.
+     in the default mode and in each w4a8 and per-group mode, and on paged
+     caches, and compare the logits.
 The line before the last is a JSON summary of the kernels, with each
-kernel's launches counted over the phase that drives it (4 or 5); the last
+kernel's launches counted over the phase that drives it (4 or 5; K3' over
+the first paged serve); the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -54,7 +65,13 @@ import torch
 import torch.nn.functional as F
 
 from fused4bit_tpu_torch import ops
-from fused4bit_tpu_torch.layers import QuantizedKVCache, dispatch, make_dispatch_plan, topk_route
+from fused4bit_tpu_torch.layers import (
+    PagedKVCache,
+    QuantizedKVCache,
+    dispatch,
+    make_dispatch_plan,
+    topk_route,
+)
 from fused4bit_tpu_torch.models import (
     QuantizedTransformer,
     as_per_group,
@@ -66,7 +83,7 @@ from fused4bit_tpu_torch.models import (
 from fused4bit_tpu_torch.ops import _build
 from fused4bit_tpu_torch.ops.int8_xla import _quantize_acts
 from fused4bit_tpu_torch.quant import planar_groups_to_planar, quantize, unpack_planar
-from fused4bit_tpu_torch.serving import GenerationRequest, ServingEngine
+from fused4bit_tpu_torch.serving import GenerationRequest, ServingEngine, speculative_generate
 
 # Tolerances, kernel vs plain version on the same inputs:
 # - bf16 output: both round one f32 sum to bf16, summed in another order, so a
@@ -87,6 +104,10 @@ A8_F32_REL_TOL = 1e-6
 A8_BF16_REL_TOL = 2.0 ** -7
 # Whole model on the card vs the CPU: bf16 activations through 2 layers.
 MODEL_REL_TOL = 2e-2
+# Speculative output against a teacher-forced forward: the runner-up is
+# accepted within this logit gap (the verify forward at T = gamma+1 and the
+# decode forward round in another order; tests/test_speculative.py).
+SPEC_TIE_BAND = 0.2
 # Long prefill, turbo (w4a8 kernels) vs u4_turbo (integer GEMMs), cosine of
 # each row's last-position logits and of all its positions together. The
 # two modes compute the same integers but round their f32 epilogues and
@@ -103,6 +124,8 @@ SOURCES = {
                             "fused4bit_tpu/ops/grouped_matmul.py:59"),
     "int4_attention": ("fused4bit_tpu_torch/csrc/decode_attention.cu",
                        "fused4bit_tpu/ops/decode_attention.py:71"),
+    "paged_int4_attention": ("fused4bit_tpu_torch/csrc/decode_attention.cu",
+                             "fused4bit_tpu/ops/decode_attention.py:311"),
     "int4_matmul_a8": ("fused4bit_tpu_torch/csrc/int4_matmul_a8.cu",
                        "fused4bit_tpu/ops/int4_matmul.py:1039"),
     "int4_matmul_a8_fused": ("fused4bit_tpu_torch/csrc/int4_matmul_a8.cu",
@@ -126,6 +149,7 @@ MAIN_SHAPE = {
     "int4_matmul": "M=8 N=4096 K=4096 bf16",
     "grouped_int4_matmul": "T=8 tile_m=16 N=14336 K=4096",
     "int4_attention": "decode B=8 lengths [1, 2, 37, 255]",
+    "paged_int4_attention": "decode B=8 page 128 bf16",
     "int4_matmul_a8": "M=8 N=4096 K=4096 bf16",
     "int4_matmul_a8_fused": "M=8 N=4096 K=4096 bf16",
     "grouped_int4_matmul_a8": "T=8 tile_m=32 N=14336 K=4096",
@@ -590,6 +614,87 @@ def check_attention(device, results, timer, gen, b=8, hq=32, h_kv=8, d=128, s_ma
              work=attention_bound(q, cache, starts, t))
 
 
+def paged_copy(cache, page, device):
+    """A page pool holding the contiguous ``cache``'s bytes page by page at
+    shuffled, non-identity page ids (page 0 parked), with its lengths."""
+    b, h_kv, s2, _ = cache.k_packed.shape
+    mp = 2 * s2 // page
+    paged = PagedKVCache.init(b, h_kv, cache.head_dim, num_pages=b * mp + 1, page_size=page,
+                              max_pages_per_slot=mp, device=device)
+    table = (torch.randperm(b * mp, generator=torch.Generator().manual_seed(5)) + 1).reshape(b, mp)
+    paged.page_table.copy_(table)
+    ids = table.reshape(-1).to(device)
+
+    def split(t, n):  # [B, H, mp*n, ...] -> [B*mp, H, n, ...] in table order
+        rest = tuple(t.shape[3:])
+        return t.reshape(b, h_kv, mp, n, *rest).transpose(1, 2).reshape(b * mp, h_kv, n, *rest)
+
+    for pool, packed in ((paged.k_pool, cache.k_packed), (paged.v_pool, cache.v_packed)):
+        pool[ids] = split(packed, page // 2)
+    for f in ("k_scale", "k_zp", "v_scale", "v_zp"):
+        getattr(paged, f)[ids] = split(getattr(cache, f), page)
+    paged.lengths.copy_(cache.lengths)
+    return paged
+
+
+def paged_attention_bound(q, cache, starts, t) -> dict:
+    """K3' for t query rows per slot from ``starts``: q read and the output
+    written once, the table, lengths and starts read once, and the positions
+    in use read once through the table (packed K and V, D/2 bytes per
+    position each, and the four f32 planes), on K3's scale
+    (:func:`attention_bound`); 4*D operations per (query head, query, key)
+    pair under the causal mask."""
+    hq, d = q.shape[1], q.shape[-1]
+    h_kv = cache.k_pool.shape[1]
+    used = sum(int(s) + t for s in starts.tolist())
+    kv = h_kv * used * (d + 4 * 4)
+    pairs = sum(t * int(s) + t * (t + 1) // 2 for s in starts.tolist())
+    return bound(2 * nbytes(q) + nbytes(cache.page_table, cache.lengths, starts) + kv,
+                 4.0 * hq * d * pairs, "bf16")
+
+
+def check_paged_attention(device, results, timer, gen, b=8, hq=32, h_kv=8, d=128, page=128):
+    """K3' at the layer2 attention shapes on a pool whose pages hold a
+    contiguous cache's bytes in shuffled order: equal to K3 on that cache bit
+    for bit, and within K3's bar of its plain version. Decode in bf16 and
+    f32 (lengths odd and even, one past a page boundary), and a 2 x 320-token
+    prefill from odd starts (chunks beginning mid-page)."""
+    lengths = [(1, 2, 37, 255, 129, 128, 200, 77)[i % 8] for i in range(b)]
+    cache = _filled_cache(b, h_kv, 256, d, lengths, gen, device)
+    paged = paged_copy(cache, page, device)
+    q = torch.randn((b, hq, d), generator=gen, device=device).bfloat16()
+    for qq in (q, q.float()):
+        bf16 = qq.dtype == torch.bfloat16
+        y = ops.int4_decode_attention(qq, paged)
+        torch.cuda.synchronize()
+        if not torch.equal(y, ops.int4_decode_attention(qq, cache)):
+            raise AssertionError(f"K3' decode {qq.dtype}: not bit-equal to K3 on the same bytes")
+        starts = paged.lengths - 1
+        _compare("paged_int4_attention", f"decode B={b} page {page} {'bf16' if bf16 else 'f32'}",
+                 y, ops.paged_int4_attention_reference(qq[:, :, None], paged, starts)[:, :, 0],
+                 ATTN_ABS_TOL, results, timer if bf16 else None,
+                 lambda: ops.int4_decode_attention(qq, paged),
+                 lambda: ops.paged_int4_attention_reference(qq[:, :, None], paged, starts),
+                 work=paged_attention_bound(qq, paged, starts, 1),
+                 library=sdpa_yardstick(qq, paged.logical()) if bf16 else None)
+    print(f"    K3' == K3 bit for bit at decode (bf16, f32), lengths {sorted(set(lengths))}")
+    b, t = 2, 320
+    starts = torch.tensor([1, 67], dtype=torch.int32, device=device)
+    cache = _filled_cache(b, h_kv, 512, d, (starts + t).tolist(), gen, device)
+    paged = paged_copy(cache, page, device)
+    q = torch.randn((b, hq, t, d), generator=gen, device=device).bfloat16()
+    y = ops.int4_prefill_attention(q, paged, starts)
+    torch.cuda.synchronize()
+    if not torch.equal(y, ops.int4_prefill_attention(q, cache, starts)):
+        raise AssertionError("K3' prefill: not bit-equal to K3 on the same bytes")
+    _compare("paged_int4_attention", f"prefill B={b} T={t} starts odd", y,
+             ops.paged_int4_attention_reference(q, paged, starts), ATTN_ABS_TOL, results, timer,
+             lambda: ops.int4_prefill_attention(q, paged, starts),
+             lambda: ops.paged_int4_attention_reference(q, paged, starts), iters=5,
+             work=paged_attention_bound(q, paged, starts, t))
+    print(f"    K3' == K3 bit for bit at the {b} x {t} prefill from starts {starts.tolist()}")
+
+
 def check_kernels(device="cuda", timing=True):
     """Phase 3: every kernel against its plain version at the layer2 shapes."""
     gen = torch.Generator(device=device).manual_seed(1)
@@ -598,6 +703,7 @@ def check_kernels(device="cuda", timing=True):
     check_linear(device, results, timer, gen)
     check_grouped(device, results, timer, gen)
     check_attention(device, results, timer, gen)
+    check_paged_attention(device, results, timer, gen)
     check_linear_a8(device, results, timer, gen)
     check_grouped_a8(device, results, timer, gen)
     check_linear_pg(device, results, timer, gen)
@@ -608,7 +714,8 @@ def check_kernels(device="cuda", timing=True):
 
 
 _REFERENCES = (ops.int4_matmul_reference, ops.grouped_int4_matmul_reference,
-               ops.int4_attention_reference, ops.int4_matmul_a8_reference,
+               ops.int4_attention_reference, ops.paged_int4_attention_reference,
+               ops.int4_matmul_a8_reference,
                ops.grouped_int4_matmul_a8_reference, ops.int4_matmul_per_group_reference,
                ops.int4_matmul_per_group_a8_reference,
                ops.grouped_int4_matmul_per_group_reference,
@@ -624,6 +731,7 @@ def _reset_counts():
     ops.int4_matmul.launches = 0
     ops.grouped_int4_matmul.launches = 0
     ops.int4_attention.launches = 0
+    ops.paged_int4_attention.launches = 0
     for fn in (ops.int4_matmul_a8, ops.grouped_int4_matmul_a8):
         fn.launches = fn.fused_launches = 0
     for fn in _PG_OPS:
@@ -637,6 +745,7 @@ def _launch_counts() -> dict:
         "int4_matmul": ops.int4_matmul.launches,
         "grouped_int4_matmul": ops.grouped_int4_matmul.launches,
         "int4_attention": ops.int4_attention.launches,
+        "paged_int4_attention": ops.paged_int4_attention.launches,
         "int4_matmul_a8": ops.int4_matmul_a8.launches,
         "int4_matmul_a8_fused": ops.int4_matmul_a8.fused_launches,
         "grouped_int4_matmul_a8": ops.grouped_int4_matmul_a8.launches,
@@ -671,18 +780,36 @@ def build_layer2(device="cuda", scale="layer2"):
     return model, cfg
 
 
-def serve(model, cfg, mode, card_line=""):
-    """Phase 4: the continuous-batching server, 12 requests on 8 slots.
-    Returns the kernel launches of the run."""
+SERVE_LENGTHS = [3, 70, 12, 33, 45, 64, 7, 20, 50, 66, 5, 31]   # 1 to 3 prefill chunks
+
+
+def phase4_requests(cfg):
+    """The 12 requests of phase 4, prompts from a seeded generator, budgets
+    of 8 to 16 new tokens."""
     rng = np.random.default_rng(0)
-    lengths = [3, 70, 12, 33, 45, 64, 7, 20, 50, 66, 5, 31]     # 1 to 3 prefill chunks
-    budgets = [8 + (5 * i) % 9 for i in range(len(lengths))]   # 8..16 new tokens
-    eng = ServingEngine(model, cfg, num_slots=8, max_seq=256, prefill_bucket=32)
-    for uid, (n, new) in enumerate(zip(lengths, budgets)):
-        eng.submit(GenerationRequest(uid=uid, prompt=rng.integers(1, cfg.vocab_size, n).tolist(),
-                                     max_new_tokens=new))
+    return [GenerationRequest(uid=uid, prompt=rng.integers(1, cfg.vocab_size, n).tolist(),
+                              max_new_tokens=8 + (5 * uid) % 9)
+            for uid, n in enumerate(SERVE_LENGTHS)]
+
+
+def _generated(eng) -> int:
+    return sum(map(len, eng.generated.values())) + sum(map(len, eng.finished.values()))
+
+
+def serve(model, cfg, mode, card_line="", reqs=None, **engine_kw):
+    """The continuous-batching server on ``reqs`` (phase 4's 12 requests by
+    default), 8 slots, max_seq 256, prefill bucket 32; ``engine_kw`` picks
+    the paged cache, decode blocks or a draft model. Checks that every
+    request met its budget. Returns the kernel launches of the run, the
+    engine, and the number of steps in which a request waited in the queue
+    beside a free slot."""
+    reqs = phase4_requests(cfg) if reqs is None else reqs
+    eng = ServingEngine(model, cfg, **{**dict(num_slots=8, max_seq=256, prefill_bucket=32),
+                                       **engine_kw})
+    for r in reqs:
+        eng.submit(r)
     _reset_counts()
-    decode_ms = []
+    decode_ms, waits = [], 0
     t0 = time.perf_counter()
     with torch.no_grad():
         while eng.active or eng.queue:
@@ -692,21 +819,173 @@ def serve(model, cfg, mode, card_line=""):
             torch.cuda.synchronize()
             if len(eng.queue) == queued:  # no admission: a pure decode step
                 decode_ms.append((time.perf_counter() - s0) * 1e3)
+            waits += bool(eng.queue) and len(eng.active) < eng.num_slots
     wall = time.perf_counter() - t0
     launches = _launch_counts()
-    out = eng.finished
-    for uid, want in enumerate(budgets):
-        got = out.get(uid)
-        if got is None or len(got) != want:
-            raise AssertionError(f"uid {uid}: {None if got is None else len(got)} tokens, want {want}")
+    for r in reqs:
+        got = eng.finished.get(r.uid)
+        if got is None or len(got) != r.max_new_tokens:
+            raise AssertionError(f"serve [{mode}] uid {r.uid}: "
+                                 f"{None if got is None else len(got)} tokens, want "
+                                 f"{r.max_new_tokens}")
         if not all(0 <= tok < cfg.vocab_size for tok in got):
-            raise AssertionError(f"uid {uid}: token out of the vocabulary")
-    tokens = sum(budgets)
-    print(f"serve [{mode}]: {len(lengths)} requests, {tokens} tokens in {wall:.2f} s wall "
-          f"({tokens / wall:.1f} tok/s), decode {statistics.median(decode_ms):.2f} ms/step median "
-          f"over {len(decode_ms)} steps, taken on {card_line}")
+            raise AssertionError(f"serve [{mode}] uid {r.uid}: token out of the vocabulary")
+    tokens = sum(r.max_new_tokens for r in reqs)
+    print(f"serve [{mode}]: {len(reqs)} requests, {tokens} tokens in {wall:.2f} s wall "
+          f"({tokens / wall:.1f} tok/s), decode {statistics.median(decode_ms):.2f} ms/step "
+          f"median over {len(decode_ms)} steps, taken on {card_line}")
     print(f"serve [{mode}]: kernel launches {launches}, plain-version calls {_plain_calls()}")
+    return launches, eng, waits
+
+
+def _same_first_tokens(what, got, ref):
+    """Raise unless every request's first token equals the reference run's;
+    returns how many whole sequences are identical."""
+    differ = [uid for uid in ref if got[uid][0] != ref[uid][0]]
+    if differ:
+        raise AssertionError(f"{what}: first tokens differ from the reference run for uids "
+                             f"{differ}")
+    return sum(got[uid] == ref[uid] for uid in ref)
+
+
+_DEFAULT_KERNELS = ("int4_matmul", "grouped_int4_matmul")
+
+
+def serve_paged(model, cfg, ref, card_line):
+    """Paged serving on layer2, default mode: phase 4's 12 requests with
+    page 128 and a pool of 5 usable pages for 8 slots, so that admission
+    waits for retirements; then 8 requests whose 160-token prompts share
+    their first 128 tokens, with prefix caching, against a contiguous run
+    of the same requests. Returns the launches of the first run."""
+    launches, eng, waits = serve(model, cfg, "paged", card_line, paged=True, page_size=128,
+                                 num_pages=6)
+    _expect_launches("serve [paged]", launches, _DEFAULT_KERNELS + ("paged_int4_attention",),
+                     ("int4_attention",))
+    if waits == 0:
+        raise AssertionError("serve [paged]: admission never waited for pages")
+    same = _same_first_tokens("serve [paged]", eng.finished, ref)
+    contiguous = ServingEngine(model, cfg, num_slots=8, max_seq=256, prefill_bucket=32)
+    pool_bytes = sum(c.nbytes for c in eng.caches)
+    cont_bytes = sum(c.nbytes for c in contiguous.caches)
+    del contiguous
+    print(f"serve [paged]: every first token equals the contiguous run's; {same} of "
+          f"{len(ref)} sequences identical; admission waited in {waits} steps; pool "
+          f"{pool_bytes} bytes ({eng.num_pages} pages of {eng.page_size}) against "
+          f"{cont_bytes} for the contiguous cache of the same engine (8 slots x 256)")
+    rng = np.random.default_rng(6)
+    prefix = rng.integers(1, cfg.vocab_size, 128).tolist()
+    reqs = [GenerationRequest(uid=uid, prompt=prefix + rng.integers(1, cfg.vocab_size, 32).tolist(),
+                              max_new_tokens=8) for uid in range(8)]
+    launches_pre, eng_pre, _ = serve(model, cfg, "paged, shared 128-token prefix", card_line,
+                                     reqs=reqs, paged=True, page_size=128)
+    _expect_launches("serve [paged prefix]", launches_pre,
+                     _DEFAULT_KERNELS + ("paged_int4_attention",), ("int4_attention",))
+    stats = eng_pre.prefix_stats
+    if stats["hits"] != 7 or stats["shared_tokens"] != 7 * 128:
+        raise AssertionError(f"serve [paged prefix]: prefix_stats {stats}, want 7 hits and "
+                             f"{7 * 128} shared tokens")
+    _, eng_ref, _ = serve(model, cfg, "contiguous, same prefix requests", card_line, reqs=reqs)
+    same = _same_first_tokens("serve [paged prefix]", eng_pre.finished, eng_ref.finished)
+    print(f"serve [paged prefix]: prefix_stats {stats}; every first token equals the "
+          f"contiguous run's, {same} of {len(reqs)} sequences identical")
     return launches
+
+
+def decode_ms_per_token(model, cfg, decode_block, steps=64, **engine_kw):
+    """Steady decode on layer2: 8 slots filled in one step (20-token
+    prompts), then ``steps`` decode steps timed on the host clock, each
+    engine step ending in a device sync; ms per generated token."""
+    rng = np.random.default_rng(8)
+    eng = ServingEngine(model, cfg, num_slots=8, max_seq=256, prefill_bucket=32,
+                        decode_block=decode_block, **engine_kw)
+    for uid in range(8):
+        eng.submit(GenerationRequest(uid=uid, prompt=rng.integers(1, cfg.vocab_size, 20).tolist(),
+                                     max_new_tokens=1 + decode_block + steps))
+    with torch.no_grad():
+        eng.step()   # admits every slot, then the first block
+        torch.cuda.synchronize()
+        before = _generated(eng)
+        t0 = time.perf_counter()
+        for _ in range(steps // decode_block):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall * 1e3 / (_generated(eng) - before)
+
+
+def serve_blocks(model, cfg, ref, card_line):
+    """decode_block=8 on layer2: the 12 requests on the contiguous cache and
+    on a paged one of page 64 (uid 8 decodes positions 50-65, a block across
+    a page boundary). Token counts and greedy tokens must equal the
+    decode_block=1 run's. Then steady decode ms per generated token at
+    decode_block 1 and 8, in the order 1, 8, 8, 1."""
+    for mode, kw in (("contiguous, decode_block=8", {}),
+                     ("paged page 64, decode_block=8", dict(paged=True, page_size=64))):
+        launches, eng, _ = serve(model, cfg, mode, card_line, decode_block=8, **kw)
+        attn = "paged_int4_attention" if kw else "int4_attention"
+        _expect_launches(f"serve [{mode}]", launches, _DEFAULT_KERNELS + (attn,), ())
+        differ = [uid for uid in ref if eng.finished[uid] != ref[uid]]
+        if differ:
+            raise AssertionError(f"serve [{mode}]: tokens differ from decode_block=1 for uids "
+                                 f"{differ}")
+        print(f"serve [{mode}]: token counts and tokens equal the decode_block=1 run's")
+    for paged in (False, True):
+        kw = dict(paged=True, page_size=128) if paged else {}
+        ms = {}
+        for block in (1, 8, 8, 1):
+            ms.setdefault(block, []).append(decode_ms_per_token(model, cfg, block, **kw))
+        print(f"steady decode [{'paged' if paged else 'contiguous'}], 8 slots, 64 steps: "
+              f"ms per generated token, decode_block=1 {ms[1]}, decode_block=8 {ms[8]} "
+              f"(order 1, 8, 8, 1; {card_line})")
+
+
+def serve_speculative(model, cfg, ref, card_line, device="cuda"):
+    """Speculative serving on layer2: the engine with the model as its own
+    draft (gamma 4) must accept every draft and give phase 4's tokens; then
+    speculative_generate with an independent draft of the same vocabulary
+    (`small`, random weights) on 4 prompts, every emitted token greedy under
+    a fresh teacher-forced layer2 forward within JAX's tie band of 0.2."""
+    launches, eng, _ = serve(model, cfg, "speculative, self-draft gamma 4", card_line,
+                             draft_model=model, spec_gamma=4)
+    _expect_launches("serve [speculative]", launches, _DEFAULT_KERNELS + ("int4_attention",),
+                     ("paged_int4_attention",))
+    rate = eng.spec_stats.acceptance_rate
+    differ = [uid for uid in ref if eng.finished[uid] != ref[uid]]
+    if rate != 1.0 or differ:
+        raise AssertionError(f"serve [speculative]: acceptance {rate}, tokens differ from the "
+                             f"default run for uids {differ}")
+    print(f"serve [speculative]: self-draft acceptance {rate}, {eng.spec_stats.rounds} rounds, "
+          f"tokens equal the default run's")
+    small_cfg = flagship_model_config("small")
+    draft = QuantizedTransformer.init(small_cfg, device=device,
+                                      generator=torch.Generator(device=device).manual_seed(1))
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (5, 17, 33, 9)]
+    t0 = time.perf_counter()
+    out, stats = speculative_generate(model, draft, cfg, small_cfg, prompts, gamma=4,
+                                      max_new_tokens=16)
+    wall = time.perf_counter() - t0
+    worst = 0.0
+    with torch.no_grad():
+        for prompt, got in zip(prompts, out):
+            seq = prompt + got
+            caches = model.init_cache(cfg, 1, ((len(seq) + 2) // 2) * 2)
+            logits, _ = model(torch.tensor([seq[:-1]], dtype=torch.int32, device=device), caches,
+                              torch.arange(len(seq) - 1, dtype=torch.int32, device=device))
+            rows = logits[0, len(prompt) - 1:].float()
+            top2 = rows.topk(2, dim=-1)
+            for i, tok in enumerate(got):
+                best, second = top2.indices[i].tolist()
+                gap = (top2.values[i, 0] - top2.values[i, 1]).item()
+                if not (tok == best or (tok == second and gap < SPEC_TIE_BAND)):
+                    raise AssertionError(f"speculative_generate: token {tok} at step {i} is not "
+                                         f"greedy (top-2 {best}, {second}, gap {gap})")
+                if tok != best:
+                    worst = max(worst, gap)
+    print(f"speculative_generate [layer2 target, small draft]: {len(prompts)} prompts x 16 "
+          f"tokens greedy under teacher forcing (largest tie-band gap used {worst:.4f}), "
+          f"acceptance {stats.acceptance_rate:.4f} over {stats.rounds} rounds, {wall:.2f} s")
+    del draft
 
 
 def a8_entry_points(device="cuda", gen=None, e=8, ffn=14336, hidden=4096):
@@ -827,9 +1106,10 @@ def _cosines(got, ref):
                         f"share < 0.98 {(per_pos < 0.98).float().mean().item():.4f}")
 
 
-def whole_model(device="cuda", mode="kernel", convert=None):
+def whole_model(device="cuda", mode="kernel", convert=None, paged=False):
     """Phase 7: the tiny model, same weights, card (kernels) vs CPU (plain),
-    after the converter of ``mode`` on each side."""
+    after the converter of ``mode`` on each side; with ``paged``, on paged
+    caches of page 32 with the same shuffled page assignment on both."""
     cfg = flagship_model_config("tiny")
     cpu = QuantizedTransformer.init(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     gpu = copy.deepcopy(cpu).to(device)
@@ -837,7 +1117,14 @@ def whole_model(device="cuda", mode="kernel", convert=None):
         cpu, gpu = convert(cpu), convert(gpu)
     b, t, max_seq = 2, 12, 64
     tokens = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (b, t)))
-    caches_c, caches_g = cpu.init_cache(cfg, b, max_seq), gpu.init_cache(cfg, b, max_seq)
+    if paged:
+        kw = dict(num_pages=5, page_size=32, max_pages_per_slot=max_seq // 32)
+        caches_c, caches_g = (tuple(c.assign_pages(0, [3, 1]).assign_pages(1, [4, 2])
+                                    for c in m.init_paged_cache(cfg, b, **kw))
+                              for m in (cpu, gpu))
+        mode += ", paged"
+    else:
+        caches_c, caches_g = cpu.init_cache(cfg, b, max_seq), gpu.init_cache(cfg, b, max_seq)
     positions = torch.arange(t, dtype=torch.int32)
     worst = 0.0
     with torch.no_grad():
@@ -872,11 +1159,17 @@ def main() -> None:
         results = check_kernels()
     model, cfg = build_layer2()
     pg_kernels = tuple(fn.__name__ for fn in _PG_OPS)
-    launches = serve(model, cfg, "default", card_line)
+    launches, eng, _ = serve(model, cfg, "default", card_line)
     _expect_launches("serve [default]", launches,
                      ("int4_matmul", "grouped_int4_matmul", "int4_attention"),
-                     ("int4_matmul_a8_fused", "grouped_int4_matmul_a8") + pg_kernels)
-    launches_u4 = serve(as_u4_turbo(model), cfg, "u4_turbo", card_line)
+                     ("int4_matmul_a8_fused", "grouped_int4_matmul_a8", "paged_int4_attention")
+                     + pg_kernels)
+    ref = dict(eng.finished)
+    launches["paged_int4_attention"] = serve_paged(model, cfg, ref, card_line)[
+        "paged_int4_attention"]
+    serve_blocks(model, cfg, ref, card_line)
+    serve_speculative(model, cfg, ref, card_line)
+    launches_u4, _, _ = serve(as_u4_turbo(model), cfg, "u4_turbo", card_line)
     _expect_launches("serve [u4_turbo]", launches_u4,
                      ("int4_matmul_a8_fused", "grouped_int4_matmul_a8", "int4_attention"),
                      ("int4_matmul", "grouped_int4_matmul") + pg_kernels)
@@ -887,14 +1180,14 @@ def main() -> None:
     torch.cuda.synchronize()
     print(f"as_per_group(layer2): {time.perf_counter() - t0:.2f} s")
     # per_group: K7 for every linear but the router (K1), K13 for the experts
-    launches_pg = serve(pg, cfg, "per_group", card_line)
+    launches_pg, _, _ = serve(pg, cfg, "per_group", card_line)
     _expect_launches("serve [per_group]", launches_pg,
                      ("int4_matmul_per_group", "grouped_int4_matmul_per_group",
                       "int4_attention", "int4_matmul"),
                      ("grouped_int4_matmul", "int4_matmul_per_group_a8",
                       "grouped_int4_matmul_per_group_a8"))
     # pg_turbo: K8 for every linear but the router (K5), K14 for the experts
-    launches_pgt = serve(as_turbo(pg), cfg, "pg_turbo", card_line)
+    launches_pgt, _, _ = serve(as_turbo(pg), cfg, "pg_turbo", card_line)
     _expect_launches("serve [pg_turbo]", launches_pgt,
                      ("int4_matmul_per_group_a8", "grouped_int4_matmul_per_group_a8",
                       "int4_attention", "int4_matmul_a8_fused"),
@@ -915,6 +1208,7 @@ def main() -> None:
                           ("xla_turbo", as_xla_turbo), ("per_group", as_per_group),
                           ("pg_turbo", as_pg_turbo)):
         whole_model(mode=mode, convert=convert)
+    whole_model(paged=True)
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         rows = [r for r in results if r["name"] == name]

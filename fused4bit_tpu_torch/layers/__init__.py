@@ -1,5 +1,6 @@
 from .kv_cache import QuantizedKVCache
 from .linear import DenseLinear, QuantizedLinear
+from .paged_kv import PagedKVCache
 from .moe import (
     DispatchPlan,
     MoEINT4,
@@ -16,6 +17,7 @@ __all__ = [
     "DenseLinear",
     "DispatchPlan",
     "MoEINT4",
+    "PagedKVCache",
     "QuantizedKVCache",
     "QuantizedLinear",
     "RoutingResult",

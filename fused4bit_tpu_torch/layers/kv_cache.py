@@ -121,6 +121,17 @@ class QuantizedKVCache:
     def head_dim(self) -> int:
         return self.k_packed.shape[3]
 
+    @property
+    def length(self) -> torch.Tensor:
+        """Scalar length when all slots are in lockstep (simple decode)."""
+        return self.lengths.max()
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the codes and scale planes (the lengths aside)."""
+        return sum(getattr(self, f).numel() * getattr(self, f).element_size()
+                   for f in self._FIELDS[:6])
+
     def append(self, k: torch.Tensor, v: torch.Tensor,
                start: Optional[torch.Tensor] = None) -> "QuantizedKVCache":
         """Quantize and insert new steps, in place; returns ``self``.

@@ -15,7 +15,7 @@ of the site raises. This module imports no JAX.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -24,6 +24,7 @@ from .._device import resolve_device
 from ..layers.kv_cache import QuantizedKVCache
 from ..layers.linear import QuantizedLinear
 from ..layers.moe import MoEINT4
+from ..layers.paged_kv import PagedKVCache
 from ..ops.int8_xla import Int8Resident
 from ..quant.core import QuantizedTensor
 from .config import ModelConfig
@@ -175,11 +176,12 @@ def model_from_jax(params: Params, cfg: ModelConfig, device=None, *,
     return _CONVERTERS[mode](model)
 
 
-def kv_cache_from_jax(params: Params, prefix: str = "", device=None) -> QuantizedKVCache:
-    """The port's ``QuantizedKVCache`` holding a JAX cache's leaves; ``prefix``
-    selects one layer of a tuple of caches (``"[0]"``); ``device`` None means
-    the CUDA card."""
+def kv_cache_from_jax(params: Params, prefix: str = "",
+                      device=None) -> Union[QuantizedKVCache, PagedKVCache]:
+    """The port's cache holding a JAX cache's leaves, byte for byte: a
+    ``PagedKVCache`` when the leaves hold a ``page_table``, else a
+    ``QuantizedKVCache``. ``prefix`` selects one layer of a tuple of caches
+    (``"[0]"``); ``device`` None means the CUDA card."""
     device = resolve_device(device)
-    return QuantizedKVCache(*(
-        _tensor(params[f"{prefix}.{f}"], device) for f in QuantizedKVCache._FIELDS
-    ))
+    cls = PagedKVCache if f"{prefix}.page_table" in params else QuantizedKVCache
+    return cls(*(_tensor(params[f"{prefix}.{f}"], device) for f in cls._FIELDS))

@@ -21,7 +21,7 @@ from __future__ import annotations
 import copy
 import itertools
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +30,7 @@ from torch import nn
 from .._device import resolve_device
 from ..layers.kv_cache import QuantizedKVCache
 from ..layers.linear import QuantizedLinear
+from ..layers.paged_kv import PagedKVCache
 from ..layers.moe import (
     MoEINT4,
     combine,
@@ -42,6 +43,8 @@ from ..ops.decode_attention import int4_decode_attention, int4_prefill_attention
 from ..ops.int8_xla import int4_grouped_transient, int8_grouped_capacity, to_int8_resident
 from ..quant.core import dequantize, quantize
 from .config import ModelConfig
+
+KVCache = Union[QuantizedKVCache, PagedKVCache]
 
 __all__ = [
     "QuantizedTransformer", "TransformerBlock", "MoEBlock", "Attention",
@@ -96,9 +99,11 @@ class Attention(nn.Module):
             num_heads=nh, num_kv_heads=nkv, head_dim=hd, rope_theta=cfg.rope_theta,
         )
 
-    def forward(self, x: torch.Tensor, cache: QuantizedKVCache,
-                positions: torch.Tensor) -> Tuple[torch.Tensor, QuantizedKVCache]:
-        """x [B, T, H]; positions [B, T] (per-slot offsets)."""
+    def forward(self, x: torch.Tensor, cache: KVCache,
+                positions: torch.Tensor) -> Tuple[torch.Tensor, KVCache]:
+        """x [B, T, H]; positions [B, T] (per-slot offsets). ``cache`` is
+        contiguous or paged; the fused path dispatches on its type (K3 or
+        K3'), the golden path reads its logical dequantized view."""
         b, t, _ = x.shape
         nh, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
         q = self.wq(x).reshape(b, t, nh, hd).transpose(1, 2)
@@ -117,7 +122,7 @@ class Attention(nn.Module):
                 out = int4_prefill_attention(q, cache, positions[:, 0]).transpose(1, 2)
             return self.wo(out.reshape(b, t, nh * hd)), cache
 
-        # Golden path: dequantize the whole cache, dense masked attention.
+        # Golden path: dequantize the whole (logical) cache, dense masked attention.
         kd, vd = cache.dequantize(dtype=q.dtype)                  # [B, nkv, S, D]
         rep = nh // nkv
         kd = kd.repeat_interleave(rep, dim=1)
@@ -308,6 +313,18 @@ class QuantizedTransformer(nn.Module):
     def init_cache(self, cfg: ModelConfig, batch: int, max_seq: int) -> Tuple[QuantizedKVCache, ...]:
         return tuple(
             QuantizedKVCache.init(batch, cfg.num_kv_heads, max_seq, cfg.head_dim, device=self.device)
+            for _ in self.blocks
+        )
+
+    def init_paged_cache(self, cfg: ModelConfig, batch: int, *, num_pages: int, page_size: int,
+                         max_pages_per_slot: int) -> Tuple[PagedKVCache, ...]:
+        """Paged KV caches, one page pool per layer (``layers.paged_kv``).
+        Page ids are pool-local, so the serving engine runs one allocator
+        and applies the same assignment to every layer."""
+        return tuple(
+            PagedKVCache.init(batch, cfg.num_kv_heads, cfg.head_dim, num_pages=num_pages,
+                              page_size=page_size, max_pages_per_slot=max_pages_per_slot,
+                              device=self.device)
             for _ in self.blocks
         )
 

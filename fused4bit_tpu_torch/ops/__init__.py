@@ -6,6 +6,10 @@ from .decode_attention import (
     int4_attention_reference,
     int4_decode_attention,
     int4_prefill_attention,
+    paged_int4_attention,
+    paged_int4_attention_reference,
+    paged_int4_decode_attention,
+    paged_int4_prefill_attention,
 )
 from .grouped_matmul import (
     grouped_int4_matmul,
@@ -62,5 +66,9 @@ __all__ = [
     "int4_prefill_attention",
     "int8_grouped_capacity",
     "int8_linear",
+    "paged_int4_attention",
+    "paged_int4_attention_reference",
+    "paged_int4_decode_attention",
+    "paged_int4_prefill_attention",
     "to_int8_resident",
 ]

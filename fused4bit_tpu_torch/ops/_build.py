@@ -47,6 +47,8 @@ _SIGNATURES = {
     "f4b_grouped_int4_matmul_f32": [_P] * 7 + [_I] * 4 + [_P],
     "f4b_int4_attention_bf16": [_P] * 10 + [_I] * 7 + [_P],
     "f4b_int4_attention_f32": [_P] * 10 + [_I] * 7 + [_P],
+    "f4b_paged_int4_attention_bf16": [_P] * 11 + [_I] * 8 + [_P],
+    "f4b_paged_int4_attention_f32": [_P] * 11 + [_I] * 8 + [_P],
     "f4b_int4_matmul_a8_bf16": [_P] * 6 + [_I] * 3 + [_P],
     "f4b_int4_matmul_a8_f32": [_P] * 6 + [_I] * 3 + [_P],
     "f4b_int4_matmul_a8_fused_bf16": [_P] * 5 + [_I] * 3 + [_P],

@@ -1,16 +1,22 @@
-"""Attention over the pair-packed INT4 KV cache, over kernel K3.
+"""Attention over the pair-packed INT4 KV cache, over kernels K3 and K3'.
 
 Counterpart of ``fused4bit_tpu/ops/decode_attention.py``
-(``int4_decode_attention`` and ``int4_prefill_attention``). On a CUDA tensor
-the wrappers launch ``csrc/decode_attention.cu`` (the port of the TPU kernel
-``_attn_kernel``), which reads the packed cache directly; on a CPU tensor
-they run the plain version, :func:`int4_attention_reference`: dequantize the
-cache, then masked softmax attention in float32.
+(``int4_decode_attention``, ``int4_prefill_attention`` and their paged
+forms). On a CUDA tensor the wrappers launch ``csrc/decode_attention.cu``
+(the port of the TPU kernel ``_attn_kernel``), which reads the packed cache
+directly: K3 on a contiguous ``QuantizedKVCache``, K3' on a
+``PagedKVCache`` through its page table. On a CPU tensor they run the plain
+versions, :func:`int4_attention_reference` and
+:func:`paged_int4_attention_reference`: dequantize the cache (gathered
+through the table for the paged one), then masked softmax attention in
+float32.
 
 The query layout is the JAX package's, [B, Hq, T, D], GQA with
 G = Hq / Hkv query heads per kv head. Query t of row b sits at position
 ``starts[b] + t`` and attends to cache positions ``s <= starts[b] + t`` with
 ``s < lengths[b]``; the cache must already hold the T new steps.
+``int4_decode_attention`` and ``int4_prefill_attention`` take either cache
+and dispatch on its type, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import math
 import torch
 
 from ..layers.kv_cache import _unpack_pairs
+from ..layers.paged_kv import PagedKVCache
 from ..quant.reference import full_precision
 from . import _build
 
@@ -27,41 +34,38 @@ __all__ = [
     "int4_attention_reference",
     "int4_decode_attention",
     "int4_prefill_attention",
+    "paged_int4_attention",
+    "paged_int4_attention_reference",
+    "paged_int4_decode_attention",
+    "paged_int4_prefill_attention",
 ]
 
 _KERNELS = {torch.bfloat16: "f4b_int4_attention_bf16", torch.float32: "f4b_int4_attention_f32"}
+_PAGED_KERNELS = {torch.bfloat16: "f4b_paged_int4_attention_bf16",
+                  torch.float32: "f4b_paged_int4_attention_f32"}
 _MAX_ROWS = 16            # query rows (positions x grouped heads) per CTA of the kernel
 _HEAD_DIMS = (64, 128)    # head dims the kernel is instantiated for
+_S_TILE = 32              # cache positions per kernel tile; K3' needs page % _S_TILE == 0
 
 
 def _check(q: torch.Tensor, cache, starts: torch.Tensor) -> int:
     b, hq, _, d = q.shape
-    h_kv = cache.k_packed.shape[1]
+    h_kv = (cache.k_pool if isinstance(cache, PagedKVCache) else cache.k_packed).shape[1]
     if hq % h_kv != 0:
         raise ValueError(f"Hq={hq} not a multiple of Hkv={h_kv}")
-    if cache.k_packed.shape[0] != b or cache.head_dim != d:
+    if cache.lengths.shape[0] != b or cache.head_dim != d:
         raise ValueError(
-            f"cache [{tuple(cache.k_packed.shape)}] does not match q [{tuple(q.shape)}]"
+            f"cache of {cache.lengths.shape[0]} rows, head_dim {cache.head_dim} does not "
+            f"match q [{tuple(q.shape)}]"
         )
     if starts.shape != (b,):
         raise ValueError(f"starts must be [B]={b}, got {tuple(starts.shape)}")
     return hq // h_kv
 
 
-def int4_attention_reference(
-    q: torch.Tensor, cache, starts: torch.Tensor
-) -> torch.Tensor:
-    """Plain version of K3: dequantize the cache, then causal softmax
-    attention in float32. q [B, Hq, T, D] -> [B, Hq, T, D] in q.dtype.
-
-    It keeps the numerics contract of the TPU kernel: the softmax
-    numerator times the value scale, ``ps = exp(s - max) * s_v``, is rounded
-    once to q.dtype and multiplies the centered value codes ``c_v - z_v``;
-    the denominator sums the unrounded numerator. In float32 that is plain
-    attention over the dequantized cache.
-    """
-    int4_attention_reference.calls += 1
-    g = _check(q, cache, starts)
+def _attention_math(q: torch.Tensor, cache, starts: torch.Tensor, g: int) -> torch.Tensor:
+    """The plain versions' arithmetic over a contiguous cache (see
+    :func:`int4_attention_reference`)."""
     b, hq, t, d = q.shape
     kd, _ = cache.dequantize(torch.float32)                # [B, Hkv, S, D]
     vc = _unpack_pairs(cache.v_packed).float() - cache.v_zp[..., None]
@@ -86,28 +90,51 @@ def int4_attention_reference(
     return out.to(q.dtype)
 
 
+def int4_attention_reference(
+    q: torch.Tensor, cache, starts: torch.Tensor
+) -> torch.Tensor:
+    """Plain version of K3: dequantize the cache, then causal softmax
+    attention in float32. q [B, Hq, T, D] -> [B, Hq, T, D] in q.dtype.
+
+    It keeps the numerics contract of the TPU kernel: the softmax
+    numerator times the value scale, ``ps = exp(s - max) * s_v``, is rounded
+    once to q.dtype and multiplies the centered value codes ``c_v - z_v``;
+    the denominator sums the unrounded numerator. In float32 that is plain
+    attention over the dequantized cache.
+    """
+    int4_attention_reference.calls += 1
+    return _attention_math(q, cache, starts, _check(q, cache, starts))
+
+
 int4_attention_reference.calls = 0
 
 
-def int4_attention(q: torch.Tensor, cache, starts: torch.Tensor) -> torch.Tensor:
-    """Flash attention of q [B, Hq, T, D] over the packed cache; q.dtype out."""
-    if not q.is_cuda:
-        return int4_attention_reference(q, cache, starts)
-    g = _check(q, cache, starts)
-    b, hq, t, d = q.shape
-    h_kv = hq // g
-    if q.dtype not in _KERNELS:
+def paged_int4_attention_reference(
+    q: torch.Tensor, cache: PagedKVCache, starts: torch.Tensor
+) -> torch.Tensor:
+    """Plain version of K3': gather the pool through the page table into the
+    logical contiguous view (``PagedKVCache.logical``, as JAX's
+    ``PagedKVCache.dequantize`` gathers), then :func:`int4_attention_reference`'s
+    arithmetic. Takes any even page size. On the same content it equals the
+    contiguous plain version bit for bit."""
+    paged_int4_attention_reference.calls += 1
+    return _attention_math(q, cache.logical(), starts, _check(q, cache, starts))
+
+
+paged_int4_attention_reference.calls = 0
+
+
+def _launch(kernels: dict, q: torch.Tensor, g: int, operands, sizes) -> torch.Tensor:
+    """Check the operands of K3 or K3' (``kernels``: its C entry point per
+    query dtype) and launch it; q [B, Hq, T, D]."""
+    d = q.shape[-1]
+    if q.dtype not in kernels:
         raise TypeError(f"K3 takes bf16 or f32 queries, got {q.dtype}")
+    kernel = kernels[q.dtype]
     if d not in _HEAD_DIMS:
         raise ValueError(f"K3 is built for head_dim in {_HEAD_DIMS}, got {d}")
     if g > _MAX_ROWS:
         raise ValueError(f"K3 takes at most {_MAX_ROWS} query heads per kv head, got {g}")
-    operands = [
-        ("k_packed", cache.k_packed, torch.uint8), ("k_scale", cache.k_scale, torch.float32),
-        ("k_zp", cache.k_zp, torch.float32), ("v_packed", cache.v_packed, torch.uint8),
-        ("v_scale", cache.v_scale, torch.float32), ("v_zp", cache.v_zp, torch.float32),
-        ("lengths", cache.lengths, torch.int32), ("starts", starts, torch.int32),
-    ]
     for name, tensor, want in operands:
         if tensor.device != q.device or tensor.dtype != want or not tensor.is_contiguous():
             raise ValueError(
@@ -118,11 +145,34 @@ def int4_attention(q: torch.Tensor, cache, starts: torch.Tensor) -> torch.Tensor
     out = torch.empty_like(q)
     qt = max(1, _MAX_ROWS // g)
     with torch.cuda.device(q.device):
-        err = getattr(_build.library(), _KERNELS[q.dtype])(
+        err = getattr(_build.library(), kernel)(
             q.data_ptr(), *(tensor.data_ptr() for _, tensor, _ in operands),
-            out.data_ptr(), b, h_kv, g, t, cache.max_seq, d, qt, _build.stream_of(q),
+            out.data_ptr(), *sizes, d, qt, _build.stream_of(q),
         )
-    _build.check(err, "int4_attention")
+    _build.check(err, kernel)
+    return out
+
+
+def _cache_operands(cache, packed: str) -> list:
+    return [
+        ("k_" + packed, getattr(cache, "k_" + packed), torch.uint8),
+        ("k_scale", cache.k_scale, torch.float32), ("k_zp", cache.k_zp, torch.float32),
+        ("v_" + packed, getattr(cache, "v_" + packed), torch.uint8),
+        ("v_scale", cache.v_scale, torch.float32), ("v_zp", cache.v_zp, torch.float32),
+    ]
+
+
+def int4_attention(q: torch.Tensor, cache, starts: torch.Tensor) -> torch.Tensor:
+    """K3: flash attention of q [B, Hq, T, D] over the contiguous packed
+    cache; q.dtype out."""
+    if not q.is_cuda:
+        return int4_attention_reference(q, cache, starts)
+    g = _check(q, cache, starts)
+    b, hq, t, _ = q.shape
+    operands = _cache_operands(cache, "packed") + [
+        ("lengths", cache.lengths, torch.int32), ("starts", starts, torch.int32)]
+    out = _launch(_KERNELS, q, g, operands,
+                  (b, hq // g, g, t, cache.max_seq))
     int4_attention.launches += 1
     return out
 
@@ -130,17 +180,63 @@ def int4_attention(q: torch.Tensor, cache, starts: torch.Tensor) -> torch.Tensor
 int4_attention.launches = 0
 
 
+def paged_int4_attention(q: torch.Tensor, cache: PagedKVCache,
+                         starts: torch.Tensor) -> torch.Tensor:
+    """K3': flash attention of q [B, Hq, T, D] over the page pool through
+    the page table; q.dtype out. The kernel looks pages up per tile of 32
+    positions, so on the card the page size must be a multiple of 32."""
+    if not q.is_cuda:
+        return paged_int4_attention_reference(q, cache, starts)
+    g = _check(q, cache, starts)
+    page = cache.page_size
+    if page % _S_TILE != 0:
+        raise ValueError(
+            f"K3' reads pages in tiles of {_S_TILE} positions: page_size must be a multiple "
+            f"of {_S_TILE}, got page_size={page} (the serving default is 128)"
+        )
+    b, hq, t, _ = q.shape
+    operands = _cache_operands(cache, "pool") + [
+        ("page_table", cache.page_table, torch.int32),
+        ("lengths", cache.lengths, torch.int32), ("starts", starts, torch.int32)]
+    out = _launch(_PAGED_KERNELS, q, g, operands,
+                  (b, hq // g, g, t, page, cache.max_pages_per_slot))
+    paged_int4_attention.launches += 1
+    return out
+
+
+paged_int4_attention.launches = 0
+
+
+def paged_int4_decode_attention(q: torch.Tensor, cache: PagedKVCache) -> torch.Tensor:
+    """One decode step over the paged cache: q [B, Hq, D] -> [B, Hq, D]; the
+    current step's K/V must already be appended."""
+    starts = (cache.lengths - 1).to(torch.int32)
+    return paged_int4_attention(q[:, :, None, :], cache, starts)[:, :, 0, :]
+
+
+def paged_int4_prefill_attention(q: torch.Tensor, cache: PagedKVCache,
+                                 starts: torch.Tensor) -> torch.Tensor:
+    """Chunked prefill over the paged cache: q [B, Hq, T, D], ``starts`` [B];
+    the cache holds the T new steps. Returns [B, Hq, T, D]."""
+    return paged_int4_attention(q, cache, starts.to(torch.int32).contiguous())
+
+
 def int4_decode_attention(q: torch.Tensor, cache) -> torch.Tensor:
-    """One decode step: q [B, Hq, D] -> [B, Hq, D].
+    """One decode step: q [B, Hq, D] -> [B, Hq, D]; K3' on a paged cache.
 
     The current step's K/V must already be appended (entry ``length - 1`` is
     the current step, so the causal mask is ``s < length``).
     """
+    if isinstance(cache, PagedKVCache):
+        return paged_int4_decode_attention(q, cache)
     starts = (cache.lengths - 1).to(torch.int32)
     return int4_attention(q[:, :, None, :], cache, starts)[:, :, 0, :]
 
 
 def int4_prefill_attention(q: torch.Tensor, cache, starts: torch.Tensor) -> torch.Tensor:
     """Chunked prefill: q [B, Hq, T, D], ``starts`` [B] the position of each
-    row's first query; the cache holds the T new steps. Returns [B, Hq, T, D]."""
+    row's first query; the cache holds the T new steps. Returns [B, Hq, T, D].
+    K3' on a paged cache."""
+    if isinstance(cache, PagedKVCache):
+        return paged_int4_prefill_attention(q, cache, starts)
     return int4_attention(q, cache, starts.to(torch.int32).contiguous())

@@ -6,13 +6,15 @@ Run from the repository root:
     python3 scripts/profile_decode.py
 
 Builds `layer2` (random weights from a seed) once, fills SLOTS slots with
-PROMPT-token prompts through the serving engine, then per mode and round:
+PROMPT-token prompts through the serving engine (in the default mode both on
+the contiguous cache and on the paged one, page 128), then per mode and round:
 times STEPS decode steps on the host clock (each ends in a device sync),
 and runs STEPS more under `torch.profiler` to sum the device kernel time.
-The four modes alternate within each of ROUNDS rounds, so they share the
+The five modes alternate within each of ROUNDS rounds, so they share the
 card's state. Prints one JSON line per (round, mode): wall ms/step, device
-ms/step, busy share (device / wall), kernels per step and the five kernels
-with the most device time. Imports nothing of JAX.
+ms/step, busy share (device / wall), kernels per step, the attention
+kernel's (K3 or K3') device ms/step and the five kernels with the most
+device time. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -40,14 +42,16 @@ PROMPT = 20   # tokens per prompt
 
 
 def _modes(model):
+    """mode -> (model, engine options)."""
     pg = as_per_group(model)
-    return {"default": model, "u4_turbo": as_u4_turbo(model), "per_group": pg,
-            "pg_turbo": as_turbo(pg)}
+    return {"default": (model, {}), "paged": (model, dict(paged=True, page_size=128)),
+            "u4_turbo": (as_u4_turbo(model), {}), "per_group": (pg, {}),
+            "pg_turbo": (as_turbo(pg), {})}
 
 
-def _engine(model, cfg):
+def _engine(model, cfg, **engine_kw):
     rng = np.random.default_rng(0)
-    eng = ServingEngine(model, cfg, num_slots=SLOTS, max_seq=256, prefill_bucket=32)
+    eng = ServingEngine(model, cfg, num_slots=SLOTS, max_seq=256, prefill_bucket=32, **engine_kw)
     for uid in range(SLOTS):
         eng.submit(GenerationRequest(uid=uid, prompt=rng.integers(1, cfg.vocab_size, PROMPT).tolist(),
                                      max_new_tokens=200))
@@ -71,8 +75,10 @@ def _profile(eng) -> dict:
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     device = sum(e.self_device_time_total for e in kernels) / 1e3 / STEPS
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    attention = sum(e.self_device_time_total for e in kernels if "attention" in e.key)
     return dict(wall_ms_per_step=wall, device_ms_per_step=device, busy=device / wall,
                 kernels_per_step=sum(e.count for e in kernels) / STEPS,
+                attention_ms_per_step=attention / 1e3 / STEPS,
                 top=[(e.key[:60], e.self_device_time_total / 1e3 / STEPS, e.count // STEPS)
                      for e in top])
 
@@ -85,7 +91,7 @@ def main() -> None:
     cfg = flagship_model_config("layer2")
     model = QuantizedTransformer.init(cfg, generator=torch.Generator("cuda").manual_seed(0),
                                       device="cuda")
-    engines = {m: _engine(mm, cfg) for m, mm in _modes(model).items()}
+    engines = {m: _engine(mm, cfg, **kw) for m, (mm, kw) in _modes(model).items()}
     for rnd in range(ROUNDS):
         for m, eng in engines.items():
             row = dict(round=rnd, mode=m, card=card, **_profile(eng))

@@ -8,6 +8,17 @@ from fused4bit_tpu_torch.serving import GenerationRequest, Sampler, ServingEngin
 PROMPTS = [[5, 17, 300, 2], list(range(40, 51)), [9] * 19]   # 1, 2 and 3 prefill chunks
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The `tiny` model's ops are too small to split across threads, and with
+    several test workers on one machine torch's thread pool only contends
+    (tens of times slower); one thread for this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def tiny():
     cfg = flagship_model_config("tiny")
@@ -69,7 +80,7 @@ def test_cancel_and_sampler(tiny):
         Sampler(top_p=0.0)
 
 
-@pytest.mark.parametrize("kw", [dict(decode_block=4), dict(paged=True), dict(mesh=object())])
+@pytest.mark.parametrize("kw", [dict(mesh=object())])
 def test_unported_modes_raise(tiny, kw):
     model, cfg = tiny
     with pytest.raises(NotImplementedError):

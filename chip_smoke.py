@@ -14,7 +14,11 @@ Phases, each of which raises on failure:
      with CUDA events (L2 flushed before each launch); time the integer-GEMM
      paths (resident i8 and transient unpack) at a prefill shape;
      The per-group kernels (K7, K8, K13, K14) are checked the same way, on
-     weights quantized per group of 128 columns (planar_groups). Beside each
+     weights quantized per group of 128 columns (planar_groups), and K6 and
+     K12 on planar weights per group of 128 (what convert_checkpoint gives);
+     K9 (grouped_int4_matmul(mode="ksplit")) on the down projection's stack
+     against its plain version and K2, and on a narrow stack that it splits
+     over K. Beside each
      kernel's time at its main shape stand its bound (the least time the card
      could take: bytes over 3.35 TB/s or operations over the peak of their
      type) and, where one PyTorch call computes the same function, that
@@ -36,25 +40,38 @@ Phases, each of which raises on failure:
      own draft (acceptance 1.0, tokens equal), then run speculative_generate
      with the `small` model as an independent draft (teacher-forced greedy
      check);
-  5. call the w4a8 op entry points whose kernels no serving path of `layer2`
-     takes: the linear at deep K (K4) and the grouped product with the
-     quantization fused (K11);
+  5. call the op entry points whose kernels no serving path of `layer2`
+     takes: the w4a8 linear at deep K (K4), the w4a8 grouped product with the
+     quantization fused (K11), and the experts with mode="ksplit" (K9);
   6. run one 2 x 320-token forward of `layer2` in the default mode and in
      each w4a8 and per-group mode, check that each took its prefill paths
      (transient unpack and capacity MoE, or K5 and K10, or resident i8, or
      K7/K8 at 640 rows and K13/K14 at tile_m 128), that the w4a8 modes agree
      with each other, and print their cosines against the default mode;
-  7. run the `tiny` model with the same weights on the card and on the CPU,
+  7. make a seeded dense `layer2` checkpoint on the card one weight at a
+     time (SeededCheckpoint), check that quantizing one full-width weight on
+     the card gives the CPU's bytes per row and per group, convert it with
+     convert_checkpoint per row and per group of 128, and serve phase 4's 12
+     requests on each: per row on K1, K2 and K3, per group on K6, K12 and K3
+     (the router is dense: no K1), no plain version;
+  8. convert the trained h256 fixture (tests/fixtures) on the card in the
+     four policies the port supports, evaluate each on the held-out tail of
+     its corpus against the bf16 twin built from the same checkpoint
+     (dense_from_params), print the numbers beside the JAX package's
+     committed record, hold them to tests/test_convert.py's gates, and check
+     the per-group-128 model on the card against the CPU;
+  9. run the `tiny` model with the same weights on the card and on the CPU,
      in the default mode and in each w4a8 and per-group mode, and on paged
      caches, and compare the logits.
 The line before the last is a JSON summary of the kernels, with each
-kernel's launches counted over the phase that drives it (4 or 5; K3' over
+kernel's launches counted over the phase that drives it (4, 5 or 7; K3' over
 the first paged serve); the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -66,6 +83,7 @@ import torch.nn.functional as F
 
 from fused4bit_tpu_torch import ops
 from fused4bit_tpu_torch.layers import (
+    MoEINT4,
     PagedKVCache,
     QuantizedKVCache,
     dispatch,
@@ -73,14 +91,22 @@ from fused4bit_tpu_torch.layers import (
     topk_route,
 )
 from fused4bit_tpu_torch.models import (
+    ModelConfig,
+    MoEConfig,
     QuantizedTransformer,
     as_per_group,
     as_turbo,
     as_u4_turbo,
     as_xla_turbo,
+    SeededCheckpoint,
+    convert_checkpoint,
+    convert_safetensors,
+    dense_from_params,
     flagship_model_config,
+    load_safetensors,
 )
 from fused4bit_tpu_torch.ops import _build
+from fused4bit_tpu_torch.ops.grouped_matmul import _ksplit_splits
 from fused4bit_tpu_torch.ops.int8_xla import _quantize_acts
 from fused4bit_tpu_torch.quant import planar_groups_to_planar, quantize, unpack_planar
 from fused4bit_tpu_torch.serving import GenerationRequest, ServingEngine, speculative_generate
@@ -142,6 +168,12 @@ SOURCES = {
                                       "fused4bit_tpu/ops/grouped_matmul.py:994"),
     "grouped_int4_matmul_per_group_a8": ("fused4bit_tpu_torch/csrc/grouped_matmul_pg.cu",
                                          "fused4bit_tpu/ops/grouped_matmul.py:1101"),
+    "int4_matmul_per_group_planar": ("fused4bit_tpu_torch/csrc/int4_matmul.cu",
+                                     "fused4bit_tpu/ops/int4_matmul.py:427"),
+    "grouped_int4_matmul_ksplit": ("fused4bit_tpu_torch/csrc/grouped_matmul.cu",
+                                   "fused4bit_tpu/ops/grouped_matmul.py:241"),
+    "grouped_int4_matmul_per_group_planar": ("fused4bit_tpu_torch/csrc/grouped_matmul.cu",
+                                             "fused4bit_tpu/ops/grouped_matmul.py:859"),
 }
 # Each kernel's decode shape on the serving path: its ms / plain_ms in the
 # JSON summary.
@@ -158,6 +190,9 @@ MAIN_SHAPE = {
     "int4_matmul_per_group_a8": "M=8 N=4096 K=4096 bf16",
     "grouped_int4_matmul_per_group": "T=8 tile_m=16 N=14336 K=4096",
     "grouped_int4_matmul_per_group_a8": "T=8 tile_m=32 N=14336 K=4096",
+    "int4_matmul_per_group_planar": "M=8 N=4096 K=4096 bf16",
+    "grouped_int4_matmul_ksplit": "T=8 tile_m=16 N=4096 K=14336",
+    "grouped_int4_matmul_per_group_planar": "T=8 tile_m=16 N=14336 K=4096",
 }
 # The card's published rates (NVIDIA's H100 SXM data sheet, dense, at the
 # 700 W limit): HBM bytes/s and operations/s by operand type. A kernel's bound
@@ -378,6 +413,13 @@ A8_NAMES = {False: ("int4_matmul_a8", "grouped_int4_matmul_a8"),          # K4, 
             True: ("int4_matmul_a8_fused", "grouped_int4_matmul_a8_fused")}  # K5, K11
 
 
+def _a16_tol(ref):
+    """The w4a16 bars: BF16_REL_TOL of the largest output in bf16, F32_ABS_TOL
+    in f32."""
+    f32 = ref.dtype == torch.float32
+    return F32_ABS_TOL if f32 else BF16_REL_TOL * ref.float().abs().max().item()
+
+
 def _a8_tol(ref):
     rel = A8_F32_REL_TOL if ref.dtype == torch.float32 else A8_BF16_REL_TOL
     return rel * ref.float().abs().max().item()
@@ -466,7 +508,7 @@ def check_linear_pg(device, results, timer, gen):
                 main = (m, n) == (8, 4096)
                 iters = 5 if m == 640 else 20
                 ref = ops.int4_matmul_per_group_reference(xx, qt)
-                tol = F32_ABS_TOL if f32 else BF16_REL_TOL * ref.float().abs().max().item()
+                tol = _a16_tol(ref)
                 _compare("int4_matmul_per_group", f"M={m} N={n} K={k} {dt}",
                          ops.int4_matmul_per_group(xx, qt), ref, tol, results,
                          None if f32 else timer, lambda: ops.int4_matmul_per_group(xx, qt),
@@ -506,10 +548,7 @@ def check_grouped_pg(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
                     torch.cuda.synchronize()
                     if not bool((y[pad] == 0).all()):
                         raise AssertionError(f"{op.__name__}: padding rows are not exactly zero")
-                    if a8:
-                        tol = _a8_tol(ref)
-                    else:
-                        tol = F32_ABS_TOL if f32 else BF16_REL_TOL * ref.float().abs().max().item()
+                    tol = _a8_tol(ref) if a8 else _a16_tol(ref)
                     _compare(op.__name__,
                              f"T={t} tile_m={tile_m} N={n} K={k}" + (" f32" if f32 else ""),
                              y, ref, tol, results, None if f32 else timer,
@@ -519,6 +558,120 @@ def check_grouped_pg(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
             print(f"    tokens per expert {routing.tokens_per_expert.tolist()}, "
                   f"T_pad {plan.t_pad}")
         del qt
+
+
+def _planar_pg_quantize(w):
+    """Per group of 128 in the planar layout: what convert_checkpoint gives."""
+    return quantize(w, granularity="per_group", layout="planar", group_size=128)
+
+
+def check_linear_planar_pg(device, results, timer, gen):
+    """K6 at the layer2 linear shapes, planar weights per group of 128: the
+    decode rows (8) and the long prefill's (640), bf16 (timed) and f32."""
+    for n, k in ((4096, 4096), (1024, 4096), (8192, 4096)):
+        qt = _planar_pg_quantize(torch.randn((n, k), generator=gen, device=device) * k ** -0.5)
+        for m in (8, 640):
+            x = torch.randn((m, k), generator=gen, device=device).bfloat16()
+            for xx in (x, x.float()):
+                f32 = xx.dtype == torch.float32
+                ref = ops.int4_matmul_per_group_planar_reference(xx, qt)
+                main = (m, n) == (8, 4096) and not f32
+                _compare("int4_matmul_per_group_planar",
+                         f"M={m} N={n} K={k} {'f32' if f32 else 'bf16'}",
+                         ops.int4_matmul_per_group(xx, qt), ref, _a16_tol(ref), results,
+                         None if f32 else timer, lambda: ops.int4_matmul_per_group(xx, qt),
+                         lambda: ops.int4_matmul_per_group_planar_reference(xx, qt),
+                         iters=5 if m == 640 else 20, work=linear_bound(xx, qt),
+                         library=int4pack_yardstick(xx, qt) if main else None)
+        del qt
+
+
+def check_grouped_planar_pg(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
+    """K12 at the expert shapes, planar weights per group of 128: decode
+    (T=8, tile_m 16; f32 too) and the prefill (T=600, tile_m 128), skewed
+    routing."""
+    for n, k in ((ffn, hidden), (hidden, ffn)):       # gate/up (Gh=16), then down (Gh=56)
+        qt = _planar_pg_quantize(torch.randn((e, n, k), generator=gen, device=device)
+                                 * k ** -0.5)
+        for t, tile_m in ((8, 16), (600, 128)):
+            routing, plan = _skewed_plan(t, e, 2, tile_m, gen, device)
+            xs = dispatch(torch.randn((t, k), generator=gen, device=device).bfloat16(),
+                          routing, plan)
+            gids = plan.tile_group_ids
+            pad = xs.abs().sum(dim=1) == 0
+            for xx in ((xs, xs.float()) if t == 8 else (xs,)):
+                f32 = xx.dtype == torch.float32
+                ref = ops.grouped_int4_matmul_per_group_planar_reference(xx, gids, qt,
+                                                                         tile_m=tile_m)
+                y = ops.grouped_int4_matmul_per_group(xx, gids, qt, tile_m=tile_m)
+                torch.cuda.synchronize()
+                if not bool((y[pad] == 0).all()):
+                    raise AssertionError("K12: padding rows are not exactly zero")
+                _compare("grouped_int4_matmul_per_group_planar",
+                         f"T={t} tile_m={tile_m} N={n} K={k}" + (" f32" if f32 else ""),
+                         y, ref, _a16_tol(ref), results, None if f32 else timer,
+                         lambda: ops.grouped_int4_matmul_per_group(xx, gids, qt, tile_m=tile_m),
+                         lambda: ops.grouped_int4_matmul_per_group_planar_reference(
+                             xx, gids, qt, tile_m=tile_m),
+                         iters=20 if t == 8 else 3, work=grouped_bound(xx, gids, qt, 2 * t))
+            print(f"    tokens per expert {routing.tokens_per_expert.tolist()}, "
+                  f"T_pad {plan.t_pad}")
+        del qt
+
+
+def check_ksplit(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
+    """K9 (``mode="ksplit"``) on the down stack (N=4096, K=14336) at T=8
+    (tile_m 16; f32 too) and T=600 (tile_m 128), skewed routing: against
+    K2's plain version and against K2 on the same inputs, at K2's bars; K2 is
+    timed before and after K9."""
+    n, k = hidden, ffn
+    qt = quantize(torch.randn((e, n, k), generator=gen, device=device) * k ** -0.5)
+    for t, tile_m in ((8, 16), (600, 128)):
+        routing, plan = _skewed_plan(t, e, 2, tile_m, gen, device)
+        xs = dispatch(torch.randn((t, k), generator=gen, device=device).bfloat16(), routing, plan)
+        gids = plan.tile_group_ids
+        pad = xs.abs().sum(dim=1) == 0
+        iters = 20 if t == 8 else 5
+        for xx in ((xs, xs.float()) if t == 8 else (xs,)):
+            f32 = xx.dtype == torch.float32
+            ref = ops.grouped_int4_matmul_reference(xx, gids, qt, tile_m=tile_m)
+            y = ops.grouped_int4_matmul(xx, gids, qt, tile_m=tile_m, mode="ksplit")
+            y2 = ops.grouped_int4_matmul(xx, gids, qt, tile_m=tile_m)
+            torch.cuda.synchronize()
+            if not bool((y[pad] == 0).all()):
+                raise AssertionError("K9: padding rows are not exactly zero")
+            tol = _a16_tol(ref)
+            k2_err = (y.float() - y2.float()).abs().max().item()
+            if not k2_err <= tol:
+                raise AssertionError(f"K9 vs K2 T={t}: max|d| {k2_err} > {tol}")
+            k2 = (lambda: ops.grouped_int4_matmul(xx, gids, qt, tile_m=tile_m))
+            k2_ms = [timer(k2, iters=iters)] if timer and not f32 else []
+            _compare("grouped_int4_matmul_ksplit",
+                     f"T={t} tile_m={tile_m} N={n} K={k}" + (" f32" if f32 else ""), y, ref, tol,
+                     results, None if f32 else timer,
+                     lambda: ops.grouped_int4_matmul(xx, gids, qt, tile_m=tile_m, mode="ksplit"),
+                     lambda: ops.grouped_int4_matmul_reference(xx, gids, qt, tile_m=tile_m),
+                     iters=iters, work=grouped_bound(xx, gids, qt, 2 * t))
+            if k2_ms:
+                k2_ms.append(timer(k2, iters=iters))
+            splits = _ksplit_splits(plan.t_pad, n, k, 8 if f32 else 16)
+            print(f"    K9 splits {splits}; K9 vs K2 on the same inputs max|d| {k2_err:.3e} "
+                  f"(tol {tol:.3e}); K2 {', '.join(f'{v:.4f}' for v in k2_ms) or 'untimed'} ms "
+                  f"(before, after K9)")
+        print(f"    tokens per expert {routing.tokens_per_expert.tolist()}, T_pad {plan.t_pad}")
+        if t == 8:
+            # the first 256 rows of each expert: a grid of 72 CTAs, so K9 splits K/2
+            sub = dataclasses.replace(qt, packed=qt.packed[:, :256].contiguous(),
+                                      scales=qt.scales[:, :256].contiguous(),
+                                      zero_points=qt.zero_points[:, :256].contiguous(),
+                                      shape=(e, 256, k))
+            y = ops.grouped_int4_matmul(xs, gids, sub, tile_m=tile_m, mode="ksplit")
+            ref = ops.grouped_int4_matmul_reference(xs, gids, sub, tile_m=tile_m)
+            _compare("grouped_int4_matmul_ksplit",
+                     f"T={t} tile_m={tile_m} N=256 K={k} "
+                     f"{_ksplit_splits(plan.t_pad, 256, k, 16)} splits", y, ref, _a16_tol(ref),
+                     results, None, None, None)
+    del qt
 
 
 def check_int8_paths(device, results, timer, gen, m=640, n=4096, k=4096):
@@ -708,6 +861,9 @@ def check_kernels(device="cuda", timing=True):
     check_grouped_a8(device, results, timer, gen)
     check_linear_pg(device, results, timer, gen)
     check_grouped_pg(device, results, timer, gen)
+    check_linear_planar_pg(device, results, timer, gen)
+    check_grouped_planar_pg(device, results, timer, gen)
+    check_ksplit(device, results, timer, gen)
     check_int8_paths(device, results, timer, gen)
     torch.cuda.empty_cache()
     return results
@@ -719,7 +875,9 @@ _REFERENCES = (ops.int4_matmul_reference, ops.grouped_int4_matmul_reference,
                ops.grouped_int4_matmul_a8_reference, ops.int4_matmul_per_group_reference,
                ops.int4_matmul_per_group_a8_reference,
                ops.grouped_int4_matmul_per_group_reference,
-               ops.grouped_int4_matmul_per_group_a8_reference)
+               ops.grouped_int4_matmul_per_group_a8_reference,
+               ops.int4_matmul_per_group_planar_reference,
+               ops.grouped_int4_matmul_per_group_planar_reference)
 # the per-group kernels, each with one launch counter
 _PG_OPS = (ops.int4_matmul_per_group, ops.int4_matmul_per_group_a8,
            ops.grouped_int4_matmul_per_group, ops.grouped_int4_matmul_per_group_a8)
@@ -736,6 +894,9 @@ def _reset_counts():
         fn.launches = fn.fused_launches = 0
     for fn in _PG_OPS:
         fn.launches = 0
+    ops.int4_matmul_per_group.planar_launches = 0
+    ops.grouped_int4_matmul_per_group.planar_launches = 0
+    ops.grouped_int4_matmul.ksplit_launches = 0
     for fn in _REFERENCES + _PATH_CALLS:
         fn.calls = 0
 
@@ -751,6 +912,9 @@ def _launch_counts() -> dict:
         "grouped_int4_matmul_a8": ops.grouped_int4_matmul_a8.launches,
         "grouped_int4_matmul_a8_fused": ops.grouped_int4_matmul_a8.fused_launches,
         **{fn.__name__: fn.launches for fn in _PG_OPS},
+        "int4_matmul_per_group_planar": ops.int4_matmul_per_group.planar_launches,
+        "grouped_int4_matmul_ksplit": ops.grouped_int4_matmul.ksplit_launches,
+        "grouped_int4_matmul_per_group_planar": ops.grouped_int4_matmul_per_group.planar_launches,
     }
 
 
@@ -988,29 +1152,44 @@ def serve_speculative(model, cfg, ref, card_line, device="cuda"):
     del draft
 
 
-def a8_entry_points(device="cuda", gen=None, e=8, ffn=14336, hidden=4096):
-    """Phase 5: the w4a8 op entry points whose kernels the layer2 serving
-    paths do not take, called as a user would at layer2 widths: the linear
-    at deep K, where the fuse gate picks K4 by itself, and the grouped
-    product with ``fuse_quant=True`` (K11). Returns the kernel launches."""
+def op_entry_points(device="cuda", gen=None, e=8, ffn=14336, hidden=4096):
+    """Phase 5: the op entry points whose kernels the layer2 serving paths do
+    not take, called as a user would at layer2 widths: the w4a8 linear at
+    deep K, where the fuse gate picks K4 by itself, the w4a8 grouped product
+    with ``fuse_quant=True`` (K11), and the down projection's experts
+    through ``MoEINT4(..., mode="ksplit")`` at a decode step (K9; its output
+    held against K2's on the same inputs). Returns the kernel launches."""
     gen = gen or torch.Generator(device=device).manual_seed(3)
     qt = quantize(torch.randn((hidden, ffn), generator=gen, device=device) * ffn ** -0.5)
     x = torch.randn((8, ffn), generator=gen, device=device).bfloat16()
     routing, plan = _skewed_plan(8, e, 2, 32, gen, device)
     xs = dispatch(torch.randn((8, hidden), generator=gen, device=device).bfloat16(), routing, plan)
     qe = quantize(torch.randn((e, ffn, hidden), generator=gen, device=device) * hidden ** -0.5)
+    down = MoEINT4.from_dense(torch.randn((e, hidden, ffn), generator=gen, device=device)
+                              * ffn ** -0.5)
+    routing16, plan16 = _skewed_plan(8, e, 2, 16, gen, device)
+    xd = dispatch(torch.randn((8, ffn), generator=gen, device=device).bfloat16(), routing16,
+                  plan16)
     _reset_counts()
     y = ops.int4_matmul_a8(x, qt)
     ye = ops.grouped_int4_matmul_a8(xs, plan.tile_group_ids, qe, tile_m=32, fuse_quant=True)
+    yd = down(xd, plan16.tile_group_ids, tile_m=16, mode="ksplit")
     torch.cuda.synchronize()
     launches = _launch_counts()
-    if not (torch.isfinite(y).all() and torch.isfinite(ye).all()):
-        raise AssertionError("w4a8 entry points: non-finite output")
-    _expect_launches("w4a8 entry points", launches,
-                     ("int4_matmul_a8", "grouped_int4_matmul_a8_fused"),
-                     ("int4_matmul_a8_fused", "grouped_int4_matmul_a8"))
-    print(f"w4a8 entry points: kernel launches {launches}")
-    del qt, qe
+    if not (torch.isfinite(y).all() and torch.isfinite(ye).all() and torch.isfinite(yd).all()):
+        raise AssertionError("op entry points: non-finite output")
+    _expect_launches("op entry points", launches,
+                     ("int4_matmul_a8", "grouped_int4_matmul_a8_fused",
+                      "grouped_int4_matmul_ksplit"),
+                     ("int4_matmul_a8_fused", "grouped_int4_matmul_a8", "grouped_int4_matmul"))
+    y2 = down(xd, plan16.tile_group_ids, tile_m=16)           # K2, outside the counted run
+    tol = BF16_REL_TOL * y2.float().abs().max().item()
+    err = (yd.float() - y2.float()).abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"MoEINT4 mode='ksplit' vs K2: max|d| {err} > {tol}")
+    print(f"op entry points: kernel launches {launches}; MoEINT4(mode='ksplit') vs K2 "
+          f"max|d| {err:.3e} (tol {tol:.3e})")
+    del qt, qe, down
     torch.cuda.empty_cache()
     return launches
 
@@ -1107,7 +1286,7 @@ def _cosines(got, ref):
 
 
 def whole_model(device="cuda", mode="kernel", convert=None, paged=False):
-    """Phase 7: the tiny model, same weights, card (kernels) vs CPU (plain),
+    """Phase 9: the tiny model, same weights, card (kernels) vs CPU (plain),
     after the converter of ``mode`` on each side; with ``paged``, on paged
     caches of page 32 with the same shuffled page assignment on both."""
     cfg = flagship_model_config("tiny")
@@ -1115,16 +1294,26 @@ def whole_model(device="cuda", mode="kernel", convert=None, paged=False):
     gpu = copy.deepcopy(cpu).to(device)
     if convert is not None:
         cpu, gpu = convert(cpu), convert(gpu)
+    caches = None
+    if paged:
+        kw = dict(num_pages=5, page_size=32, max_pages_per_slot=2)
+        caches = [tuple(c.assign_pages(0, [3, 1]).assign_pages(1, [4, 2])
+                        for c in m.init_paged_cache(cfg, 2, **kw))
+                  for m in (cpu, gpu)]
+        mode += ", paged"
+    card_vs_cpu(cpu, gpu, cfg, f"tiny model [{mode}]", caches, device)
+
+
+def card_vs_cpu(cpu, gpu, cfg, what, caches=None, device="cuda"):
+    """The same model on the card (kernels) and on the CPU (plain versions):
+    a 2 x 12-token prefill then 3 decode steps fed the CPU's greedy token;
+    logits within MODEL_REL_TOL of their max and the card's next token in
+    the CPU's top-2 at every step. ``caches``: (CPU's, card's), contiguous
+    of 64 positions by default."""
     b, t, max_seq = 2, 12, 64
     tokens = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (b, t)))
-    if paged:
-        kw = dict(num_pages=5, page_size=32, max_pages_per_slot=max_seq // 32)
-        caches_c, caches_g = (tuple(c.assign_pages(0, [3, 1]).assign_pages(1, [4, 2])
-                                    for c in m.init_paged_cache(cfg, b, **kw))
-                              for m in (cpu, gpu))
-        mode += ", paged"
-    else:
-        caches_c, caches_g = cpu.init_cache(cfg, b, max_seq), gpu.init_cache(cfg, b, max_seq)
+    caches_c, caches_g = caches or (cpu.init_cache(cfg, b, max_seq),
+                                    gpu.init_cache(cfg, b, max_seq))
     positions = torch.arange(t, dtype=torch.int32)
     worst = 0.0
     with torch.no_grad():
@@ -1133,19 +1322,181 @@ def whole_model(device="cuda", mode="kernel", convert=None, paged=False):
             got, caches_g = gpu(tokens.to(device), caches_g, positions.to(device))
             ref, got = ref.float(), got.float().cpu()
             if got.shape != ref.shape or not torch.isfinite(got).all():
-                raise AssertionError(f"tiny step {step}: bad output {tuple(got.shape)}")
+                raise AssertionError(f"{what} step {step}: bad output {tuple(got.shape)}")
             err = (got - ref).abs().max().item()
             tol = MODEL_REL_TOL * ref.abs().max().item()
             worst = max(worst, err / tol)
             top2 = ref[:, -1].topk(2, dim=-1).indices
             nxt = got[:, -1].argmax(dim=-1)
             if err > tol or not all(nxt[i] in top2[i] for i in range(b)):
-                raise AssertionError(f"tiny step {step}: max|d| {err} (tol {tol}), "
+                raise AssertionError(f"{what} step {step}: max|d| {err} (tol {tol}), "
                                      f"argmax {nxt.tolist()} vs CPU top-2 {top2.tolist()}")
             tokens = ref[:, -1].argmax(dim=-1)[:, None]
             positions = torch.tensor([t + step], dtype=torch.int32)
-    print(f"tiny model [{mode}]: card vs CPU over prefill + 3 decode steps, "
+    print(f"{what}: card vs CPU over prefill + 3 decode steps, "
           f"worst max|d|/tol {worst:.3f}, argmax in CPU top-2: ok")
+
+
+# --- the conversion path: a dense checkpoint into an INT4 model ---------------
+
+CONVERSIONS = (
+    # (name, convert_checkpoint's arguments, kernels the serve must launch, and must not)
+    ("per_row", {}, _DEFAULT_KERNELS + ("int4_attention",),
+     ("int4_matmul_per_group_planar", "grouped_int4_matmul_per_group_planar")),
+    # the router is dense (a plain matmul): no K1 launch at all
+    ("per_group128", dict(granularity="per_group", group_size=128),
+     ("int4_matmul_per_group_planar", "grouped_int4_matmul_per_group_planar", "int4_attention"),
+     ("int4_matmul", "grouped_int4_matmul", "int4_matmul_per_group",
+      "grouped_int4_matmul_per_group")),
+)
+
+
+def full_width_conversion(card_line, device="cuda"):
+    """Phase 7: a seeded dense layer2 checkpoint (Mixtral-8x7B layer widths,
+    2 layers) converted on the card. Quantizing one full-width expert weight
+    per format on the card gives the CPU's bytes; then the checkpoint is
+    converted per row and per group of 128, and each model serves phase 4's
+    12 requests: per row on K1, K2 and K3, per group on K6, K12 and K3, with
+    no plain version. Returns the launches of each serve."""
+    cfg = flagship_model_config("layer2")
+    params = SeededCheckpoint(cfg, device)
+    w = params["layers.0.moe.experts.0.w1.weight"]
+    for kw in (dict(), dict(granularity="per_group", layout="planar", group_size=128)):
+        on_card, on_cpu = quantize(w, **kw), quantize(w.cpu(), **kw)
+        for field in ("packed", "scales", "zero_points"):
+            if not torch.equal(getattr(on_card, field).cpu(), getattr(on_cpu, field)):
+                raise AssertionError(f"quantize {kw or 'per_row'} {tuple(w.shape)}: {field} on "
+                                     "the card differ from the CPU's")
+    print(f"quantize on the card == on the CPU, byte for byte: {tuple(w.shape)} per_row and "
+          "per_group 128 planar (packed, scales, zero points)")
+    del w, on_card, on_cpu
+    runs = {}
+    for name, kw, launched, idle in CONVERSIONS:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = convert_checkpoint(params, cfg, device=device, **kw)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        peak = torch.cuda.max_memory_allocated() - base
+        print(f"convert_checkpoint [{name}] layer2: {time.perf_counter() - t0:.2f} s, model "
+              f"{held / 2**30:.2f} GiB, peak {peak / 2**30:.2f} GiB on the card during the "
+              "conversion")
+        launches, _, _ = serve(model, cfg, f"converted {name}", card_line)
+        _expect_launches(f"serve [converted {name}]", launches, launched, idle)
+        runs[name] = launches
+        del model
+        torch.cuda.empty_cache()
+    return runs
+
+
+H256 = "tests/fixtures/tiny_trained_h256_s1400.safetensors"
+JAX_QUALITY_RECORD = "benchmark/results/quality_trained_h256.json"
+QUALITY_POLICIES = {
+    "int4_router_dense": dict(quantize_router=False),
+    "int4_all_quantized": dict(quantize_router=True),
+    "int4_per_group64": dict(granularity="per_group", group_size=64),    # the golden path
+    "int4_per_group128": dict(granularity="per_group", group_size=128),  # K6, K12
+}
+
+
+def fixture_config(path) -> ModelConfig:
+    """The trained fixture's geometry, from the JSON beside it."""
+    with open(path.replace(".safetensors", ".json")) as f:
+        c = json.load(f)["config"]
+    return ModelConfig(
+        name="tiny-trained", moe=MoEConfig("tiny-trained-moe", c["num_experts"],
+                                           c["num_heads"] * c["head_dim"], c["ffn_dim"],
+                                           c["top_k"]),
+        num_layers=c["num_layers"], num_heads=c["num_heads"], num_kv_heads=c["num_kv_heads"],
+        head_dim=c["head_dim"], vocab_size=c["vocab_size"], max_seq_len=256)
+
+
+def heldout_tokens(path, seq=128, rows=16):
+    """The held-out tail (past 90 %) of the fixture's corpus snapshot, cut
+    as the JAX package's quality evaluation cuts it: 16 rows of 128."""
+    corpus = np.fromfile(path.replace(".safetensors", ".corpus"), np.uint8)
+    held = corpus[int(len(corpus) * 0.9):]
+    return held[: (len(held) // seq) * seq].reshape(-1, seq)[:rows].astype(np.int64)
+
+
+def evaluate(model, cfg, tokens, device="cuda"):
+    """Logits [B*T, V] (f32) and the mean NLL of next-token prediction over
+    one forward of tokens[:, :-1]."""
+    tokens = torch.from_numpy(tokens).to(device)
+    t = tokens.shape[1] - 1
+    with torch.no_grad():
+        logits, _ = model(tokens[:, :-1], model.init_cache(cfg, tokens.shape[0], t + 1),
+                          torch.arange(t, device=device))
+    logits = logits.float()
+    nll = -torch.log_softmax(logits, dim=-1).gather(-1, tokens[:, 1:, None])[..., 0].mean()
+    return logits.reshape(-1, logits.shape[-1]), nll.item()
+
+
+def policy_metrics(got, nll, ref, nll_ref) -> dict:
+    """The JAX package's quality numbers of one policy's logits and NLL
+    against the bf16 twin's (``benchmark/run_quality_eval.py``)."""
+    return dict(heldout_nll=nll, nll_delta=nll - nll_ref,
+                top1_agreement=(got.argmax(-1) == ref.argmax(-1)).float().mean().item(),
+                logit_cosine_sim=F.cosine_similarity(got, ref, dim=-1, eps=1e-9).mean().item())
+
+
+def quality_gates(res, nll_ref, vocab_size) -> dict:
+    """tests/test_convert.py's gates on the trained h256 fixture: name ->
+    whether it holds."""
+    q, pg = res["int4_router_dense"], res["int4_per_group64"]
+    return {"NLL bf16 < 0.5 uniform": nll_ref < 0.5 * float(np.log(vocab_size)),
+            "router-dense cosine > 0.97": q["logit_cosine_sim"] > 0.97,
+            "router-dense top-1 > 0.82": q["top1_agreement"] > 0.82,
+            "router-dense nll_delta < 0.1": q["nll_delta"] < 0.1,
+            "per-group64 cosine >= router-dense - 1e-3":
+                pg["logit_cosine_sim"] >= q["logit_cosine_sim"] - 1e-3}
+
+
+def trained_checkpoint(card_line, device="cuda"):
+    """Phase 8: the trained h256 fixture converted on the card in the four
+    policies the port supports, each evaluated on the held-out tail of its
+    corpus against the bf16 twin built from the same checkpoint, beside the
+    JAX package's committed record (a CPU run of the JAX package); held to
+    the gates of tests/test_convert.py. Then the per-group-128 model on the
+    card against the CPU."""
+    cfg = fixture_config(H256)
+    raw = load_safetensors(H256)
+    tokens = heldout_tokens(H256)
+    with open(JAX_QUALITY_RECORD) as f:
+        record = json.load(f)
+    ref, nll_ref = evaluate(dense_from_params(raw, cfg, device=device), cfg, tokens, device)
+    print(f"trained h256: held-out NLL bf16 twin {nll_ref:.4f} (JAX record "
+          f"{record['heldout_nll_bf16']}), {tokens[:, 1:].size} tokens")
+    res = {}
+    for label, kw in QUALITY_POLICIES.items():
+        _reset_counts()
+        got, nll = evaluate(convert_safetensors(H256, cfg, device=device, **kw), cfg, tokens,
+                            device)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _launch_counts().items() if v}
+        res[label] = q = policy_metrics(got, nll, ref, nll_ref)
+        rec = record[label]
+        print(f"trained h256 [{label}]: held-out NLL {q['heldout_nll']:.4f}, nll_delta "
+              f"{q['nll_delta']:.4f}, top-1 {q['top1_agreement']:.4f}, cosine "
+              f"{q['logit_cosine_sim']:.4f}; JAX record (CPU run of the JAX package) "
+              f"{rec['nll_delta']} / {rec['top1_agreement']} / {rec['logit_cosine_sim']}; "
+              f"launches {launches}, plain-version calls {_plain_calls()}")
+        if label == "int4_per_group128":
+            _expect_launches("trained h256 [int4_per_group128]", _launch_counts(),
+                             ("int4_matmul_per_group_planar",
+                              "grouped_int4_matmul_per_group_planar", "int4_attention"),
+                             ("int4_matmul", "grouped_int4_matmul"))
+    gates = quality_gates(res, nll_ref, cfg.vocab_size)
+    if not all(gates.values()):
+        raise AssertionError(f"trained h256 quality gates: {gates}")
+    print(f"trained h256: every gate of tests/test_convert.py met {sorted(gates)}")
+    kw = QUALITY_POLICIES["int4_per_group128"]
+    card_vs_cpu(convert_checkpoint(raw, cfg, device="cpu", **kw),
+                convert_checkpoint(raw, cfg, device=device, **kw), cfg,
+                "trained h256 [int4_per_group128]", device=device)
+    return res
 
 
 def main() -> None:
@@ -1162,8 +1513,9 @@ def main() -> None:
     launches, eng, _ = serve(model, cfg, "default", card_line)
     _expect_launches("serve [default]", launches,
                      ("int4_matmul", "grouped_int4_matmul", "int4_attention"),
-                     ("int4_matmul_a8_fused", "grouped_int4_matmul_a8", "paged_int4_attention")
-                     + pg_kernels)
+                     ("int4_matmul_a8_fused", "grouped_int4_matmul_a8", "paged_int4_attention",
+                      "grouped_int4_matmul_ksplit", "int4_matmul_per_group_planar",
+                      "grouped_int4_matmul_per_group_planar") + pg_kernels)
     ref = dict(eng.finished)
     launches["paged_int4_attention"] = serve_paged(model, cfg, ref, card_line)[
         "paged_int4_attention"]
@@ -1198,12 +1550,16 @@ def main() -> None:
                        ("int4_matmul_per_group_a8", launches_pgt),
                        ("grouped_int4_matmul_per_group_a8", launches_pgt)):
         launches[name] = runs[name]
-    launches_ops = a8_entry_points()
-    for name in ("int4_matmul_a8", "grouped_int4_matmul_a8_fused"):
+    launches_ops = op_entry_points()
+    for name in ("int4_matmul_a8", "grouped_int4_matmul_a8_fused", "grouped_int4_matmul_ksplit"):
         launches[name] = launches_ops[name]
     long_prefill(model, pg, cfg)
     del model, pg
     torch.cuda.empty_cache()
+    converted = full_width_conversion(card_line)
+    for name in ("int4_matmul_per_group_planar", "grouped_int4_matmul_per_group_planar"):
+        launches[name] = converted["per_group128"][name]
+    trained_checkpoint(card_line)
     for mode, convert in (("kernel", None), ("u4_turbo", as_u4_turbo), ("turbo", as_turbo),
                           ("xla_turbo", as_xla_turbo), ("per_group", as_per_group),
                           ("pg_turbo", as_pg_turbo)):

@@ -158,7 +158,7 @@ __global__ void __launch_bounds__(kThreads) int4_a8_rows_kernel(
   const bool has_rows = n0 < N;  // warp-uniform: the router has N = 8
   const int cb = lane * 16;
   uint4 wcur[kRowsPerWarp] = {};
-  if (kend > 0) load_weights(w, n0, N, kh, cb, wcur);  // none for an all-zero block
+  if (kend > 0) load_weights(w, n0, N, kh, kh, cb, wcur);  // none for an all-zero block
   for (int c0 = 0; c0 < kend; c0 += kChunk) {
     const int clen = min(kChunk, kh - c0);
     __syncthreads();  // the previous chunk is consumed
@@ -175,7 +175,7 @@ __global__ void __launch_bounds__(kThreads) int4_a8_rows_kernel(
     }
     // Issue the next chunk's weight loads before this chunk's math.
     uint4 wnext[kRowsPerWarp];
-    load_weights(w, n0, N, kh, c0 + kChunk + cb, wnext);
+    load_weights(w, n0, N, kh, kh, c0 + kChunk + cb, wnext);
     __syncthreads();
 
     if (has_rows && cb < clen) {

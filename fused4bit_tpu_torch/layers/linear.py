@@ -13,12 +13,15 @@ holds them. The forward follows the JAX layer's ``activation`` dispatch:
 * ``"int8_xla"`` (``as_xla_turbo``): ``ops.int8_linear`` on the resident i8
   copy.
 
-Per-group weights in the planar_groups layout run ``ops.int4_matmul_per_group``
-(K7) or, with ``"int8"``, ``ops.int4_matmul_per_group_a8`` (K8), at every row
-count; ``"int8_auto"`` never sends them to the transient path. A per-group
-weight no kernel serves (a group size that is not a multiple of 128) takes
-the golden path, dequantize and matmul, as in the JAX package: the counted
-plain version ``ops.int4_matmul_per_group_reference``.
+Per-group weights run ``ops.int4_matmul_per_group`` at every row count: K7
+in the planar_groups layout, K6 in the planar layout (what ``models.convert``
+produces); with ``"int8"``, planar_groups weights run
+``ops.int4_matmul_per_group_a8`` (K8) and planar ones stay on K6, as in JAX;
+``"int8_auto"`` never sends per-group weights to the transient path. A
+per-group weight no kernel serves (a group size that is not a multiple of
+128, or that does not divide K/2) takes the golden path, dequantize and
+matmul, as in the JAX package: the counted plain version
+``ops.int4_matmul_per_group_reference``.
 
 Each op runs its kernel on a CUDA tensor and its plain version on a CPU one.
 """
@@ -204,7 +207,7 @@ class QuantizedLinear(nn.Module):
         elif activation == "int8" and w.layout == "planar_groups":
             y = int4_matmul_per_group_a8(x, w)
         elif w.group_size % 128 == 0 and (w.in_dim // 2) % w.group_size == 0:
-            y = int4_matmul_per_group(x, w)   # raises for the planar layout (K6)
+            y = int4_matmul_per_group(x, w)   # K7 (planar_groups) or K6 (planar)
         else:
             y = int4_matmul_per_group_reference(x, w)  # no kernel, as in JAX: golden
         if self.out_features and y.shape[-1] != self.out_features:

@@ -184,10 +184,11 @@ def combine(expert_out: torch.Tensor, routing: RoutingResult, plan: DispatchPlan
 
 class MoEINT4(nn.Module):
     """Stacked per-expert INT4 weights [E, N, K] applied by a grouped kernel
-    to pre-routed, tile-packed inputs: per_row weights on K2 with
-    ``activation="bf16"`` and K10 with ``"int8"``; per_group planar_groups
-    weights on K13 and K14. ``w8``: the i8-resident copy the xla_turbo
-    capacity path runs on."""
+    to pre-routed, tile-packed inputs: per_row weights on K2 (or K9 with
+    ``mode="ksplit"``) with ``activation="bf16"`` and K10 with ``"int8"``;
+    per_group planar_groups weights on K13 and K14; per_group planar weights
+    (what ``models.convert`` produces) on K12 in both activations, as in JAX.
+    ``w8``: the i8-resident copy the xla_turbo capacity path runs on."""
 
     def __init__(self, weight: QuantizedTensor, *, activation: str = "bf16",
                  w8: Optional[Int8Resident] = None):
@@ -238,17 +239,20 @@ class MoEINT4(nn.Module):
         return self.shape[0]
 
     def forward(self, x_sorted: torch.Tensor, tile_group_ids: torch.Tensor,
-                *, tile_m: int = 64) -> torch.Tensor:
+                *, tile_m: int = 64, **kw) -> torch.Tensor:
+        """The grouped product; ``kw`` (for example ``mode=`` of
+        ``grouped_int4_matmul``) goes on to the grouped op, as in JAX."""
         w = self.weight
         if w.granularity == "per_row":
             if self.activation == "int8":
-                return grouped_int4_matmul_a8(x_sorted, tile_group_ids, w, tile_m=tile_m)
-            return grouped_int4_matmul(x_sorted, tile_group_ids, w, tile_m=tile_m)
+                return grouped_int4_matmul_a8(x_sorted, tile_group_ids, w, tile_m=tile_m, **kw)
+            return grouped_int4_matmul(x_sorted, tile_group_ids, w, tile_m=tile_m, **kw)
         if self.activation == "int8" and w.layout == "planar_groups":
-            return grouped_int4_matmul_per_group_a8(x_sorted, tile_group_ids, w, tile_m=tile_m)
+            return grouped_int4_matmul_per_group_a8(x_sorted, tile_group_ids, w, tile_m=tile_m,
+                                                    **kw)
         if w.group_size % 128 == 0 and (w.in_dim // 2) % w.group_size == 0:
-            # raises for the planar layout (K12)
-            return grouped_int4_matmul_per_group(x_sorted, tile_group_ids, w, tile_m=tile_m)
+            # K13 (planar_groups) or K12 (planar)
+            return grouped_int4_matmul_per_group(x_sorted, tile_group_ids, w, tile_m=tile_m, **kw)
         # no kernel, as in JAX: the golden dequantize-and-matmul per expert
         return grouped_int4_matmul_per_group_reference(x_sorted, tile_group_ids, w,
                                                        tile_m=tile_m)

@@ -11,7 +11,10 @@ JAX model holds is lost silently. A JAX execution mode is partly static
 format: granularity, layout and group size are static fields of the JAX
 ``QuantizedTensor``, so each weight's format is read from its site (a linear
 or an expert stack) and its leaves' shapes, and a shape that fits no format
-of the site raises. This module imports no JAX.
+of the site raises. A linear the JAX model holds dense (``DenseLinear``: the
+router and, with ``quantize_lm_head=False``, the lm_head of
+``models.convert``) has a ``.weight`` leaf of its own and is read as the
+port's ``DenseLinear``. This module imports no JAX.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import torch
 
 from .._device import resolve_device
 from ..layers.kv_cache import QuantizedKVCache
-from ..layers.linear import QuantizedLinear
+from ..layers.linear import DenseLinear, QuantizedLinear
 from ..layers.moe import MoEINT4
 from ..layers.paged_kv import PagedKVCache
 from ..ops.int8_xla import Int8Resident
@@ -82,8 +85,9 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
 def _qt(read: _Reader, prefix: str, lead: int) -> QuantizedTensor:
     """The QuantizedTensor at ``prefix``: a linear (``lead`` 0) or an expert
     stack (``lead`` 1). per_row planar: packed [*lead, N, K/2], scales
-    [*lead, N]. per_group planar_groups: packed [*lead, Gh, N, gs], scales
-    [*lead, N, 2*Gh]."""
+    [*lead, N]. per_group planar: packed [*lead, N, K/2], scales
+    [*lead, N, K/gs]. per_group planar_groups: packed [*lead, Gh, N, gs],
+    scales [*lead, N, 2*Gh]."""
     packed = read(f"{prefix}.packed")
     scales = read(f"{prefix}.scales").float()
     zero_points = read(f"{prefix}.zero_points").float()
@@ -92,18 +96,29 @@ def _qt(read: _Reader, prefix: str, lead: int) -> QuantizedTensor:
     if ok and len(p) == lead + 2 and sc == p[:-1]:
         return QuantizedTensor(packed, scales, zero_points, p[:-1] + (2 * p[-1],),
                                block_k=2 * p[-1])
+    if ok and len(p) == lead + 2 and sc[:-1] == p[:-1] and len(sc) == lead + 2:
+        g, k = sc[-1], 2 * p[-1]
+        if g % 2 == 0 and k % g == 0:   # Gh = g/2 groups per half
+            return _per_group(read, prefix, p, QuantizedTensor(
+                packed, scales, zero_points, p[:-1] + (k,), granularity="per_group",
+                layout="planar", block_k=k, group_size=k // g))
     if ok and len(p) == lead + 3 and sc == p[:lead] + (p[-2], 2 * p[-3]):
-        if not read.per_group:
-            raise ValueError(f"{prefix}.packed holds per-group weights {p}: read them with "
-                             f"mode={_PER_GROUP_MODES}")
         gh, n, gs = p[-3:]
-        read.group_sizes.add(gs)
         shape = p[:lead] + (n, 2 * gh * gs)
-        return QuantizedTensor(packed, scales, zero_points, shape, granularity="per_group",
-                               layout="planar_groups", block_k=shape[-1], group_size=gs)
+        return _per_group(read, prefix, p, QuantizedTensor(
+            packed, scales, zero_points, shape, granularity="per_group", layout="planar_groups",
+            block_k=shape[-1], group_size=gs))
     raise ValueError(f"{prefix}: packed {p} {packed.dtype}, scales {sc}, zero_points "
                      f"{tuple(zero_points.shape)} fit neither per_row planar nor per_group "
-                     "planar_groups")
+                     "planar or planar_groups")
+
+
+def _per_group(read: _Reader, prefix: str, p, qt: QuantizedTensor) -> QuantizedTensor:
+    if not read.per_group:
+        raise ValueError(f"{prefix}.packed holds per-group weights {p}: read them with "
+                         f"mode={_PER_GROUP_MODES}")
+    read.group_sizes.add(qt.group_size)
+    return qt
 
 
 def _w8(read: _Reader, prefix: str, with_w8: bool) -> Optional[Int8Resident]:
@@ -113,7 +128,9 @@ def _w8(read: _Reader, prefix: str, with_w8: bool) -> Optional[Int8Resident]:
     return Int8Resident(read(f"{prefix}.w8.q8"), read(f"{prefix}.w8.scales"))
 
 
-def _linear(read: _Reader, prefix: str, with_w8: bool) -> QuantizedLinear:
+def _linear(read: _Reader, prefix: str, with_w8: bool) -> Union[QuantizedLinear, DenseLinear]:
+    if f"{prefix}.weight" in read.params:   # a dense leaf: DenseLinear
+        return DenseLinear(read(f"{prefix}.weight"), read.get(f"{prefix}.bias"))
     return QuantizedLinear(_qt(read, f"{prefix}.weight", 0), read.get(f"{prefix}.bias"),
                            w8=_w8(read, prefix, with_w8))
 
@@ -133,7 +150,9 @@ def model_from_jax(params: Params, cfg: ModelConfig, device=None, *,
     port's converter of that name is applied (``as_per_group`` keeps the
     leaves that are per-group already: it requantizes nothing the JAX model
     converted); for "xla_turbo" the JAX ``.w8.q8`` / ``.w8.scales`` leaves
-    are loaded as the i8-resident copies, not recomputed. Raises
+    are loaded as the i8-resident copies, not recomputed. A model from the
+    JAX ``convert_checkpoint`` is read with "kernel" (per row) or
+    "per_group" (per group: planar leaves, K6 and K12, or the golden path). Raises
     ``ValueError`` naming any leaf left unconsumed (for example ``.w8``
     leaves passed with another mode), any weight whose shapes fit no format
     of its site, and per-group weights under a per-row mode. ``device``:

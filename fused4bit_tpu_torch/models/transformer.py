@@ -29,7 +29,7 @@ from torch import nn
 
 from .._device import resolve_device
 from ..layers.kv_cache import QuantizedKVCache
-from ..layers.linear import QuantizedLinear
+from ..layers.linear import DenseLinear, QuantizedLinear
 from ..layers.paged_kv import PagedKVCache
 from ..layers.moe import (
     MoEINT4,
@@ -146,12 +146,14 @@ class MoEBlock(nn.Module):
     ``"u4_turbo"`` / ``"xla_turbo"``: dropless grouped kernel up to the
     threshold; above it the capacity layout (pairs past ``capacity_factor``
     x the mean load are dropped) with integer GEMMs on transient (u4) or
-    resident (xla) i8 weights.
+    resident (xla) i8 weights. ``router``: a ``QuantizedLinear``, or the
+    ``DenseLinear`` (a plain matmul) that ``models.convert`` builds by
+    default; the mode converters pass a ``DenseLinear`` through unchanged.
     """
 
-    def __init__(self, router: QuantizedLinear, w_gate: MoEINT4, w_up: MoEINT4,
-                 w_down: MoEINT4, *, num_experts: int, top_k: int, tile_m: int = 16,
-                 prefill_threshold: int = 512, prefill_impl: str = "grouped",
+    def __init__(self, router: Union[QuantizedLinear, DenseLinear], w_gate: MoEINT4,
+                 w_up: MoEINT4, w_down: MoEINT4, *, num_experts: int, top_k: int,
+                 tile_m: int = 16, prefill_threshold: int = 512, prefill_impl: str = "grouped",
                  prefill_tile_m: int = 128, capacity_factor: float = 2.0,
                  moe_impl: str = "kernel"):
         super().__init__()
@@ -275,7 +277,8 @@ class QuantizedTransformer(nn.Module):
     """INT4 weight-only Mixtral-style decoder."""
 
     def __init__(self, embed: torch.Tensor, blocks: Sequence[TransformerBlock],
-                 final_norm: torch.Tensor, lm_head: QuantizedLinear, *, rms_eps: float):
+                 final_norm: torch.Tensor, lm_head: Union[QuantizedLinear, DenseLinear], *,
+                 rms_eps: float):
         super().__init__()
         self.register_buffer("embed", embed)         # [V, H]
         self.blocks = nn.ModuleList(blocks)

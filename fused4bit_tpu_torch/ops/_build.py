@@ -65,6 +65,12 @@ _SIGNATURES = {
     "f4b_grouped_int4_matmul_pg_f32": [_P] * 7 + [_I] * 5 + [_P],
     "f4b_grouped_int4_matmul_pg_a8_bf16": [_P] * 8 + [_I] * 5 + [_P],
     "f4b_grouped_int4_matmul_pg_a8_f32": [_P] * 8 + [_I] * 5 + [_P],
+    "f4b_int4_matmul_planar_pg_bf16": [_P] * 5 + [_I] * 4 + [_P],
+    "f4b_int4_matmul_planar_pg_f32": [_P] * 5 + [_I] * 4 + [_P],
+    "f4b_grouped_int4_matmul_planar_pg_bf16": [_P] * 7 + [_I] * 5 + [_P],
+    "f4b_grouped_int4_matmul_planar_pg_f32": [_P] * 7 + [_I] * 5 + [_P],
+    "f4b_grouped_int4_matmul_ksplit_bf16": [_P] * 8 + [_I] * 5 + [_P],
+    "f4b_grouped_int4_matmul_ksplit_f32": [_P] * 8 + [_I] * 5 + [_P],
 }
 
 

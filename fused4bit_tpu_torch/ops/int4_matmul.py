@@ -1,5 +1,5 @@
 """INT4 weight-only linear, ``x @ dequant(W)^T``, over kernels K1, K4, K5,
-K7 and K8.
+K6, K7 and K8.
 
 Counterpart of ``fused4bit_tpu/ops/int4_matmul.py``:
 
@@ -15,10 +15,13 @@ Counterpart of ``fused4bit_tpu/ops/int4_matmul.py``:
   :func:`~.int8_xla._quantize_acts`, or K5 (the port of
   ``_int4_a8_fused_kernel``) which quantizes inside the kernel. On a CPU
   tensor it runs :func:`int4_matmul_a8_reference`.
-* ``int4_matmul_per_group`` (w4a16, per-group weights in the planar_groups
-  layout): on a CUDA tensor it launches ``csrc/int4_matmul_pg.cu``, K7 (the
-  port of ``_int4_group_bp_kernel``), at every row count; on a CPU tensor it
-  runs :func:`int4_matmul_per_group_reference`.
+* ``int4_matmul_per_group`` (w4a16, per-group weights), at every row count:
+  in the planar_groups layout, on a CUDA tensor it launches
+  ``csrc/int4_matmul_pg.cu``, K7 (the port of ``_int4_group_bp_kernel``), on
+  a CPU tensor it runs :func:`int4_matmul_per_group_reference`; in the
+  planar layout (what ``models.convert`` produces), K6 in
+  ``csrc/int4_matmul.cu`` (the port of ``_int4_group_kernel``), or on a CPU
+  tensor :func:`int4_matmul_per_group_planar_reference`.
 * ``int4_matmul_per_group_a8`` (w4a8, the same weights): the activations are
   quantized before the launch, as the TPU wrapper does, then K8 (the port of
   ``_int4_group_bp_a8_kernel``); on a CPU tensor it runs
@@ -38,6 +41,7 @@ from .int8_xla import _quantize_acts
 __all__ = [
     "int4_matmul", "int4_matmul_reference", "int4_matmul_a8", "int4_matmul_a8_reference",
     "int4_matmul_per_group", "int4_matmul_per_group_reference",
+    "int4_matmul_per_group_planar_reference",
     "int4_matmul_per_group_a8", "int4_matmul_per_group_a8_reference",
 ]
 
@@ -51,6 +55,10 @@ _PG_KERNELS = {torch.bfloat16: "f4b_int4_matmul_pg_bf16", torch.float32: "f4b_in
 _PG_A8_KERNELS = {
     torch.bfloat16: "f4b_int4_matmul_pg_a8_bf16",
     torch.float32: "f4b_int4_matmul_pg_a8_f32",
+}
+_PLANAR_PG_KERNELS = {
+    torch.bfloat16: "f4b_int4_matmul_planar_pg_bf16",
+    torch.float32: "f4b_int4_matmul_planar_pg_f32",
 }
 # The JAX fuse gate (int4_matmul.py:1289-1299), kept as it stands: fuse the
 # quantization at K <= 2 * _SHALLOW_KH while the raw-x block and its i8 copy
@@ -227,36 +235,32 @@ int4_matmul_a8.launches = 0        # K4
 int4_matmul_a8.fused_launches = 0  # K5
 
 
-# --- per-group weights in the planar_groups layout: K7 (w4a16), K8 (w4a8) ---
+# --- per-group weights: K7 (w4a16) and K8 (w4a8) on planar_groups, K6 on planar ---
 
 
-def _check_per_group(qt: QuantizedTensor, *, planar_kernel: Optional[str] = None) -> None:
-    """The format checks of the four per-group wrappers (K7, K8, K13, K14),
+def _check_per_group(qt: QuantizedTensor, *, a8: bool = False) -> None:
+    """The format checks of the per-group wrappers (K6/K7, K8, K12/K13, K14),
     made before the CPU/CUDA split so both devices accept the same weights.
 
-    Every wrapper reads per_group planar_groups weights with ``gs % 16 == 0``
-    dividing K/2 (the kernels' 16-byte runs never cross a group). Per-group
-    weights in the planar layout are the input of the TPU's scale-expansion
-    kernel ``planar_kernel`` (K6 for the linear, K12 for the experts), which
-    is not ported: they raise NotImplementedError, or, with a group size
-    that kernel refuses too, ValueError. ``planar_kernel=None`` marks the
-    w4a8 wrappers, which take planar_groups only, as in JAX, and hold the
+    The w4a16 wrappers read per_group weights in the planar_groups layout
+    with ``gs % 16 == 0`` dividing K/2 (the batched-partials kernels' 16-byte
+    runs never cross a group), and in the planar layout with
+    ``gs % 128 == 0`` dividing K/2 (the TPU's scale-expansion kernels K6 and
+    K12; any other planar group size raises ValueError, as in JAX). The w4a8
+    wrappers (``a8``) take planar_groups only, as in JAX, and hold the
     exactness bound ``127 * 128 * gs < 2**24`` (the TPU kernels' int32 -> f32
     cast)."""
     gs, kh = qt.group_size, qt.in_dim // 2
-    layouts = ("planar_groups",) if planar_kernel is None else ("planar", "planar_groups")
+    layouts = ("planar_groups",) if a8 else ("planar", "planar_groups")
     if qt.granularity != "per_group" or qt.layout not in layouts:
         raise ValueError(f"requires per_group + {'/'.join(layouts)} weights")
     if qt.layout == "planar":
         if gs % 128 != 0 or kh % gs != 0:
             raise ValueError(f"group_size={gs} must be a multiple of 128 dividing K/2={kh}")
-        raise NotImplementedError(
-            f"per_group weights in the planar layout run the TPU kernel {planar_kernel}, "
-            "which is not ported (ROADMAP queue 2); quantize with layout='planar_groups'"
-        )
+        return
     if gs % 16 != 0 or kh % gs != 0:
         raise ValueError(f"group_size={gs} must be a multiple of 16 dividing K/2={kh}")
-    if planar_kernel is None and 127 * 128 * gs >= 1 << 24:
+    if a8 and 127 * 128 * gs >= 1 << 24:
         raise ValueError(
             f"group_size={gs}: the w4a8 per-group partials (up to 127*128*gs) "
             "are not exact in f32 at or above 2**24"
@@ -264,11 +268,13 @@ def _check_per_group(qt: QuantizedTensor, *, planar_kernel: Optional[str] = None
 
 
 def _check_pg_operands(x2: torch.Tensor, qt: QuantizedTensor, what: str) -> None:
-    """Device, type and shape checks of the per-group kernels' operands."""
-    gs = qt.group_size
-    want = (*qt.shape[:-2], qt.in_dim // 2 // gs, qt.out_dim, gs)
+    """Device, type and shape checks of the per-group kernels' operands:
+    packed [..., Gh, N, gs] (planar_groups) or [..., N, K/2] (planar), scales
+    and zero points [..., N, K/gs]."""
+    gs, n, kh, lead = qt.group_size, qt.out_dim, qt.in_dim // 2, qt.shape[:-2]
+    want = (*lead, kh // gs, n, gs) if qt.layout == "planar_groups" else (*lead, n, kh)
     if tuple(qt.packed.shape) != want:
-        raise ValueError(f"packed shape {tuple(qt.packed.shape)} != {want}")
+        raise ValueError(f"{what}: packed shape {tuple(qt.packed.shape)} != {want}")
     for name, t, dtype in (
         ("packed", qt.packed, torch.uint8),
         ("scales", qt.scales, torch.float32),
@@ -276,6 +282,8 @@ def _check_pg_operands(x2: torch.Tensor, qt: QuantizedTensor, what: str) -> None
     ):
         if t.device != x2.device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dtype} tensor on {x2.device}")
+        if name != "packed" and tuple(t.shape) != (*lead, n, 2 * kh // gs):
+            raise ValueError(f"{what}: {name} shape {tuple(t.shape)} != {(*lead, n, 2 * kh // gs)}")
 
 
 def int4_matmul_per_group_reference(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
@@ -289,40 +297,84 @@ def int4_matmul_per_group_reference(x: torch.Tensor, qt: QuantizedTensor) -> tor
 int4_matmul_per_group_reference.calls = 0
 
 
+def _compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """The TPU kernels' compute type: f32 for f32 activations, else bf16."""
+    return torch.float32 if x.dtype == torch.float32 else torch.bfloat16
+
+
+def planar_pg_weight(packed: torch.Tensor, scales: torch.Tensor, zero_points: torch.Tensor,
+                     group_size: int, dtype: torch.dtype) -> torch.Tensor:
+    """The planar per-group weight [..., N, K] as K6 and K12 dequantize it,
+    held in f32: ``dtype(dtype(s) * (q - zp))``, the scale rounded to the
+    compute type ``dtype``, then the product (exact in f32 for a bf16 scale)
+    rounded to it. In bf16 that is two roundings, which is not
+    :func:`~..quant.core.dequantize` (one f32 rounding)."""
+    q = unpack_planar(packed).float()                                  # [..., N, K]
+    qg = q.reshape(*q.shape[:-1], q.shape[-1] // group_size, group_size)
+    s = scales.to(dtype).float()[..., None]
+    w = (s * (qg - zero_points.float()[..., None])).to(dtype).float()
+    return w.reshape(q.shape)
+
+
+def int4_matmul_per_group_planar_reference(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """Plain version of K6: the weight dequantized to the compute type as the
+    TPU kernel does (:func:`planar_pg_weight`), then a float32 matmul;
+    x.dtype out."""
+    int4_matmul_per_group_planar_reference.calls += 1
+    w = planar_pg_weight(qt.packed, qt.scales, qt.zero_points, qt.group_size, _compute_dtype(x))
+    with full_precision():
+        y = torch.matmul(x.float(), w.transpose(-1, -2))
+    return y.to(x.dtype)
+
+
+int4_matmul_per_group_planar_reference.calls = 0
+
+
 def int4_matmul_per_group(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """``x @ dequant(qt)^T`` for per-group weights, at every row count (the
     JAX per-group linear has no dequantize fallback).
 
-    x: [..., K] (bf16 or f32); qt: per_group planar_groups [N, K]. Returns
-    [..., N] in x.dtype.
+    x: [..., K] (bf16 or f32); qt: per_group [N, K], planar_groups (K7) or
+    planar with ``gs % 128 == 0`` (K6). Returns [..., N] in x.dtype.
     """
-    _check_per_group(qt, planar_kernel="K6 (_int4_group_kernel)")
+    _check_per_group(qt)
+    planar = qt.layout == "planar"
     n, k = qt.out_dim, qt.in_dim
     if x.shape[-1] != k:
         raise ValueError(f"x.shape[-1]={x.shape[-1]} != K={k}")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k)
     if not x.is_cuda:
-        return int4_matmul_per_group_reference(x2, qt).reshape(*lead, n)
-    if x2.dtype not in _PG_KERNELS:
-        raise TypeError(f"K7 takes bf16 or f32 activations, got {x2.dtype}")
-    _check_pg_operands(x2, qt, "K7")
+        plain = (int4_matmul_per_group_planar_reference if planar
+                 else int4_matmul_per_group_reference)
+        return plain(x2, qt).reshape(*lead, n)
+    what = "K6" if planar else "K7"
+    kernels = _PLANAR_PG_KERNELS if planar else _PG_KERNELS
+    if x2.dtype not in kernels:
+        raise TypeError(f"{what} takes bf16 or f32 activations, got {x2.dtype}")
+    if k % 32 != 0:
+        raise ValueError(f"{what} needs K % 32 == 0 (16-byte packed rows), got K={k}")
+    _check_pg_operands(x2, qt, what)
     m = x2.shape[0]
     if m == 0:
         return x.new_empty((*lead, n))
     x2 = _aligned(x2)
     y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     with torch.cuda.device(x2.device):
-        err = getattr(_build.library(), _PG_KERNELS[x2.dtype])(
+        err = getattr(_build.library(), kernels[x2.dtype])(
             x2.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(), qt.zero_points.data_ptr(),
             y.data_ptr(), m, n, k, qt.group_size, _build.stream_of(x2),
         )
     _build.check(err, "int4_matmul_per_group")
-    int4_matmul_per_group.launches += 1
+    if planar:
+        int4_matmul_per_group.planar_launches += 1
+    else:
+        int4_matmul_per_group.launches += 1
     return y.reshape(*lead, n)
 
 
-int4_matmul_per_group.launches = 0  # K7
+int4_matmul_per_group.launches = 0         # K7
+int4_matmul_per_group.planar_launches = 0  # K6
 
 _LANES = 32   # lanes of a warp, each over its own runs of 16 packed bytes
 _RUN = 16
@@ -404,7 +456,7 @@ def int4_matmul_per_group_a8(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tens
     compiles with ``amax / 127.0`` folded into a multiply by f32(1/127):
     ``_quantize_acts(x, fused=True)``.
     """
-    _check_per_group(qt)
+    _check_per_group(qt, a8=True)
     n, k = qt.out_dim, qt.in_dim
     if x.shape[-1] != k:
         raise ValueError(f"x.shape[-1]={x.shape[-1]} != K={k}")

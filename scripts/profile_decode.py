@@ -5,12 +5,18 @@ Run from the repository root:
 
     python3 scripts/profile_decode.py
 
-Builds `layer2` (random weights from a seed) once, fills SLOTS slots with
-PROMPT-token prompts through the serving engine (in the default mode both on
-the contiguous cache and on the paged one, page 128), then per mode and round:
+Builds `layer2` (random weights from a seed) once, and once more converted
+from a seeded dense checkpoint per group of 128 (`convert_checkpoint`:
+planar weights on K6 and K12, a dense router; mode "converted_pg128"),
+and the per_group mode's model with its bytes in the planar layout (the
+same weights and routing as per_group, on K6 and K12; mode
+"per_group_planar"),
+fills SLOTS slots with PROMPT-token prompts through the serving engine (in
+the default mode both on the contiguous cache and on the paged one, page
+128), then per mode and round:
 times STEPS decode steps on the host clock (each ends in a device sync),
 and runs STEPS more under `torch.profiler` to sum the device kernel time.
-The five modes alternate within each of ROUNDS rounds, so they share the
+The seven modes alternate within each of ROUNDS rounds, so they share the
 card's state. Prints one JSON line per (round, mode): wall ms/step, device
 ms/step, busy share (device / wall), kernels per step, the attention
 kernel's (K3 or K3') device ms/step and the five kernels with the most
@@ -18,6 +24,8 @@ device time. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import subprocess
 import time
@@ -28,11 +36,15 @@ from torch.profiler import ProfilerActivity, profile
 
 from fused4bit_tpu_torch.models import (
     QuantizedTransformer,
+    SeededCheckpoint,
     as_per_group,
     as_turbo,
     as_u4_turbo,
+    convert_checkpoint,
     flagship_model_config,
 )
+from fused4bit_tpu_torch.layers import MoEINT4, QuantizedLinear
+from fused4bit_tpu_torch.quant import planar_groups_to_planar
 from fused4bit_tpu_torch.serving import GenerationRequest, ServingEngine
 
 ROUNDS = 2
@@ -41,12 +53,36 @@ SLOTS = 8
 PROMPT = 20   # tokens per prompt
 
 
-def _modes(model):
+def _planar(pg):
+    """The per-group model with every planar_groups weight reordered to the
+    planar layout: the same values, served by K6 and K12."""
+    def conv(mod):
+        w = mod.weight
+        if w.layout != "planar_groups":
+            return mod
+        w = dataclasses.replace(w, packed=planar_groups_to_planar(w.packed).contiguous(),
+                                layout="planar")
+        return QuantizedLinear(w) if isinstance(mod, QuantizedLinear) else MoEINT4(w)
+
+    planar = copy.deepcopy(pg)
+    for blk in planar.blocks:
+        for name in ("wq", "wk", "wv", "wo"):
+            setattr(blk.attn, name, conv(getattr(blk.attn, name)))
+        for name in ("w_gate", "w_up", "w_down"):
+            setattr(blk.moe, name, conv(getattr(blk.moe, name)))
+    planar.lm_head = conv(planar.lm_head)
+    return planar
+
+
+def _modes(model, cfg):
     """mode -> (model, engine options)."""
     pg = as_per_group(model)
+    converted = convert_checkpoint(SeededCheckpoint(cfg, "cuda"), cfg, device="cuda",
+                                   granularity="per_group", group_size=128)
     return {"default": (model, {}), "paged": (model, dict(paged=True, page_size=128)),
             "u4_turbo": (as_u4_turbo(model), {}), "per_group": (pg, {}),
-            "pg_turbo": (as_turbo(pg), {})}
+            "pg_turbo": (as_turbo(pg), {}), "converted_pg128": (converted, {}),
+            "per_group_planar": (_planar(pg), {})}
 
 
 def _engine(model, cfg, **engine_kw):
@@ -91,7 +127,7 @@ def main() -> None:
     cfg = flagship_model_config("layer2")
     model = QuantizedTransformer.init(cfg, generator=torch.Generator("cuda").manual_seed(0),
                                       device="cuda")
-    engines = {m: _engine(mm, cfg, **kw) for m, (mm, kw) in _modes(model).items()}
+    engines = {m: _engine(mm, cfg, **kw) for m, (mm, kw) in _modes(model, cfg).items()}
     for rnd in range(ROUNDS):
         for m, eng in engines.items():
             row = dict(round=rnd, mode=m, card=card, **_profile(eng))

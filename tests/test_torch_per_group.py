@@ -208,7 +208,7 @@ def test_per_group_a8_exactness_guard():
 
 @pytest.mark.parametrize("layout,gs,a16_error,a8_error", [
     ("planar_groups", 64, None, None),                  # whole 16-byte runs per group
-    ("planar", 128, NotImplementedError, ValueError),   # K6/K12's input; no planar w4a8 kernel
+    ("planar", 128, None, ValueError),                  # K6/K12's input; no planar w4a8 kernel
     ("planar", 64, ValueError, ValueError),             # no TPU kernel takes it either
 ])
 def test_per_group_wrappers_share_one_format_rule(layout, gs, a16_error, a8_error):
@@ -324,13 +324,32 @@ def test_quantized_linear_dispatch(rng, granularity, gs, activation, rows, ran):
         torch.testing.assert_close(y, reference_linear_qt(x, lin.weight))
 
 
-def test_planar_per_group_weights_name_the_unported_kernels():
-    lin = QuantizedLinear(quantize(torch.randn(8, 256), granularity="per_group", group_size=128))
-    with pytest.raises(NotImplementedError, match="K6"):
-        lin(torch.randn(2, 256))
-    ex = MoEINT4(quantize(torch.randn(2, 8, 256), granularity="per_group", group_size=128))
-    with pytest.raises(NotImplementedError, match="K12"):
-        ex(torch.zeros(16, 256), torch.zeros(1, dtype=torch.int32), tile_m=16)
+def test_planar_per_group_weights_name_the_unported_kernels(rng):
+    """Per-group weights in the planar layout (gs % 128 == 0) reach the plain
+    versions of K6 and K12, counted, and match JAX's ``_int4_group_kernel``
+    and ``_grouped_pg_kernel`` in interpret mode. (The name dates from when
+    those two kernels were not ported and these weights raised.)"""
+    w = rng.standard_normal((8, 256)).astype(np.float32)
+    ref = _jax_pg(w, 128, "planar")
+    lin = QuantizedLinear(_port_qt(ref))
+    x = rng.standard_normal((2, 256)).astype(np.float32)
+    before = _calls()
+    before_k6 = ops.int4_matmul_per_group_planar_reference.calls
+    y = lin(torch.from_numpy(x))
+    assert ops.int4_matmul_per_group_planar_reference.calls == before_k6 + 1
+    assert _ran(before) == []                       # no other plain version ran
+    _assert_close(y, jax_pg(jnp.asarray(x), ref), A16_TOL["float32"])
+    we = rng.standard_normal((2, 8, 256)).astype(np.float32)
+    ref_e = _jax_pg(we, 128, "planar")
+    ex = MoEINT4(_port_qt(ref_e))
+    xs = rng.standard_normal((32, 256)).astype(np.float32)
+    xs[20:] = 0.0
+    gids = np.asarray([0, 1], np.int32)
+    before_k12 = ops.grouped_int4_matmul_per_group_planar_reference.calls
+    ye = ex(torch.from_numpy(xs), _t(gids), tile_m=16)
+    assert ops.grouped_int4_matmul_per_group_planar_reference.calls == before_k12 + 1
+    _assert_close(ye, jax_grouped_pg(jnp.asarray(xs), jnp.asarray(gids), ref_e, tile_m=16),
+                  A16_TOL["float32"])
 
 
 @pytest.mark.parametrize("gs,activation,ran", [

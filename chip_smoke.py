@@ -8,11 +8,16 @@ Run from the repository root, with no arguments:
 Phases, each of which raises on failure:
   1. require a CUDA card; print its name and power limit, the CUDA version
      and nvcc's version;
-  2. build the kernels of fused4bit_tpu_torch/csrc (nvcc, sm_90a);
+  2. build the kernels of fused4bit_tpu_torch/csrc (nvcc, sm_90a), print
+     ptxas's registers and spills and the HMMA count in the SASS of each
+     instantiation of the tensor-core body of K1 and K6 (csrc/int4_mma.cuh),
+     and fail if one has none;
   3. hold each kernel against its plain PyTorch version at the shapes the
      `layer2` serving path gives it (Mixtral-8x7B layer width), and time both
      with CUDA events (L2 flushed before each launch); time the integer-GEMM
-     paths (resident i8 and transient unpack) at a prefill shape;
+     paths (resident i8 and transient unpack) at a prefill shape; K1 at
+     1, 8, 32 and 40 rows, K6 at 8, 40 and 640, and rows 0-7 of each 40-row
+     call equal to the 8-row call bit for bit (the self-draft verify's rows);
      The per-group kernels (K7, K8, K13, K14) are checked the same way, on
      weights quantized per group of 128 columns (planar_groups), and K6 and
      K12 on planar weights per group of 128 (what convert_checkpoint gives);
@@ -73,6 +78,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import pathlib
 import statistics
 import subprocess
 import time
@@ -144,7 +150,7 @@ PREFILL_COS_LAST = 0.995
 PREFILL_COS_ALL = 0.98
 
 SOURCES = {
-    "int4_matmul": ("fused4bit_tpu_torch/csrc/int4_matmul.cu",
+    "int4_matmul": ("fused4bit_tpu_torch/csrc/int4_mma.cuh",
                     "fused4bit_tpu/ops/int4_matmul.py:90"),
     "grouped_int4_matmul": ("fused4bit_tpu_torch/csrc/grouped_matmul.cu",
                             "fused4bit_tpu/ops/grouped_matmul.py:59"),
@@ -168,7 +174,7 @@ SOURCES = {
                                       "fused4bit_tpu/ops/grouped_matmul.py:994"),
     "grouped_int4_matmul_per_group_a8": ("fused4bit_tpu_torch/csrc/grouped_matmul_pg.cu",
                                          "fused4bit_tpu/ops/grouped_matmul.py:1101"),
-    "int4_matmul_per_group_planar": ("fused4bit_tpu_torch/csrc/int4_matmul.cu",
+    "int4_matmul_per_group_planar": ("fused4bit_tpu_torch/csrc/int4_mma.cuh",
                                      "fused4bit_tpu/ops/int4_matmul.py:427"),
     "grouped_int4_matmul_ksplit": ("fused4bit_tpu_torch/csrc/grouped_matmul.cu",
                                    "fused4bit_tpu/ops/grouped_matmul.py:241"),
@@ -286,7 +292,35 @@ def build() -> float:
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
+    tensor_core_sass()
     return secs
+
+
+# The kernels of the tensor-core body (csrc/int4_mma.cuh): K1 and K6 in bf16,
+# each with a 16-row and a 64-row tile of x.
+MMA_KERNEL = "int4_mma_kernel"
+
+
+def tensor_core_sass() -> dict:
+    """The HMMA instructions in the SASS of each instantiation of the
+    tensor-core body, from ``cuobjdump -sass`` of the built library; raises
+    if a kernel has none (it would not run on the tensor cores)."""
+    cuobjdump = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            if MMA_KERNEL in fn:
+                counts[fn] = 0
+        elif fn in counts and "HMMA" in line:
+            counts[fn] += 1
+    for name, c in counts.items():
+        print(f"  sass: {c} HMMA in {name}")
+    if len(counts) < 4 or min(counts.values()) == 0:
+        raise AssertionError(f"tensor-core body: HMMA counts {counts}")
+    return counts
 
 
 class Timer:
@@ -346,14 +380,26 @@ def _compare(name, shape, y, ref, tol, results, timer, fn, ref_fn, iters=20, wor
                         library_ms=library_ms, **(work or {})))
 
 
+def same_rows(name, shape, small, big):
+    """Rows of an M=8 call equal rows 0-7 of an M=40 call on the same rows of
+    x bit for bit: the tensor-core body's launch rule reads (N, K, SMs) only,
+    as the self-draft speculative verify (40 rows) needs."""
+    if not torch.equal(small, big[:small.shape[0]]):
+        d = (small.float() - big[:small.shape[0]].float()).abs().max().item()
+        raise AssertionError(f"{name} {shape}: rows 0-7 differ between M=8 and M=40 ({d})")
+    print(f"    {name} {shape}: rows 0-7 of M=40 equal M=8 bit for bit")
+
+
 def check_linear(device, results, timer, gen):
     for n, k in ((4096, 4096), (1024, 4096), (8, 4096), (8192, 4096)):
         w = torch.randn((n, k), generator=gen, device=device) * k ** -0.5
         qt = quantize(w)
-        for m in (1, 8, 32):
-            x = torch.randn((m, k), generator=gen, device=device).bfloat16()
+        x40 = torch.randn((40, k), generator=gen, device=device).bfloat16()
+        rows = {}
+        for m in (1, 8, 32, 40):
+            x = x40[:m].contiguous()
             ref = ops.int4_matmul_reference(x, qt)
-            y = ops.int4_matmul(x, qt)
+            y = rows[m] = ops.int4_matmul(x, qt)
             torch.cuda.synchronize()
             main = (m, n) == (8, 4096)
             _compare("int4_matmul", f"M={m} N={n} K={k} bf16", y, ref,
@@ -361,6 +407,7 @@ def check_linear(device, results, timer, gen):
                      lambda: ops.int4_matmul(x, qt),
                      lambda: ops.int4_matmul_reference(x, qt), work=linear_bound(x, qt),
                      library=int4pack_yardstick(x, qt) if main else None)
+        same_rows("int4_matmul", f"N={n} K={k} bf16", rows[8], rows[40])
         if n == 1024:
             x = torch.randn((8, k), generator=gen, device=device)
             ref = ops.int4_matmul_reference(x, qt)
@@ -567,22 +614,30 @@ def _planar_pg_quantize(w):
 
 def check_linear_planar_pg(device, results, timer, gen):
     """K6 at the layer2 linear shapes, planar weights per group of 128: the
-    decode rows (8) and the long prefill's (640), bf16 (timed) and f32."""
+    decode rows (8), the self-draft verify's (40) and the long prefill's
+    (640), bf16 (timed) and f32; rows 0-7 of the 40-row call equal the 8-row
+    call bit for bit."""
     for n, k in ((4096, 4096), (1024, 4096), (8192, 4096)):
         qt = _planar_pg_quantize(torch.randn((n, k), generator=gen, device=device) * k ** -0.5)
-        for m in (8, 640):
-            x = torch.randn((m, k), generator=gen, device=device).bfloat16()
+        x640 = torch.randn((640, k), generator=gen, device=device).bfloat16()
+        rows = {}
+        for m in (8, 40, 640):
+            x = x640[:m].contiguous()
             for xx in (x, x.float()):
                 f32 = xx.dtype == torch.float32
                 ref = ops.int4_matmul_per_group_planar_reference(xx, qt)
                 main = (m, n) == (8, 4096) and not f32
+                y = ops.int4_matmul_per_group(xx, qt)
+                if not f32:
+                    rows[m] = y
                 _compare("int4_matmul_per_group_planar",
                          f"M={m} N={n} K={k} {'f32' if f32 else 'bf16'}",
-                         ops.int4_matmul_per_group(xx, qt), ref, _a16_tol(ref), results,
+                         y, ref, _a16_tol(ref), results,
                          None if f32 else timer, lambda: ops.int4_matmul_per_group(xx, qt),
                          lambda: ops.int4_matmul_per_group_planar_reference(xx, qt),
                          iters=5 if m == 640 else 20, work=linear_bound(xx, qt),
                          library=int4pack_yardstick(xx, qt) if main else None)
+        same_rows("int4_matmul_per_group_planar", f"N={n} K={k} bf16", rows[8], rows[40])
         del qt
 
 

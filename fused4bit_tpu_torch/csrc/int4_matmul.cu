@@ -5,34 +5,41 @@
 // (planar layout, zero point before the dot, scale after it, f32 sums). K6
 // replaces _int4_group_kernel: per-group scales and zero points [N, K/gs] on
 // the planar bytes, dequantized to the compute type before the dot as the TPU
-// kernel does (int4_rows.cuh). The TPU kernel expands each group's scale to
-// its columns with a 0/1 matrix product, a Mosaic workaround; here a lane's
-// 16-byte run lies in one group (gs % 128 == 0) and reads the group's scale
-// directly.
+// kernel does. The TPU kernel expands each group's scale to its columns with
+// a 0/1 matrix product, a Mosaic workaround; here a lane's 16-byte run lies
+// in one group (gs % 128 == 0) and reads the group's scale directly.
 //
-// What bounds it on the H100: at decode (M <= 16) the op reads K/2 bytes per
-// output row (plus, for K6, 2 * K/gs f32 scales and zero points: 1/8 of the
-// packed bytes at gs = 128) and does 2*M*K flops per row, far below the ~295
-// flops per byte where the tensor cores become the limit, so it is bound by
-// the bytes it streams from HBM (3.35 TB/s). What the design does about
-// it: weights stay packed in HBM and are unpacked in registers, every weight
-// byte is read once per 16 rows of x (the x rows are staged in shared memory
-// and reused by all 32 output rows of the CTA), and the loads are 16 bytes
-// per lane, neighbouring lanes on neighbouring addresses. K6 dequantizes each
-// weight once per CTA (a multiply and a rounding more per weight than K1),
-// then runs K1's FMA loop. The FMA loop runs on the CUDA cores; tensor-core
-// MMA is later work (see PERF.md).
+// bf16 x runs the tensor-core body of int4_mma.cuh (its note gives the design
+// and the bound); the launch shape (ws, kw, splits, mt) comes from the Python
+// wrapper's rule, ops.int4_matmul._mma_launch, and partial is f32 scratch of
+// splits * M * N when splits > 1. f32 x stays on the CUDA-core loop of
+// int4_rows.cuh: an f32 tensor-core product would be TF32.
 //
 // The rows of the CTA past N are masked, so any N works (the MoE router has
 // N = num_experts). K must be a multiple of 32 so each packed row is 16-byte
 // aligned.
+#include "int4_mma.cuh"
 #include "int4_rows.cuh"
+
+namespace {
+
+f4b::MmaArgs mma_args(const void* x, const void* packed, const void* scales, const void* zps,
+                      void* y, void* partial, int M, int N, int K, int gs, int ws, int kw,
+                      int splits) {
+  return f4b::MmaArgs{static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
+                      static_cast<const float*>(scales), static_cast<const float*>(zps),
+                      static_cast<__nv_bfloat16*>(y), static_cast<float*>(partial),
+                      M, N, K, gs, ws, kw, splits};
+}
+
+}  // namespace
 
 extern "C" int f4b_int4_matmul_bf16(const void* x, const void* packed,
                                     const void* scales, const void* zps, void* y,
-                                    int M, int N, int K, void* stream) {
-  return f4b::launch_int4_rows<__nv_bfloat16, false>(x, packed, scales, zps, nullptr, 1,
-                                                     nullptr, y, M, N, K, 0, stream);
+                                    void* partial, int M, int N, int K, int ws, int kw,
+                                    int splits, int mt, void* stream) {
+  return f4b::launch_int4_mma<false>(
+      mma_args(x, packed, scales, zps, y, partial, M, N, K, 0, ws, kw, splits), mt, stream);
 }
 
 extern "C" int f4b_int4_matmul_f32(const void* x, const void* packed,
@@ -45,9 +52,11 @@ extern "C" int f4b_int4_matmul_f32(const void* x, const void* packed,
 // K6: scales/zps [N, K/gs] f32, gs % 128 == 0 and gs | K/2.
 extern "C" int f4b_int4_matmul_planar_pg_bf16(const void* x, const void* packed,
                                               const void* scales, const void* zps, void* y,
-                                              int M, int N, int K, int gs, void* stream) {
-  return f4b::launch_int4_rows<__nv_bfloat16, true>(x, packed, scales, zps, nullptr, 1,
-                                                    nullptr, y, M, N, K, gs, stream);
+                                              void* partial, int M, int N, int K, int gs,
+                                              int ws, int kw, int splits, int mt,
+                                              void* stream) {
+  return f4b::launch_int4_mma<true>(
+      mma_args(x, packed, scales, zps, y, partial, M, N, K, gs, ws, kw, splits), mt, stream);
 }
 
 extern "C" int f4b_int4_matmul_planar_pg_f32(const void* x, const void* packed,

@@ -1,0 +1,380 @@
+// Tensor-core body of the bf16 w4a16 linear on the planar layout: K1 (per
+// row) and K6 (per group), launched by int4_matmul.cu. The f32 entry points,
+// and the grouped kernels K2, K9 and K12, stay on int4_rows.cuh.
+//
+// What it computes (the TPU kernels' arithmetic, with the order of the f32
+// sum changed):
+//   K1: y[m, n] = s[n] * sum_k x[m, k] * (q[n, k] - zp[n])
+//   K6: y[m, n] = sum_k x[m, k] * bf16(bf16(s[n, g(k)]) * (q[n, k] - zp[n, g(k)]))
+// with q the 4-bit codes of the planar bytes (byte c of row n: column c in
+// the low nibble, column K/2 + c XOR 8 in the high nibble) and integer zero
+// points in [0, 15], as the quantizer gives them. (q - zp) lies in [-15, 15]
+// and is exact in bf16, and for K6 the bf16 product of two bf16 values is the
+// plain version's planar_pg_weight bit for bit (the f32 product is exact and
+// both round once to nearest even), so mma.sync with bf16 operands and f32
+// sums is the TPU kernels' own bf16 dot with f32 accumulation.
+//
+// What bounds it on the H100: at decode (M <= 16) the product reads K/2
+// bytes per output row and does 2*M*K operations per row, about 32
+// operations per byte against the ~295 where the tensor cores become the
+// limit, so it is bound by the bytes it streams from HBM (3.35 TB/s). What
+// the design does about it:
+//
+// * Operands swapped: the dequantized weights are mma operand A (16 output
+//   rows x 16 k), x is operand B (16 k x 8 rows of x), so M = 8 is one n8
+//   tile and each A fragment feeds every n8 tile of the x rows staged.
+// * Dequantization in registers with no int-to-float conversion: the bf16
+//   with bits 0x4300 | v is 128 + v, so one byte permute and one lop3 give
+//   two bf16 values 128 + lo and, with the constant 0x4308 ^ nibble, 128 +
+//   (hi XOR 8) = 128 + q; __hsub2 of (128 + zp) leaves q - zp exactly, and
+//   for K6 __hmul2 by bf16(s) rounds the product once. K1 applies its scale
+//   to the f32 sum in the epilogue, as the TPU kernel does.
+// * The JAX bytes stay as they are; the order of k inside each 16-wide k step
+//   is permuted instead. A chunk is 64 packed bytes of a row; lane (g, t) of
+//   a warp (g = lane / 4, t = lane % 4) loads bytes 16t .. 16t + 15 of the
+//   chunk of rows g and g + 8 of its 16-row tile with one 16-byte load each.
+//   k step s (0..7) of the chunk gives mma positions 2t, 2t + 1 the low
+//   nibbles of bytes 16t + 2s, 16t + 2s + 1, and positions 2t + 8, 2t + 9
+//   their high nibbles (columns K/2 + the same bytes); operand B reads x at
+//   the same columns, which are one 32-bit word of the staged low half and
+//   one of the high half.
+// * Filling the card: a warp owns a 16-row tile and a slice of `ws` k steps;
+//   a CTA of 8 warps is `kw` warps along K times 8 / kw row tiles, and grid z
+//   splits K into `splits` ranges of kw * ws steps. The launch rule
+//   (ops.int4_matmul._mma_launch) picks (ws, kw, splits) from (N, K, SM
+//   count) only, so every row's sum runs in the same order at every M up to
+//   64: a row's output does not depend on M (the self-draft speculative
+//   verify at M = 40 must reproduce the M = 8 decode bit for bit). Partial
+//   sums meet in a fixed order: through shared memory inside a CTA (warps
+//   kw = 0, 1, ...), then, with splits > 1, as f32 partials [splits, M, N]
+//   that a second kernel adds in order z = 0, 1, ... No float atomics.
+// * Every weight load of a warp's stage (up to 4 chunks: 8 x 16 bytes per
+//   lane) is issued before the x staging completes and before the MMAs that
+//   consume them. x is staged once per CTA with cp.async (16 bytes), a warp
+//   per staged row and half, rows padded by 16 bytes so the fragment loads
+//   are free of bank conflicts.
+// * Rows of x: a CTA takes 16 at M <= 64 (each A fragment feeds 1 or 2
+//   MMAs; above 16 rows the weights stream once per 16 rows, the repeats
+//   from L2). Above 64 rows (prefill) it takes 64, so each A fragment feeds
+//   8 MMAs, and its warps (one per row tile) walk their range of K in stages
+//   of 32 k steps; there K is split across CTAs only until every SM has one
+//   (ops.int4_matmul._mma_tall_launch).
+//
+// Masking: output rows past N read zero bytes and are not stored; x rows past
+// M and columns past K/2 (K % 128 != 0) are staged as zero.
+#pragma once
+
+#include "common.cuh"
+
+namespace f4b {
+namespace {
+
+constexpr int kMmaWarps = 8;
+constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kChunkBytes = 64;  // packed bytes of a row per chunk: 4 lanes x 16 B
+constexpr int kStepsPerChunk = 8;
+constexpr int kStageSteps = 32;  // k steps a warp holds in registers at once (4 chunks)
+constexpr int kStageChunks = kStageSteps / kStepsPerChunk;
+
+struct MmaArgs {
+  const __nv_bfloat16* x;   // [M, K], 16-byte aligned
+  const uint8_t* packed;    // [N, K/2] planar
+  const float* scales;      // [N] (K1) or [N, K/gs] (K6)
+  const float* zps;         // the same shape, integers in [0, 15]
+  __nv_bfloat16* y;         // [M, N]
+  float* partial;           // [splits, M, N] f32 scratch when splits > 1
+  int M, N, K, gs;
+  int ws, kw, splits;       // k steps per warp, warps along K per CTA, CTAs along K
+};
+
+__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ __nv_bfloat162 bits_bf2(uint32_t u) {
+  return *reinterpret_cast<__nv_bfloat162*>(&u);
+}
+
+// Two packed bytes of `w` (bytes 0, 1 with sel 0x4140; bytes 2, 3 with
+// 0x4342) as bf16 pairs: lo = (128 + low nibble) and hi = (128 + (high
+// nibble XOR 8)), the first byte's value in the low half of each pair.
+__device__ __forceinline__ void nibbles_bf16x2(uint32_t w, uint32_t sel, uint32_t& lo,
+                                               uint32_t& hi) {
+  const uint32_t r = __byte_perm(w, 0u, sel);  // byte 0 -> bits 0-7, byte 1 -> bits 16-23
+  lo = (r & 0x000F000Fu) | 0x43004300u;
+  hi = ((r >> 4) & 0x000F000Fu) ^ 0x43084308u;
+}
+
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// (128 + zp) as a bf16 pair: exact for integer zp in [0, 15].
+__device__ __forceinline__ uint32_t zp_pair(float zp) {
+  return bf2_bits(__float2bfloat162_rn(128.f + zp));
+}
+
+// NT n8 tiles of x rows per CTA (16 or 64 rows). One CTA: 8 warps, warp w
+// on row tile blockIdx.x * (8 / kw) + w / kw and K slice w % kw of the CTA's
+// range blockIdx.z; x rows blockIdx.y * 8 * NT onward.
+template <bool kGroups, int NT>
+__global__ void __launch_bounds__(kMmaThreads, NT <= 2 ? 2 : 1) int4_mma_kernel(const MmaArgs p) {
+  constexpr int MT = NT * 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
+
+  const int kh = p.K / 2;
+  const int chunks = (kh + kChunkBytes - 1) / kChunkBytes;
+  const int steps = chunks * kStepsPerChunk;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kwi = warp % p.kw;
+  const int n0 = (blockIdx.x * (kMmaWarps / p.kw) + warp / p.kw) * 16;
+  const int na = n0 + g, nb = n0 + g + 8;  // the lane's two weight rows
+  const int m0 = blockIdx.y * MT;
+  const int mrows = min(MT, p.M - m0);
+  const int stage_cap = p.kw * min(kStageSteps, p.ws) / kStepsPerChunk;  // chunks per stage
+  const int rs = stage_cap * 2 * kChunkBytes + 8;  // staged row: [lo | hi | 8 pad] bf16
+  const int cs = blockIdx.z * p.kw * p.ws;         // the CTA's first k step
+  const int ce = min(steps, cs + p.kw * p.ws);
+  const int xrows = min(MT, (mrows + 7) & ~7);     // staged rows: whole n8 tiles
+  const int ng = kGroups ? p.K / p.gs : 1;
+
+  uint32_t zrow[2] = {0u, 0u};  // K1: (128 + zp) of rows na, nb
+  if (!kGroups) {
+    zrow[0] = zp_pair(na < p.N ? __ldg(p.zps + na) : 0.f);
+    zrow[1] = zp_pair(nb < p.N ? __ldg(p.zps + nb) : 0.f);
+  }
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int o = 0; o < p.ws; o += kStageSteps) {
+    // Stage o of a warp's slice: its k steps o .. o + 32, the chunks the CTA
+    // stages for it, and the warp's steps [wa, wb) among them.
+    const int len = min(kStageSteps, p.ws - o);
+    const int c_first = (cs + o) / kStepsPerChunk;
+    const int c_count = min(p.kw * len / kStepsPerChunk, chunks - c_first);  // may be <= 0
+    const int wa = min(cs + o + kwi * len, ce);
+    const int wb = min(wa + len, ce);
+    const int ca = wa / kStepsPerChunk;
+
+    // The warp's weight bytes for the stage, all loads in flight at once.
+    uint4 wr[kStageChunks][2];
+#pragma unroll
+    for (int i = 0; i < kStageChunks; ++i) {
+      const int c = ca + i;
+      const int byte = c * kChunkBytes + 16 * t;
+      const bool in = c * kStepsPerChunk < wb && byte < kh;
+      wr[i][0] = wr[i][1] = make_uint4(0u, 0u, 0u, 0u);
+      if (in && na < p.N)
+        wr[i][0] = __ldg(reinterpret_cast<const uint4*>(p.packed + static_cast<size_t>(na) * kh + byte));
+      if (in && nb < p.N)
+        wr[i][1] = __ldg(reinterpret_cast<const uint4*>(p.packed + static_cast<size_t>(nb) * kh + byte));
+    }
+
+    // Stage x rows [m0, m0 + xrows) at the stage's chunks, low and high half:
+    // a warp per (row, half), its lanes over the run's 16-byte vectors (8 per
+    // chunk), no division in the index arithmetic.
+    __syncthreads();  // the previous stage's x is consumed
+    const int run = max(c_count, 0) * (kChunkBytes / 8);  // 16-byte vectors per row half
+    for (int rh = warp; rh < 2 * xrows; rh += kMmaWarps) {
+      const int r = rh >> 1, h = rh & 1;
+      const __nv_bfloat16* xrow = p.x + static_cast<size_t>(m0 + r) * p.K + h * kh;
+      __nv_bfloat16* srow = xs + r * rs + h * stage_cap * kChunkBytes;
+      for (int u = lane; u < run; u += 32) {
+        const int col = c_first * kChunkBytes + u * 8;  // column within the half
+        const bool valid = r < mrows && col < kh;
+        cp_async16(srow + u * 8, valid ? xrow + col : p.x, valid);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < kStageChunks; ++i) {
+      const int c = ca + i;
+      if (c * kStepsPerChunk >= wb) break;  // warp-uniform
+      const int s_lo = max(wa - c * kStepsPerChunk, 0);
+      const int s_hi = min(wb - c * kStepsPerChunk, kStepsPerChunk);
+      // per-half zero points (and, K6, scales) of rows na, nb: [lo a, lo b, hi a, hi b]
+      uint32_t z[4] = {zrow[0], zrow[1], zrow[0], zrow[1]};
+      __nv_bfloat162 sc[4];
+      if (kGroups) {
+        const int byte = c * kChunkBytes + 16 * t;
+        const int gl = min(byte, kh - 1) / p.gs;  // the run's group; one group per run
+        const bool ia = na < p.N && byte < kh, ib = nb < p.N && byte < kh;
+        const float* sa = p.scales + static_cast<size_t>(na) * ng;
+        const float* sb = p.scales + static_cast<size_t>(nb) * ng;
+        const float* za = p.zps + static_cast<size_t>(na) * ng;
+        const float* zb = p.zps + static_cast<size_t>(nb) * ng;
+        const float f[8] = {ia ? __ldg(sa + gl) : 0.f, ib ? __ldg(sb + gl) : 0.f,
+                            ia ? __ldg(sa + ng / 2 + gl) : 0.f, ib ? __ldg(sb + ng / 2 + gl) : 0.f,
+                            ia ? __ldg(za + gl) : 0.f, ib ? __ldg(zb + gl) : 0.f,
+                            ia ? __ldg(za + ng / 2 + gl) : 0.f, ib ? __ldg(zb + ng / 2 + gl) : 0.f};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          sc[q] = __float2bfloat162_rn(f[q]);
+          z[q] = zp_pair(f[4 + q]);
+        }
+      }
+      // A fragments of the chunk's 8 k steps: mma registers a0..a3 = [lo a, lo b, hi a, hi b]
+      uint32_t a[kStepsPerChunk][4];
+      const uint32_t w_a[4] = {wr[i][0].x, wr[i][0].y, wr[i][0].z, wr[i][0].w};
+      const uint32_t w_b[4] = {wr[i][1].x, wr[i][1].y, wr[i][1].z, wr[i][1].w};
+#pragma unroll
+      for (int s = 0; s < kStepsPerChunk; ++s) {
+        const uint32_t sel = (s & 1) ? 0x4342u : 0x4140u;
+        uint32_t v[4];
+        nibbles_bf16x2(w_a[s >> 1], sel, v[0], v[2]);
+        nibbles_bf16x2(w_b[s >> 1], sel, v[1], v[3]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          __nv_bfloat162 d = __hsub2(bits_bf2(v[q]), bits_bf2(z[q]));
+          if (kGroups) d = __hmul2(d, sc[q]);
+          a[s][q] = bf2_bits(d);
+        }
+      }
+      // B fragments: word s of the lane's 16 staged values of each half is
+      // k step s's b0 (low half) and b1 (high half).
+      const int sc_off = (c - c_first) * kChunkBytes + 16 * t;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (8 * j < mrows) {  // CTA-uniform
+          const __nv_bfloat16* row = xs + (8 * j + g) * rs + sc_off;
+          const uint4 l0 = *reinterpret_cast<const uint4*>(row);
+          const uint4 l1 = *reinterpret_cast<const uint4*>(row + 8);
+          const uint4 h0 = *reinterpret_cast<const uint4*>(row + stage_cap * kChunkBytes);
+          const uint4 h1 = *reinterpret_cast<const uint4*>(row + stage_cap * kChunkBytes + 8);
+          const uint32_t bl[8] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
+          const uint32_t bh[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+#pragma unroll
+          for (int s = 0; s < kStepsPerChunk; ++s) {
+            if (s >= s_lo && s < s_hi) mma_bf16_16816(acc[j], a[s], bl[s], bh[s]);
+          }
+        }
+      }
+    }
+  }
+
+  // Epilogue. acc[j]: (row g, x rows 8j + 2t, +1), (row g + 8, the same).
+  auto store = [&](int m, int n, float v) {
+    if (m >= p.M || n >= p.N) return;
+    const size_t at = static_cast<size_t>(m) * p.N + n;
+    if (p.splits > 1) {
+      p.partial[static_cast<size_t>(blockIdx.z) * p.M * p.N + at] = v;
+    } else {
+      p.y[at] = __float2bfloat16(kGroups ? v : __ldg(p.scales + n) * v);
+    }
+  };
+  if (p.kw == 1) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int m = m0 + 8 * j + 2 * t;
+      store(m, na, acc[j][0]);
+      store(m + 1, na, acc[j][1]);
+      store(m, nb, acc[j][2]);
+      store(m + 1, nb, acc[j][3]);
+    }
+    return;
+  }
+  // Add the kw warps of each row tile in order kwi = 0, 1, ... through
+  // shared memory: red[warp][16 rows][MT x rows].
+  float* red = reinterpret_cast<float*>(smem);
+  __syncthreads();  // x is consumed
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    float* r = red + (warp * 16) * MT + 8 * j + 2 * t;
+    r[g * MT] = acc[j][0];
+    r[g * MT + 1] = acc[j][1];
+    r[(g + 8) * MT] = acc[j][2];
+    r[(g + 8) * MT + 1] = acc[j][3];
+  }
+  __syncthreads();
+  const int tiles = kMmaWarps / p.kw;
+  for (int e = threadIdx.x; e < tiles * 16 * MT; e += kMmaThreads) {
+    const int col = e % MT, row = (e / MT) % 16, tile = e / (16 * MT);
+    float v = red[((tile * p.kw) * 16 + row) * MT + col];
+    for (int k = 1; k < p.kw; ++k) v += red[((tile * p.kw + k) * 16 + row) * MT + col];
+    store(m0 + col, (blockIdx.x * tiles + tile) * 16 + row, v);
+  }
+}
+
+// The splits' f32 partials added in order z = 0, 1, ..., then (K1) the scale.
+template <bool kGroups>
+__global__ void __launch_bounds__(kMmaThreads) int4_mma_reduce_kernel(
+    const float* __restrict__ partial, int splits, const float* __restrict__ scales,
+    __nv_bfloat16* __restrict__ y, int M, int N) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * kMmaThreads + threadIdx.x;
+  const size_t mn = static_cast<size_t>(M) * N;
+  if (i >= mn) return;
+  float v = partial[i];
+  for (int z = 1; z < splits; ++z) v += partial[z * mn + i];
+  y[i] = __float2bfloat16(kGroups ? v : scales[i % N] * v);
+}
+
+template <bool kGroups, int NT>
+int launch_mma_tile(const MmaArgs& p, dim3 grid, size_t smem, cudaStream_t st) {
+  // The dynamic shared memory each device already allows the kernel (48 KB
+  // by default); raised once per device to the largest launch so far.
+  constexpr int kDevices = 64;
+  static size_t allowed[kDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > 48 * 1024 && (dev >= kDevices || smem > allowed[dev])) {
+    err = cudaFuncSetAttribute(int4_mma_kernel<kGroups, NT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < kDevices) allowed[dev] = smem;
+  }
+  int4_mma_kernel<kGroups, NT><<<grid, kMmaThreads, smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch on `stream` with `mt` rows of x per CTA (16, or 64 above 64 rows). Requires
+// K % 32 == 0, ws >= 1, kw in {1, 2, 4, 8}, kw * min(32, ws) a multiple of 8
+// (a CTA's range is whole chunks), ws <= 32 unless kw == 1, and
+// partial != nullptr when splits > 1.
+template <bool kGroups>
+int launch_int4_mma(const MmaArgs& p, int mt, void* stream) {
+  const bool ok = p.ws >= 1 && (p.kw == 1 || p.kw == 2 || p.kw == 4 || p.kw == 8) &&
+                  (p.kw * min(kStageSteps, p.ws)) % kStepsPerChunk == 0 &&
+                  (p.ws <= kStageSteps || p.kw == 1) && p.splits >= 1 &&
+                  (p.splits == 1 || p.partial != nullptr) && (mt == 16 || mt == 64) &&
+                  p.K % 32 == 0;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int tiles = (p.N + 15) / 16;
+  const int per_cta = kMmaWarps / p.kw;
+  const int stage_cap = p.kw * min(kStageSteps, p.ws) / kStepsPerChunk;
+  const size_t xs_bytes = static_cast<size_t>(mt) * (stage_cap * 2 * kChunkBytes + 8) * 2;
+  const size_t red_bytes = p.kw > 1 ? static_cast<size_t>(kMmaWarps) * 16 * mt * 4 : 0;
+  const dim3 grid((tiles + per_cta - 1) / per_cta, (p.M + mt - 1) / mt, p.splits);
+  const size_t smem = xs_bytes > red_bytes ? xs_bytes : red_bytes;
+  const int err = mt == 16 ? launch_mma_tile<kGroups, 2>(p, grid, smem, st)
+                           : launch_mma_tile<kGroups, 8>(p, grid, smem, st);
+  if (err != 0 || p.splits == 1) return err;
+  const size_t mn = static_cast<size_t>(p.M) * p.N;
+  int4_mma_reduce_kernel<kGroups><<<static_cast<unsigned>((mn + kMmaThreads - 1) / kMmaThreads),
+                                    kMmaThreads, 0, st>>>(p.partial, p.splits, p.scales, p.y,
+                                                          p.M, p.N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+}  // namespace f4b

@@ -24,7 +24,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-__all__ = ["library", "check", "stream_of", "BUILD_DIR", "CSRC"]
+__all__ = ["library", "library_path", "check", "stream_of", "BUILD_DIR", "CSRC"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -41,7 +41,8 @@ _I = ctypes.c_int
 # C entry points and their argument types; every pointer and the stream are
 # void*, every size an int, and each returns a cudaError_t as an int.
 _SIGNATURES = {
-    "f4b_int4_matmul_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, packed, scales, zps, y, partial; M, N, K, ws, kw, splits, mt; stream
+    "f4b_int4_matmul_bf16": [_P] * 6 + [_I] * 7 + [_P],
     "f4b_int4_matmul_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "f4b_grouped_int4_matmul_bf16": [_P] * 7 + [_I] * 4 + [_P],
     "f4b_grouped_int4_matmul_f32": [_P] * 7 + [_I] * 4 + [_P],
@@ -65,7 +66,8 @@ _SIGNATURES = {
     "f4b_grouped_int4_matmul_pg_f32": [_P] * 7 + [_I] * 5 + [_P],
     "f4b_grouped_int4_matmul_pg_a8_bf16": [_P] * 8 + [_I] * 5 + [_P],
     "f4b_grouped_int4_matmul_pg_a8_f32": [_P] * 8 + [_I] * 5 + [_P],
-    "f4b_int4_matmul_planar_pg_bf16": [_P] * 5 + [_I] * 4 + [_P],
+    # x, packed, scales, zps, y, partial; M, N, K, gs, ws, kw, splits, mt; stream
+    "f4b_int4_matmul_planar_pg_bf16": [_P] * 6 + [_I] * 8 + [_P],
     "f4b_int4_matmul_planar_pg_f32": [_P] * 5 + [_I] * 4 + [_P],
     "f4b_grouped_int4_matmul_planar_pg_bf16": [_P] * 7 + [_I] * 5 + [_P],
     "f4b_grouped_int4_matmul_planar_pg_f32": [_P] * 7 + [_I] * 5 + [_P],
@@ -111,12 +113,17 @@ def _run(cmd) -> str:
     return proc.stdout + proc.stderr
 
 
+def library_path() -> pathlib.Path:
+    """The file of the kernel library built from the sources as they are."""
+    return BUILD_DIR / f"libfused4bit_{_digest()}.so"
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """Build (if the sources changed) and load the kernel library, once per
     process."""
     digest = _digest()
-    so = BUILD_DIR / f"libfused4bit_{digest}.so"
+    so = library_path()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         cus, _ = _sources()

@@ -3,12 +3,14 @@ K6, K7 and K8.
 
 Counterpart of ``fused4bit_tpu/ops/int4_matmul.py``:
 
-* ``int4_matmul`` (w4a16): on a CUDA tensor it launches
+* ``int4_matmul`` (w4a16): on a CUDA tensor it launches K1 through
   ``csrc/int4_matmul.cu`` (the port of the TPU kernel
-  ``_int4_matmul_kernel``); on a CPU tensor it runs the plain version,
-  :func:`int4_matmul_reference`. Above ``prefill_threshold`` rows the product
-  is compute-bound, and, as in the JAX package, it is computed outside any
-  kernel: dequantize once, then a dense matmul.
+  ``_int4_matmul_kernel``): bf16 activations run the tensor-core body of
+  ``csrc/int4_mma.cuh`` at the launch shape of :func:`_mma_launch`, f32 ones
+  the CUDA-core loop of ``csrc/int4_rows.cuh``; on a CPU tensor it runs the
+  plain version, :func:`int4_matmul_reference`. Above ``prefill_threshold``
+  rows, as in the JAX package, the product is computed outside any kernel:
+  dequantize once, then a dense matmul.
 * ``int4_matmul_a8`` (w4a8): per-row int8 activations and an exact integer
   dot. On a CUDA tensor it launches ``csrc/int4_matmul_a8.cu``: K4 (the port
   of ``_int4_a8_kernel``) on activations quantized by
@@ -20,8 +22,9 @@ Counterpart of ``fused4bit_tpu/ops/int4_matmul.py``:
   ``csrc/int4_matmul_pg.cu``, K7 (the port of ``_int4_group_bp_kernel``), on
   a CPU tensor it runs :func:`int4_matmul_per_group_reference`; in the
   planar layout (what ``models.convert`` produces), K6 in
-  ``csrc/int4_matmul.cu`` (the port of ``_int4_group_kernel``), or on a CPU
-  tensor :func:`int4_matmul_per_group_planar_reference`.
+  ``csrc/int4_matmul.cu`` (the port of ``_int4_group_kernel``; bf16 on the
+  tensor-core body, f32 on the CUDA-core loop), or on a CPU tensor
+  :func:`int4_matmul_per_group_planar_reference`.
 * ``int4_matmul_per_group_a8`` (w4a8, the same weights): the activations are
   quantized before the launch, as the TPU wrapper does, then K8 (the port of
   ``_int4_group_bp_a8_kernel``); on a CPU tensor it runs
@@ -29,6 +32,7 @@ Counterpart of ``fused4bit_tpu/ops/int4_matmul.py``:
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -107,23 +111,107 @@ def _aligned(x2: torch.Tensor) -> torch.Tensor:
     return x2.clone() if x2.data_ptr() % 16 else x2  # the kernels read x with 16-byte loads
 
 
+# --- the tensor-core body (csrc/int4_mma.cuh) of K1 and K6 in bf16 ---
+
+_MMA_TALL_M = 64      # above this many rows of x, the prefill tile (64 rows per CTA)
+
+
+def _mma_launch(n: int, k: int, sms: int) -> tuple:
+    """The decode launch shape ``(ws, kw, splits)`` of ``csrc/int4_mma.cuh``
+    for an [N, K] weight on a card of ``sms`` SMs: each warp takes a 16-row
+    tile and ``ws`` k steps of 16 columns, a CTA of 8 warps puts ``kw`` of
+    them along K (8 / kw row tiles), and ``splits`` CTAs cover K.
+
+    It depends on (N, K, SMs) only, never on M: every row's sum then runs
+    in the same order at every M up to :data:`_MMA_TALL_M`, so a row's output
+    does not depend on the rows beside it (the self-draft verify at 40 rows
+    reproduces the 8-row decode bit for bit).
+
+    ``ws`` is the largest of 32, 16, ..., 1 that still gives every SM a warp
+    of work (32 steps: 8 loads of 16 bytes in flight per lane). Where the
+    row tiles outnumber the SMs, a CTA takes 8 of them, which share its
+    staged x, and K is split across CTAs (``kw`` 1); else a CTA takes one row
+    tile with its 8 warps along K (``kw`` 8), so that K is split across CTAs
+    only beyond 8 * ws steps, and the second pass that adds the splits
+    (1-5 us on the H100, scripts/mma_sweep.py) is spared. A CTA's range is
+    whole chunks of 8 steps."""
+    tiles = -(-n // 16)
+    steps = 8 * -(-(k // 2) // 64)  # 64 packed bytes (8 k steps) per chunk
+    for ws in (32, 16, 8, 4, 2, 1):
+        if ws <= steps and tiles * -(-steps // ws) >= sms:
+            break
+    kw = max(1 if tiles > sms else 8, -(-8 // ws))
+    return ws, kw, -(-steps // (kw * ws))
+
+
+def _mma_tall_launch(n: int, k: int, m: int, sms: int) -> tuple:
+    """The prefill launch shape ``(ws, 1, splits)`` above :data:`_MMA_TALL_M`
+    rows: a CTA takes 8 row tiles and 64 rows of x and walks its range of K
+    in stages of 32 k steps; K is split across CTAs only as far as it takes
+    to give every SM a CTA (k and v at N=1024, the router at N=8), in whole
+    stages."""
+    stages = -(-(k // 2) // 256)                      # 32 k steps (256 packed bytes) each
+    ctas = -(-n // 128) * -(-m // 64)
+    ws = 32 * -(-stages // min(stages, -(-sms // ctas)))
+    return ws, 1, -(-32 * stages // ws)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch_mma(x2: torch.Tensor, qt: QuantizedTensor, kernel: str, what: str,
+                *gs: int) -> torch.Tensor:
+    """Launch the bf16 tensor-core body (K1, or K6 with its group size
+    ``gs``): the decode shape of :func:`_mma_launch` with 16 rows of x per
+    CTA at M <= 64, above it :func:`_mma_tall_launch` with 64."""
+    m, k = x2.shape
+    n = qt.out_dim
+    sms = _sm_count(x2.device.index)
+    if m > _MMA_TALL_M:
+        (ws, kw, splits), mt = _mma_tall_launch(n, k, m, sms), 64
+    else:
+        (ws, kw, splits), mt = _mma_launch(n, k, sms), 16
+    y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+    partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x2.device)
+               if splits > 1 else None)
+    with torch.cuda.device(x2.device):
+        err = getattr(_build.library(), kernel)(
+            x2.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(), qt.zero_points.data_ptr(),
+            y.data_ptr(), None if partial is None else partial.data_ptr(), m, n, k, *gs,
+            ws, kw, splits, mt, _build.stream_of(x2),
+        )
+    _build.check(err, what)
+    return y
+
+
 def _launch(x2: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     _check_operands(x2, qt, _KERNELS, "K1")
     m, k = x2.shape
     n = qt.out_dim
-    y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
-    with torch.cuda.device(x2.device):
-        err = getattr(_build.library(), _KERNELS[x2.dtype])(
-            x2.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(),
-            qt.zero_points.data_ptr(), y.data_ptr(), m, n, k, _build.stream_of(x2),
-        )
-    _build.check(err, "int4_matmul")
+    if x2.dtype == torch.bfloat16:
+        y = _launch_mma(x2, qt, _KERNELS[x2.dtype], "int4_matmul")
+    else:
+        y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+        with torch.cuda.device(x2.device):
+            err = getattr(_build.library(), _KERNELS[x2.dtype])(
+                x2.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(),
+                qt.zero_points.data_ptr(), y.data_ptr(), m, n, k, _build.stream_of(x2),
+            )
+        _build.check(err, "int4_matmul")
     int4_matmul.launches += 1
     return y
 
 
+# K1's row threshold, measured on the H100 (scripts/linear_sweep.py): at the
+# `layer2` shapes the kernel beats dequantize + matmul at every M up to 512,
+# and the dense path first wins at 640 rows (k and v, N=1024).
+PREFILL_THRESHOLD = 512
+
+
 def int4_matmul(
-    x: torch.Tensor, qt: QuantizedTensor, *, prefill_threshold: int = 512
+    x: torch.Tensor, qt: QuantizedTensor, *, prefill_threshold: int = PREFILL_THRESHOLD
 ) -> torch.Tensor:
     """``x @ dequant(qt)^T`` without materializing the dense weight.
 
@@ -359,13 +447,17 @@ def int4_matmul_per_group(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     if m == 0:
         return x.new_empty((*lead, n))
     x2 = _aligned(x2)
-    y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
-    with torch.cuda.device(x2.device):
-        err = getattr(_build.library(), kernels[x2.dtype])(
-            x2.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(), qt.zero_points.data_ptr(),
-            y.data_ptr(), m, n, k, qt.group_size, _build.stream_of(x2),
-        )
-    _build.check(err, "int4_matmul_per_group")
+    if planar and x2.dtype == torch.bfloat16:
+        y = _launch_mma(x2, qt, kernels[x2.dtype], "int4_matmul_per_group", qt.group_size)
+    else:
+        y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+        with torch.cuda.device(x2.device):
+            err = getattr(_build.library(), kernels[x2.dtype])(
+                x2.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(),
+                qt.zero_points.data_ptr(), y.data_ptr(), m, n, k, qt.group_size,
+                _build.stream_of(x2),
+            )
+        _build.check(err, "int4_matmul_per_group")
     if planar:
         int4_matmul_per_group.planar_launches += 1
     else:

@@ -10,8 +10,9 @@ Phases, each of which raises on failure:
      and nvcc's version;
   2. build the kernels of fused4bit_tpu_torch/csrc (nvcc, sm_90a), print
      ptxas's registers and spills and the HMMA count in the SASS of each
-     instantiation of the tensor-core body of K1 and K6 (csrc/int4_mma.cuh),
-     and fail if one has none;
+     instantiation of the tensor-core bodies, the linear one of K1, K6 and
+     K7 (csrc/int4_mma.cuh) and the attention one of K3 and K3'
+     (csrc/decode_attention.cu), and fail if one has none;
   3. hold each kernel against its plain PyTorch version at the shapes the
      `layer2` serving path gives it (Mixtral-8x7B layer width), and time both
      with CUDA events (L2 flushed before each launch); time the integer-GEMM
@@ -19,7 +20,9 @@ Phases, each of which raises on failure:
      1, 8, 32 and 40 rows, K6 at 8, 40 and 640, and rows 0-7 of each 40-row
      call equal to the 8-row call bit for bit (the self-draft verify's rows);
      The per-group kernels (K7, K8, K13, K14) are checked the same way, on
-     weights quantized per group of 128 columns (planar_groups), and K6 and
+     weights quantized per group of 128 columns (planar_groups), K7 also at
+     40 rows (rows 0-7 equal to the 8-row call bit for bit), at gs 64 (the
+     tensor-core body) and gs 32 (the CUDA-core loop), and K6 and
      K12 on planar weights per group of 128 (what convert_checkpoint gives);
      K9 (grouped_int4_matmul(mode="ksplit")) on the down projection's stack
      against its plain version and K2, and on a narrow stack that it splits
@@ -28,9 +31,12 @@ Phases, each of which raises on failure:
      could take: bytes over 3.35 TB/s or operations over the peak of their
      type) and, where one PyTorch call computes the same function, that
      call's time, its output first held against the plain version at the
-     kernel's bar. K3' runs on a page pool holding a contiguous cache's
-     bytes in shuffled page order and must equal K3 on that cache bit for
-     bit;
+     kernel's bar. K3 is also timed at a B=8 decode over 4096 positions
+     (split over 16 CTAs per row), and each decode row must equal the same
+     position's row of a T=5 chunked prefill over the same cache bit for
+     bit, on the contiguous and the paged cache. K3' runs on a page pool
+     holding a contiguous cache's bytes in shuffled page order and must
+     equal K3 on that cache bit for bit;
   4. serve 12 requests on the `layer2` model (random weights from a seeded
      generator) with 8 slots, in the default (w4a16) mode and then, on the
      same weights, in the `as_u4_turbo` (w4a8), `as_per_group` (w4a16,
@@ -60,11 +66,13 @@ Phases, each of which raises on failure:
      requests on each: per row on K1, K2 and K3, per group on K6, K12 and K3
      (the router is dense: no K1), no plain version;
   8. convert the trained h256 fixture (tests/fixtures) on the card in the
-     four policies the port supports, evaluate each on the held-out tail of
-     its corpus against the bf16 twin built from the same checkpoint
-     (dense_from_params), print the numbers beside the JAX package's
-     committed record, hold them to tests/test_convert.py's gates, and check
-     the per-group-128 model on the card against the CPU;
+     four policies the port supports, and the router-dense model under
+     as_per_group (K7, K13, K3) and pg_turbo (K8, K14), evaluate each on the
+     held-out tail of its corpus against the bf16 twin built from the same
+     checkpoint (dense_from_params), print the numbers beside the JAX
+     package's committed record, hold them to tests/test_convert.py's gates
+     (as_per_group to the router-dense policy's), and check the
+     per-group-128 model on the card against the CPU;
   9. run the `tiny` model with the same weights on the card and on the CPU,
      in the default mode and in each w4a8 and per-group mode, and on paged
      caches, and compare the logits.
@@ -113,6 +121,7 @@ from fused4bit_tpu_torch.models import (
 )
 from fused4bit_tpu_torch.ops import _build
 from fused4bit_tpu_torch.ops.grouped_matmul import _ksplit_splits
+from fused4bit_tpu_torch.ops.int4_matmul import _k7_on_tensor_cores
 from fused4bit_tpu_torch.ops.int8_xla import _quantize_acts
 from fused4bit_tpu_torch.quant import planar_groups_to_planar, quantize, unpack_planar
 from fused4bit_tpu_torch.serving import GenerationRequest, ServingEngine, speculative_generate
@@ -166,7 +175,7 @@ SOURCES = {
                                "fused4bit_tpu/ops/grouped_matmul.py:500"),
     "grouped_int4_matmul_a8_fused": ("fused4bit_tpu_torch/csrc/grouped_matmul_a8.cu",
                                      "fused4bit_tpu/ops/grouped_matmul.py:552"),
-    "int4_matmul_per_group": ("fused4bit_tpu_torch/csrc/int4_matmul_pg.cu",
+    "int4_matmul_per_group": ("fused4bit_tpu_torch/csrc/int4_mma.cuh",
                               "fused4bit_tpu/ops/int4_matmul.py:587"),
     "int4_matmul_per_group_a8": ("fused4bit_tpu_torch/csrc/int4_matmul_pg.cu",
                                  "fused4bit_tpu/ops/int4_matmul.py:761"),
@@ -296,15 +305,18 @@ def build() -> float:
     return secs
 
 
-# The kernels of the tensor-core body (csrc/int4_mma.cuh): K1 and K6 in bf16,
-# each with a 16-row and a 64-row tile of x.
-MMA_KERNEL = "int4_mma_kernel"
+# The tensor-core bodies and their instantiations in bf16: the linear body
+# (csrc/int4_mma.cuh) for K1, K6 and K7, each with a 16-row and a 64-row tile
+# of x; the attention body (csrc/decode_attention.cu) for K3 and K3', each at
+# head_dim 64 and 128.
+TENSOR_CORE_KERNELS = {"int4_mma_kernel": 6, "int4_attention_mma_kernel": 4}
 
 
 def tensor_core_sass() -> dict:
     """The HMMA instructions in the SASS of each instantiation of the
-    tensor-core body, from ``cuobjdump -sass`` of the built library; raises
-    if a kernel has none (it would not run on the tensor cores)."""
+    tensor-core bodies, from ``cuobjdump -sass`` of the built library; raises
+    if a kernel has none (it would not run on the tensor cores) or if an
+    instantiation is missing."""
     cuobjdump = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path())],
                           capture_output=True, text=True, check=True).stdout
@@ -312,14 +324,15 @@ def tensor_core_sass() -> dict:
     for line in sass.splitlines():
         if "Function : " in line:
             fn = line.split("Function : ")[1].strip()
-            if MMA_KERNEL in fn:
+            if any(k in fn for k in TENSOR_CORE_KERNELS):
                 counts[fn] = 0
         elif fn in counts and "HMMA" in line:
             counts[fn] += 1
     for name, c in counts.items():
         print(f"  sass: {c} HMMA in {name}")
-    if len(counts) < 4 or min(counts.values()) == 0:
-        raise AssertionError(f"tensor-core body: HMMA counts {counts}")
+    found = {k: sum(k in fn for fn in counts) for k in TENSOR_CORE_KERNELS}
+    if found != TENSOR_CORE_KERNELS or min(counts.values()) == 0:
+        raise AssertionError(f"tensor-core bodies: instantiations {found}, HMMA counts {counts}")
     return counts
 
 
@@ -544,11 +557,15 @@ def _pg_quantize(w):
 def check_linear_pg(device, results, timer, gen):
     """K7 and K8 at the layer2 linear shapes, weights per group of 128
     (planar_groups): the decode rows (8) and the long prefill's (640), bf16,
-    and the f32 instantiations at one shape."""
+    and the f32 instantiations at one shape; K7 also at the self-draft
+    verify's 40 rows, whose rows 0-7 must equal the 8-row call bit for bit.
+    Then K7 at gs 64 (the tensor-core body) and gs 32 (the CUDA-core loop)."""
     for n, k in ((4096, 4096), (1024, 4096), (8192, 4096)):
         qt = _pg_quantize(torch.randn((n, k), generator=gen, device=device) * k ** -0.5)
-        for m in (8, 640):
-            x = torch.randn((m, k), generator=gen, device=device).bfloat16()
+        x640 = torch.randn((640, k), generator=gen, device=device).bfloat16()
+        rows = {}
+        for m in (8, 40, 640):
+            x = x640[:m].contiguous()
             for xx in ((x, x.float()) if (m, n) == (8, 1024) else (x,)):
                 f32 = xx.dtype == torch.float32
                 dt = "f32" if f32 else "bf16"
@@ -556,18 +573,41 @@ def check_linear_pg(device, results, timer, gen):
                 iters = 5 if m == 640 else 20
                 ref = ops.int4_matmul_per_group_reference(xx, qt)
                 tol = _a16_tol(ref)
-                _compare("int4_matmul_per_group", f"M={m} N={n} K={k} {dt}",
-                         ops.int4_matmul_per_group(xx, qt), ref, tol, results,
+                y = ops.int4_matmul_per_group(xx, qt)
+                if not f32:
+                    rows[m] = y
+                _compare("int4_matmul_per_group", f"M={m} N={n} K={k} {dt}", y, ref, tol, results,
                          None if f32 else timer, lambda: ops.int4_matmul_per_group(xx, qt),
                          lambda: ops.int4_matmul_per_group_reference(xx, qt), iters=iters,
                          work=linear_bound(xx, qt),
                          library=int4pack_yardstick(xx, qt) if main else None)
+                if m == 40:
+                    continue
                 ref = ops.int4_matmul_per_group_a8_reference(xx, qt)
                 _compare("int4_matmul_per_group_a8", f"M={m} N={n} K={k} {dt}",
                          ops.int4_matmul_per_group_a8(xx, qt), ref, _a8_tol(ref), results,
                          None if f32 else timer, lambda: ops.int4_matmul_per_group_a8(xx, qt),
                          lambda: ops.int4_matmul_per_group_a8_reference(xx, qt), iters=iters,
                          work=linear_bound(xx, qt, a8=True))
+        same_rows("int4_matmul_per_group", f"N={n} K={k} bf16", rows[8], rows[40])
+        del qt
+    n = k = 4096
+    w = torch.randn((n, k), generator=gen, device=device) * k ** -0.5
+    x40 = torch.randn((40, k), generator=gen, device=device).bfloat16()
+    for gs in (64, 32):
+        qt = quantize(w, granularity="per_group", layout="planar_groups", group_size=gs)
+        body = ("tensor cores" if _k7_on_tensor_cores(torch.bfloat16, gs)
+                else "CUDA cores")
+        rows = {}
+        for m in (8, 40):
+            x = x40[:m].contiguous()
+            ref = ops.int4_matmul_per_group_reference(x, qt)
+            y = rows[m] = ops.int4_matmul_per_group(x, qt)
+            _compare("int4_matmul_per_group", f"M={m} N={n} K={k} gs {gs} bf16 ({body})", y, ref,
+                     _a16_tol(ref), results, timer, lambda: ops.int4_matmul_per_group(x, qt),
+                     lambda: ops.int4_matmul_per_group_reference(x, qt), work=linear_bound(x, qt))
+        if gs == 64:
+            same_rows("int4_matmul_per_group", f"N={n} K={k} gs {gs} bf16", rows[8], rows[40])
         del qt
 
 
@@ -791,6 +831,19 @@ def check_attention(device, results, timer, gen, b=8, hq=32, h_kv=8, d=128, s_ma
              lambda: ops.int4_attention_reference(q[:, :, None], cache, cache.lengths - 1),
              work=attention_bound(q, cache, cache.lengths - 1, 1),
              library=sdpa_yardstick(q, cache))
+    # a decode over 4096 positions: 16 CTAs per row, their partials merged
+    # in order by the second pass
+    lengths_l = [(4095, 4000, 2049, 1)[i % 4] for i in range(b)]
+    long = _filled_cache(b, h_kv, 4096, d, lengths_l, gen, device)
+    ql = torch.randn((b, hq, d), generator=gen, device=device).bfloat16()
+    starts_l = long.lengths - 1
+    _compare("int4_attention", f"decode B={b} 4096 positions, lengths {sorted(set(lengths_l))}",
+             ops.int4_decode_attention(ql, long),
+             ops.int4_attention_reference(ql[:, :, None], long, starts_l)[:, :, 0],
+             ATTN_ABS_TOL, results, timer, lambda: ops.int4_decode_attention(ql, long),
+             lambda: ops.int4_attention_reference(ql[:, :, None], long, starts_l), iters=10,
+             work=attention_bound(ql, long, starts_l, 1), library=sdpa_yardstick(ql, long))
+    del long
     qf = q.float()  # the f32 instantiation
     _compare("int4_attention", f"decode B={b} f32", ops.int4_decode_attention(qf, cache),
              ops.int4_attention_reference(qf[:, :, None], cache, cache.lengths - 1)[:, :, 0],
@@ -903,6 +956,37 @@ def check_paged_attention(device, results, timer, gen, b=8, hq=32, h_kv=8, d=128
     print(f"    K3' == K3 bit for bit at the {b} x {t} prefill from starts {starts.tolist()}")
 
 
+def check_decode_equals_prefill(device, gen, b=8, hq=32, h_kv=8, d=128):
+    """The self-draft verify's case at the layer2 attention shape: each
+    decode row at position p (K3, and K3' on a pool holding the same bytes)
+    equals, bit for bit, the row at p of a T=5 chunked prefill over the same
+    cache whose query 4, 2 or 0 sits at p (query 2 lands in the upper half
+    of the tensor-core tile, query 4 in a second query tile)."""
+    lengths = [(1, 2, 37, 250, 129, 128, 200, 77)[i % 8] for i in range(b)]
+    cache = _filled_cache(b, h_kv, 256, d, lengths, gen, device)
+    paged = paged_copy(cache, 128, device)
+    q = torch.randn((b, hq, d), generator=gen, device=device).bfloat16()
+    pos = cache.lengths.long() - 1
+    rows = torch.arange(b, device=device)
+    for name, c in (("K3", cache), ("K3'", paged)):
+        dec = ops.int4_decode_attention(q, c)
+        for query in (4, 2, 0):
+            starts = (pos - query).clamp(min=0)
+            at = pos - starts
+            q5 = torch.randn((b, hq, 5, d), generator=gen, device=device).bfloat16()
+            q5[rows, :, at] = q
+            c.lengths.copy_(starts + 5)
+            y5 = ops.int4_prefill_attention(q5, c, starts.to(torch.int32))
+            c.lengths.copy_(pos + 1)
+            torch.cuda.synchronize()
+            if not torch.equal(y5[rows, :, at], dec):
+                d_max = (y5[rows, :, at].float() - dec.float()).abs().max().item()
+                raise AssertionError(f"{name}: decode rows differ from the T=5 prefill's rows "
+                                     f"(query {query}): max|d| {d_max}")
+    print(f"    K3 and K3': decode rows == T=5 prefill rows bit for bit (queries 4, 2, 0), "
+          f"lengths {sorted(set(lengths))}")
+
+
 def check_kernels(device="cuda", timing=True):
     """Phase 3: every kernel against its plain version at the layer2 shapes."""
     gen = torch.Generator(device=device).manual_seed(1)
@@ -912,6 +996,7 @@ def check_kernels(device="cuda", timing=True):
     check_grouped(device, results, timer, gen)
     check_attention(device, results, timer, gen)
     check_paged_attention(device, results, timer, gen)
+    check_decode_equals_prefill(device, gen)
     check_linear_a8(device, results, timer, gen)
     check_grouped_a8(device, results, timer, gen)
     check_linear_pg(device, results, timer, gen)
@@ -1497,16 +1582,36 @@ def policy_metrics(got, nll, ref, nll_ref) -> dict:
                 logit_cosine_sim=F.cosine_similarity(got, ref, dim=-1, eps=1e-9).mean().item())
 
 
+def policy_gates(q) -> dict:
+    """tests/test_convert.py's gates of the router-dense policy, on one
+    policy's numbers: name -> whether it holds."""
+    return {"cosine > 0.97": q["logit_cosine_sim"] > 0.97,
+            "top-1 > 0.82": q["top1_agreement"] > 0.82,
+            "nll_delta < 0.1": q["nll_delta"] < 0.1}
+
+
 def quality_gates(res, nll_ref, vocab_size) -> dict:
     """tests/test_convert.py's gates on the trained h256 fixture: name ->
     whether it holds."""
     q, pg = res["int4_router_dense"], res["int4_per_group64"]
     return {"NLL bf16 < 0.5 uniform": nll_ref < 0.5 * float(np.log(vocab_size)),
-            "router-dense cosine > 0.97": q["logit_cosine_sim"] > 0.97,
-            "router-dense top-1 > 0.82": q["top1_agreement"] > 0.82,
-            "router-dense nll_delta < 0.1": q["nll_delta"] < 0.1,
+            **{f"router-dense {name}": ok for name, ok in policy_gates(q).items()},
             "per-group64 cosine >= router-dense - 1e-3":
                 pg["logit_cosine_sim"] >= q["logit_cosine_sim"] - 1e-3}
+
+
+# The execution modes on the trained fixture (the router-dense conversion,
+# then the mode's converter), the kernels each must launch and those it must not.
+TRAINED_MODES = (
+    ("as_per_group", as_per_group,
+     ("int4_matmul_per_group", "grouped_int4_matmul_per_group", "int4_attention"),
+     ("int4_matmul", "grouped_int4_matmul", "int4_matmul_per_group_a8",
+      "grouped_int4_matmul_per_group_a8")),
+    ("pg_turbo", as_pg_turbo,
+     ("int4_matmul_per_group_a8", "grouped_int4_matmul_per_group_a8", "int4_attention"),
+     ("int4_matmul", "grouped_int4_matmul", "int4_matmul_per_group",
+      "grouped_int4_matmul_per_group")),
+)
 
 
 def trained_checkpoint(card_line, device="cuda"):
@@ -1514,8 +1619,10 @@ def trained_checkpoint(card_line, device="cuda"):
     policies the port supports, each evaluated on the held-out tail of its
     corpus against the bf16 twin built from the same checkpoint, beside the
     JAX package's committed record (a CPU run of the JAX package); held to
-    the gates of tests/test_convert.py. Then the per-group-128 model on the
-    card against the CPU."""
+    the gates of tests/test_convert.py. Then the router-dense model under
+    as_per_group (K7, K13, K3; held to the router-dense policy's gates) and
+    pg_turbo (K8, K14), and the per-group-128 model on the card against the
+    CPU."""
     cfg = fixture_config(H256)
     raw = load_safetensors(H256)
     tokens = heldout_tokens(H256)
@@ -1547,6 +1654,23 @@ def trained_checkpoint(card_line, device="cuda"):
     if not all(gates.values()):
         raise AssertionError(f"trained h256 quality gates: {gates}")
     print(f"trained h256: every gate of tests/test_convert.py met {sorted(gates)}")
+    base = convert_safetensors(H256, cfg, device=device, **QUALITY_POLICIES["int4_router_dense"])
+    for label, convert, launched, idle in TRAINED_MODES:
+        model = convert(base)
+        _reset_counts()
+        got, nll = evaluate(model, cfg, tokens, device)
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        res[label] = q = policy_metrics(got, nll, ref, nll_ref)
+        print(f"trained h256 [router dense, {label}]: held-out NLL {q['heldout_nll']:.4f} (bf16 "
+              f"twin {nll_ref:.4f}), nll_delta {q['nll_delta']:.4f}, top-1 "
+              f"{q['top1_agreement']:.4f}, cosine {q['logit_cosine_sim']:.4f}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }, plain-version calls {_plain_calls()}")
+        _expect_launches(f"trained h256 [{label}]", launches, launched, idle)
+    mode_gates = policy_gates(res["as_per_group"])
+    if not all(mode_gates.values()):
+        raise AssertionError(f"trained h256 [as_per_group]: router-dense gates {mode_gates}")
+    print(f"trained h256 [as_per_group]: the router-dense policy's gates met {sorted(mode_gates)}")
     kw = QUALITY_POLICIES["int4_per_group128"]
     card_vs_cpu(convert_checkpoint(raw, cfg, device="cpu", **kw),
                 convert_checkpoint(raw, cfg, device=device, **kw), cfg,

@@ -21,25 +21,12 @@
 #include "int4_mma.cuh"
 #include "int4_rows.cuh"
 
-namespace {
-
-f4b::MmaArgs mma_args(const void* x, const void* packed, const void* scales, const void* zps,
-                      void* y, void* partial, int M, int N, int K, int gs, int ws, int kw,
-                      int splits) {
-  return f4b::MmaArgs{static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
-                      static_cast<const float*>(scales), static_cast<const float*>(zps),
-                      static_cast<__nv_bfloat16*>(y), static_cast<float*>(partial),
-                      M, N, K, gs, ws, kw, splits};
-}
-
-}  // namespace
-
 extern "C" int f4b_int4_matmul_bf16(const void* x, const void* packed,
                                     const void* scales, const void* zps, void* y,
                                     void* partial, int M, int N, int K, int ws, int kw,
                                     int splits, int mt, void* stream) {
-  return f4b::launch_int4_mma<false>(
-      mma_args(x, packed, scales, zps, y, partial, M, N, K, 0, ws, kw, splits), mt, stream);
+  return f4b::launch_int4_mma<f4b::RowScale>(
+      f4b::mma_args(x, packed, scales, zps, y, partial, M, N, K, 0, ws, kw, splits), mt, stream);
 }
 
 extern "C" int f4b_int4_matmul_f32(const void* x, const void* packed,
@@ -55,8 +42,8 @@ extern "C" int f4b_int4_matmul_planar_pg_bf16(const void* x, const void* packed,
                                               void* partial, int M, int N, int K, int gs,
                                               int ws, int kw, int splits, int mt,
                                               void* stream) {
-  return f4b::launch_int4_mma<true>(
-      mma_args(x, packed, scales, zps, y, partial, M, N, K, gs, ws, kw, splits), mt, stream);
+  return f4b::launch_int4_mma<f4b::GroupDequant>(
+      f4b::mma_args(x, packed, scales, zps, y, partial, M, N, K, gs, ws, kw, splits), mt, stream);
 }
 
 extern "C" int f4b_int4_matmul_planar_pg_f32(const void* x, const void* packed,

@@ -4,24 +4,39 @@
 // K7 replaces fused4bit_tpu/ops/int4_matmul.py:_int4_group_bp_kernel (w4a16,
 // batched partials); K8 replaces _int4_group_bp_a8_kernel (w4a8: int8
 // activations and their scales in, quantized by the caller, as the TPU
-// wrapper does). Both run the kernels of int4_rows_pg.cuh: a partial dot per
-// run of one group, then the group's scale and zero-point fold; the weights
-// are never dequantized.
+// wrapper does). Both fold the group's scale and zero point into partial
+// dots of the raw codes; the weights are never dequantized.
 //
-// What bounds it on the H100: at decode (M <= 16) the op streams K/2 bytes of
-// packed weight per output row plus 2 * K/gs f32 scales and zero points
-// (1/16 of the packed bytes at gs = 128) for 2*M*K operations: bound by HBM
-// bytes, in practice by the latency of walking K/2 in 512-byte chunks, as K1
-// (int4_matmul.cu). What the design does about it: K1's work split (16-byte
-// loads, next chunk's weights in flight during this chunk's math, x staged
-// once per CTA and reused by its 32 output rows); the planar_groups layout
-// keeps each lane's 16 bytes contiguous inside one group, so the per-group
-// scaling costs four multiply-adds per run of 16 columns. At prefill
-// (M = 640) each weight byte serves MT rows per read, and the CUDA-core loop
-// is the bound; tensor-core MMA is later work.
+// K7 with bf16 x and gs % 64 == 0 (the production gs = 128 of as_per_group)
+// runs the tensor-core body of int4_mma.cuh under its GroupFold policy (its
+// note gives the design and the bound): the raw codes as mma operand A, the
+// low and high halves in separate MMA steps, each chunk's f32 partials
+// folded with its group's (s, c) and the per-row sums of the staged x. The
+// launch shape (ws, kw, splits, mt) comes from the Python wrapper's rule,
+// ops.int4_matmul._fold_mma_launch (decode, whole chunks per warp, reads
+// N, K and the SM count only) or _mma_tall_launch (above 64 rows), and
+// partial is f32 scratch of splits * M * N when splits > 1.
+//
+// K7 in f32 (an f32 tensor-core product would be TF32) or at the other
+// group sizes planar_groups allows (gs % 16 == 0), and K8, run the CUDA-core
+// kernels of int4_rows_pg.cuh: a lane's 16-byte run lies in one group and
+// takes its fold at once. What bounds them on the H100 at decode is the
+// HBM bytes (K/2 packed bytes per output row plus 2 * K/gs f32 scales and
+// zero points), in practice the latency of walking K/2 in 512-byte chunks.
+#include "int4_mma.cuh"
 #include "int4_rows_pg.cuh"
 
-// K7: x [M, K] bf16 or f32; packed [K/2/gs, N, gs] u8; scales/zps [N, K/gs].
+// K7 on the tensor cores: x [M, K] bf16; packed [K/2/gs, N, gs] u8;
+// scales/zps [N, K/gs]; gs % 64 == 0 dividing K/2.
+extern "C" int f4b_int4_matmul_pg_mma_bf16(const void* x, const void* packed,
+                                           const void* scales, const void* zps, void* y,
+                                           void* partial, int M, int N, int K, int gs, int ws,
+                                           int kw, int splits, int mt, void* stream) {
+  return f4b::launch_int4_mma<f4b::GroupFold>(
+      f4b::mma_args(x, packed, scales, zps, y, partial, M, N, K, gs, ws, kw, splits), mt, stream);
+}
+
+// K7 on the CUDA cores: x [M, K] bf16 or f32, gs % 16 == 0; the rest as above.
 extern "C" int f4b_int4_matmul_pg_bf16(const void* x, const void* packed, const void* scales,
                                        const void* zps, void* y, int M, int N, int K, int gs,
                                        void* stream) {

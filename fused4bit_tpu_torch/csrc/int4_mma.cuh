@@ -1,18 +1,30 @@
-// Tensor-core body of the bf16 w4a16 linear on the planar layout: K1 (per
-// row) and K6 (per group), launched by int4_matmul.cu. The f32 entry points,
-// and the grouped kernels K2, K9 and K12, stay on int4_rows.cuh.
+// Tensor-core body of the bf16 w4a16 linears: K1 (per row) and K6 (per
+// group, planar), launched by int4_matmul.cu, and K7 (per group,
+// planar_groups, gs % 64 == 0), launched by int4_matmul_pg.cu. The f32 entry
+// points, K7 at other group sizes, and the grouped kernels K2, K9 and K12
+// stay on int4_rows.cuh / int4_rows_pg.cuh.
 //
 // What it computes (the TPU kernels' arithmetic, with the order of the f32
 // sum changed):
 //   K1: y[m, n] = s[n] * sum_k x[m, k] * (q[n, k] - zp[n])
 //   K6: y[m, n] = sum_k x[m, k] * bf16(bf16(s[n, g(k)]) * (q[n, k] - zp[n, g(k)]))
+//   K7: y[m, n] = sum over chunks c of 64 packed bytes, in order, of
+//         s_lo * P_lo + c_lo * X_lo + s_hi * P_hi + c_hi * X_hi
+//       with P_lo = sum x_lo * q_lo and P_hi = sum x_hi * (q_hi - 8) the raw
+//       codes' dot over the chunk's 64 columns of each half, X the sums of x
+//       over them, c_lo = -s_lo * zp_lo, c_hi = s_hi * (8 - zp_hi) (the TPU
+//       kernel's batched-partials fold, fused4bit_tpu/ops/int4_matmul.py:
+//       _int4_group_bp_kernel: its a_hi * P_hi is (s_hi / 16) * 16 P_hi, the
+//       same product; it folds per group, here per chunk of its group).
 // with q the 4-bit codes of the planar bytes (byte c of row n: column c in
 // the low nibble, column K/2 + c XOR 8 in the high nibble) and integer zero
 // points in [0, 15], as the quantizer gives them. (q - zp) lies in [-15, 15]
 // and is exact in bf16, and for K6 the bf16 product of two bf16 values is the
 // plain version's planar_pg_weight bit for bit (the f32 product is exact and
 // both round once to nearest even), so mma.sync with bf16 operands and f32
-// sums is the TPU kernels' own bf16 dot with f32 accumulation.
+// sums is the TPU kernels' own bf16 dot with f32 accumulation. K7's codes
+// q_lo in [0, 15] and q_hi - 8 in [-8, 7] are exact in bf16 too: the zero
+// point and the scale never touch the weights, as in the TPU kernel.
 //
 // What bounds it on the H100: at decode (M <= 16) the product reads K/2
 // bytes per output row and does 2*M*K operations per row, about 32
@@ -28,26 +40,37 @@
 //   two bf16 values 128 + lo and, with the constant 0x4308 ^ nibble, 128 +
 //   (hi XOR 8) = 128 + q; __hsub2 of (128 + zp) leaves q - zp exactly, and
 //   for K6 __hmul2 by bf16(s) rounds the product once. K1 applies its scale
-//   to the f32 sum in the epilogue, as the TPU kernel does.
+//   to the f32 sum in the epilogue, as the TPU kernel does. K7 subtracts 128
+//   (low) or 136 (high) and nothing else.
 // * The JAX bytes stay as they are; the order of k inside each 16-wide k step
 //   is permuted instead. A chunk is 64 packed bytes of a row; lane (g, t) of
 //   a warp (g = lane / 4, t = lane % 4) loads bytes 16t .. 16t + 15 of the
-//   chunk of rows g and g + 8 of its 16-row tile with one 16-byte load each.
-//   k step s (0..7) of the chunk gives mma positions 2t, 2t + 1 the low
-//   nibbles of bytes 16t + 2s, 16t + 2s + 1, and positions 2t + 8, 2t + 9
+//   chunk of rows g and g + 8 of its 16-row tile with one 16-byte load each
+//   (K7: of the planar_groups run [g(c), n, 0 .. gs), the chunk's group).
+//   K1/K6: k step s (0..7) of the chunk gives mma positions 2t, 2t + 1 the
+//   low nibbles of bytes 16t + 2s, 16t + 2s + 1, and positions 2t + 8, 2t + 9
 //   their high nibbles (columns K/2 + the same bytes); operand B reads x at
 //   the same columns, which are one 32-bit word of the staged low half and
-//   one of the high half.
+//   one of the high half. K7 keeps the halves apart, each with its own scale:
+//   low step s (0..3) gives positions 2t, 2t + 1 the low nibbles of bytes
+//   16t + 4s, +1 and positions 2t + 8, 2t + 9 those of bytes 16t + 4s + 2, +3,
+//   and operand B reads the same 4 columns of the staged low half as one
+//   64-bit word; high step s the same with the high nibbles and the high
+//   half. Each half's 4 steps sum into f32 fragments P that are folded into
+//   the accumulator at the chunk's end with the group's (s, c) and the sums X
+//   of the staged x (one f32 per row, chunk and half, summed per row in a
+//   fixed order after the stage is staged, so no row reads another's).
 // * Filling the card: a warp owns a 16-row tile and a slice of `ws` k steps;
 //   a CTA of 8 warps is `kw` warps along K times 8 / kw row tiles, and grid z
 //   splits K into `splits` ranges of kw * ws steps. The launch rule
-//   (ops.int4_matmul._mma_launch) picks (ws, kw, splits) from (N, K, SM
-//   count) only, so every row's sum runs in the same order at every M up to
-//   64: a row's output does not depend on M (the self-draft speculative
-//   verify at M = 40 must reproduce the M = 8 decode bit for bit). Partial
-//   sums meet in a fixed order: through shared memory inside a CTA (warps
-//   kw = 0, 1, ...), then, with splits > 1, as f32 partials [splits, M, N]
-//   that a second kernel adds in order z = 0, 1, ... No float atomics.
+//   (ops.int4_matmul._mma_launch; K7: _fold_mma_launch, whole chunks per
+//   warp) picks (ws, kw, splits) from (N, K, SM count) only, so every row's
+//   sum runs in the same order at every M up to 64: a row's output does not
+//   depend on M (the self-draft speculative verify at M = 40 must reproduce
+//   the M = 8 decode bit for bit). Partial sums meet in a fixed order:
+//   through shared memory inside a CTA (warps kw = 0, 1, ...), then, with
+//   splits > 1, as f32 partials [splits, M, N] that a second kernel adds in
+//   order z = 0, 1, ... No float atomics.
 // * Every weight load of a warp's stage (up to 4 chunks: 8 x 16 bytes per
 //   lane) is issued before the x staging completes and before the MMAs that
 //   consume them. x is staged once per CTA with cp.async (16 bytes), a warp
@@ -76,16 +99,41 @@ constexpr int kStepsPerChunk = 8;
 constexpr int kStageSteps = 32;  // k steps a warp holds in registers at once (4 chunks)
 constexpr int kStageChunks = kStageSteps / kStepsPerChunk;
 
+// What a weight byte becomes on the way into the tensor cores: the body's
+// dequantization policy.
+//   RowScale     (K1): q - zp[n] in registers, s[n] times the f32 sum;
+//   GroupDequant (K6): bf16(bf16(s[n, g]) * (q - zp[n, g])) in registers;
+//   GroupFold    (K7): the raw codes, planar_groups bytes, and the group's
+//                      scale and zero point folded into the f32 sums per chunk.
+struct RowScale {
+  static constexpr bool kGroupScales = false, kFold = false;
+};
+struct GroupDequant {
+  static constexpr bool kGroupScales = true, kFold = false;
+};
+struct GroupFold {
+  static constexpr bool kGroupScales = true, kFold = true;
+};
+
 struct MmaArgs {
   const __nv_bfloat16* x;   // [M, K], 16-byte aligned
-  const uint8_t* packed;    // [N, K/2] planar
-  const float* scales;      // [N] (K1) or [N, K/gs] (K6)
+  const uint8_t* packed;    // [N, K/2] planar (K1, K6) or [K/2/gs, N, gs] planar_groups (K7)
+  const float* scales;      // [N] (K1) or [N, K/gs] (K6, K7)
   const float* zps;         // the same shape, integers in [0, 15]
   __nv_bfloat16* y;         // [M, N]
   float* partial;           // [splits, M, N] f32 scratch when splits > 1
   int M, N, K, gs;
   int ws, kw, splits;       // k steps per warp, warps along K per CTA, CTAs along K
 };
+
+inline MmaArgs mma_args(const void* x, const void* packed, const void* scales, const void* zps,
+                        void* y, void* partial, int M, int N, int K, int gs, int ws, int kw,
+                        int splits) {
+  return MmaArgs{static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
+                 static_cast<const float*>(scales), static_cast<const float*>(zps),
+                 static_cast<__nv_bfloat16*>(y), static_cast<float*>(partial),
+                 M, N, K, gs, ws, kw, splits};
+}
 
 __device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
@@ -128,10 +176,23 @@ __device__ __forceinline__ uint32_t zp_pair(float zp) {
   return bf2_bits(__float2bfloat162_rn(128.f + zp));
 }
 
+// The packed bytes of row n at byte `byte` of its K/2 (a lane's 16-byte run):
+// planar rows, or (GroupFold) the run of group byte / gs in planar_groups.
+template <class P>
+__device__ __forceinline__ const uint4* weight_run(const MmaArgs& p, int n, int byte) {
+  if constexpr (P::kFold) {
+    const int g = byte / p.gs;
+    return reinterpret_cast<const uint4*>(
+        p.packed + (static_cast<size_t>(g) * p.N + n) * p.gs + (byte - g * p.gs));
+  } else {
+    return reinterpret_cast<const uint4*>(p.packed + static_cast<size_t>(n) * (p.K / 2) + byte);
+  }
+}
+
 // NT n8 tiles of x rows per CTA (16 or 64 rows). One CTA: 8 warps, warp w
 // on row tile blockIdx.x * (8 / kw) + w / kw and K slice w % kw of the CTA's
 // range blockIdx.z; x rows blockIdx.y * 8 * NT onward.
-template <bool kGroups, int NT>
+template <class P, int NT>
 __global__ void __launch_bounds__(kMmaThreads, NT <= 2 ? 2 : 1) int4_mma_kernel(const MmaArgs p) {
   constexpr int MT = NT * 8;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -152,10 +213,12 @@ __global__ void __launch_bounds__(kMmaThreads, NT <= 2 ? 2 : 1) int4_mma_kernel(
   const int cs = blockIdx.z * p.kw * p.ws;         // the CTA's first k step
   const int ce = min(steps, cs + p.kw * p.ws);
   const int xrows = min(MT, (mrows + 7) & ~7);     // staged rows: whole n8 tiles
-  const int ng = kGroups ? p.K / p.gs : 1;
+  const int ng = P::kGroupScales ? p.K / p.gs : 1;
+  // GroupFold: X, the sums of the staged x per [chunk of the stage][half][row]
+  float* xsum = reinterpret_cast<float*>(smem + static_cast<size_t>(MT) * rs * 2);
 
   uint32_t zrow[2] = {0u, 0u};  // K1: (128 + zp) of rows na, nb
-  if (!kGroups) {
+  if (!P::kGroupScales) {
     zrow[0] = zp_pair(na < p.N ? __ldg(p.zps + na) : 0.f);
     zrow[1] = zp_pair(nb < p.N ? __ldg(p.zps + nb) : 0.f);
   }
@@ -181,10 +244,8 @@ __global__ void __launch_bounds__(kMmaThreads, NT <= 2 ? 2 : 1) int4_mma_kernel(
       const int byte = c * kChunkBytes + 16 * t;
       const bool in = c * kStepsPerChunk < wb && byte < kh;
       wr[i][0] = wr[i][1] = make_uint4(0u, 0u, 0u, 0u);
-      if (in && na < p.N)
-        wr[i][0] = __ldg(reinterpret_cast<const uint4*>(p.packed + static_cast<size_t>(na) * kh + byte));
-      if (in && nb < p.N)
-        wr[i][1] = __ldg(reinterpret_cast<const uint4*>(p.packed + static_cast<size_t>(nb) * kh + byte));
+      if (in && na < p.N) wr[i][0] = __ldg(weight_run<P>(p, na, byte));
+      if (in && nb < p.N) wr[i][1] = __ldg(weight_run<P>(p, nb, byte));
     }
 
     // Stage x rows [m0, m0 + xrows) at the stage's chunks, low and high half:
@@ -204,67 +265,149 @@ __global__ void __launch_bounds__(kMmaThreads, NT <= 2 ? 2 : 1) int4_mma_kernel(
     }
     cp_async_wait_all();
     __syncthreads();
+    if constexpr (P::kFold) {
+      // X of each staged (chunk, half, row): the row's 64 values, 8 vectors
+      // of 8 each summed as a tree, the 8 vector sums added in order.
+      for (int e = threadIdx.x; e < max(c_count, 0) * 2 * xrows; e += kMmaThreads) {
+        const int r = e % xrows, ch = e / xrows;  // ch = chunk * 2 + half
+        const __nv_bfloat16* v = xs + r * rs + (ch & 1) * stage_cap * kChunkBytes +
+                                 (ch >> 1) * kChunkBytes;
+        float sum = 0.f;
+#pragma unroll
+        for (int u = 0; u < kChunkBytes / 8; ++u) {
+          const uint4 w = *reinterpret_cast<const uint4*>(v + 8 * u);
+          const float2 f0 = __bfloat1622float2(bits_bf2(w.x));
+          const float2 f1 = __bfloat1622float2(bits_bf2(w.y));
+          const float2 f2 = __bfloat1622float2(bits_bf2(w.z));
+          const float2 f3 = __bfloat1622float2(bits_bf2(w.w));
+          sum += ((f0.x + f0.y) + (f1.x + f1.y)) + ((f2.x + f2.y) + (f3.x + f3.y));
+        }
+        xsum[ch * MT + r] = sum;
+      }
+      __syncthreads();
+    }
 
 #pragma unroll
     for (int i = 0; i < kStageChunks; ++i) {
       const int c = ca + i;
       if (c * kStepsPerChunk >= wb) break;  // warp-uniform
-      const int s_lo = max(wa - c * kStepsPerChunk, 0);
-      const int s_hi = min(wb - c * kStepsPerChunk, kStepsPerChunk);
-      // per-half zero points (and, K6, scales) of rows na, nb: [lo a, lo b, hi a, hi b]
-      uint32_t z[4] = {zrow[0], zrow[1], zrow[0], zrow[1]};
-      __nv_bfloat162 sc[4];
-      if (kGroups) {
-        const int byte = c * kChunkBytes + 16 * t;
-        const int gl = min(byte, kh - 1) / p.gs;  // the run's group; one group per run
-        const bool ia = na < p.N && byte < kh, ib = nb < p.N && byte < kh;
-        const float* sa = p.scales + static_cast<size_t>(na) * ng;
-        const float* sb = p.scales + static_cast<size_t>(nb) * ng;
-        const float* za = p.zps + static_cast<size_t>(na) * ng;
-        const float* zb = p.zps + static_cast<size_t>(nb) * ng;
-        const float f[8] = {ia ? __ldg(sa + gl) : 0.f, ib ? __ldg(sb + gl) : 0.f,
-                            ia ? __ldg(sa + ng / 2 + gl) : 0.f, ib ? __ldg(sb + ng / 2 + gl) : 0.f,
-                            ia ? __ldg(za + gl) : 0.f, ib ? __ldg(zb + gl) : 0.f,
-                            ia ? __ldg(za + ng / 2 + gl) : 0.f, ib ? __ldg(zb + ng / 2 + gl) : 0.f};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          sc[q] = __float2bfloat162_rn(f[q]);
-          z[q] = zp_pair(f[4 + q]);
-        }
-      }
-      // A fragments of the chunk's 8 k steps: mma registers a0..a3 = [lo a, lo b, hi a, hi b]
-      uint32_t a[kStepsPerChunk][4];
+      // B fragments come from the lane's 16 staged values of each half
+      const int sc_off = (c - c_first) * kChunkBytes + 16 * t;
       const uint32_t w_a[4] = {wr[i][0].x, wr[i][0].y, wr[i][0].z, wr[i][0].w};
       const uint32_t w_b[4] = {wr[i][1].x, wr[i][1].y, wr[i][1].z, wr[i][1].w};
+      if constexpr (P::kFold) {
+        // The chunk's group (gs % 64 == 0: one group per chunk) and its fold
+        // constants for rows na, nb: [s_lo, c_lo, s_hi, c_hi] each.
+        const int gl = min(c * kChunkBytes, kh - 1) / p.gs;
+        float f[2][4];
 #pragma unroll
-      for (int s = 0; s < kStepsPerChunk; ++s) {
-        const uint32_t sel = (s & 1) ? 0x4342u : 0x4140u;
-        uint32_t v[4];
-        nibbles_bf16x2(w_a[s >> 1], sel, v[0], v[2]);
-        nibbles_bf16x2(w_b[s >> 1], sel, v[1], v[3]);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          __nv_bfloat162 d = __hsub2(bits_bf2(v[q]), bits_bf2(z[q]));
-          if (kGroups) d = __hmul2(d, sc[q]);
-          a[s][q] = bf2_bits(d);
+        for (int r = 0; r < 2; ++r) {
+          const int n = r == 0 ? na : nb;
+          const bool in = n < p.N;
+          const float* s = p.scales + static_cast<size_t>(n) * ng;
+          const float* z = p.zps + static_cast<size_t>(n) * ng;
+          const float s_lo = in ? __ldg(s + gl) : 0.f, s_hi = in ? __ldg(s + ng / 2 + gl) : 0.f;
+          const float z_lo = in ? __ldg(z + gl) : 0.f, z_hi = in ? __ldg(z + ng / 2 + gl) : 0.f;
+          f[r][0] = s_lo;
+          f[r][1] = -s_lo * z_lo;
+          f[r][2] = s_hi;
+          f[r][3] = s_hi * (8.f - z_hi);
         }
-      }
-      // B fragments: word s of the lane's 16 staged values of each half is
-      // k step s's b0 (low half) and b1 (high half).
-      const int sc_off = (c - c_first) * kChunkBytes + 16 * t;
+        const float* xc = xsum + (c - c_first) * 2 * MT;
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        if (8 * j < mrows) {  // CTA-uniform
-          const __nv_bfloat16* row = xs + (8 * j + g) * rs + sc_off;
-          const uint4 l0 = *reinterpret_cast<const uint4*>(row);
-          const uint4 l1 = *reinterpret_cast<const uint4*>(row + 8);
-          const uint4 h0 = *reinterpret_cast<const uint4*>(row + stage_cap * kChunkBytes);
-          const uint4 h1 = *reinterpret_cast<const uint4*>(row + stage_cap * kChunkBytes + 8);
-          const uint32_t bl[8] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
-          const uint32_t bh[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+        for (int h = 0; h < 2; ++h) {
+          // A fragments of the half's 4 k steps: raw codes, low half q in
+          // [0, 15], high half q - 8 in [-8, 7]; registers [a 0-1, b 0-1, a 2-3, b 2-3]
+          const uint32_t off = h ? 0x43084308u : 0x43004300u;
+          uint32_t a[4][4];
 #pragma unroll
-          for (int s = 0; s < kStepsPerChunk; ++s) {
-            if (s >= s_lo && s < s_hi) mma_bf16_16816(acc[j], a[s], bl[s], bh[s]);
+          for (int s = 0; s < 4; ++s) {
+            uint32_t v[4], hv[4];
+            nibbles_bf16x2(w_a[s], 0x4140u, v[0], hv[0]);
+            nibbles_bf16x2(w_b[s], 0x4140u, v[1], hv[1]);
+            nibbles_bf16x2(w_a[s], 0x4342u, v[2], hv[2]);
+            nibbles_bf16x2(w_b[s], 0x4342u, v[3], hv[3]);
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              a[s][q] = bf2_bits(__hsub2(bits_bf2(h ? hv[q] : v[q]), bits_bf2(off)));
+          }
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            if (8 * j < mrows) {  // CTA-uniform
+              const __nv_bfloat16* row = xs + (8 * j + g) * rs + h * stage_cap * kChunkBytes +
+                                         sc_off;
+              const uint4 x0 = *reinterpret_cast<const uint4*>(row);
+              const uint4 x1 = *reinterpret_cast<const uint4*>(row + 8);
+              const uint32_t b[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+              float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+              for (int s = 0; s < 4; ++s) mma_bf16_16816(d, a[s], b[2 * s], b[2 * s + 1]);
+              // d: (row na, x rows 8j + 2t, +1), (row nb, the same)
+              const float2 xx = *reinterpret_cast<const float2*>(xc + h * MT + 8 * j + 2 * t);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const float* fr = f[e >> 1];
+                float v = fmaf(fr[2 * h], d[e], acc[j][e]);
+                acc[j][e] = fmaf(fr[2 * h + 1], (e & 1) ? xx.y : xx.x, v);
+              }
+            }
+          }
+        }
+      } else {
+        const int s_lo = max(wa - c * kStepsPerChunk, 0);
+        const int s_hi = min(wb - c * kStepsPerChunk, kStepsPerChunk);
+        // per-half zero points (and, K6, scales) of rows na, nb: [lo a, lo b, hi a, hi b]
+        uint32_t z[4] = {zrow[0], zrow[1], zrow[0], zrow[1]};
+        __nv_bfloat162 sc[4];
+        if constexpr (P::kGroupScales) {
+          const int byte = c * kChunkBytes + 16 * t;
+          const int gl = min(byte, kh - 1) / p.gs;  // the run's group; one group per run
+          const bool ia = na < p.N && byte < kh, ib = nb < p.N && byte < kh;
+          const float* sa = p.scales + static_cast<size_t>(na) * ng;
+          const float* sb = p.scales + static_cast<size_t>(nb) * ng;
+          const float* za = p.zps + static_cast<size_t>(na) * ng;
+          const float* zb = p.zps + static_cast<size_t>(nb) * ng;
+          const float f[8] = {ia ? __ldg(sa + gl) : 0.f, ib ? __ldg(sb + gl) : 0.f,
+                              ia ? __ldg(sa + ng / 2 + gl) : 0.f, ib ? __ldg(sb + ng / 2 + gl) : 0.f,
+                              ia ? __ldg(za + gl) : 0.f, ib ? __ldg(zb + gl) : 0.f,
+                              ia ? __ldg(za + ng / 2 + gl) : 0.f, ib ? __ldg(zb + ng / 2 + gl) : 0.f};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            sc[q] = __float2bfloat162_rn(f[q]);
+            z[q] = zp_pair(f[4 + q]);
+          }
+        }
+        // A fragments of the chunk's 8 k steps: mma registers a0..a3 = [lo a, lo b, hi a, hi b]
+        uint32_t a[kStepsPerChunk][4];
+#pragma unroll
+        for (int s = 0; s < kStepsPerChunk; ++s) {
+          const uint32_t sel = (s & 1) ? 0x4342u : 0x4140u;
+          uint32_t v[4];
+          nibbles_bf16x2(w_a[s >> 1], sel, v[0], v[2]);
+          nibbles_bf16x2(w_b[s >> 1], sel, v[1], v[3]);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            __nv_bfloat162 d = __hsub2(bits_bf2(v[q]), bits_bf2(z[q]));
+            if constexpr (P::kGroupScales) d = __hmul2(d, sc[q]);
+            a[s][q] = bf2_bits(d);
+          }
+        }
+        // B fragments: word s of the lane's 16 staged values of each half is
+        // k step s's b0 (low half) and b1 (high half).
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          if (8 * j < mrows) {  // CTA-uniform
+            const __nv_bfloat16* row = xs + (8 * j + g) * rs + sc_off;
+            const uint4 l0 = *reinterpret_cast<const uint4*>(row);
+            const uint4 l1 = *reinterpret_cast<const uint4*>(row + 8);
+            const uint4 h0 = *reinterpret_cast<const uint4*>(row + stage_cap * kChunkBytes);
+            const uint4 h1 = *reinterpret_cast<const uint4*>(row + stage_cap * kChunkBytes + 8);
+            const uint32_t bl[8] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
+            const uint32_t bh[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+#pragma unroll
+            for (int s = 0; s < kStepsPerChunk; ++s) {
+              if (s >= s_lo && s < s_hi) mma_bf16_16816(acc[j], a[s], bl[s], bh[s]);
+            }
           }
         }
       }
@@ -278,7 +421,7 @@ __global__ void __launch_bounds__(kMmaThreads, NT <= 2 ? 2 : 1) int4_mma_kernel(
     if (p.splits > 1) {
       p.partial[static_cast<size_t>(blockIdx.z) * p.M * p.N + at] = v;
     } else {
-      p.y[at] = __float2bfloat16(kGroups ? v : __ldg(p.scales + n) * v);
+      p.y[at] = __float2bfloat16(P::kGroupScales ? v : __ldg(p.scales + n) * v);
     }
   };
   if (p.kw == 1) {
@@ -315,7 +458,7 @@ __global__ void __launch_bounds__(kMmaThreads, NT <= 2 ? 2 : 1) int4_mma_kernel(
 }
 
 // The splits' f32 partials added in order z = 0, 1, ..., then (K1) the scale.
-template <bool kGroups>
+template <class P>
 __global__ void __launch_bounds__(kMmaThreads) int4_mma_reduce_kernel(
     const float* __restrict__ partial, int splits, const float* __restrict__ scales,
     __nv_bfloat16* __restrict__ y, int M, int N) {
@@ -324,10 +467,10 @@ __global__ void __launch_bounds__(kMmaThreads) int4_mma_reduce_kernel(
   if (i >= mn) return;
   float v = partial[i];
   for (int z = 1; z < splits; ++z) v += partial[z * mn + i];
-  y[i] = __float2bfloat16(kGroups ? v : scales[i % N] * v);
+  y[i] = __float2bfloat16(P::kGroupScales ? v : scales[i % N] * v);
 }
 
-template <bool kGroups, int NT>
+template <class P, int NT>
 int launch_mma_tile(const MmaArgs& p, dim3 grid, size_t smem, cudaStream_t st) {
   // The dynamic shared memory each device already allows the kernel (48 KB
   // by default); raised once per device to the largest launch so far.
@@ -337,42 +480,46 @@ int launch_mma_tile(const MmaArgs& p, dim3 grid, size_t smem, cudaStream_t st) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (smem > 48 * 1024 && (dev >= kDevices || smem > allowed[dev])) {
-    err = cudaFuncSetAttribute(int4_mma_kernel<kGroups, NT>,
+    err = cudaFuncSetAttribute(int4_mma_kernel<P, NT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev < kDevices) allowed[dev] = smem;
   }
-  int4_mma_kernel<kGroups, NT><<<grid, kMmaThreads, smem, st>>>(p);
+  int4_mma_kernel<P, NT><<<grid, kMmaThreads, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Launch on `stream` with `mt` rows of x per CTA (16, or 64 above 64 rows). Requires
 // K % 32 == 0, ws >= 1, kw in {1, 2, 4, 8}, kw * min(32, ws) a multiple of 8
 // (a CTA's range is whole chunks), ws <= 32 unless kw == 1, and
-// partial != nullptr when splits > 1.
-template <bool kGroups>
+// partial != nullptr when splits > 1. GroupFold also requires whole chunks
+// per warp (ws % 8 == 0) and gs % 64 == 0 dividing K/2.
+template <class P>
 int launch_int4_mma(const MmaArgs& p, int mt, void* stream) {
+  const bool fold_ok = !P::kFold || (p.ws % kStepsPerChunk == 0 && p.gs > 0 &&
+                                     p.gs % kChunkBytes == 0 && (p.K / 2) % p.gs == 0);
   const bool ok = p.ws >= 1 && (p.kw == 1 || p.kw == 2 || p.kw == 4 || p.kw == 8) &&
                   (p.kw * min(kStageSteps, p.ws)) % kStepsPerChunk == 0 &&
                   (p.ws <= kStageSteps || p.kw == 1) && p.splits >= 1 &&
                   (p.splits == 1 || p.partial != nullptr) && (mt == 16 || mt == 64) &&
-                  p.K % 32 == 0;
+                  p.K % 32 == 0 && fold_ok;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int tiles = (p.N + 15) / 16;
   const int per_cta = kMmaWarps / p.kw;
   const int stage_cap = p.kw * min(kStageSteps, p.ws) / kStepsPerChunk;
-  const size_t xs_bytes = static_cast<size_t>(mt) * (stage_cap * 2 * kChunkBytes + 8) * 2;
+  size_t xs_bytes = static_cast<size_t>(mt) * (stage_cap * 2 * kChunkBytes + 8) * 2;
+  if (P::kFold) xs_bytes += static_cast<size_t>(stage_cap) * 2 * mt * 4;  // X sums
   const size_t red_bytes = p.kw > 1 ? static_cast<size_t>(kMmaWarps) * 16 * mt * 4 : 0;
   const dim3 grid((tiles + per_cta - 1) / per_cta, (p.M + mt - 1) / mt, p.splits);
   const size_t smem = xs_bytes > red_bytes ? xs_bytes : red_bytes;
-  const int err = mt == 16 ? launch_mma_tile<kGroups, 2>(p, grid, smem, st)
-                           : launch_mma_tile<kGroups, 8>(p, grid, smem, st);
+  const int err = mt == 16 ? launch_mma_tile<P, 2>(p, grid, smem, st)
+                           : launch_mma_tile<P, 8>(p, grid, smem, st);
   if (err != 0 || p.splits == 1) return err;
   const size_t mn = static_cast<size_t>(p.M) * p.N;
-  int4_mma_reduce_kernel<kGroups><<<static_cast<unsigned>((mn + kMmaThreads - 1) / kMmaThreads),
-                                    kMmaThreads, 0, st>>>(p.partial, p.splits, p.scales, p.y,
-                                                          p.M, p.N);
+  int4_mma_reduce_kernel<P><<<static_cast<unsigned>((mn + kMmaThreads - 1) / kMmaThreads),
+                              kMmaThreads, 0, st>>>(p.partial, p.splits, p.scales, p.y, p.M,
+                                                    p.N);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -46,9 +46,11 @@ _SIGNATURES = {
     "f4b_int4_matmul_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "f4b_grouped_int4_matmul_bf16": [_P] * 7 + [_I] * 4 + [_P],
     "f4b_grouped_int4_matmul_f32": [_P] * 7 + [_I] * 4 + [_P],
-    "f4b_int4_attention_bf16": [_P] * 10 + [_I] * 7 + [_P],
+    # q, kp, ks, kz, vp, vs, vz, lengths, starts, out, partial; B, Hkv, G, Tq, S, D, QT, seg
+    "f4b_int4_attention_bf16": [_P] * 11 + [_I] * 8 + [_P],
     "f4b_int4_attention_f32": [_P] * 10 + [_I] * 7 + [_P],
-    "f4b_paged_int4_attention_bf16": [_P] * 11 + [_I] * 8 + [_P],
+    # ..., table, lengths, starts, out, partial; B, Hkv, G, Tq, page, max_pages, D, QT, seg
+    "f4b_paged_int4_attention_bf16": [_P] * 12 + [_I] * 9 + [_P],
     "f4b_paged_int4_attention_f32": [_P] * 11 + [_I] * 8 + [_P],
     "f4b_int4_matmul_a8_bf16": [_P] * 6 + [_I] * 3 + [_P],
     "f4b_int4_matmul_a8_f32": [_P] * 6 + [_I] * 3 + [_P],
@@ -68,6 +70,7 @@ _SIGNATURES = {
     "f4b_grouped_int4_matmul_pg_a8_f32": [_P] * 8 + [_I] * 5 + [_P],
     # x, packed, scales, zps, y, partial; M, N, K, gs, ws, kw, splits, mt; stream
     "f4b_int4_matmul_planar_pg_bf16": [_P] * 6 + [_I] * 8 + [_P],
+    "f4b_int4_matmul_pg_mma_bf16": [_P] * 6 + [_I] * 8 + [_P],
     "f4b_int4_matmul_planar_pg_f32": [_P] * 5 + [_I] * 4 + [_P],
     "f4b_grouped_int4_matmul_planar_pg_bf16": [_P] * 7 + [_I] * 5 + [_P],
     "f4b_grouped_int4_matmul_planar_pg_f32": [_P] * 7 + [_I] * 5 + [_P],

@@ -5,7 +5,9 @@ Counterpart of ``fused4bit_tpu/ops/decode_attention.py``
 forms). On a CUDA tensor the wrappers launch ``csrc/decode_attention.cu``
 (the port of the TPU kernel ``_attn_kernel``), which reads the packed cache
 directly: K3 on a contiguous ``QuantizedKVCache``, K3' on a
-``PagedKVCache`` through its page table. On a CPU tensor they run the plain
+``PagedKVCache`` through its page table. bf16 queries run its tensor-core
+body, split over fixed segments of the cache (:func:`_attn_segment`), f32
+queries its CUDA-core body. On a CPU tensor they run the plain
 versions, :func:`int4_attention_reference` and
 :func:`paged_int4_attention_reference`: dequantize the cache (gathered
 through the table for the paged one), then masked softmax attention in
@@ -28,6 +30,7 @@ from ..layers.kv_cache import _unpack_pairs
 from ..layers.paged_kv import PagedKVCache
 from ..quant.reference import full_precision
 from . import _build
+from .int4_matmul import _sm_count
 
 __all__ = [
     "int4_attention",
@@ -45,7 +48,33 @@ _PAGED_KERNELS = {torch.bfloat16: "f4b_paged_int4_attention_bf16",
                   torch.float32: "f4b_paged_int4_attention_f32"}
 _MAX_ROWS = 16            # query rows (positions x grouped heads) per CTA of the kernel
 _HEAD_DIMS = (64, 128)    # head dims the kernel is instantiated for
-_S_TILE = 32              # cache positions per kernel tile; K3' needs page % _S_TILE == 0
+_S_TILE = 32              # cache positions per kernel unit; K3' needs page % _S_TILE == 0
+_SEG_BLOCK = 64           # positions per block of a warp's walk (tensor-core body)
+_SEG_WARPS = 4            # segments (warps) per CTA
+
+
+def _attn_segment(s: int, h_kv: int, sms: int) -> int:
+    """Positions per segment of the tensor-core body for a cache of ``s``
+    positions per row and ``h_kv`` kv heads on a card of ``sms`` SMs: a
+    multiple of 64, about ``s`` over 4 segments per CTA times the CTAs that
+    give one per SM at batch 1, so a long row at batch 1 still reaches every
+    SM and a long row at batch 8 walks longer segments with fewer CTAs and
+    partials (``scripts/attention_sweep.py`` times the candidates).
+    Each segment runs its own online softmax and the segments merge in
+    order.
+
+    It reads neither the lengths nor the number of queries nor the batch:
+    every query row then walks the same segments in the same order, so a
+    row's output does not depend on T or on the rows beside it (the decode
+    row at position p equals the row at p of a chunked prefill bit for bit).
+    """
+    ctas = -(-sms // h_kv)
+    return _SEG_BLOCK * max(1, round(s / (_SEG_WARPS * _SEG_BLOCK * ctas)))
+
+
+def _attn_ctas(s: int, seg: int) -> int:
+    """The CTAs along one row's positions (grid z): 4 segments each."""
+    return -(-s // (_SEG_WARPS * seg))
 
 
 def _check(q: torch.Tensor, cache, starts: torch.Tensor) -> int:
@@ -124,9 +153,11 @@ def paged_int4_attention_reference(
 paged_int4_attention_reference.calls = 0
 
 
-def _launch(kernels: dict, q: torch.Tensor, g: int, operands, sizes) -> torch.Tensor:
+def _launch(kernels: dict, q: torch.Tensor, g: int, operands, sizes,
+            positions: int) -> torch.Tensor:
     """Check the operands of K3 or K3' (``kernels``: its C entry point per
-    query dtype) and launch it; q [B, Hq, T, D]."""
+    query dtype) and launch it; q [B, Hq, T, D] over a cache of
+    ``positions`` logical positions per row."""
     d = q.shape[-1]
     if q.dtype not in kernels:
         raise TypeError(f"K3 takes bf16 or f32 queries, got {q.dtype}")
@@ -142,12 +173,25 @@ def _launch(kernels: dict, q: torch.Tensor, g: int, operands, sizes) -> torch.Te
                 f"got {tensor.dtype} on {tensor.device}, contiguous={tensor.is_contiguous()}"
             )
     q = q.contiguous()
+    if q.data_ptr() % 16:
+        q = q.clone()  # the kernels read q with 16-byte loads
     out = torch.empty_like(q)
     qt = max(1, _MAX_ROWS // g)
+    b, hq, t, _ = q.shape
+    h_kv = hq // g
+    tail = (d, qt)
+    partial = []
+    if q.dtype == torch.bfloat16:
+        seg = _attn_segment(positions, h_kv, _sm_count(q.device.index))
+        z = _attn_ctas(positions, seg)
+        scratch = (torch.empty(b * h_kv * -(-t // qt) * z * (_MAX_ROWS * d + 2 * _MAX_ROWS),
+                               dtype=torch.float32, device=q.device) if z > 1 else None)
+        partial = [None if scratch is None else scratch.data_ptr()]
+        tail = (d, qt, seg)
     with torch.cuda.device(q.device):
         err = getattr(_build.library(), kernel)(
             q.data_ptr(), *(tensor.data_ptr() for _, tensor, _ in operands),
-            out.data_ptr(), *sizes, d, qt, _build.stream_of(q),
+            out.data_ptr(), *partial, *sizes, *tail, _build.stream_of(q),
         )
     _build.check(err, kernel)
     return out
@@ -172,7 +216,7 @@ def int4_attention(q: torch.Tensor, cache, starts: torch.Tensor) -> torch.Tensor
     operands = _cache_operands(cache, "packed") + [
         ("lengths", cache.lengths, torch.int32), ("starts", starts, torch.int32)]
     out = _launch(_KERNELS, q, g, operands,
-                  (b, hq // g, g, t, cache.max_seq))
+                  (b, hq // g, g, t, cache.max_seq), cache.max_seq)
     int4_attention.launches += 1
     return out
 
@@ -199,7 +243,8 @@ def paged_int4_attention(q: torch.Tensor, cache: PagedKVCache,
         ("page_table", cache.page_table, torch.int32),
         ("lengths", cache.lengths, torch.int32), ("starts", starts, torch.int32)]
     out = _launch(_PAGED_KERNELS, q, g, operands,
-                  (b, hq // g, g, t, page, cache.max_pages_per_slot))
+                  (b, hq // g, g, t, page, cache.max_pages_per_slot),
+                  page * cache.max_pages_per_slot)
     paged_int4_attention.launches += 1
     return out
 

@@ -19,8 +19,11 @@ Counterpart of ``fused4bit_tpu/ops/int4_matmul.py``:
   tensor it runs :func:`int4_matmul_a8_reference`.
 * ``int4_matmul_per_group`` (w4a16, per-group weights), at every row count:
   in the planar_groups layout, on a CUDA tensor it launches
-  ``csrc/int4_matmul_pg.cu``, K7 (the port of ``_int4_group_bp_kernel``), on
-  a CPU tensor it runs :func:`int4_matmul_per_group_reference`; in the
+  ``csrc/int4_matmul_pg.cu``, K7 (the port of ``_int4_group_bp_kernel``;
+  bf16 at ``gs % 64 == 0`` on the tensor-core body of ``csrc/int4_mma.cuh``
+  at the launch shape of :func:`_fold_mma_launch`, else the CUDA-core loop
+  of ``csrc/int4_rows_pg.cuh``), on a CPU tensor it runs
+  :func:`int4_matmul_per_group_reference`; in the
   planar layout (what ``models.convert`` produces), K6 in
   ``csrc/int4_matmul.cu`` (the port of ``_int4_group_kernel``; bf16 on the
   tensor-core body, f32 on the CUDA-core loop), or on a CPU tensor
@@ -56,6 +59,8 @@ _A8_FUSED_KERNELS = {
     torch.float32: "f4b_int4_matmul_a8_fused_f32",
 }
 _PG_KERNELS = {torch.bfloat16: "f4b_int4_matmul_pg_bf16", torch.float32: "f4b_int4_matmul_pg_f32"}
+_PG_MMA_KERNEL = "f4b_int4_matmul_pg_mma_bf16"   # K7 on the tensor-core body
+_FOLD_GS = 64     # K7 runs the tensor-core body at group sizes that are multiples of this
 _PG_A8_KERNELS = {
     torch.bfloat16: "f4b_int4_matmul_pg_a8_bf16",
     torch.float32: "f4b_int4_matmul_pg_a8_f32",
@@ -135,9 +140,22 @@ def _mma_launch(n: int, k: int, sms: int) -> tuple:
     only beyond 8 * ws steps, and the second pass that adds the splits
     (1-5 us on the H100, scripts/mma_sweep.py) is spared. A CTA's range is
     whole chunks of 8 steps."""
+    return _launch_shape(n, k, sms, (32, 16, 8, 4, 2, 1))
+
+
+def _fold_mma_launch(n: int, k: int, sms: int) -> tuple:
+    """K7's decode launch shape on the tensor-core body: :func:`_mma_launch`'s
+    rule with whole chunks of 8 k steps per warp (``ws`` in 32, 16, 8), so
+    that each warp folds the partial sums of whole chunks, each of one group
+    (gs % 64 == 0). It reads (N, K, SMs) only, as :func:`_mma_launch` does;
+    at every layer2 shape the two give the same shape."""
+    return _launch_shape(n, k, sms, (32, 16, 8))
+
+
+def _launch_shape(n: int, k: int, sms: int, widths: tuple) -> tuple:
     tiles = -(-n // 16)
     steps = 8 * -(-(k // 2) // 64)  # 64 packed bytes (8 k steps) per chunk
-    for ws in (32, 16, 8, 4, 2, 1):
+    for ws in widths:
         if ws <= steps and tiles * -(-steps // ws) >= sms:
             break
     kw = max(1 if tiles > sms else 8, -(-8 // ws))
@@ -162,17 +180,18 @@ def _sm_count(index: int) -> int:
 
 
 def _launch_mma(x2: torch.Tensor, qt: QuantizedTensor, kernel: str, what: str,
-                *gs: int) -> torch.Tensor:
-    """Launch the bf16 tensor-core body (K1, or K6 with its group size
-    ``gs``): the decode shape of :func:`_mma_launch` with 16 rows of x per
-    CTA at M <= 64, above it :func:`_mma_tall_launch` with 64."""
+                *gs: int, decode=_mma_launch) -> torch.Tensor:
+    """Launch the bf16 tensor-core body (K1, or K6/K7 with their group size
+    ``gs``): the decode shape of ``decode`` (:func:`_mma_launch`, K7's
+    :func:`_fold_mma_launch`) with 16 rows of x per CTA at M <= 64, above it
+    :func:`_mma_tall_launch` with 64."""
     m, k = x2.shape
     n = qt.out_dim
     sms = _sm_count(x2.device.index)
     if m > _MMA_TALL_M:
         (ws, kw, splits), mt = _mma_tall_launch(n, k, m, sms), 64
     else:
-        (ws, kw, splits), mt = _mma_launch(n, k, sms), 16
+        (ws, kw, splits), mt = decode(n, k, sms), 16
     y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x2.device)
                if splits > 1 else None)
@@ -418,6 +437,15 @@ def int4_matmul_per_group_planar_reference(x: torch.Tensor, qt: QuantizedTensor)
 int4_matmul_per_group_planar_reference.calls = 0
 
 
+def _k7_on_tensor_cores(dtype: torch.dtype, group_size: int) -> bool:
+    """K7's body, chosen by the operands' format alone: the tensor-core body
+    (``csrc/int4_mma.cuh``, GroupFold) for bf16 x at ``gs % 64 == 0`` (a
+    64-byte chunk never straddles two groups), else the CUDA-core loop of
+    ``csrc/int4_rows_pg.cuh`` (f32 x, as for K1/K6; and the other group sizes
+    planar_groups allows)."""
+    return dtype == torch.bfloat16 and group_size % _FOLD_GS == 0
+
+
 def int4_matmul_per_group(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """``x @ dequant(qt)^T`` for per-group weights, at every row count (the
     JAX per-group linear has no dequantize fallback).
@@ -449,6 +477,9 @@ def int4_matmul_per_group(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     x2 = _aligned(x2)
     if planar and x2.dtype == torch.bfloat16:
         y = _launch_mma(x2, qt, kernels[x2.dtype], "int4_matmul_per_group", qt.group_size)
+    elif _k7_on_tensor_cores(x2.dtype, qt.group_size):
+        y = _launch_mma(x2, qt, _PG_MMA_KERNEL, "int4_matmul_per_group", qt.group_size,
+                        decode=_fold_mma_launch)
     else:
         y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
         with torch.cuda.device(x2.device):

@@ -9,10 +9,11 @@ Phases, each of which raises on failure:
   1. require a CUDA card; print its name and power limit, the CUDA version
      and nvcc's version;
   2. build the kernels of fused4bit_tpu_torch/csrc (nvcc, sm_90a), print
-     ptxas's registers and spills and the HMMA count in the SASS of each
-     instantiation of the tensor-core bodies, the linear one of K1, K6 and
-     K7 (csrc/int4_mma.cuh) and the attention one of K3 and K3'
-     (csrc/decode_attention.cu), and fail if one has none;
+     ptxas's registers and spills and the tensor-core instructions in the
+     SASS of each instantiation of the tensor-core bodies: HMMA in the
+     linear one of K1, K6 and K7 (csrc/int4_mma.cuh) and the attention one
+     of K3 and K3' (csrc/decode_attention.cu), IMMA in the int8 one of K10
+     and K14 (csrc/int8_mma.cuh), and fail if one has none;
   3. hold each kernel against its plain PyTorch version at the shapes the
      `layer2` serving path gives it (Mixtral-8x7B layer width), and time both
      with CUDA events (L2 flushed before each launch); time the integer-GEMM
@@ -36,7 +37,13 @@ Phases, each of which raises on failure:
      position's row of a T=5 chunked prefill over the same cache bit for
      bit, on the contiguous and the paged cache. K3' runs on a page pool
      holding a contiguous cache's bytes in shuffled page order and must
-     equal K3 on that cache bit for bit;
+     equal K3 on that cache bit for bit. K10 and K14 (the int8 body) must
+     equal their plain versions bit for bit at decode and prefill, gate/up
+     and down, in bf16 and f32, with zero padding rows exactly 0, and one
+     token's rows must be the same bits in a T=8 and a T=40 dispatch; K14
+     also at gs 32 (the body's 8-byte runs) and gs 16 (the CUDA-core loop),
+     and both on a narrow stack (N=256) whose launch splits K over CTAs.
+     Their rows print the main kernel's device time beside the wrapper's;
   4. serve 12 requests on the `layer2` model (random weights from a seeded
      generator) with 8 slots, in the default (w4a16) mode and then, on the
      same weights, in the `as_u4_turbo` (w4a8), `as_per_group` (w4a16,
@@ -67,7 +74,8 @@ Phases, each of which raises on failure:
      (the router is dense: no K1), no plain version;
   8. convert the trained h256 fixture (tests/fixtures) on the card in the
      four policies the port supports, and the router-dense model under
-     as_per_group (K7, K13, K3) and pg_turbo (K8, K14), evaluate each on the
+     as_per_group (K7, K13, K3), pg_turbo (K8, K14) and u4_turbo (K5, K10,
+     K3; two rows a forward, below the integer-GEMM gates), evaluate each on the
      held-out tail of its corpus against the bf16 twin built from the same
      checkpoint (dense_from_params), print the numbers beside the JAX
      package's committed record, hold them to tests/test_convert.py's gates
@@ -171,7 +179,7 @@ SOURCES = {
                        "fused4bit_tpu/ops/int4_matmul.py:1039"),
     "int4_matmul_a8_fused": ("fused4bit_tpu_torch/csrc/int4_matmul_a8.cu",
                              "fused4bit_tpu/ops/int4_matmul.py:1094"),
-    "grouped_int4_matmul_a8": ("fused4bit_tpu_torch/csrc/grouped_matmul_a8.cu",
+    "grouped_int4_matmul_a8": ("fused4bit_tpu_torch/csrc/int8_mma.cuh",
                                "fused4bit_tpu/ops/grouped_matmul.py:500"),
     "grouped_int4_matmul_a8_fused": ("fused4bit_tpu_torch/csrc/grouped_matmul_a8.cu",
                                      "fused4bit_tpu/ops/grouped_matmul.py:552"),
@@ -181,7 +189,7 @@ SOURCES = {
                                  "fused4bit_tpu/ops/int4_matmul.py:761"),
     "grouped_int4_matmul_per_group": ("fused4bit_tpu_torch/csrc/grouped_matmul_pg.cu",
                                       "fused4bit_tpu/ops/grouped_matmul.py:994"),
-    "grouped_int4_matmul_per_group_a8": ("fused4bit_tpu_torch/csrc/grouped_matmul_pg.cu",
+    "grouped_int4_matmul_per_group_a8": ("fused4bit_tpu_torch/csrc/int8_mma.cuh",
                                          "fused4bit_tpu/ops/grouped_matmul.py:1101"),
     "int4_matmul_per_group_planar": ("fused4bit_tpu_torch/csrc/int4_mma.cuh",
                                      "fused4bit_tpu/ops/int4_matmul.py:427"),
@@ -305,34 +313,38 @@ def build() -> float:
     return secs
 
 
-# The tensor-core bodies and their instantiations in bf16: the linear body
-# (csrc/int4_mma.cuh) for K1, K6 and K7, each with a 16-row and a 64-row tile
-# of x; the attention body (csrc/decode_attention.cu) for K3 and K3', each at
-# head_dim 64 and 128.
-TENSOR_CORE_KERNELS = {"int4_mma_kernel": 6, "int4_attention_mma_kernel": 4}
+# The tensor-core bodies, their instantiations and the tensor-core instruction
+# each must hold: the linear body (csrc/int4_mma.cuh) for K1, K6 and K7 in
+# bf16, each with a 16-row and a 64-row tile of x; the attention body
+# (csrc/decode_attention.cu) for K3 and K3', each at head_dim 64 and 128; the
+# int8 body (csrc/int8_mma.cuh) for K10 and for K14 with 16- and 8-byte runs.
+TENSOR_CORE_KERNELS = {"int4_mma_kernel": (6, "HMMA"), "int4_attention_mma_kernel": (4, "HMMA"),
+                       "int8_mma_kernel": (3, "IMMA")}
 
 
 def tensor_core_sass() -> dict:
-    """The HMMA instructions in the SASS of each instantiation of the
-    tensor-core bodies, from ``cuobjdump -sass`` of the built library; raises
-    if a kernel has none (it would not run on the tensor cores) or if an
-    instantiation is missing."""
+    """The tensor-core instructions (HMMA, or IMMA for the int8 body) in the
+    SASS of each instantiation of the tensor-core bodies, from ``cuobjdump
+    -sass`` of the built library; raises if a kernel has none (it would not
+    run on the tensor cores) or if an instantiation is missing."""
     cuobjdump = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path())],
                           capture_output=True, text=True, check=True).stdout
-    counts, fn = {}, None
+    counts, fn, op = {}, None, None
     for line in sass.splitlines():
         if "Function : " in line:
             fn = line.split("Function : ")[1].strip()
-            if any(k in fn for k in TENSOR_CORE_KERNELS):
+            op = next((o for k, (_, o) in TENSOR_CORE_KERNELS.items() if k in fn), None)
+            if op is not None:
                 counts[fn] = 0
-        elif fn in counts and "HMMA" in line:
+        elif fn in counts and op in line:
             counts[fn] += 1
     for name, c in counts.items():
-        print(f"  sass: {c} HMMA in {name}")
+        print(f"  sass: {c} {next(o for k, (_, o) in TENSOR_CORE_KERNELS.items() if k in name)} "
+              f"in {name}")
     found = {k: sum(k in fn for fn in counts) for k in TENSOR_CORE_KERNELS}
-    if found != TENSOR_CORE_KERNELS or min(counts.values()) == 0:
-        raise AssertionError(f"tensor-core bodies: instantiations {found}, HMMA counts {counts}")
+    if found != {k: n for k, (n, _) in TENSOR_CORE_KERNELS.items()} or min(counts.values()) == 0:
+        raise AssertionError(f"tensor-core bodies: instantiations {found}, counts {counts}")
     return counts
 
 
@@ -361,17 +373,40 @@ class Timer:
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
+    def device_ms(self, fn, kernel: str, calls: int = 10) -> float:
+        """Device time per call of the kernels whose name holds ``kernel``
+        (a wrapper's main kernel, without its first pass), under
+        torch.profiler, the L2 flushed before each call."""
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                self.flush.bitwise_not_()
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        for e in prof.key_averages():
+            if kernel in e.key:
+                t = getattr(e, "device_time_total", None)
+                total += e.cuda_time_total if t is None else t
+        return total / calls / 1e3
+
 
 def _compare(name, shape, y, ref, tol, results, timer, fn, ref_fn, iters=20, work=None,
-             library=None):
-    """Hold a kernel's output ``y`` against its plain version's ``ref``; with
-    a timer, time both (and the library call ``library``, where given, after
-    holding its output against ``ref`` at the same bar, so that it times the
-    same function); with ``work`` (see :func:`bound`), record the bound at
-    this shape."""
+             library=None, exact=False, main=None):
+    """Hold a kernel's output ``y`` against its plain version's ``ref`` (bit
+    for bit with ``exact``); with a timer, time both (and the library call
+    ``library``, where given, after holding its output against ``ref`` at the
+    same bar, so that it times the same function, and with ``main`` the
+    device time of the wrapper's main kernel, the kernels whose name holds
+    ``main``); with ``work`` (see :func:`bound`), record the bound at this
+    shape."""
     torch.cuda.synchronize()
     if not torch.isfinite(y).all():
         raise AssertionError(f"{name} {shape}: non-finite output")
+    if exact and not torch.equal(y, ref):
+        d = (y.float() - ref.float()).abs().max().item()
+        raise AssertionError(f"{name} {shape}: not bit-equal to its plain version (max|d| {d})")
     err = (y.float() - ref.float()).abs().max().item()
     if library is not None:
         lib_err = (library().float().reshape(ref.shape) - ref.float()).abs().max().item()
@@ -382,15 +417,18 @@ def _compare(name, shape, y, ref, tol, results, timer, fn, ref_fn, iters=20, wor
     ms = timer(fn, iters=iters) if timer else float("nan")
     plain_ms = timer(ref_fn, iters=min(iters, 5)) if timer else float("nan")
     library_ms = timer(library, iters=iters) if timer and library else None
+    main_ms = timer.device_ms(fn, main) if timer and main else None
     ok = err <= tol
     extra = "" if work is None else f" bound {work['bound_ms']:.4f} ms ({work['bound_by']})"
     extra += "" if library_ms is None else f" library {library_ms:.4f} ms"
+    extra += "" if main_ms is None else f" main kernel {main_ms:.4f} ms"
+    extra += " bit-equal" if exact else ""
     print(f"  {name:20s} {shape:34s} max|d| {err:.3e} (tol {tol:.3e}) "
           f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms{extra} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} {shape}: max|d| {err} > {tol}")
     results.append(dict(name=name, shape=shape, err=err, ms=ms, plain_ms=plain_ms,
-                        library_ms=library_ms, **(work or {})))
+                        library_ms=library_ms, main_ms=main_ms, **(work or {})))
 
 
 def same_rows(name, shape, small, big):
@@ -516,9 +554,35 @@ def check_linear_a8(device, results, timer, gen):
         del qt
 
 
+def same_token_rows(name, op, qt, k, e, gen, device):
+    """One token's rows (its top-2 pairs) give the same bits in a T=8 and a
+    T=40 dispatch at tile_m 32, where they sit in other rows and tiles: the
+    int8 body's launch rule reads (N, K, gs, SMs) only."""
+    x40 = torch.randn((40, k), generator=gen, device=device).bfloat16()
+    bias = torch.log(1.0 / (torch.arange(e, device=device) + 1.0)) * 4.0
+    logits = bias[None, :] + torch.randn((40, e), generator=gen, device=device)
+    rows = []
+    for t in (8, 40):
+        routing = topk_route(logits[:t], 2, e)
+        plan = make_dispatch_plan(routing, e, tile_m=32)
+        y = op(dispatch(x40[:t], routing, plan), plan.tile_group_ids, qt, tile_m=32)
+        rows.append((y[plan.rows[:16]], plan.rows[:16]))
+    (small, at8), (big, at40) = rows
+    if torch.equal(at8, at40):
+        raise AssertionError(f"{name}: the T=40 dispatch put the tokens in the same rows")
+    if not torch.equal(small, big):
+        d = (small.float() - big.float()).abs().max().item()
+        raise AssertionError(f"{name} N={qt.shape[1]} K={k}: a token's rows differ between "
+                             f"T=8 and T=40 ({d})")
+    print(f"    {name} N={qt.shape[1]} K={k}: the 8 tokens' rows of T=8 equal T=40's bit for bit")
+
+
 def check_grouped_a8(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
     """K10 and K11 at the expert shapes: u4_turbo decode (T=8, tile_m 32) and
-    turbo prefill (T=600, tile_m 128), skewed routing."""
+    turbo prefill (T=600, tile_m 128), skewed routing. K10 (the int8 body)
+    must equal its plain version bit for bit in bf16 and f32, and a token's
+    rows must be the same bits in a T=8 and a T=40 dispatch; K11 is held to
+    the a8 bars."""
     for n, k in ((ffn, hidden), (hidden, ffn)):       # gate/up, then down
         qt = quantize(torch.randn((e, n, k), generator=gen, device=device) * k ** -0.5)
         for t, tile_m in ((8, 32), (600, 128)):
@@ -528,9 +592,9 @@ def check_grouped_a8(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
             gids = plan.tile_group_ids
             pad = xs.abs().sum(dim=1) == 0
             iters = 20 if t == 8 else 5
-            for xx in ((xs, xs.float()) if t == 8 else (xs,)):  # + f32 at decode
+            for xx in (xs, xs.float()):
                 f32 = xx.dtype == torch.float32
-                for fuse in (False, True):
+                for fuse in (False, True) if t == 8 or not f32 else (False,):
                     name = A8_NAMES[fuse][1]
                     ref = ops.grouped_int4_matmul_a8_reference(xx, gids, qt, tile_m=tile_m,
                                                                fuse_quant=fuse)
@@ -544,9 +608,12 @@ def check_grouped_a8(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
                                                                 fuse_quant=fuse),
                              lambda: ops.grouped_int4_matmul_a8_reference(
                                  xx, gids, qt, tile_m=tile_m, fuse_quant=fuse),
-                             iters=iters, work=grouped_bound(xx, gids, qt, 2 * t, a8=True))
+                             iters=iters, work=grouped_bound(xx, gids, qt, 2 * t, a8=True),
+                             exact=not fuse, main=None if fuse else "int8_mma_kernel")
             print(f"    tokens per expert {routing.tokens_per_expert.tolist()}, "
                   f"T_pad {plan.t_pad}")
+        same_token_rows("grouped_int4_matmul_a8", ops.grouped_int4_matmul_a8, qt, k, e, gen,
+                        device)
         del qt
 
 
@@ -614,7 +681,12 @@ def check_linear_pg(device, results, timer, gen):
 def check_grouped_pg(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
     """K13 and K14 at the expert shapes, per group of 128: decode (T=8) at
     tile_m 16 (K13, the per_group mode) and 32 (K14, pg_turbo), and the
-    prefill (T=600) at tile_m 128, skewed routing."""
+    prefill (T=600) at tile_m 128, skewed routing. K14 (the int8 body) must
+    equal its plain version bit for bit in bf16 and f32, and a token's rows
+    must be the same bits in a T=8 and a T=40 dispatch; then K14 at gs 32
+    (the int8 body's 8-byte runs) and gs 16 (the CUDA-core loop), and K10
+    and K14 at N=256, where the launch splits K over CTAs (the ordered
+    second pass)."""
     for n, k in ((ffn, hidden), (hidden, ffn)):       # gate/up (Gh=16), then down (Gh=56)
         qt = _pg_quantize(torch.randn((e, n, k), generator=gen, device=device) * k ** -0.5)
         for t, tile_m, kernels in ((8, 16, (False,)), (8, 32, (True,)), (600, 128, (False, True))):
@@ -628,7 +700,7 @@ def check_grouped_pg(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
                 op = ops.grouped_int4_matmul_per_group_a8 if a8 else ops.grouped_int4_matmul_per_group
                 plain = (ops.grouped_int4_matmul_per_group_a8_reference if a8
                          else ops.grouped_int4_matmul_per_group_reference)
-                for xx in ((xs, xs.float()) if t == 8 else (xs,)):  # + f32 at decode
+                for xx in ((xs, xs.float()) if t == 8 or a8 else (xs,)):  # + f32
                     f32 = xx.dtype == torch.float32
                     ref = plain(xx, gids, qt, tile_m=tile_m)
                     y = op(xx, gids, qt, tile_m=tile_m)
@@ -641,10 +713,39 @@ def check_grouped_pg(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
                              y, ref, tol, results, None if f32 else timer,
                              lambda: op(xx, gids, qt, tile_m=tile_m),
                              lambda: plain(xx, gids, qt, tile_m=tile_m), iters=iters,
-                             work=grouped_bound(xx, gids, qt, 2 * t, a8=a8))
+                             work=grouped_bound(xx, gids, qt, 2 * t, a8=a8),
+                             exact=a8, main="int8_mma_kernel" if a8 else None)
             print(f"    tokens per expert {routing.tokens_per_expert.tolist()}, "
                   f"T_pad {plan.t_pad}")
+        same_token_rows("grouped_int4_matmul_per_group_a8", ops.grouped_int4_matmul_per_group_a8,
+                        qt, k, e, gen, device)
         del qt
+    w = torch.randn((e, 1024, hidden), generator=gen, device=device) * hidden ** -0.5
+    routing, plan = _skewed_plan(8, e, 2, 32, gen, device)
+    xs = dispatch(torch.randn((8, hidden), generator=gen, device=device).bfloat16(), routing, plan)
+    for gs in (32, 16):
+        qt = quantize(w, granularity="per_group", layout="planar_groups", group_size=gs)
+        body = "int8 body" if ops.grouped_matmul._k14_on_tensor_cores(gs) else "CUDA-core loop"
+        ref = ops.grouped_int4_matmul_per_group_a8_reference(xs, plan.tile_group_ids, qt, tile_m=32)
+        _compare("grouped_int4_matmul_per_group_a8", f"T=8 tile_m=32 N=1024 K={hidden} gs {gs}",
+                 ops.grouped_int4_matmul_per_group_a8(xs, plan.tile_group_ids, qt, tile_m=32),
+                 ref, _a8_tol(ref), results, None, None, None, exact=True)
+        print(f"    gs {gs}: the {body}")
+    # a narrow stack, whose launch splits K over CTAs: the ordered second pass
+    w = w[:, :256].contiguous()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for op, plain, qt in ((ops.grouped_int4_matmul_a8, ops.grouped_int4_matmul_a8_reference,
+                           quantize(w)),
+                          (ops.grouped_int4_matmul_per_group_a8,
+                           ops.grouped_int4_matmul_per_group_a8_reference, _pg_quantize(w))):
+        gs = qt.group_size if qt.granularity == "per_group" else 0
+        launch = ops.grouped_matmul._a8_mma_launch(256, hidden, gs, sms)
+        if launch[2] < 2:
+            raise AssertionError(f"{op.__name__} N=256: launch {launch} does not split K")
+        ref = plain(xs, plan.tile_group_ids, qt, tile_m=32)
+        _compare(op.__name__, f"T=8 tile_m=32 N=256 K={hidden} splits {launch[2]}",
+                 op(xs, plan.tile_group_ids, qt, tile_m=32), ref, _a8_tol(ref), results, None,
+                 None, None, exact=True)
 
 
 def _planar_pg_quantize(w):
@@ -1561,15 +1662,21 @@ def heldout_tokens(path, seq=128, rows=16):
     return held[: (len(held) // seq) * seq].reshape(-1, seq)[:rows].astype(np.int64)
 
 
-def evaluate(model, cfg, tokens, device="cuda"):
+def evaluate(model, cfg, tokens, device="cuda", rows_per_call=None):
     """Logits [B*T, V] (f32) and the mean NLL of next-token prediction over
-    one forward of tokens[:, :-1]."""
+    the forwards of tokens[:, :-1], ``rows_per_call`` rows each (all rows in
+    one by default)."""
     tokens = torch.from_numpy(tokens).to(device)
     t = tokens.shape[1] - 1
+    step = rows_per_call or tokens.shape[0]
+    parts = []
     with torch.no_grad():
-        logits, _ = model(tokens[:, :-1], model.init_cache(cfg, tokens.shape[0], t + 1),
-                          torch.arange(t, device=device))
-    logits = logits.float()
+        for r0 in range(0, tokens.shape[0], step):
+            rows = tokens[r0:r0 + step]
+            out, _ = model(rows[:, :-1], model.init_cache(cfg, rows.shape[0], t + 1),
+                           torch.arange(t, device=device))
+            parts.append(out.float())
+    logits = torch.cat(parts)
     nll = -torch.log_softmax(logits, dim=-1).gather(-1, tokens[:, 1:, None])[..., 0].mean()
     return logits.reshape(-1, logits.shape[-1]), nll.item()
 
@@ -1601,16 +1708,23 @@ def quality_gates(res, nll_ref, vocab_size) -> dict:
 
 
 # The execution modes on the trained fixture (the router-dense conversion,
-# then the mode's converter), the kernels each must launch and those it must not.
+# then the mode's converter), the kernels each must launch and those it must
+# not, and the rows per forward: u4_turbo evaluates 2 rows (254 positions) a
+# forward, below the linears' 256-row transient gate and the MoE's 512-row
+# threshold, so that its linears run K5 and its experts K10, as at decode.
 TRAINED_MODES = (
     ("as_per_group", as_per_group,
      ("int4_matmul_per_group", "grouped_int4_matmul_per_group", "int4_attention"),
      ("int4_matmul", "grouped_int4_matmul", "int4_matmul_per_group_a8",
-      "grouped_int4_matmul_per_group_a8")),
+      "grouped_int4_matmul_per_group_a8"), None),
     ("pg_turbo", as_pg_turbo,
      ("int4_matmul_per_group_a8", "grouped_int4_matmul_per_group_a8", "int4_attention"),
      ("int4_matmul", "grouped_int4_matmul", "int4_matmul_per_group",
-      "grouped_int4_matmul_per_group")),
+      "grouped_int4_matmul_per_group"), None),
+    ("u4_turbo", as_u4_turbo,
+     ("int4_matmul_a8_fused", "grouped_int4_matmul_a8", "int4_attention"),
+     ("int4_matmul", "grouped_int4_matmul", "int4_matmul_a8", "grouped_int4_matmul_a8_fused",
+      "int4_matmul_per_group_a8", "grouped_int4_matmul_per_group_a8"), 2),
 )
 
 
@@ -1620,9 +1734,9 @@ def trained_checkpoint(card_line, device="cuda"):
     corpus against the bf16 twin built from the same checkpoint, beside the
     JAX package's committed record (a CPU run of the JAX package); held to
     the gates of tests/test_convert.py. Then the router-dense model under
-    as_per_group (K7, K13, K3; held to the router-dense policy's gates) and
-    pg_turbo (K8, K14), and the per-group-128 model on the card against the
-    CPU."""
+    as_per_group (K7, K13, K3; held to the router-dense policy's gates),
+    pg_turbo (K8, K14) and u4_turbo (K5, K10, K3), and the per-group-128
+    model on the card against the CPU."""
     cfg = fixture_config(H256)
     raw = load_safetensors(H256)
     tokens = heldout_tokens(H256)
@@ -1655,12 +1769,15 @@ def trained_checkpoint(card_line, device="cuda"):
         raise AssertionError(f"trained h256 quality gates: {gates}")
     print(f"trained h256: every gate of tests/test_convert.py met {sorted(gates)}")
     base = convert_safetensors(H256, cfg, device=device, **QUALITY_POLICIES["int4_router_dense"])
-    for label, convert, launched, idle in TRAINED_MODES:
+    for label, convert, launched, idle, rows_per_call in TRAINED_MODES:
         model = convert(base)
         _reset_counts()
-        got, nll = evaluate(model, cfg, tokens, device)
+        got, nll = evaluate(model, cfg, tokens, device, rows_per_call)
         torch.cuda.synchronize()
         launches = _launch_counts()
+        paths = {fn.__name__: fn.calls for fn in _PATH_CALLS if fn.calls}
+        if paths:
+            raise AssertionError(f"trained h256 [{label}]: integer-GEMM paths called {paths}")
         res[label] = q = policy_metrics(got, nll, ref, nll_ref)
         print(f"trained h256 [router dense, {label}]: held-out NLL {q['heldout_nll']:.4f} (bf16 "
               f"twin {nll_ref:.4f}), nll_delta {q['nll_delta']:.4f}, top-1 "

@@ -3,39 +3,50 @@
 // with per-row symmetric int8 activations and an exact integer dot.
 //
 // K10 replaces fused4bit_tpu/ops/grouped_matmul.py:_grouped_a8_kernel (int8
-// activations and their scales in); K11 replaces _grouped_a8_fused_kernel
-// (raw bf16/f32 activations in, quantized inside the kernel). Both run the
-// kernel of int4_rows_a8.cuh with the expert chosen per CTA from
-// tile_group_ids, K2's contract: one launch, no host loop and no
-// device-to-host sync, every column of N written (also past 256), zero
-// padding rows written as exactly 0.
-//
-// What bounds it on the H100: at decode (T = 8 tokens, top-2, tile_m = 32:
-// T_pad = 288) a tile holds a token or two, so the op streams each selected
-// expert's packed weights (N*K/2 bytes) for a handful of rows: bound by HBM
-// bytes. A first pass finds the zero padding rows at the end of each block of
-// 16 rows; an all-padding block streams no weights. At prefill (tile_m = 128)
-// each weight byte serves 16 rows per read, and the __dp4a loop becomes the
-// bound. Tensor-core int8 MMA is later work.
+// activations and their scales in). It runs the int8 tensor-core body of
+// int8_mma.cuh after its first pass (a8_prepass_kernel), which quantizes the
+// rows with the host quantizer's arithmetic, sums them, and marks the zero
+// padding rows; see int8_mma.cuh for what bounds it and
+// what its design does about it. K11 replaces _grouped_a8_fused_kernel (raw
+// bf16/f32 activations in, quantized inside the kernel) and runs the
+// CUDA-core kernel of int4_rows_a8.cuh, whose first pass (rows_in_use_kernel)
+// marks the zero padding rows at the end of each block of 16 rows. Both take
+// the expert per block of rows from tile_group_ids, K2's contract: one
+// launch, no host loop and no device-to-host sync, every column of N written
+// (also past 256), zero padding rows written as exactly 0 and an all-padding
+// block streams no weights.
 #include "int4_rows_a8.cuh"
+#include "int8_mma.cuh"
 
-// K10: xq [T, K] int8, sx [T] f32; rows_used: int32 scratch of ceil(T / 16).
-extern "C" int f4b_grouped_int4_matmul_a8_bf16(const void* xq, const void* sx,
-                                               const void* gids, const void* packed,
-                                               const void* scales, const void* zps,
-                                               void* rows_used, void* y, int T, int N, int K,
-                                               int tile_m, void* stream) {
-  return f4b::launch_int4_a8_rows<int8_t, __nv_bfloat16>(xq, sx, packed, scales, zps, gids,
-                                                         tile_m, rows_used, y, T, N, K, stream);
+// The int8 body's first pass, shared with K14: x [M, K] bf16 or f32 -> xq
+// [M, K] i8, sx [M] f32, sums [M, K / gsum] i32, used [M] i32 (the row holds a
+// nonzero);
+// fused: sx by XLA's folded reciprocal (K14), else a division (K10).
+extern "C" int f4b_a8_prepass_bf16(const void* x, void* xq, void* sx, void* sums,
+                                   void* used, int M, int K, int gsum, int fused,
+                                   void* stream) {
+  return f4b::launch_a8_prepass<__nv_bfloat16>(x, xq, sx, sums, used, M, K, gsum, fused,
+                                               stream);
 }
 
-extern "C" int f4b_grouped_int4_matmul_a8_f32(const void* xq, const void* sx,
-                                              const void* gids, const void* packed,
-                                              const void* scales, const void* zps,
-                                              void* rows_used, void* y, int T, int N, int K,
-                                              int tile_m, void* stream) {
-  return f4b::launch_int4_a8_rows<int8_t, float>(xq, sx, packed, scales, zps, gids, tile_m,
-                                                 rows_used, y, T, N, K, stream);
+extern "C" int f4b_a8_prepass_f32(const void* x, void* xq, void* sx, void* sums,
+                                  void* used, int M, int K, int gsum, int fused,
+                                  void* stream) {
+  return f4b::launch_a8_prepass<float>(x, xq, sx, sums, used, M, K, gsum, fused, stream);
+}
+
+// K10 on the first pass's outputs (sums per half: gsum = K/2); y in bf16, or
+// f32 with out_f32; partial: int32 scratch of splits * M * N when splits > 1.
+extern "C" int f4b_grouped_int4_matmul_a8_mma(const void* xq, const void* sx, const void* sums,
+                                              const void* used, const void* gids,
+                                              const void* packed, const void* scales,
+                                              const void* zps, void* y, void* partial, int M,
+                                              int N, int K, int tile_m, int out_f32, int ws,
+                                              int kw, int splits, void* stream) {
+  return f4b::launch_int8_mma<f4b::RowA8>(
+      f4b::i8_args(xq, sx, sums, used, gids, packed, scales, zps, y, partial, M, N, K, 0,
+                   tile_m, out_f32, ws, kw, splits),
+      stream);
 }
 
 // K11: x [T, K] bf16 or f32, quantized in the kernel; y in x's type.

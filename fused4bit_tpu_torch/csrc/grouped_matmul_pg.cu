@@ -3,21 +3,25 @@
 // with stacked planar_groups expert weights [E, Gh, N, gs].
 //
 // K13 replaces fused4bit_tpu/ops/grouped_matmul.py:_grouped_pg_bp_kernel
-// (w4a16); K14 replaces _grouped_pg_bp_a8_kernel (w4a8, int8 activations and
-// their scales in). Both run the kernels of int4_rows_pg.cuh with the expert
-// chosen per CTA from tile_group_ids, K2's contract: one launch, no host loop
-// and no device-to-host sync, every column of N written (also past 256), zero
-// padding rows written as exactly 0.
+// (w4a16) and runs the CUDA-core kernel of int4_rows_pg.cuh. K14 replaces
+// _grouped_pg_bp_a8_kernel (w4a8): at gs % 32 == 0 it runs the int8
+// tensor-core body of int8_mma.cuh (after its first pass,
+// f4b_a8_prepass_*, in grouped_matmul_a8.cu), at the other group sizes
+// planar_groups allows the CUDA-core kernel of int4_rows_pg.cuh. Both take
+// the expert per block of rows from tile_group_ids, K2's contract: one
+// launch, no host loop and no device-to-host sync, every column of N written
+// (also past 256), zero padding rows written as exactly 0 and an all-padding
+// block streams no weights.
 //
-// What bounds it on the H100: at decode (T = 8 tokens, top-2) a tile holds a
-// token or two, so the op streams each selected expert's packed weights
-// (N*K/2 bytes, plus N*K/gs*8 bytes of scales and zero points) for a handful
-// of rows: bound by HBM bytes. A first pass finds the zero padding rows at the
-// end of each block of MT rows, and an all-padding block streams no weights.
-// At prefill (tile_m = 128) each weight byte serves MT rows per read and the
-// CUDA-core loop (FMA in K13, __dp4a in K14) becomes the bound; tensor-core
-// MMA is later work.
+// What bounds the CUDA-core kernels on the H100: at decode (T = 8 tokens,
+// top-2) a tile holds a token or two, so the op streams each selected
+// expert's packed weights (N*K/2 bytes, plus N*K/gs*8 bytes of scales and
+// zero points) for a handful of rows: bound by HBM bytes. A first pass finds
+// the zero padding rows at the end of each block of MT rows. At prefill
+// (tile_m = 128) each weight byte serves MT rows per read and the CUDA-core
+// loop (FMA in K13, __dp4a in K14) becomes the bound.
 #include "int4_rows_pg.cuh"
+#include "int8_mma.cuh"
 
 // K13: x [T, K] bf16 or f32; rows_used: int32 scratch of ceil(T / MT), MT = 16
 // (bf16) or 8 (f32).
@@ -37,7 +41,8 @@ extern "C" int f4b_grouped_int4_matmul_pg_f32(const void* x, const void* gids,
                                          T, N, K, gs, stream);
 }
 
-// K14: xq [T, K] int8, sx [T] f32; rows_used: int32 scratch of ceil(T / 16).
+// K14 at other group sizes: xq [T, K] int8, sx [T] f32; rows_used: int32 scratch of
+// ceil(T / 16).
 extern "C" int f4b_grouped_int4_matmul_pg_a8_bf16(const void* xq, const void* sx,
                                                   const void* gids, const void* packed,
                                                   const void* scales, const void* zps,
@@ -54,4 +59,20 @@ extern "C" int f4b_grouped_int4_matmul_pg_a8_f32(const void* xq, const void* sx,
                                                  int gs, int tile_m, void* stream) {
   return f4b::launch_int4_pg_a8_rows<float>(xq, sx, packed, scales, zps, gids, tile_m,
                                             rows_used, y, T, N, K, gs, stream);
+}
+
+// K14 at gs % 32 == 0 on the first pass's outputs (sums per group of gs);
+// y in bf16, or f32 with out_f32; partial: f32 scratch of splits * M * N when
+// splits > 1. 16 bytes per lane at gs % 64 == 0, else 8.
+extern "C" int f4b_grouped_int4_matmul_pg_a8_mma(const void* xq, const void* sx,
+                                                 const void* sums, const void* used,
+                                                 const void* gids, const void* packed,
+                                                 const void* scales, const void* zps, void* y,
+                                                 void* partial, int M, int N, int K, int gs,
+                                                 int tile_m, int out_f32, int ws, int kw,
+                                                 int splits, void* stream) {
+  const f4b::I8Args p = f4b::i8_args(xq, sx, sums, used, gids, packed, scales, zps, y,
+                                     partial, M, N, K, gs, tile_m, out_f32, ws, kw, splits);
+  if (gs % 64 == 0) return f4b::launch_int8_mma<f4b::GroupA8<16>>(p, stream);
+  return f4b::launch_int8_mma<f4b::GroupA8<8>>(p, stream);
 }

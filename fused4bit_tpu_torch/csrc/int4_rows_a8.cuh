@@ -1,12 +1,14 @@
-// Shared kernel of the per-row w4a8 products: the linear (int4_matmul_a8.cu)
-// and the grouped MoE product (grouped_matmul_a8.cu).
+// Shared CUDA-core kernel of the per-row w4a8 products: the linear (K4, K5;
+// int4_matmul_a8.cu) and the grouped MoE product with the quantization in
+// the kernel (K11; grouped_matmul_a8.cu). K10 runs the int8 tensor-core body
+// of int8_mma.cuh.
 //
 // Activations are quantized per row, symmetric int8, as the TPU kernels do:
 //   sx[m] = max(max_c |x[m, c]|, 1e-8) * f32(1/127)  (raw x: K5, K11)
 //   xq[m, c] = clamp(rint(x[m, c] / sx[m]), -127, 127)   (IEEE division,
 //                                                         half to even)
 // The fused TPU kernels write `/ 127.0`, which XLA compiles as the multiply;
-// for int8 input (K4, K10) sx comes from the host quantizer, which divides.
+// for int8 input (K4) sx comes from the host quantizer, which divides.
 // and the product is an exact integer dot followed by JAX's f32 epilogue:
 //   acc[m, n]  = sum_c xq[m, c] * q[e, n, c]            (int32, exact)
 //   xsum[m]    = sum_c xq[m, c]                          (int32, exact)
@@ -30,7 +32,7 @@
 // shuffle reduces each (row, m) sum at the end. With raw activations (K5,
 // K11) each CTA quantizes its own x rows: a first pass over each row finds
 // its amax, and the staging quantizes 16 values per lane. With int8
-// activations (K4, K10) the staging is a copy. For the grouped product a
+// activations (K4) the staging is a copy. For the grouped product a
 // first pass marks the zero padding rows at the end of each block of 16 rows;
 // they are written as 0 without being computed (a zero row quantizes to
 // xq = 0, so its output is exactly 0).
@@ -95,7 +97,7 @@ __device__ __forceinline__ uint4 stage16(const T* src, float sx, int& sum) {
   return make_uint4(words[0], words[1], words[2], words[3]);
 }
 
-// x [M, K] row-major: int8 codes with their scales sx [M] (K4, K10), or raw
+// x [M, K] row-major: int8 codes with their scales sx [M] (K4), or raw
 // bf16/f32 activations quantized here (K5, K11; sx unused); packed [E, N,
 // K/2]; scales/zps [E, N]; gids [M / tile_m] or nullptr for E = 1; rows_used
 // [ceil(M / 16)] or nullptr; y [M, N] in Tout. Requires K % 32 == 0, x

@@ -96,13 +96,19 @@ def _attention_math(q: torch.Tensor, cache, starts: torch.Tensor, g: int) -> tor
     """The plain versions' arithmetic over a contiguous cache (see
     :func:`int4_attention_reference`)."""
     b, hq, t, d = q.shape
-    kd, _ = cache.dequantize(torch.float32)                # [B, Hkv, S, D]
-    vc = _unpack_pairs(cache.v_packed).float() - cache.v_zp[..., None]
-    kd = kd.repeat_interleave(g, dim=1)
-    vc = vc.repeat_interleave(g, dim=1)
-    vs = cache.v_scale.repeat_interleave(g, dim=1)[:, :, None, :]     # [B, Hq, 1, S]
+    kc = _unpack_pairs(cache.k_packed).float().repeat_interleave(g, dim=1)   # codes [B, Hq, S, D]
+    vc = _unpack_pairs(cache.v_packed).float().repeat_interleave(g, dim=1)
+
+    def per_position(plane):                                               # [B, Hq, 1, S]
+        return plane.float().repeat_interleave(g, dim=1)[:, :, None, :]
+
+    ks, vs, vz = per_position(cache.k_scale), per_position(cache.v_scale), per_position(cache.v_zp)
+    ksz = per_position(cache.k_scale * cache.k_zp)
+    qf = q.float()
     with full_precision():
-        scores = torch.matmul(q.float(), kd.transpose(-1, -2)) / math.sqrt(d)
+        raw = torch.matmul(qf, kc.transpose(-1, -2))                       # [B, Hq, T, S]
+    qsum = qf.sum(dim=-1, keepdim=True)
+    scores = (raw * ks - qsum * ksz) * torch.tensor(1.0 / math.sqrt(d), device=q.device)
     span = torch.arange(cache.max_seq, device=q.device)
     qpos = starts.to(q.device).long()[:, None] + torch.arange(t, device=q.device)  # [B, T]
     lengths = cache.lengths.to(q.device).long()
@@ -114,7 +120,7 @@ def _attention_math(q: torch.Tensor, cache, starts: torch.Tensor, g: int) -> tor
     denom = p.sum(dim=-1, keepdim=True)
     ps = (p * vs).to(q.dtype).float()
     with full_precision():
-        num = torch.matmul(ps, vc)
+        num = torch.matmul(ps, vc) - (ps * vz).sum(dim=-1, keepdim=True)
     out = torch.where(denom > 0, num / denom, torch.zeros_like(num))
     return out.to(q.dtype)
 
@@ -122,14 +128,18 @@ def _attention_math(q: torch.Tensor, cache, starts: torch.Tensor, g: int) -> tor
 def int4_attention_reference(
     q: torch.Tensor, cache, starts: torch.Tensor
 ) -> torch.Tensor:
-    """Plain version of K3: dequantize the cache, then causal softmax
-    attention in float32. q [B, Hq, T, D] -> [B, Hq, T, D] in q.dtype.
+    """Plain version of K3: causal softmax attention over the packed cache in
+    float32, the per-position affines applied after the dots, as the TPU
+    kernel (and K3) does: scores ``(s_k (q . c_k) - s_k zp_k sum(q)) *
+    f32(1/sqrt(D))``; out ``(ps . c_v - sum(ps zp_v)) / sum(p)``.
+    q [B, Hq, T, D] -> [B, Hq, T, D] in q.dtype.
 
     It keeps the numerics contract of the TPU kernel: the softmax
     numerator times the value scale, ``ps = exp(s - max) * s_v``, is rounded
-    once to q.dtype and multiplies the centered value codes ``c_v - z_v``;
-    the denominator sums the unrounded numerator. In float32 that is plain
-    attention over the dequantized cache.
+    once to q.dtype and feeds both the code dot and the zero-point term;
+    the denominator sums the unrounded numerator. The max is the row's (the
+    TPU kernel and K3 take a running max per block of positions). In float32
+    that is plain attention over the dequantized cache.
     """
     int4_attention_reference.calls += 1
     return _attention_math(q, cache, starts, _check(q, cache, starts))

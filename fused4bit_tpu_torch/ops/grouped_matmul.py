@@ -12,8 +12,10 @@ and no device-to-host sync, and runs its plain version on a CPU tensor:
   port of ``_grouped_ksplit_kernel``: K2 split over K);
 * ``grouped_int4_matmul_a8`` (w4a8, per-row int8 activations, exact integer
   dot): ``csrc/grouped_matmul_a8.cu``, K10 (the port of
-  ``_grouped_a8_kernel``) on activations quantized before the launch, or
-  K11 (the port of ``_grouped_a8_fused_kernel``) quantizing in the kernel;
+  ``_grouped_a8_kernel``) on the int8 tensor-core body of
+  ``csrc/int8_mma.cuh`` after a first pass that quantizes the rows, or K11
+  (the port of ``_grouped_a8_fused_kernel``) quantizing in its CUDA-core
+  kernel;
 * ``grouped_int4_matmul_per_group`` (w4a16, per-group experts): in the
   planar_groups layout ``csrc/grouped_matmul_pg.cu``, K13 (the port of
   ``_grouped_pg_bp_kernel``); in the planar layout (what ``models.convert``
@@ -21,7 +23,13 @@ and no device-to-host sync, and runs its plain version on a CPU tensor:
   ``_grouped_pg_kernel``);
 * ``grouped_int4_matmul_per_group_a8`` (w4a8, the same experts): K14 (the
   port of ``_grouped_pg_bp_a8_kernel``) on activations quantized before the
-  launch, as the TPU wrapper does.
+  main kernel, as the TPU wrapper does: at ``gs % 32 == 0`` on the int8
+  tensor-core body (its first pass quantizes), else on the CUDA-core loop of
+  ``csrc/int4_rows_pg.cuh``.
+
+The int8 body's launch shape comes from :func:`_a8_mma_launch`, which reads
+(N, K, gs, SM count) only: a token row's output bits do not depend on the
+tile, the T or the routing it sits in.
 """
 from __future__ import annotations
 
@@ -30,7 +38,7 @@ from typing import Optional
 
 import torch
 
-from ..quant.core import QuantizedTensor, dequantize
+from ..quant.core import QuantizedTensor, dequantize, planar_groups_to_planar, unpack_planar
 from ..quant.reference import full_precision
 from . import _build
 from .int4_matmul import (
@@ -39,6 +47,7 @@ from .int4_matmul import (
     _check_pg_operands,
     _compute_dtype,
     _pg_a8_product,
+    _sm_count,
     planar_pg_weight,
 )
 from .int8_xla import _quantize_acts
@@ -58,15 +67,20 @@ _KERNELS = {
 # x rows per CTA of the kernel (csrc/int4_rows.cuh: RowsTile): an m-tile must
 # hold a whole number of them.
 _KERNEL_ROWS = {torch.bfloat16: 16, torch.float32: 8}
-_A8_KERNELS = {
-    torch.bfloat16: "f4b_grouped_int4_matmul_a8_bf16",
-    torch.float32: "f4b_grouped_int4_matmul_a8_f32",
-}
 _A8_FUSED_KERNELS = {
     torch.bfloat16: "f4b_grouped_int4_matmul_a8_fused_bf16",
     torch.float32: "f4b_grouped_int4_matmul_a8_fused_f32",
 }
-_A8_KERNEL_ROWS = 16  # x rows per CTA of csrc/int4_rows_a8.cuh
+# x rows per CTA of the CUDA-core w4a8 bodies (csrc/int4_rows_a8.cuh): K11's,
+# and K14's at group sizes the int8 body does not take
+_A8_KERNEL_ROWS = 16
+# the first pass of the int8 tensor-core body (csrc/int8_mma.cuh): K10, and
+# K14 at gs % 32 == 0
+_A8_PREPASS = {torch.bfloat16: "f4b_a8_prepass_bf16", torch.float32: "f4b_a8_prepass_f32"}
+_I8_WARPS = 8        # warps per CTA of the int8 body
+# SM count the plain version of K14 assumes for CPU tensors: the H100's (the
+# launch rule, and so K14's order of f32 sums, depends on it)
+_PLAIN_SMS = 132
 _PG_KERNELS = {
     torch.bfloat16: "f4b_grouped_int4_matmul_pg_bf16",
     torch.float32: "f4b_grouped_int4_matmul_pg_f32",
@@ -289,7 +303,8 @@ def grouped_int4_matmul_a8(
     x_sorted: [T_pad, K] bf16 or f32; tile_group_ids: [T_pad // tile_m] i32;
     qt: stacked per_row planar [E, N, K]; tile_m a multiple of 32. Returns
     [T_pad, N] in x.dtype. ``fuse_quant``: quantize inside the kernel (K11)
-    rather than before it (K10); None means False, as in JAX. On a CPU tensor
+    rather than before it (K10: the int8 body's first pass, with the host
+    quantizer's arithmetic); None means False, as in JAX. On a CPU tensor
     the plain version runs with the quantizer of the kernel it picks.
     """
     fuse_quant = bool(fuse_quant)
@@ -300,40 +315,183 @@ def grouped_int4_matmul_a8(
     e, n, k = qt.shape
     t_pad = x_sorted.shape[0]
     dtype = x_sorted.dtype
-    if dtype not in _A8_KERNELS:
+    if dtype not in _A8_PREPASS:
         raise TypeError(f"K10/K11 take bf16 or f32 activations, got {dtype}")
     if k % 32 != 0:
         raise ValueError(f"K10/K11 need K % 32 == 0 (16-byte packed rows), got K={k}")
     _check_device_operands(x_sorted, tile_group_ids, qt)
-    x_sorted = x_sorted.contiguous()
-    if x_sorted.data_ptr() % 16:  # the kernel reads x with 16-byte loads
-        x_sorted = x_sorted.clone()
+    x_sorted = _aligned_rows(x_sorted)
+    if not fuse_quant:
+        y = _launch_a8_mma(x_sorted, tile_group_ids, qt, tile_m,
+                           *_a8_mma_launch(n, k, 0, _sm_count(x_sorted.device.index)))
+        grouped_int4_matmul_a8.launches += 1
+        return y
     y = torch.empty((t_pad, n), dtype=dtype, device=x_sorted.device)
     if t_pad == 0:
         return y
     # scratch: rows in use per block of kernel rows (the zero padding is skipped)
     rows_used = torch.empty((-(-t_pad // _A8_KERNEL_ROWS),), dtype=torch.int32,
                             device=x_sorted.device)
-    lib = _build.library()
-    tail = (tile_group_ids.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(),
-            qt.zero_points.data_ptr(), rows_used.data_ptr(), y.data_ptr(), t_pad, n, k, tile_m,
-            _build.stream_of(x_sorted))
     with torch.cuda.device(x_sorted.device):
-        if fuse_quant:
-            err = getattr(lib, _A8_FUSED_KERNELS[dtype])(x_sorted.data_ptr(), *tail)
-        else:
-            xq, sx = _quantize_acts(x_sorted)
-            err = getattr(lib, _A8_KERNELS[dtype])(xq.data_ptr(), sx.data_ptr(), *tail)
+        err = getattr(_build.library(), _A8_FUSED_KERNELS[dtype])(
+            x_sorted.data_ptr(), tile_group_ids.data_ptr(), qt.packed.data_ptr(),
+            qt.scales.data_ptr(), qt.zero_points.data_ptr(), rows_used.data_ptr(), y.data_ptr(),
+            t_pad, n, k, tile_m, _build.stream_of(x_sorted))
     _build.check(err, "grouped_int4_matmul_a8")
-    if fuse_quant:
-        grouped_int4_matmul_a8.fused_launches += 1
-    else:
-        grouped_int4_matmul_a8.launches += 1
+    grouped_int4_matmul_a8.fused_launches += 1
     return y
 
 
 grouped_int4_matmul_a8.launches = 0        # K10
 grouped_int4_matmul_a8.fused_launches = 0  # K11
+
+
+# --- the int8 tensor-core body (csrc/int8_mma.cuh): K10, and K14 at gs % 32 == 0 ---
+
+
+def _k14_on_tensor_cores(group_size: int) -> bool:
+    """K14's body, chosen by the group size alone: the int8 tensor-core body
+    at ``gs % 32 == 0`` (a chunk of 32 or 64 packed bytes never straddles a
+    group), else the CUDA-core loop of ``csrc/int4_rows_pg.cuh`` (the other
+    multiples of 16 that planar_groups allows)."""
+    return group_size % 32 == 0
+
+
+def _i8_chunk(gs: int) -> int:
+    """Packed bytes per chunk of a row in the int8 body: 4 lanes x 16 bytes,
+    or x 8 for K14 at ``gs % 64 != 0``. ``gs`` 0 means per row (K10)."""
+    return 64 if gs % 64 == 0 else 32
+
+
+def _a8_mma_launch(n: int, k: int, gs: int, sms: int) -> tuple:
+    """The launch shape ``(ws, kw, splits)`` of ``csrc/int8_mma.cuh`` for an
+    [N, K] expert weight (``gs`` its group size, 0 per row) on a card of
+    ``sms`` SMs: each warp takes a 16-row tile of output rows and a slice of
+    ``ws`` chunks of K/2 (whole groups for K14), a CTA of 8 warps puts ``kw``
+    of them along K (8 / kw row tiles), and ``splits`` CTAs cover K.
+
+    K is cut into the fewest slices that give every SM two warps from one
+    block of 16 rows alone (a decode step where one expert is hit): the
+    slices go to warps of a CTA first (up to 8, added through shared
+    memory), then to CTAs along K (added by a second pass). At the layer2
+    shapes that is one slice at gate/up (N=14336: ws 32, kw 1) and two at
+    down (N=4096: ws 56, kw 2), splits 1; more slices measured no faster
+    there at decode and slower at prefill on the H100
+    (``scripts/grouped_a8_sweep.py`` times the candidates; PERF.md).
+
+    It reads (N, K, gs, SMs) only, never T, tile_m or the routing: K14's f32
+    sums then run in the same order for a token row wherever it sits, so its
+    output bits do not depend on the tile or the T of the dispatch."""
+    cb = _i8_chunk(gs)
+    unit = gs // cb if gs else 1                      # chunks per group
+    units = -(-(k // 2) // (cb * unit))               # groups (K10: chunks)
+    tiles = -(-n // 16)
+    slices = max(1, min(units, -(-2 * sms // tiles)))
+    kw = min(_I8_WARPS, 1 << (slices - 1).bit_length())
+    ws = unit * -(-units // (kw * -(-slices // kw)))
+    return ws, kw, -(-units * unit // (kw * ws))
+
+
+def _launch_a8_mma(x_sorted: torch.Tensor, tile_group_ids: torch.Tensor, qt: QuantizedTensor,
+                   tile_m: int, ws: int, kw: int, splits: int) -> torch.Tensor:
+    """The int8 body at launch shape ``(ws, kw, splits)``: its first pass
+    (quantize, per-group sums, which rows hold a nonzero), the main kernel
+    and, with splits > 1, the ordered second pass. K10 for per_row ``qt``,
+    K14 for per_group. x_sorted 16-byte aligned, operands checked."""
+    e, n, k = qt.shape
+    m = x_sorted.shape[0]
+    per_group = qt.granularity == "per_group"
+    gs = qt.group_size if per_group else 0
+    gsum = gs or k // 2
+    dev = x_sorted.device
+    y = torch.empty((m, n), dtype=x_sorted.dtype, device=dev)
+    if m == 0:
+        return y
+    xq = torch.empty((m, k), dtype=torch.int8, device=dev)
+    sx = torch.empty((m,), dtype=torch.float32, device=dev)
+    sums = torch.empty((m, k // gsum), dtype=torch.int32, device=dev)
+    used = torch.empty((m,), dtype=torch.int32, device=dev)
+    partial = (torch.empty((splits, m, n), dtype=torch.float32 if per_group else torch.int32,
+                           device=dev) if splits > 1 else None)
+    lib = _build.library()
+    stream = _build.stream_of(x_sorted)
+    with torch.cuda.device(dev):
+        err = getattr(lib, _A8_PREPASS[x_sorted.dtype])(
+            x_sorted.data_ptr(), xq.data_ptr(), sx.data_ptr(), sums.data_ptr(), used.data_ptr(),
+            m, k, gsum, int(per_group), stream)
+        _build.check(err, "the int8 body's first pass")
+        ptrs = (xq.data_ptr(), sx.data_ptr(), sums.data_ptr(), used.data_ptr(),
+                tile_group_ids.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(),
+                qt.zero_points.data_ptr(), y.data_ptr(),
+                None if partial is None else partial.data_ptr())
+        tail = (tile_m, int(x_sorted.dtype == torch.float32), ws, kw, splits, stream)
+        if per_group:
+            err = lib.f4b_grouped_int4_matmul_pg_a8_mma(*ptrs, m, n, k, gs, *tail)
+        else:
+            err = lib.f4b_grouped_int4_matmul_a8_mma(*ptrs, m, n, k, *tail)
+    _build.check(err, "grouped_int4_matmul_per_group_a8" if per_group else
+                 "grouped_int4_matmul_a8")
+    return y
+
+
+def _pg_a8_fold_product(xq: torch.Tensor, sx: torch.Tensor, packed3: torch.Tensor,
+                        scales: torch.Tensor, zero_points: torch.Tensor, *,
+                        launch: tuple) -> torch.Tensor:
+    """The w4a8 per-group product in plain torch, f32 out, operation by
+    operation as K14 computes it on the int8 body at launch shape ``launch``
+    = ``(ws, kw, splits)`` (see :func:`_a8_mma_launch`).
+
+    xq [M, K] i8, sx [M, 1] f32, packed3 [Gh, N, gs] u8 (gs % 32 == 0),
+    scales/zero_points [N, 2Gh]. Per group g the exact integers P_lo = xq_lo .
+    q_lo, P_hi = xq_hi . 16 (q_hi - 8) and the sums X_lo, X_hi of xq over the
+    group's columns; K/2 is cut into kw * splits slices of ws chunks (whole
+    groups), slice i = z * kw + w. Each slice folds its groups in order into
+    an f32 sum from 0: ``acc += s_lo*P_lo; acc += c_lo*X_lo; acc +=
+    (s_hi/16)*P_hi; acc += c_hi*X_hi`` with c_lo = -s_lo*zp_lo, c_hi =
+    s_hi*(8 - zp_hi); the kw slices of split z are added in order w = 0, 1,
+    ..., then the splits in order z = 0, 1, ...; y = acc * sx. The integer
+    products run in float64, exact here (every sum is an integer below
+    2^24)."""
+    ws, kw, splits = launch
+    m, k = xq.shape
+    gh, n, gs = packed3.shape
+    kh = gh * gs
+    cpg = gs // _i8_chunk(gs)
+    if ws % cpg or ws * kw * splits * _i8_chunk(gs) < kh:
+        raise ValueError(f"launch {launch} does not cut K/2={kh} into whole groups of {gs}")
+    codes = unpack_planar(planar_groups_to_planar(packed3)).double()         # [N, K]
+    q_lo = codes[:, :kh].reshape(n, gh, gs)
+    v_hi = 16.0 * (codes[:, kh:].reshape(n, gh, gs) - 8.0)
+    s, z = scales.float(), zero_points.float()
+    fold = (s[:, :gh], (-s[:, :gh]) * z[:, :gh], s[:, gh:] * 0.0625,
+            s[:, gh:] * (8.0 - z[:, gh:]))                                    # [N, Gh] each
+    out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
+    for m0 in range(0, m, 64):  # 64 rows at a time bound the [Gh, rows, N] products
+        xb = xq[m0:m0 + 64].double()
+        rows = xb.shape[0]
+        x_lo = xb[:, :kh].reshape(rows, gh, gs)
+        x_hi = xb[:, kh:].reshape(rows, gh, gs)
+        p_lo = torch.einsum("rgc,ngc->grn", x_lo, q_lo).float()
+        p_hi = torch.einsum("rgc,ngc->grn", x_hi, v_hi).float()
+        xs_lo, xs_hi = x_lo.sum(-1).float(), x_hi.sum(-1).float()             # [rows, Gh]
+        parts = [torch.zeros((rows, n), dtype=torch.float32, device=xq.device)
+                 for _ in range(kw * splits)]
+        for g in range(gh):
+            i = g * cpg // ws
+            a = parts[i]
+            a = a + fold[0][:, g] * p_lo[g]
+            a = a + fold[1][:, g] * xs_lo[:, g:g + 1]
+            a = a + fold[2][:, g] * p_hi[g]
+            a = a + fold[3][:, g] * xs_hi[:, g:g + 1]
+            parts[i] = a
+        total = None
+        for zi in range(splits):
+            acc = parts[zi * kw]
+            for w in range(1, kw):
+                acc = acc + parts[zi * kw + w]
+            total = acc if total is None else total + acc
+        out[m0:m0 + rows] = total * sx[m0:m0 + 64].float()
+    return out
 
 
 # --- per-group experts in the planar_groups layout: K13 (w4a16), K14 (w4a8) ---
@@ -449,14 +607,23 @@ grouped_int4_matmul_per_group.planar_launches = 0  # K12
 
 def grouped_int4_matmul_per_group_a8_reference(
     x_sorted: torch.Tensor, tile_group_ids: torch.Tensor, qt: QuantizedTensor,
-    *, tile_m: int = 64,
+    *, tile_m: int = 64, launch: Optional[tuple] = None,
 ) -> torch.Tensor:
-    """Plain version of K14: the TPU wrapper's quantizer, then per expert
-    :func:`~.int4_matmul._pg_a8_product` over that expert's tiles; x.dtype
-    out."""
+    """Plain version of K14: the TPU wrapper's quantizer, then per expert,
+    over that expert's tiles, the order of the body K14 runs: at ``gs % 32
+    == 0`` :func:`_pg_a8_fold_product` at the launch shape ``launch``
+    (default :func:`_a8_mma_launch` on x's card, or on an H100's 132 SMs for
+    a CPU tensor), else :func:`~.int4_matmul._pg_a8_product`; x.dtype out."""
     grouped_int4_matmul_per_group_a8_reference.calls += 1
     _check_pg(x_sorted, tile_group_ids, qt, tile_m, a8=True)
     e, n, k = qt.shape
+    if _k14_on_tensor_cores(qt.group_size):
+        if launch is None:
+            sms = _sm_count(x_sorted.device.index) if x_sorted.is_cuda else _PLAIN_SMS
+            launch = _a8_mma_launch(n, k, qt.group_size, sms)
+        product = lambda *a: _pg_a8_fold_product(*a, launch=launch)  # noqa: E731
+    else:
+        product = _pg_a8_product
     xq, sx = _quantize_acts(x_sorted, fused=True)
     xqt, sxt = xq.reshape(-1, tile_m, k), sx.reshape(-1, tile_m, 1)
     out = torch.zeros((xqt.shape[0], tile_m, n), dtype=torch.float32, device=x_sorted.device)
@@ -464,8 +631,8 @@ def grouped_int4_matmul_per_group_a8_reference(
         tiles = (tile_group_ids == ex).nonzero().flatten()
         if tiles.numel() == 0:
             continue
-        y = _pg_a8_product(xqt[tiles].reshape(-1, k), sxt[tiles].reshape(-1, 1),
-                           qt.packed[ex], qt.scales[ex], qt.zero_points[ex])
+        y = product(xqt[tiles].reshape(-1, k), sxt[tiles].reshape(-1, 1),
+                    qt.packed[ex], qt.scales[ex], qt.zero_points[ex])
         out[tiles] = y.reshape(-1, tile_m, n)
     return out.reshape(-1, n).to(x_sorted.dtype)
 
@@ -485,8 +652,12 @@ def grouped_int4_matmul_per_group_a8(
     x_sorted: [T_pad, K] bf16 or f32; tile_group_ids: [T_pad // tile_m] i32;
     qt: stacked per_group planar_groups [E, N, K] with ``127*128*gs < 2**24``;
     tile_m a multiple of 32. Returns [T_pad, N] in x.dtype. The activations
-    are quantized before the launch with the TPU wrapper's quantizer
-    (``_quantize_acts(x, fused=True)``, see ``int4_matmul_per_group_a8``).
+    are quantized before the main kernel with the TPU wrapper's quantizer
+    (``_quantize_acts(x, fused=True)``, see ``int4_matmul_per_group_a8``):
+    at ``gs % 32 == 0`` by the int8 body's first pass, which then runs the
+    per-group fold of :func:`_pg_a8_fold_product`; at other group sizes by
+    the host quantizer, then the CUDA-core loop of ``_pg_a8_product``
+    (:func:`_k14_on_tensor_cores` says which).
     """
     _check_pg(x_sorted, tile_group_ids, qt, tile_m, a8=True)
     if not x_sorted.is_cuda:
@@ -494,9 +665,17 @@ def grouped_int4_matmul_per_group_a8(
                                                           tile_m=tile_m)
     if x_sorted.dtype not in _PG_A8_KERNELS:
         raise TypeError(f"K14 takes bf16 or f32 activations, got {x_sorted.dtype}")
-    xq, sx = _quantize_acts(x_sorted, fused=True)
-    y = _launch_pg(_PG_A8_KERNELS, "grouped_int4_matmul_per_group_a8", xq, sx, x_sorted,
-                   tile_group_ids, qt, tile_m, _A8_KERNEL_ROWS)
+    if _k14_on_tensor_cores(qt.group_size):
+        _check_device_operands(x_sorted, tile_group_ids, qt)
+        _check_pg_operands(x_sorted, qt, "K14")
+        e, n, k = qt.shape
+        y = _launch_a8_mma(_aligned_rows(x_sorted), tile_group_ids, qt, tile_m,
+                           *_a8_mma_launch(n, k, qt.group_size,
+                                           _sm_count(x_sorted.device.index)))
+    else:
+        xq, sx = _quantize_acts(x_sorted, fused=True)
+        y = _launch_pg(_PG_A8_KERNELS, "grouped_int4_matmul_per_group_a8", xq, sx, x_sorted,
+                       tile_group_ids, qt, tile_m, _A8_KERNEL_ROWS)
     grouped_int4_matmul_per_group_a8.launches += 1
     return y
 

@@ -506,7 +506,8 @@ _RUN = 16
 def _pg_a8_product(xq: torch.Tensor, sx: torch.Tensor, packed3: torch.Tensor,
                    scales: torch.Tensor, zero_points: torch.Tensor) -> torch.Tensor:
     """The w4a8 per-group product in plain torch, f32 out, operation by
-    operation as K8/K14 compute it (``csrc/int4_rows_pg.cuh``).
+    operation as K8 (and K14 at gs % 32 != 0) compute it
+    (``csrc/int4_rows_pg.cuh``).
 
     xq [M, K] i8, sx [M, 1] f32, packed3 [Gh, N, gs] u8, scales/zero_points
     [N, 2Gh]. For each run of 16 packed bytes (one lane's load) the exact

@@ -11,9 +11,10 @@ Phases, each of which raises on failure:
   2. build the kernels of fused4bit_tpu_torch/csrc (nvcc, sm_90a), print
      ptxas's registers and spills and the tensor-core instructions in the
      SASS of each instantiation of the tensor-core bodies: HMMA in the
-     linear one of K1, K6 and K7 (csrc/int4_mma.cuh) and the attention one
-     of K3 and K3' (csrc/decode_attention.cu), IMMA in the int8 one of K10
-     and K14 (csrc/int8_mma.cuh), and fail if one has none;
+     linear one of K1, K6 and K7 and its grouped instantiations of K2 and
+     K13 (csrc/int4_mma.cuh) and the attention one of K3 and K3'
+     (csrc/decode_attention.cu), IMMA in the int8 one of K10 and K14
+     (csrc/int8_mma.cuh), and fail if one has none;
   3. hold each kernel against its plain PyTorch version at the shapes the
      `layer2` serving path gives it (Mixtral-8x7B layer width), and time both
      with CUDA events (L2 flushed before each launch); time the integer-GEMM
@@ -27,7 +28,12 @@ Phases, each of which raises on failure:
      K12 on planar weights per group of 128 (what convert_checkpoint gives);
      K9 (grouped_int4_matmul(mode="ksplit")) on the down projection's stack
      against its plain version and K2, and on a narrow stack that it splits
-     over K. Beside each
+     over K. K2 and K13 (bf16, the tensor-core body) are held to their plain
+     versions at decode and prefill, gate/up and down, with zero padding
+     rows exactly 0; one token's rows must be the same bits in a T=8 and a
+     T=40 dispatch, and each expert's rows must equal the linear body (K1,
+     K7) at the same launch shape on that expert's weights, bit for bit.
+     Beside each
      kernel's time at its main shape stand its bound (the least time the card
      could take: bytes over 3.35 TB/s or operations over the peak of their
      type) and, where one PyTorch call computes the same function, that
@@ -129,7 +135,7 @@ from fused4bit_tpu_torch.models import (
 )
 from fused4bit_tpu_torch.ops import _build
 from fused4bit_tpu_torch.ops.grouped_matmul import _ksplit_splits
-from fused4bit_tpu_torch.ops.int4_matmul import _k7_on_tensor_cores
+from fused4bit_tpu_torch.ops.int4_matmul import _fold_mma_launch, _k7_on_tensor_cores, _mma_launch
 from fused4bit_tpu_torch.ops.int8_xla import _quantize_acts
 from fused4bit_tpu_torch.quant import planar_groups_to_planar, quantize, unpack_planar
 from fused4bit_tpu_torch.serving import GenerationRequest, ServingEngine, speculative_generate
@@ -169,7 +175,7 @@ PREFILL_COS_ALL = 0.98
 SOURCES = {
     "int4_matmul": ("fused4bit_tpu_torch/csrc/int4_mma.cuh",
                     "fused4bit_tpu/ops/int4_matmul.py:90"),
-    "grouped_int4_matmul": ("fused4bit_tpu_torch/csrc/grouped_matmul.cu",
+    "grouped_int4_matmul": ("fused4bit_tpu_torch/csrc/int4_mma.cuh",
                             "fused4bit_tpu/ops/grouped_matmul.py:59"),
     "int4_attention": ("fused4bit_tpu_torch/csrc/decode_attention.cu",
                        "fused4bit_tpu/ops/decode_attention.py:71"),
@@ -187,7 +193,7 @@ SOURCES = {
                               "fused4bit_tpu/ops/int4_matmul.py:587"),
     "int4_matmul_per_group_a8": ("fused4bit_tpu_torch/csrc/int4_matmul_pg.cu",
                                  "fused4bit_tpu/ops/int4_matmul.py:761"),
-    "grouped_int4_matmul_per_group": ("fused4bit_tpu_torch/csrc/grouped_matmul_pg.cu",
+    "grouped_int4_matmul_per_group": ("fused4bit_tpu_torch/csrc/int4_mma.cuh",
                                       "fused4bit_tpu/ops/grouped_matmul.py:994"),
     "grouped_int4_matmul_per_group_a8": ("fused4bit_tpu_torch/csrc/int8_mma.cuh",
                                          "fused4bit_tpu/ops/grouped_matmul.py:1101"),
@@ -315,10 +321,12 @@ def build() -> float:
 
 # The tensor-core bodies, their instantiations and the tensor-core instruction
 # each must hold: the linear body (csrc/int4_mma.cuh) for K1, K6 and K7 in
-# bf16, each with a 16-row and a 64-row tile of x; the attention body
-# (csrc/decode_attention.cu) for K3 and K3', each at head_dim 64 and 128; the
-# int8 body (csrc/int8_mma.cuh) for K10 and for K14 with 16- and 8-byte runs.
-TENSOR_CORE_KERNELS = {"int4_mma_kernel": (6, "HMMA"), "int4_attention_mma_kernel": (4, "HMMA"),
+# bf16 and, with grouped addressing, K2 and K13, each with a 16-row and a
+# 64-row tile of x; the attention body (csrc/decode_attention.cu) for K3 and
+# K3', each at head_dim 64 and 128; the int8 body (csrc/int8_mma.cuh) for K10
+# and for K14 with 16- and 8-byte runs.
+TENSOR_CORE_KERNELS = {"int4_mma_kernel": (10, "HMMA"),
+                       "int4_attention_mma_kernel": (4, "HMMA"),
                        "int8_mma_kernel": (3, "IMMA")}
 
 
@@ -474,7 +482,60 @@ def _skewed_plan(t, e, top_k, tile_m, gen, device):
     return routing, make_dispatch_plan(routing, e, tile_m=tile_m)
 
 
+def linear_at(x, qt, launch):
+    """The linear tensor-core body at launch shape ``launch`` = (ws, kw,
+    splits), 16 rows of x per CTA: K1 on a per_row weight, K7 on a per_group
+    planar_groups one; as ops launches it, through the C entry points."""
+    ws, kw, splits = launch
+    m, k = x.shape
+    n = qt.out_dim
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    partial = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    per_group = qt.granularity == "per_group"
+    fn = lib.f4b_int4_matmul_pg_mma_bf16 if per_group else lib.f4b_int4_matmul_bf16
+    err = fn(x.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(), qt.zero_points.data_ptr(),
+             y.data_ptr(), partial.data_ptr(), m, n, k, *([qt.group_size] if per_group else []),
+             ws, kw, splits, 16, _build.stream_of(x))
+    _build.check(err, "linear_at")
+    return y
+
+
+def same_as_linear(name, xs, gids, qt, tile_m, y, launch=None):
+    """Each expert's token rows of a grouped call ``y`` (K2 or K13 at
+    tile_m <= 64, at launch shape ``launch``, by default the grouped rule's)
+    equal the linear body (K1 or K7) at the same launch shape on that
+    expert's weights, bit for bit: the grouped addressing reads the right
+    expert and rows, and a row's sums run in the linear body's order. Prints
+    whether the shape is the linear rule's."""
+    e, n, k = qt.shape
+    sms = torch.cuda.get_device_properties(xs.device).multi_processor_count
+    launch = launch or ops.grouped_matmul._grouped_mma_launch(n, k, sms)
+    per_group = qt.granularity == "per_group"
+    linear_rule = _fold_mma_launch if per_group else _mma_launch
+    token = (xs.abs().sum(dim=1) != 0).reshape(-1, tile_m)
+    for ex in torch.unique(gids[token.any(dim=1)]).tolist():
+        tiles = (gids == ex) & token.any(dim=1)
+        rows = tiles[:, None].expand(-1, tile_m).reshape(-1) & token.reshape(-1)
+        sub = dataclasses.replace(qt, packed=qt.packed[ex], scales=qt.scales[ex],
+                                  zero_points=qt.zero_points[ex], shape=(n, k))
+        lin = linear_at(xs[rows], sub, launch)
+        if not torch.equal(y[rows], lin):
+            d = (y[rows].float() - lin.float()).abs().max().item()
+            raise AssertionError(f"{name} N={n} K={k}: expert {ex}'s rows differ from the "
+                                 f"linear body at {launch} ({d})")
+    same = launch == linear_rule(n, k, sms)
+    print(f"    {name} N={n} K={k} tile_m={tile_m}: each expert's rows equal the linear body's "
+          f"at {launch} bit for bit ({'the' if same else 'not the'} linear rule's shape"
+          f"{'' if same else ' ' + str(linear_rule(n, k, sms))})")
+
+
 def check_grouped(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
+    """K2 at the expert shapes: decode (T=8, tile_m 16; f32 too) and the
+    prefill (T=600, tile_m 128), skewed routing, with zero padding rows
+    exactly 0; each expert's decode rows equal the linear body at the same
+    launch shape, and a token's rows are the same bits in a T=8 and a T=40
+    dispatch. bf16 rows print the main kernel's device time."""
     for n, k in ((ffn, hidden), (hidden, ffn)):       # gate/up, then down
         w = torch.randn((e, n, k), generator=gen, device=device) * k ** -0.5
         qt = quantize(w)
@@ -496,14 +557,18 @@ def check_grouped(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
                      BF16_REL_TOL * ref.float().abs().max().item(), results, timer,
                      lambda: ops.grouped_int4_matmul(xs, gids, qt, tile_m=tile_m),
                      lambda: ops.grouped_int4_matmul_reference(xs, gids, qt, tile_m=tile_m),
-                     work=grouped_bound(xs, gids, qt, 2 * t))
+                     iters=20 if t == 8 else 5, work=grouped_bound(xs, gids, qt, 2 * t),
+                     main="int4_mma_kernel")
             print(f"    tokens per expert {loads}, T_pad {plan.t_pad}")
             if t == 8:  # the f32 instantiation, at the decode shape
+                same_as_linear("grouped_int4_matmul", xs, gids, qt, tile_m, y)
                 xf = xs.float()
                 _compare("grouped_int4_matmul", f"T={t} tile_m={tile_m} N={n} K={k} f32",
                          ops.grouped_int4_matmul(xf, gids, qt, tile_m=tile_m),
                          ops.grouped_int4_matmul_reference(xf, gids, qt, tile_m=tile_m),
                          F32_ABS_TOL, results, None, None, None)
+        same_token_rows("grouped_int4_matmul", ops.grouped_int4_matmul, qt, k, e, gen, device,
+                        tile_m=16)
         del qt
 
 
@@ -554,18 +619,18 @@ def check_linear_a8(device, results, timer, gen):
         del qt
 
 
-def same_token_rows(name, op, qt, k, e, gen, device):
+def same_token_rows(name, op, qt, k, e, gen, device, tile_m=32):
     """One token's rows (its top-2 pairs) give the same bits in a T=8 and a
-    T=40 dispatch at tile_m 32, where they sit in other rows and tiles: the
-    int8 body's launch rule reads (N, K, gs, SMs) only."""
+    T=40 dispatch at ``tile_m``, where they sit in other rows and tiles: the
+    tensor-core bodies' launch rules read (N, K, (gs,) SMs) only."""
     x40 = torch.randn((40, k), generator=gen, device=device).bfloat16()
     bias = torch.log(1.0 / (torch.arange(e, device=device) + 1.0)) * 4.0
     logits = bias[None, :] + torch.randn((40, e), generator=gen, device=device)
     rows = []
     for t in (8, 40):
         routing = topk_route(logits[:t], 2, e)
-        plan = make_dispatch_plan(routing, e, tile_m=32)
-        y = op(dispatch(x40[:t], routing, plan), plan.tile_group_ids, qt, tile_m=32)
+        plan = make_dispatch_plan(routing, e, tile_m=tile_m)
+        y = op(dispatch(x40[:t], routing, plan), plan.tile_group_ids, qt, tile_m=tile_m)
         rows.append((y[plan.rows[:16]], plan.rows[:16]))
     (small, at8), (big, at40) = rows
     if torch.equal(at8, at40):
@@ -574,7 +639,8 @@ def same_token_rows(name, op, qt, k, e, gen, device):
         d = (small.float() - big.float()).abs().max().item()
         raise AssertionError(f"{name} N={qt.shape[1]} K={k}: a token's rows differ between "
                              f"T=8 and T=40 ({d})")
-    print(f"    {name} N={qt.shape[1]} K={k}: the 8 tokens' rows of T=8 equal T=40's bit for bit")
+    print(f"    {name} N={qt.shape[1]} K={k} tile_m={tile_m}: the 8 tokens' rows of T=8 equal "
+          "T=40's bit for bit")
 
 
 def check_grouped_a8(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
@@ -681,9 +747,12 @@ def check_linear_pg(device, results, timer, gen):
 def check_grouped_pg(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
     """K13 and K14 at the expert shapes, per group of 128: decode (T=8) at
     tile_m 16 (K13, the per_group mode) and 32 (K14, pg_turbo), and the
-    prefill (T=600) at tile_m 128, skewed routing. K14 (the int8 body) must
-    equal its plain version bit for bit in bf16 and f32, and a token's rows
-    must be the same bits in a T=8 and a T=40 dispatch; then K14 at gs 32
+    prefill (T=600) at tile_m 128, skewed routing. K13 (bf16 on the
+    tensor-core body) is held to its plain version at the w4a16 bars, its
+    decode rows to K7's body at the same launch shape bit for bit; K14 (the
+    int8 body) must equal its plain version bit for bit in bf16 and f32;
+    for both a token's rows must be the same bits in a T=8 and a T=40
+    dispatch; then K14 at gs 32
     (the int8 body's 8-byte runs) and gs 16 (the CUDA-core loop), and K10
     and K14 at N=256, where the launch splits K over CTAs (the ordered
     second pass)."""
@@ -714,9 +783,13 @@ def check_grouped_pg(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
                              lambda: op(xx, gids, qt, tile_m=tile_m),
                              lambda: plain(xx, gids, qt, tile_m=tile_m), iters=iters,
                              work=grouped_bound(xx, gids, qt, 2 * t, a8=a8),
-                             exact=a8, main="int8_mma_kernel" if a8 else None)
+                             exact=a8, main="int8_mma_kernel" if a8 else "int4_mma_kernel")
+                    if not a8 and not f32 and t == 8:
+                        same_as_linear("grouped_int4_matmul_per_group", xx, gids, qt, tile_m, y)
             print(f"    tokens per expert {routing.tokens_per_expert.tolist()}, "
                   f"T_pad {plan.t_pad}")
+        same_token_rows("grouped_int4_matmul_per_group", ops.grouped_int4_matmul_per_group,
+                        qt, k, e, gen, device, tile_m=16)
         same_token_rows("grouped_int4_matmul_per_group_a8", ops.grouped_int4_matmul_per_group_a8,
                         qt, k, e, gen, device)
         del qt

@@ -14,39 +14,52 @@
 // One launch covers every (row block, column block): each CTA reads the
 // expert of its own rows from tile_group_ids, so there is no host loop and no
 // device-to-host sync. Every column of N (also past 256) and every row of a
-// tile is written; zero rows give exactly zero.
+// tile is written; zero padding rows give exactly zero, and a block of
+// padding alone streams no weights (at decode, T=8, top-2, tile_m 16, 9
+// tiles, of which one per expert hit holds tokens).
 //
-// What bounds it on the H100: at decode a tile holds a few tokens, so the op
-// streams each selected expert's packed weights (N*K/2 bytes) for a handful of
-// rows: bound by HBM bytes, like K1. At prefill (tile_m = 128) each weight
-// byte serves MT rows per read, and the CUDA-core FMA loop becomes the bound.
-// The design is K1's inner loop (int4_rows.cuh) with the weight base chosen
-// per CTA. A first pass finds the zero padding rows at the end of each block
-// of MT rows: they are written as 0 without being computed, and an all-padding
-// block streams no weights (at decode, 7 of the 9 tiles of T=8, top-2).
+// K2 in bf16 runs the tensor-core body of int4_mma.cuh (K1's RowScale
+// arithmetic with grouped addressing; its note gives the design and the
+// bound): a first pass flags the rows in use, then the main kernel at the
+// launch shape of the Python wrapper's rule (ops.grouped_matmul:
+// _grouped_mma_launch at tile_m <= 64, which reads N, K and the SM count
+// only, so a token row's bits do not depend on its dispatch; the 64-row tile
+// of _mma_tall_launch at tile_m 128), and with splits > 1 the ordered second
+// pass. f32 K2, K12 and K9 run the CUDA-core loop of int4_rows.cuh (K1's old
+// inner loop with the weight base chosen per CTA; at prefill its FMA loop is
+// the bound), after a first pass that finds the zero padding rows at the end
+// of each block of rows.
 //
 // K9: on the TPU the k-split is a grid order that keeps one f32 accumulator
 // in VMEM across the k steps. Blocks of a GPU run in no order, so here the
 // split is split-K: `splits` CTAs share each output tile, each walking its
 // own range of K/2 and writing f32 partial sums; a second kernel adds them in
-// a fixed order and applies the scale. Deterministic, and equal to K2 up to
-// the reassociation of the f32 sum. Splitting pays only where the grid has
+// a fixed order and applies the scale. Deterministic; in f32 equal to K2 up
+// to the reassociation of the f32 sum, in bf16 K2 runs another body, whose
+// f32 sums run in another order again. Splitting pays only where the grid has
 // fewer CTAs than SMs (one CTA of 256 threads is resident per SM at these
 // register counts): at the layer2 shapes every extra split measured slower,
-// so the wrapper picks 1 there and K9 is K2 plus the ordered reduction.
-// Tensor-core MMA is later work.
+// so the wrapper picks 1 there and K9 is the CUDA-core loop plus the ordered
+// reduction.
+#include "int4_mma.cuh"
 #include "int4_rows.cuh"
 
-// rows_used: int32 scratch of ceil(T / MT) entries, MT = 16 (bf16) or 8 (f32).
-extern "C" int f4b_grouped_int4_matmul_bf16(const void* x, const void* gids,
-                                            const void* packed, const void* scales,
-                                            const void* zps, void* rows_used, void* y,
-                                            int T, int N, int K, int tile_m,
-                                            void* stream) {
-  return f4b::launch_int4_rows<__nv_bfloat16, false>(x, packed, scales, zps, gids, tile_m,
-                                                     rows_used, y, T, N, K, 0, stream);
+// K2 on the tensor cores: x [T, K] bf16; packed [E, N, K/2]; scales/zps [E, N];
+// used: int32 scratch of T (the first pass's row flags); partial: f32 scratch
+// of splits * T * N when splits > 1; mt 16, or 64 with tile_m % 64 == 0.
+extern "C" int f4b_grouped_int4_matmul_mma_bf16(const void* x, const void* gids,
+                                                const void* packed, const void* scales,
+                                                const void* zps, void* used, void* y,
+                                                void* partial, int T, int N, int K, int tile_m,
+                                                int ws, int kw, int splits, int mt,
+                                                void* stream) {
+  return f4b::launch_int4_mma<f4b::RowScale, true>(
+      f4b::mma_args(x, packed, scales, zps, y, partial, T, N, K, 0, ws, kw, splits, gids, used,
+                    tile_m),
+      mt, stream);
 }
 
+// K2 in f32 on the CUDA cores; rows_used: int32 scratch of ceil(T / 8).
 extern "C" int f4b_grouped_int4_matmul_f32(const void* x, const void* gids,
                                            const void* packed, const void* scales,
                                            const void* zps, void* rows_used, void* y,

@@ -3,15 +3,21 @@
 // with stacked planar_groups expert weights [E, Gh, N, gs].
 //
 // K13 replaces fused4bit_tpu/ops/grouped_matmul.py:_grouped_pg_bp_kernel
-// (w4a16) and runs the CUDA-core kernel of int4_rows_pg.cuh. K14 replaces
-// _grouped_pg_bp_a8_kernel (w4a8): at gs % 32 == 0 it runs the int8
-// tensor-core body of int8_mma.cuh (after its first pass,
-// f4b_a8_prepass_*, in grouped_matmul_a8.cu), at the other group sizes
-// planar_groups allows the CUDA-core kernel of int4_rows_pg.cuh. Both take
-// the expert per block of rows from tile_group_ids, K2's contract: one
-// launch, no host loop and no device-to-host sync, every column of N written
-// (also past 256), zero padding rows written as exactly 0 and an all-padding
-// block streams no weights.
+// (w4a16): in bf16 at gs % 64 == 0 it runs the tensor-core body of
+// int4_mma.cuh (K7's GroupFold arithmetic with grouped addressing: the raw
+// codes as mma operand A, each 64-byte chunk's f32 partials folded with its
+// group's scale and zero point, a first pass that flags the rows in use, the
+// launch shape of ops.grouped_matmul._grouped_mma_launch, which reads N, K
+// and the SM count only, or the 64-row tile at tile_m 128); in f32 or at the
+// other group sizes planar_groups allows, the CUDA-core kernel of
+// int4_rows_pg.cuh. K14 replaces _grouped_pg_bp_a8_kernel (w4a8): at gs % 32
+// == 0 it runs the int8 tensor-core body of int8_mma.cuh (after its first
+// pass, f4b_a8_prepass_*, in grouped_matmul_a8.cu), at the other group sizes
+// the CUDA-core kernel of int4_rows_pg.cuh. All take the expert per block of
+// rows from tile_group_ids, K2's contract: one launch, no host loop and no
+// device-to-host sync, every column of N written (also past 256), zero
+// padding rows written as exactly 0 and an all-padding block streams no
+// weights.
 //
 // What bounds the CUDA-core kernels on the H100: at decode (T = 8 tokens,
 // top-2) a tile holds a token or two, so the op streams each selected
@@ -20,10 +26,26 @@
 // the zero padding rows at the end of each block of MT rows. At prefill
 // (tile_m = 128) each weight byte serves MT rows per read and the CUDA-core
 // loop (FMA in K13, __dp4a in K14) becomes the bound.
+#include "int4_mma.cuh"
 #include "int4_rows_pg.cuh"
 #include "int8_mma.cuh"
 
-// K13: x [T, K] bf16 or f32; rows_used: int32 scratch of ceil(T / MT), MT = 16
+// K13 on the tensor cores: x [T, K] bf16; packed [E, K/2/gs, N, gs] u8;
+// scales/zps [E, N, K/gs]; gs % 64 == 0 dividing K/2; used, partial and mt as
+// for K2 (grouped_matmul.cu).
+extern "C" int f4b_grouped_int4_matmul_pg_mma_bf16(const void* x, const void* gids,
+                                                   const void* packed, const void* scales,
+                                                   const void* zps, void* used, void* y,
+                                                   void* partial, int T, int N, int K, int gs,
+                                                   int tile_m, int ws, int kw, int splits, int mt,
+                                                   void* stream) {
+  return f4b::launch_int4_mma<f4b::GroupFold, true>(
+      f4b::mma_args(x, packed, scales, zps, y, partial, T, N, K, gs, ws, kw, splits, gids, used,
+                    tile_m),
+      mt, stream);
+}
+
+// K13 on the CUDA cores: x [T, K] bf16 or f32; rows_used: int32 scratch of ceil(T / MT), MT = 16
 // (bf16) or 8 (f32).
 extern "C" int f4b_grouped_int4_matmul_pg_bf16(const void* x, const void* gids,
                                                const void* packed, const void* scales,

@@ -1,8 +1,11 @@
-// Tensor-core body of the bf16 w4a16 linears: K1 (per row) and K6 (per
-// group, planar), launched by int4_matmul.cu, and K7 (per group,
-// planar_groups, gs % 64 == 0), launched by int4_matmul_pg.cu. The f32 entry
-// points, K7 at other group sizes, and the grouped kernels K2, K9 and K12
-// stay on int4_rows.cuh / int4_rows_pg.cuh.
+// Tensor-core body of the bf16 w4a16 linears and grouped expert products:
+// K1 (per row) and K6 (per group, planar), launched by int4_matmul.cu; K7
+// (per group, planar_groups, gs % 64 == 0), launched by int4_matmul_pg.cu;
+// and, with grouped addressing (an expert per block of rows), K2 (K1's
+// arithmetic, grouped_matmul.cu) and K13 (K7's, gs % 64 == 0,
+// grouped_matmul_pg.cu). The f32 entry points, K7 and K13 at other group
+// sizes, and the grouped kernels K9 and K12 stay on int4_rows.cuh /
+// int4_rows_pg.cuh.
 //
 // What it computes (the TPU kernels' arithmetic, with the order of the f32
 // sum changed):
@@ -16,6 +19,10 @@
 //       kernel's batched-partials fold, fused4bit_tpu/ops/int4_matmul.py:
 //       _int4_group_bp_kernel: its a_hi * P_hi is (s_hi / 16) * 16 P_hi, the
 //       same product; it folds per group, here per chunk of its group).
+//   K2, K13: K1's and K7's sums over the weights of expert e = gids[m / tile_m],
+//       the expert of row m's tile (the TPU kernels _grouped_kernel and
+//       _grouped_pg_bp_kernel, fused4bit_tpu/ops/grouped_matmul.py; the
+//       latter folds per group).
 // with q the 4-bit codes of the planar bytes (byte c of row n: column c in
 // the low nibble, column K/2 + c XOR 8 in the high nibble) and integer zero
 // points in [0, 15], as the quantizer gives them. (q - zp) lies in [-15, 15]
@@ -62,12 +69,16 @@
 //   fixed order after the stage is staged, so no row reads another's).
 // * Filling the card: a warp owns a 16-row tile and a slice of `ws` k steps;
 //   a CTA of 8 warps is `kw` warps along K times 8 / kw row tiles, and grid z
-//   splits K into `splits` ranges of kw * ws steps. The launch rule
+//   splits K into `splits` ranges of kw * ws steps. A warp walks its slice in
+//   stages of up to 32 steps; in stage i the CTA's kw warps take kw
+//   consecutive runs of the stage's steps, warp 0 first. The launch rule
 //   (ops.int4_matmul._mma_launch; K7: _fold_mma_launch, whole chunks per
-//   warp) picks (ws, kw, splits) from (N, K, SM count) only, so every row's
-//   sum runs in the same order at every M up to 64: a row's output does not
-//   depend on M (the self-draft speculative verify at M = 40 must reproduce
-//   the M = 8 decode bit for bit). Partial sums meet in a fixed order:
+//   warp; K2 and K13: ops.grouped_matmul._grouped_mma_launch) picks (ws, kw,
+//   splits) from (N, K, SM count) only, so every row's sum runs in the same
+//   order whatever rows sit beside it: a row's output does not depend on M
+//   up to 64 (the self-draft speculative verify at M = 40 must reproduce the
+//   M = 8 decode bit for bit), nor, for K2 and K13, on the T, the tile_m (up
+//   to 64) or the routing of the dispatch. Partial sums meet in a fixed order:
 //   through shared memory inside a CTA (warps kw = 0, 1, ...), then, with
 //   splits > 1, as f32 partials [splits, M, N] that a second kernel adds in
 //   order z = 0, 1, ... No float atomics.
@@ -81,7 +92,19 @@
 //   from L2). Above 64 rows (prefill) it takes 64, so each A fragment feeds
 //   8 MMAs, and its warps (one per row tile) walk their range of K in stages
 //   of 32 k steps; there K is split across CTAs only until every SM has one
-//   (ops.int4_matmul._mma_tall_launch).
+//   (ops.int4_matmul._mma_tall_launch; K2 and K13 at tile_m 128).
+// * Grouped addressing (K2, K13): a CTA's block of rows lies in one tile
+//   (tile_m % 16 == 0, or % 64 with the tall tile) and reads its expert from
+//   gids, offsetting the weights, scales and zero points (size_t: a stack of
+//   experts passes 2^31 bytes). A first pass (rows_used_kernel, a CTA per
+//   row) flags the rows that hold a nonzero; a block computes only up to its
+//   last flagged row (the dispatch's zero padding sits at the end of each
+//   expert's rows), stages and multiplies only the n8 tiles of x those rows
+//   fill (one MMA per A fragment at 8 rows or fewer), writes the rows after
+//   it as exactly 0, and a block of padding alone exits before any weight
+//   load. (Each CTA reading its block's rows of x itself before its weight
+//   loads, every CTA along N repeating the read, measured 7-12 % slower on
+//   the H100 than the first pass; PERF.md.)
 //
 // Masking: output rows past N read zero bytes and are not stored; x rows past
 // M and columns past K/2 (K % 128 != 0) are staged as zero.
@@ -117,22 +140,27 @@ struct GroupFold {
 
 struct MmaArgs {
   const __nv_bfloat16* x;   // [M, K], 16-byte aligned
-  const uint8_t* packed;    // [N, K/2] planar (K1, K6) or [K/2/gs, N, gs] planar_groups (K7)
-  const float* scales;      // [N] (K1) or [N, K/gs] (K6, K7)
+  const uint8_t* packed;    // [N, K/2] planar (K1, K6) or [K/2/gs, N, gs] planar_groups (K7); a stack of E (K2, K13)
+  const float* scales;      // [N] (K1) or [N, K/gs] (K6, K7); a stack of E (K2, K13)
   const float* zps;         // the same shape, integers in [0, 15]
   __nv_bfloat16* y;         // [M, N]
   float* partial;           // [splits, M, N] f32 scratch when splits > 1
+  const int32_t* gids;      // grouped: [M / tile_m] the expert of each tile of tile_m rows
+  int32_t* used;            // grouped: [M] int32 scratch for the first pass's row flags
   int M, N, K, gs;
   int ws, kw, splits;       // k steps per warp, warps along K per CTA, CTAs along K
+  int tile_m;               // grouped: rows per tile, each tile one expert's
 };
 
 inline MmaArgs mma_args(const void* x, const void* packed, const void* scales, const void* zps,
                         void* y, void* partial, int M, int N, int K, int gs, int ws, int kw,
-                        int splits) {
+                        int splits, const void* gids = nullptr, void* used = nullptr,
+                        int tile_m = 0) {
   return MmaArgs{static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
                  static_cast<const float*>(scales), static_cast<const float*>(zps),
                  static_cast<__nv_bfloat16*>(y), static_cast<float*>(partial),
-                 M, N, K, gs, ws, kw, splits};
+                 static_cast<const int32_t*>(gids), static_cast<int32_t*>(used),
+                 M, N, K, gs, ws, kw, splits, tile_m};
 }
 
 __device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
@@ -189,15 +217,42 @@ __device__ __forceinline__ const uint4* weight_run(const MmaArgs& p, int n, int 
   }
 }
 
+// The grouped launches' first pass: used[m] = 1 if row m of x holds a nonzero
+// bit, else 0. A CTA per row.
+__global__ void __launch_bounds__(kMmaThreads) rows_used_kernel(const __nv_bfloat16* __restrict__ x,
+                                                                int K, int32_t* __restrict__ used) {
+  const uint4* row = reinterpret_cast<const uint4*>(x + static_cast<size_t>(blockIdx.x) * K);
+  uint32_t bits = 0u;
+  for (int i = threadIdx.x; i < K / 8; i += kMmaThreads) {
+    const uint4 u = __ldg(row + i);
+    bits |= u.x | u.y | u.z | u.w;
+  }
+  const int any = __syncthreads_or(bits != 0u);
+  if (threadIdx.x == 0) used[blockIdx.x] = any != 0;
+}
+
+// 1 + the last of the `rows` rows from m0 that the first pass flagged (0: all
+// zero padding). CTA-uniform; every thread of the CTA must call it.
+__device__ __forceinline__ int mma_rows_in_use(const int32_t* used, int m0, int rows) {
+  __shared__ int last;
+  if (threadIdx.x == 0) last = 0;
+  __syncthreads();
+  if (threadIdx.x < rows && used[m0 + threadIdx.x]) atomicMax(&last, threadIdx.x + 1);
+  __syncthreads();
+  return last;
+}
+
 // NT n8 tiles of x rows per CTA (16 or 64 rows). One CTA: 8 warps, warp w
 // on row tile blockIdx.x * (8 / kw) + w / kw and K slice w % kw of the CTA's
-// range blockIdx.z; x rows blockIdx.y * 8 * NT onward.
-template <class P, int NT>
-__global__ void __launch_bounds__(kMmaThreads, NT <= 2 ? 2 : 1) int4_mma_kernel(const MmaArgs p) {
+// range blockIdx.z; x rows blockIdx.y * 8 * NT onward. G: grouped addressing
+// (K2, K13), the block's expert from gids and only its rows in use.
+template <class P, int NT, bool G>
+__global__ void __launch_bounds__(kMmaThreads, NT <= 2 ? 2 : 1) int4_mma_kernel(const MmaArgs args) {
   constexpr int MT = NT * 8;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
 
+  MmaArgs p = args;
   const int kh = p.K / 2;
   const int chunks = (kh + kChunkBytes - 1) / kChunkBytes;
   const int steps = chunks * kStepsPerChunk;
@@ -208,12 +263,33 @@ __global__ void __launch_bounds__(kMmaThreads, NT <= 2 ? 2 : 1) int4_mma_kernel(
   const int na = n0 + g, nb = n0 + g + 8;  // the lane's two weight rows
   const int m0 = blockIdx.y * MT;
   const int mrows = min(MT, p.M - m0);
+  const int ng = P::kGroupScales ? p.K / p.gs : 1;
+  // x rows the CTA computes: all of them, or (G) up to the block's last row
+  // in use; the rows after it are zero padding and give exactly 0.
+  int mcount = mrows;
+  if constexpr (G) {
+    mcount = mma_rows_in_use(p.used, m0, mrows);
+    if (mcount == 0) {  // all zero padding: no weights, the outputs are 0
+      if (p.splits == 1) {
+        const int nb0 = blockIdx.x * (kMmaWarps / p.kw) * 16;
+        const int ncols = min((kMmaWarps / p.kw) * 16, p.N - nb0);
+        for (int i = threadIdx.x; i < mrows * ncols; i += kMmaThreads) {
+          const int r = i / ncols;
+          p.y[static_cast<size_t>(m0 + r) * p.N + nb0 + (i - r * ncols)] = __float2bfloat16(0.f);
+        }
+      }
+      return;
+    }
+    const size_t e = p.gids[m0 / p.tile_m];  // the block's expert
+    p.packed += e * p.N * kh;
+    p.scales += e * p.N * ng;
+    p.zps += e * p.N * ng;
+  }
   const int stage_cap = p.kw * min(kStageSteps, p.ws) / kStepsPerChunk;  // chunks per stage
   const int rs = stage_cap * 2 * kChunkBytes + 8;  // staged row: [lo | hi | 8 pad] bf16
   const int cs = blockIdx.z * p.kw * p.ws;         // the CTA's first k step
   const int ce = min(steps, cs + p.kw * p.ws);
-  const int xrows = min(MT, (mrows + 7) & ~7);     // staged rows: whole n8 tiles
-  const int ng = P::kGroupScales ? p.K / p.gs : 1;
+  const int xrows = min(MT, (mcount + 7) & ~7);    // staged rows: whole n8 tiles
   // GroupFold: X, the sums of the staged x per [chunk of the stage][half][row]
   float* xsum = reinterpret_cast<float*>(smem + static_cast<size_t>(MT) * rs * 2);
 
@@ -227,12 +303,14 @@ __global__ void __launch_bounds__(kMmaThreads, NT <= 2 ? 2 : 1) int4_mma_kernel(
   for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
   for (int o = 0; o < p.ws; o += kStageSteps) {
-    // Stage o of a warp's slice: its k steps o .. o + 32, the chunks the CTA
-    // stages for it, and the warp's steps [wa, wb) among them.
+    // Stage o of a warp's slice (its k steps o .. o + 32): the CTA's steps
+    // from s0, the chunks the CTA stages for them, and the warp's steps
+    // [wa, wb) among them.
     const int len = min(kStageSteps, p.ws - o);
-    const int c_first = (cs + o) / kStepsPerChunk;
+    const int s0 = cs + o * p.kw;
+    const int c_first = s0 / kStepsPerChunk;
     const int c_count = min(p.kw * len / kStepsPerChunk, chunks - c_first);  // may be <= 0
-    const int wa = min(cs + o + kwi * len, ce);
+    const int wa = min(s0 + kwi * len, ce);
     const int wb = min(wa + len, ce);
     const int ca = wa / kStepsPerChunk;
 
@@ -333,7 +411,7 @@ __global__ void __launch_bounds__(kMmaThreads, NT <= 2 ? 2 : 1) int4_mma_kernel(
           }
 #pragma unroll
           for (int j = 0; j < NT; ++j) {
-            if (8 * j < mrows) {  // CTA-uniform
+            if (8 * j < mcount) {  // CTA-uniform
               const __nv_bfloat16* row = xs + (8 * j + g) * rs + h * stage_cap * kChunkBytes +
                                          sc_off;
               const uint4 x0 = *reinterpret_cast<const uint4*>(row);
@@ -396,7 +474,7 @@ __global__ void __launch_bounds__(kMmaThreads, NT <= 2 ? 2 : 1) int4_mma_kernel(
         // k step s's b0 (low half) and b1 (high half).
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
-          if (8 * j < mrows) {  // CTA-uniform
+          if (8 * j < mcount) {  // CTA-uniform
             const __nv_bfloat16* row = xs + (8 * j + g) * rs + sc_off;
             const uint4 l0 = *reinterpret_cast<const uint4*>(row);
             const uint4 l1 = *reinterpret_cast<const uint4*>(row + 8);
@@ -415,13 +493,15 @@ __global__ void __launch_bounds__(kMmaThreads, NT <= 2 ? 2 : 1) int4_mma_kernel(
   }
 
   // Epilogue. acc[j]: (row g, x rows 8j + 2t, +1), (row g + 8, the same).
+  // Rows past the rows in use are 0 (with splits > 1, the second pass's).
   auto store = [&](int m, int n, float v) {
     if (m >= p.M || n >= p.N) return;
     const size_t at = static_cast<size_t>(m) * p.N + n;
+    const bool live = m < m0 + mcount;
     if (p.splits > 1) {
-      p.partial[static_cast<size_t>(blockIdx.z) * p.M * p.N + at] = v;
+      if (live) p.partial[static_cast<size_t>(blockIdx.z) * p.M * p.N + at] = v;
     } else {
-      p.y[at] = __float2bfloat16(P::kGroupScales ? v : __ldg(p.scales + n) * v);
+      p.y[at] = __float2bfloat16(!live ? 0.f : P::kGroupScales ? v : __ldg(p.scales + n) * v);
     }
   };
   if (p.kw == 1) {
@@ -457,20 +537,32 @@ __global__ void __launch_bounds__(kMmaThreads, NT <= 2 ? 2 : 1) int4_mma_kernel(
   }
 }
 
-// The splits' f32 partials added in order z = 0, 1, ..., then (K1) the scale.
+// The splits' f32 partials added in order z = 0, 1, ..., then (K1, K2) the
+// scale. Grouped (gids): the row's expert's scale, and 0 for a row past its
+// block's rows in use (blocks of mt rows), for which no partial was written.
 template <class P>
-__global__ void __launch_bounds__(kMmaThreads) int4_mma_reduce_kernel(
-    const float* __restrict__ partial, int splits, const float* __restrict__ scales,
-    __nv_bfloat16* __restrict__ y, int M, int N) {
+__global__ void __launch_bounds__(kMmaThreads) int4_mma_reduce_kernel(const MmaArgs p, int mt) {
   const size_t i = static_cast<size_t>(blockIdx.x) * kMmaThreads + threadIdx.x;
-  const size_t mn = static_cast<size_t>(M) * N;
+  const size_t mn = static_cast<size_t>(p.M) * p.N;
   if (i >= mn) return;
-  float v = partial[i];
-  for (int z = 1; z < splits; ++z) v += partial[z * mn + i];
-  y[i] = __float2bfloat16(P::kGroupScales ? v : scales[i % N] * v);
+  const int m = static_cast<int>(i / p.N), n = static_cast<int>(i % p.N);
+  const float* s = p.scales;
+  if (p.gids != nullptr) {
+    const int b0 = m - m % mt;
+    int last = 0;
+    for (int r = b0; r < min(b0 + mt, p.M); ++r) last = p.used[r] ? r - b0 + 1 : last;
+    if (m - b0 >= last) {
+      p.y[i] = __float2bfloat16(0.f);
+      return;
+    }
+    s += static_cast<size_t>(p.gids[m / p.tile_m]) * p.N;
+  }
+  float v = p.partial[i];
+  for (int z = 1; z < p.splits; ++z) v += p.partial[z * mn + i];
+  p.y[i] = __float2bfloat16(P::kGroupScales ? v : s[n] * v);
 }
 
-template <class P, int NT>
+template <class P, int NT, bool G>
 int launch_mma_tile(const MmaArgs& p, dim3 grid, size_t smem, cudaStream_t st) {
   // The dynamic shared memory each device already allows the kernel (48 KB
   // by default); raised once per device to the largest launch so far.
@@ -480,31 +572,41 @@ int launch_mma_tile(const MmaArgs& p, dim3 grid, size_t smem, cudaStream_t st) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (smem > 48 * 1024 && (dev >= kDevices || smem > allowed[dev])) {
-    err = cudaFuncSetAttribute(int4_mma_kernel<P, NT>,
+    err = cudaFuncSetAttribute(int4_mma_kernel<P, NT, G>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev < kDevices) allowed[dev] = smem;
   }
-  int4_mma_kernel<P, NT><<<grid, kMmaThreads, smem, st>>>(p);
+  int4_mma_kernel<P, NT, G><<<grid, kMmaThreads, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Launch on `stream` with `mt` rows of x per CTA (16, or 64 above 64 rows). Requires
 // K % 32 == 0, ws >= 1, kw in {1, 2, 4, 8}, kw * min(32, ws) a multiple of 8
-// (a CTA's range is whole chunks), ws <= 32 unless kw == 1, and
+// (a CTA's stage is whole chunks), ws <= 32 or a multiple of 8, and
 // partial != nullptr when splits > 1. GroupFold also requires whole chunks
-// per warp (ws % 8 == 0) and gs % 64 == 0 dividing K/2.
-template <class P>
+// per warp (ws % 8 == 0) and gs % 64 == 0 dividing K/2. G (grouped: K2, K13)
+// requires gids, tile_m % mt == 0 and `used` (M ints of scratch for the first
+// pass, which runs before the main kernel).
+template <class P, bool G = false>
 int launch_int4_mma(const MmaArgs& p, int mt, void* stream) {
   const bool fold_ok = !P::kFold || (p.ws % kStepsPerChunk == 0 && p.gs > 0 &&
                                      p.gs % kChunkBytes == 0 && (p.K / 2) % p.gs == 0);
+  const bool grouped_ok = !G || (p.gids != nullptr && p.used != nullptr && p.tile_m > 0 &&
+                                 p.tile_m % mt == 0);
   const bool ok = p.ws >= 1 && (p.kw == 1 || p.kw == 2 || p.kw == 4 || p.kw == 8) &&
                   (p.kw * min(kStageSteps, p.ws)) % kStepsPerChunk == 0 &&
-                  (p.ws <= kStageSteps || p.kw == 1) && p.splits >= 1 &&
+                  (p.ws <= kStageSteps || p.ws % kStepsPerChunk == 0) && p.splits >= 1 &&
                   (p.splits == 1 || p.partial != nullptr) && (mt == 16 || mt == 64) &&
-                  p.K % 32 == 0 && fold_ok;
+                  p.K % 32 == 0 && fold_ok && grouped_ok;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.M == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (G) {
+    rows_used_kernel<<<p.M, kMmaThreads, 0, st>>>(p.x, p.K, p.used);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const int tiles = (p.N + 15) / 16;
   const int per_cta = kMmaWarps / p.kw;
   const int stage_cap = p.kw * min(kStageSteps, p.ws) / kStepsPerChunk;
@@ -513,13 +615,12 @@ int launch_int4_mma(const MmaArgs& p, int mt, void* stream) {
   const size_t red_bytes = p.kw > 1 ? static_cast<size_t>(kMmaWarps) * 16 * mt * 4 : 0;
   const dim3 grid((tiles + per_cta - 1) / per_cta, (p.M + mt - 1) / mt, p.splits);
   const size_t smem = xs_bytes > red_bytes ? xs_bytes : red_bytes;
-  const int err = mt == 16 ? launch_mma_tile<P, 2>(p, grid, smem, st)
-                           : launch_mma_tile<P, 8>(p, grid, smem, st);
+  const int err = mt == 16 ? launch_mma_tile<P, 2, G>(p, grid, smem, st)
+                           : launch_mma_tile<P, 8, G>(p, grid, smem, st);
   if (err != 0 || p.splits == 1) return err;
   const size_t mn = static_cast<size_t>(p.M) * p.N;
   int4_mma_reduce_kernel<P><<<static_cast<unsigned>((mn + kMmaThreads - 1) / kMmaThreads),
-                              kMmaThreads, 0, st>>>(p.partial, p.splits, p.scales, p.y, p.M,
-                                                    p.N);
+                              kMmaThreads, 0, st>>>(p, mt);
   return static_cast<int>(cudaGetLastError());
 }
 

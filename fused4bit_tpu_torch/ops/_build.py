@@ -44,7 +44,9 @@ _SIGNATURES = {
     # x, packed, scales, zps, y, partial; M, N, K, ws, kw, splits, mt; stream
     "f4b_int4_matmul_bf16": [_P] * 6 + [_I] * 7 + [_P],
     "f4b_int4_matmul_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "f4b_grouped_int4_matmul_bf16": [_P] * 7 + [_I] * 4 + [_P],
+    # x, gids, packed, scales, zps, used, y, partial; T, N, K, (gs,) tile_m, ws, kw, splits, mt
+    "f4b_grouped_int4_matmul_mma_bf16": [_P] * 8 + [_I] * 8 + [_P],
+    "f4b_grouped_int4_matmul_pg_mma_bf16": [_P] * 8 + [_I] * 9 + [_P],
     "f4b_grouped_int4_matmul_f32": [_P] * 7 + [_I] * 4 + [_P],
     # q, kp, ks, kz, vp, vs, vz, lengths, starts, out, partial; B, Hkv, G, Tq, S, D, QT, seg
     "f4b_int4_attention_bf16": [_P] * 11 + [_I] * 8 + [_P],

@@ -8,8 +8,10 @@ tokens sorted by expert, each expert's group zero-padded to a multiple of
 and no device-to-host sync, and runs its plain version on a CPU tensor:
 
 * ``grouped_int4_matmul`` (w4a16): ``csrc/grouped_matmul.cu``, K2 (the port
-  of the TPU kernel ``_grouped_kernel``), or with ``mode="ksplit"`` K9 (the
-  port of ``_grouped_ksplit_kernel``: K2 split over K);
+  of the TPU kernel ``_grouped_kernel``; bf16 on the tensor-core body of
+  ``csrc/int4_mma.cuh``, f32 on the CUDA-core loop of
+  ``csrc/int4_rows.cuh``), or with ``mode="ksplit"`` K9 (the port of
+  ``_grouped_ksplit_kernel``: the CUDA-core loop split over K);
 * ``grouped_int4_matmul_a8`` (w4a8, per-row int8 activations, exact integer
   dot): ``csrc/grouped_matmul_a8.cu``, K10 (the port of
   ``_grouped_a8_kernel``) on the int8 tensor-core body of
@@ -18,7 +20,9 @@ and no device-to-host sync, and runs its plain version on a CPU tensor:
   kernel;
 * ``grouped_int4_matmul_per_group`` (w4a16, per-group experts): in the
   planar_groups layout ``csrc/grouped_matmul_pg.cu``, K13 (the port of
-  ``_grouped_pg_bp_kernel``); in the planar layout (what ``models.convert``
+  ``_grouped_pg_bp_kernel``; bf16 at ``gs % 64 == 0`` on the tensor-core
+  body, else the CUDA-core loop of ``csrc/int4_rows_pg.cuh``); in the
+  planar layout (what ``models.convert``
   produces) ``csrc/grouped_matmul.cu``, K12 (the port of
   ``_grouped_pg_kernel``);
 * ``grouped_int4_matmul_per_group_a8`` (w4a8, the same experts): K14 (the
@@ -27,9 +31,11 @@ and no device-to-host sync, and runs its plain version on a CPU tensor:
   tensor-core body (its first pass quantizes), else on the CUDA-core loop of
   ``csrc/int4_rows_pg.cuh``.
 
-The int8 body's launch shape comes from :func:`_a8_mma_launch`, which reads
-(N, K, gs, SM count) only: a token row's output bits do not depend on the
-tile, the T or the routing it sits in.
+The tensor-core bodies' launch shapes come from :func:`_grouped_mma_launch`
+(K2, K13) and :func:`_a8_mma_launch` (K10, K14), which read (N, K, SM count)
+and (N, K, gs, SM count) only: a token row's output bits do not depend on
+the tile, the T or the routing it sits in (K2 and K13 up to tile_m 64; at
+tile_m 128, the prefill's, they take 64-row tiles whose launch may read T).
 """
 from __future__ import annotations
 
@@ -42,10 +48,13 @@ from ..quant.core import QuantizedTensor, dequantize, planar_groups_to_planar, u
 from ..quant.reference import full_precision
 from . import _build
 from .int4_matmul import (
+    _MMA_TALL_M,
     _a8_product,
     _check_per_group,
     _check_pg_operands,
     _compute_dtype,
+    _k7_on_tensor_cores,
+    _mma_tall_launch,
     _pg_a8_product,
     _sm_count,
     planar_pg_weight,
@@ -61,11 +70,13 @@ __all__ = [
 ]
 
 _KERNELS = {
-    torch.bfloat16: "f4b_grouped_int4_matmul_bf16",
+    torch.bfloat16: "f4b_grouped_int4_matmul_mma_bf16",   # K2 on the tensor-core body
     torch.float32: "f4b_grouped_int4_matmul_f32",
 }
-# x rows per CTA of the kernel (csrc/int4_rows.cuh: RowsTile): an m-tile must
-# hold a whole number of them.
+_PG_MMA_KERNEL = "f4b_grouped_int4_matmul_pg_mma_bf16"   # K13 on the tensor-core body
+# x rows per CTA (bf16: the tensor-core body's decode tile; the CUDA-core
+# loops of csrc/int4_rows.cuh, RowsTile): an m-tile must hold a whole number
+# of them.
 _KERNEL_ROWS = {torch.bfloat16: 16, torch.float32: 8}
 _A8_FUSED_KERNELS = {
     torch.bfloat16: "f4b_grouped_int4_matmul_a8_fused_bf16",
@@ -187,6 +198,67 @@ def _ksplit_splits(t_pad: int, n: int, k: int, rows: int) -> int:
     return max(1, min(-(-(k // 2) // _CHUNK), -(-_KSPLIT_CTAS // ctas)))
 
 
+# --- the tensor-core body (csrc/int4_mma.cuh) with grouped addressing: K2, K13 ---
+
+
+def _grouped_mma_launch(n: int, k: int, sms: int) -> tuple:
+    """The launch shape ``(ws, kw, splits)`` of the tensor-core body for K2
+    and K13 at tile_m <= 64, for an [N, K] expert weight on a card of ``sms``
+    SMs: each warp takes a 16-row tile of output rows and ``ws`` k steps
+    (whole chunks of 64 packed bytes, 8 steps each, so K13 folds whole
+    chunks), a CTA of 8 warps puts ``kw`` of them along K (8 / kw row tiles),
+    and ``splits`` CTAs cover K.
+
+    K/2 is cut into the fewest slices that give every SM two warps from one
+    block of 16 rows alone (a decode step where one expert is hit); the
+    slices go to warps of a CTA first (up to 8, added through shared
+    memory), then to CTAs along K (added by a second pass).
+
+    It reads (N, K, SMs) only, never T, tile_m or the routing: a token row's
+    sums then run in the same order wherever it sits, so its output bits do
+    not depend on the tile, the tile_m or the T of its dispatch."""
+    tiles = -(-n // 16)
+    chunks = -(-(k // 2) // 64)
+    slices = max(1, min(chunks, -(-2 * sms // tiles)))
+    kw = min(8, 1 << (slices - 1).bit_length())
+    ws = 8 * -(-chunks // (kw * -(-slices // kw)))
+    return ws, kw, -(-8 * chunks // (kw * ws))
+
+
+def _launch_grouped_mma(x_sorted: torch.Tensor, tile_group_ids: torch.Tensor, qt: QuantizedTensor,
+                        tile_m: int, *, launch: Optional[tuple] = None) -> torch.Tensor:
+    """K2 (per_row ``qt``) or K13 (per_group) on the tensor-core body: its
+    first pass (which rows hold a nonzero), the main kernel with 16 rows of
+    x per CTA at :func:`_grouped_mma_launch`'s shape (or ``launch``), or at
+    tile_m 128 (a multiple of 64 above 64: the prefill's tiles) with 64 at
+    :func:`~.int4_matmul._mma_tall_launch`'s, and with splits > 1 the
+    ordered second pass. x_sorted 16-byte aligned, operands checked."""
+    m, k = x_sorted.shape
+    n = qt.shape[1]
+    dev = x_sorted.device
+    sms = _sm_count(dev.index)
+    tall = tile_m > _MMA_TALL_M and tile_m % _MMA_TALL_M == 0
+    if launch is None:
+        launch = _mma_tall_launch(n, k, m, sms) if tall else _grouped_mma_launch(n, k, sms)
+    ws, kw, splits = launch
+    per_group = qt.granularity == "per_group"
+    y = torch.empty((m, n), dtype=x_sorted.dtype, device=dev)
+    if m == 0:
+        return y
+    used = torch.empty((m,), dtype=torch.int32, device=dev)
+    partial = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
+               if splits > 1 else None)
+    with torch.cuda.device(dev):
+        err = getattr(_build.library(), _PG_MMA_KERNEL if per_group else _KERNELS[torch.bfloat16])(
+            x_sorted.data_ptr(), tile_group_ids.data_ptr(), qt.packed.data_ptr(),
+            qt.scales.data_ptr(), qt.zero_points.data_ptr(), used.data_ptr(), y.data_ptr(),
+            None if partial is None else partial.data_ptr(), m, n, k,
+            *([qt.group_size] if per_group else []), tile_m, ws, kw, splits,
+            _MMA_TALL_M if tall else 16, _build.stream_of(x_sorted))
+    _build.check(err, "grouped_int4_matmul_per_group" if per_group else "grouped_int4_matmul")
+    return y
+
+
 def grouped_int4_matmul(
     x_sorted: torch.Tensor,
     tile_group_ids: torch.Tensor,
@@ -199,10 +271,13 @@ def grouped_int4_matmul(
 
     x_sorted: [T_pad, K] bf16 or f32; tile_group_ids: [T_pad // tile_m] i32;
     qt: stacked per_row planar [E, N, K]. Returns [T_pad, N] in x.dtype.
+    K2 runs bf16 x on the tensor-core body (:func:`_launch_grouped_mma`),
+    f32 x on the CUDA-core loop.
 
-    ``mode``, as in JAX: ``"ksplit"`` launches K9 (K2 split over K into as
-    many ranges as it takes to give every SM a CTA, f32 partial sums added
-    in a fixed order: equal to K2 up to the reassociation of the f32 sum).
+    ``mode``, as in JAX: ``"ksplit"`` launches K9 (the CUDA-core loop split
+    over K into as many ranges as it takes to give every SM a CTA, f32
+    partial sums added in a fixed order: the same function as K2, its f32
+    sums in another order).
     ``None``, ``"n_inner"``, ``"m_inner"`` and ``"x_resident"`` launch K2: on the TPU
     they are VMEM schedules of one computation picked by a TPU traffic
     model, which is TPU tuning and not ported. Any other mode raises
@@ -227,6 +302,10 @@ def grouped_int4_matmul(
         raise ValueError(f"{what} needs K % 32 == 0 (16-byte packed rows), got K={k}")
     _check_device_operands(x_sorted, tile_group_ids, qt)
     x_sorted = _aligned_rows(x_sorted)
+    if mode != "ksplit" and dtype == torch.bfloat16:
+        y = _launch_grouped_mma(x_sorted, tile_group_ids, qt, tile_m)
+        grouped_int4_matmul.launches += 1
+        return y
     y = torch.empty((t_pad, n), dtype=dtype, device=x_sorted.device)
     if t_pad == 0:
         return y
@@ -581,6 +660,9 @@ def grouped_int4_matmul_per_group(
     qt: stacked per_group [E, N, K], planar_groups with gs a multiple of 16
     dividing K/2 (K13) or planar with gs a multiple of 128 dividing K/2 (K12;
     see ``int4_matmul._check_per_group``). Returns [T_pad, N] in x.dtype.
+    K13 runs on the tensor-core body where K7 does
+    (:func:`~.int4_matmul._k7_on_tensor_cores`: bf16 x, ``gs % 64 == 0``),
+    else on the CUDA-core loop; K12 on the CUDA-core loop.
     """
     _check_pg(x_sorted, tile_group_ids, qt, tile_m)
     planar = qt.layout == "planar"
@@ -592,8 +674,16 @@ def grouped_int4_matmul_per_group(
     if x_sorted.dtype not in _PG_KERNELS:
         raise TypeError(f"{what} takes bf16 or f32 activations, got {x_sorted.dtype}")
     x_sorted = _aligned_rows(x_sorted)
-    y = _launch_pg(_PLANAR_PG_KERNELS if planar else _PG_KERNELS, what, x_sorted, None,
-                   x_sorted, tile_group_ids, qt, tile_m, _KERNEL_ROWS[x_sorted.dtype])
+    rows = _KERNEL_ROWS[x_sorted.dtype]
+    if not planar and _k7_on_tensor_cores(x_sorted.dtype, qt.group_size):
+        _check_device_operands(x_sorted, tile_group_ids, qt)
+        _check_pg_operands(x_sorted, qt, what)
+        if tile_m % rows != 0:
+            raise ValueError(f"{what} needs tile_m % {rows} == 0 for {x_sorted.dtype}")
+        y = _launch_grouped_mma(x_sorted, tile_group_ids, qt, tile_m)
+    else:
+        y = _launch_pg(_PLANAR_PG_KERNELS if planar else _PG_KERNELS, what, x_sorted, None,
+                       x_sorted, tile_group_ids, qt, tile_m, rows)
     if planar:
         grouped_int4_matmul_per_group.planar_launches += 1
     else:

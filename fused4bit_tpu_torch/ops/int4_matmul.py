@@ -438,11 +438,11 @@ int4_matmul_per_group_planar_reference.calls = 0
 
 
 def _k7_on_tensor_cores(dtype: torch.dtype, group_size: int) -> bool:
-    """K7's body, chosen by the operands' format alone: the tensor-core body
-    (``csrc/int4_mma.cuh``, GroupFold) for bf16 x at ``gs % 64 == 0`` (a
-    64-byte chunk never straddles two groups), else the CUDA-core loop of
-    ``csrc/int4_rows_pg.cuh`` (f32 x, as for K1/K6; and the other group sizes
-    planar_groups allows)."""
+    """K7's body (and K13's, its grouped twin), chosen by the operands'
+    format alone: the tensor-core body (``csrc/int4_mma.cuh``, GroupFold) for
+    bf16 x at ``gs % 64 == 0`` (a 64-byte chunk never straddles two groups),
+    else the CUDA-core loop of ``csrc/int4_rows_pg.cuh`` (f32 x, as for
+    K1/K6; and the other group sizes planar_groups allows)."""
     return dtype == torch.bfloat16 and group_size % _FOLD_GS == 0
 
 

@@ -1,0 +1,283 @@
+"""K2 and K13 on the tensor-core body (``csrc/int4_mma.cuh`` with grouped
+addressing), in what the CPU can check: the launch rule as a pure function
+of (N, K, SMs), the body choice, and a plain-torch model of the grouped
+body held against the JAX package's ``grouped_int4_matmul`` (K2) and
+``grouped_int4_matmul_per_group`` (K13) in interpret mode on the same bytes.
+
+The model repeats the body's arithmetic where it is fixed: per tile, the
+expert's weights; per warp, its chunks of 64 packed bytes in the order it
+walks them (stages of up to 32 k steps, the CTA's kw warps taking kw
+consecutive runs of each stage); K1's arithmetic (RowScale: the dot of x
+with q - zp, the scale on the f32 sum) or K7's fold per chunk (GroupFold,
+``test_torch_pg_mma``'s ``acc += s_lo*P_lo; acc += c_lo*X_lo; acc +=
+s_hi*P_hi; acc += c_hi*X_hi``); the warps of a CTA added in order, then the
+CTAs along K; the rows after a block's last row in use written as 0. Where it
+is not fixed (the order in which the tensor cores sum a 16-wide step, the
+FMA's single rounding), the model sums each chunk exactly and rounds once.
+
+Tolerances: against JAX, 1e-3 of the largest output in f32 and 2e-2 in bf16,
+the bars of ``test_torch_pg_mma.py`` (one bf16 rounding of each side, and
+the f32 sums in another order).
+"""
+import inspect
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fused4bit_tpu.layers.moe import make_dispatch_plan as jax_make_dispatch_plan
+from fused4bit_tpu.layers.moe import topk_route as jax_topk_route
+from fused4bit_tpu.ops.grouped_matmul import grouped_int4_matmul as jax_grouped
+from fused4bit_tpu.ops.grouped_matmul import grouped_int4_matmul_per_group as jax_grouped_pg
+from fused4bit_tpu.quant.core import quantize as jax_quantize
+from fused4bit_tpu_torch.ops import grouped_matmul as gm
+from fused4bit_tpu_torch.ops.int4_matmul import (
+    _MMA_TALL_M,
+    _fold_mma_launch,
+    _k7_on_tensor_cores,
+    _mma_launch,
+)
+from fused4bit_tpu_torch.quant import planar_groups_to_planar, quantize, unpack_planar
+from test_torch_pg_mma import CHUNK, SMS, _chunk_sums
+
+STAGE = 32   # k steps a warp holds per stage
+STEPS = 8    # k steps per chunk
+TOL = {"float32": 1e-3, "bfloat16": 2e-2}
+
+# The grouped linears of `layer2` (8 experts, gate/up 14336 x 4096, down
+# 4096 x 14336) and of the trained h256 fixture (4 experts, 512 x 256 and
+# 256 x 512), and the tests' own 384 x 512.
+SHAPES = [(14336, 4096), (4096, 14336), (512, 256), (256, 512), (384, 512)]
+
+
+def warp_chunks(launch: tuple, chunks: int) -> list:
+    """The chunks each warp folds, in its order: [split][warp] -> chunk ids.
+    Stage o (of 32 k steps) of split z: the CTA's steps from z*kw*ws +
+    o*kw, warp w taking the run of len steps at w*len."""
+    ws, kw, splits = launch
+    assert ws % STEPS == 0, "the grouped body walks whole chunks"
+    steps = chunks * STEPS
+    out = []
+    for z in range(splits):
+        cs, ce = z * kw * ws, min(steps, (z + 1) * kw * ws)
+        per_warp = []
+        for w in range(kw):
+            mine = []
+            for o in range(0, ws, STAGE):
+                ln = min(STAGE, ws - o)
+                wa = min(cs + o * kw + w * ln, ce)
+                wb = min(wa + ln, ce)
+                mine += range(wa // STEPS, wb // STEPS)
+            per_warp.append(mine)
+        out.append(per_warp)
+    return out
+
+
+def body_model(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, zps: torch.Tensor,
+               launch: tuple, gs: int = 0) -> torch.Tensor:
+    """One expert's rows through the body, f32 out: x [M, K] (its values as
+    the kernel stages them); per row (gs 0) planar bytes [N, K/2] and
+    scales/zero points [N], or per group planar_groups bytes [Gh, N, gs] and
+    [N, 2Gh]."""
+    m, k = x.shape
+    kh = k // 2
+    chunks = kh // CHUNK
+    codes = unpack_planar(planar_groups_to_planar(packed) if gs else packed).double()  # [N, K]
+    xd = x.double()
+    s, z = scales.float(), zps.float()
+    if gs:
+        gh = kh // gs
+        q_lo, q_hi = codes[:, :kh], codes[:, kh:] - 8.0                  # the raw codes
+        x_lo, x_hi = _chunk_sums(x[:, :kh]), _chunk_sums(x[:, kh:])      # [M, chunks]
+    else:
+        w = codes - z.double()[:, None]                                  # q - zp, exact
+
+    def chunk(acc, c):
+        cols = slice(c * CHUNK, (c + 1) * CHUNK)
+        hcols = slice(kh + c * CHUNK, kh + (c + 1) * CHUNK)
+        if not gs:  # RowScale: the chunk's dot, exact, rounded once
+            return acc + (xd[:, cols] @ w[:, cols].t() + xd[:, hcols] @ w[:, hcols].t()).float()
+        g = c * CHUNK // gs
+        p_lo = (xd[:, cols] @ q_lo[:, cols].t()).float()
+        p_hi = (xd[:, hcols] @ q_hi[:, cols].t()).float()
+        s_lo, s_hi = s[:, g], s[:, gh + g]
+        acc = acc + s_lo * p_lo
+        acc = acc + ((-s_lo) * z[:, g]) * x_lo[:, c:c + 1]
+        acc = acc + s_hi * p_hi
+        return acc + (s_hi * (8.0 - z[:, gh + g])) * x_hi[:, c:c + 1]
+
+    y = torch.zeros((m, codes.shape[0]))
+    for per_warp in warp_chunks(launch, chunks):          # CTAs along K, in order
+        cta = torch.zeros_like(y)
+        for mine in per_warp:                             # the CTA's warps, in order
+            acc = torch.zeros_like(y)
+            for c in mine:
+                acc = chunk(acc, c)
+            cta = cta + acc
+        y = y + cta
+    return y if gs else s[None, :] * y
+
+
+def grouped_model(xs: torch.Tensor, gids: torch.Tensor, packed, scales, zps, tile_m: int,
+                  launch: tuple, gs: int = 0) -> torch.Tensor:
+    """K2 (gs 0) or K13 over a dispatch, f32 out: per block of 16 rows (one
+    tile's, tile_m % 16 == 0), its expert's weights, up to its last row that
+    holds a nonzero; the rows after it 0."""
+    out = torch.zeros((xs.shape[0], packed.shape[-2]))
+    for b0 in range(0, xs.shape[0], 16):
+        rows = xs[b0:b0 + 16]
+        nonzero = (rows != 0).any(dim=1).nonzero()
+        if nonzero.numel() == 0:
+            continue
+        used = int(nonzero.max()) + 1
+        e = int(gids[b0 // tile_m])
+        out[b0:b0 + used] = body_model(rows[:used], packed[e], scales[e], zps[e], launch, gs)
+    return out
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _dispatch(rng, t, e, kdim, tile_m, logits=None):
+    """JAX's routing and dispatch plan of t tokens (top-2, skewed) and the
+    sorted rows, zero padded: (x_sorted [T_pad, K] f32, gids, rows of the
+    tokens' pairs)."""
+    if logits is None:
+        bias = np.log(1.0 / (np.arange(e) + 1.0)) * 3.0
+        logits = (bias[None, :] + rng.standard_normal((t, e))).astype(np.float32)
+    plan = jax_make_dispatch_plan(jax_topk_route(jnp.asarray(logits[:t]), 2, e), e, tile_m=tile_m)
+    return np.array(plan.tile_group_ids), np.array(plan.rows), plan.t_pad
+
+
+def _sorted(x, rows, t_pad):
+    xs = np.zeros((t_pad, x.shape[1]), np.float32)
+    xs[rows] = np.repeat(x, 2, axis=0)
+    return xs
+
+
+# --- the launch rule and the body choice --------------------------------------
+
+
+def test_grouped_launch_reads_n_k_and_sms_only():
+    """No T, tile_m or routing among the rule's inputs: a token row's sums
+    run in one order in every dispatch at tile_m up to 64, so its bits do
+    not depend on the T, the tile or the tile_m it sits in."""
+    assert list(inspect.signature(gm._grouped_mma_launch).parameters) == ["n", "k", "sms"]
+    assert _MMA_TALL_M == 64
+
+
+@pytest.mark.parametrize("n,k", SHAPES)
+def test_grouped_launch_covers_k_in_whole_chunks(n, k):
+    """Whole chunks per warp (K13 folds whole chunks), a launch the body
+    takes (kw a power of two up to 8, ws a multiple of 8), every chunk of
+    K/2 walked exactly once in each warp's order, no CTA beyond K; at the
+    layer2 shapes every CTA's range is whole groups of 128 (16 k steps), and
+    every SM gets two warps from one block of 16 rows."""
+    ws, kw, splits = gm._grouped_mma_launch(n, k, SMS)
+    chunks = (k // 2) // CHUNK
+    assert ws % STEPS == 0 and kw in (1, 2, 4, 8) and splits >= 1
+    assert (splits - 1) * kw * ws < chunks * STEPS <= splits * kw * ws
+    walked = [c for per_warp in warp_chunks((ws, kw, splits), chunks) for mine in per_warp
+              for c in mine]
+    assert sorted(walked) == list(range(chunks))
+    if k >= 4096:
+        assert (kw * ws) % 16 == 0
+        assert -(-n // 16) * kw * splits >= 2 * SMS
+
+
+def test_body_choice_reads_dtype_and_group_size_only():
+    """K13 takes the tensor-core body where K7 does, by the operands' format
+    alone (bf16 x, gs % 64 == 0); K2 takes it for bf16 x."""
+    assert list(inspect.signature(_k7_on_tensor_cores).parameters) == ["dtype", "group_size"]
+    for gs in (64, 128, 256):
+        assert _k7_on_tensor_cores(torch.bfloat16, gs)
+        assert not _k7_on_tensor_cores(torch.float32, gs)
+    for gs in (16, 32, 48, 96):
+        assert not _k7_on_tensor_cores(torch.bfloat16, gs)
+    assert gm._KERNELS[torch.bfloat16] == "f4b_grouped_int4_matmul_mma_bf16"
+    assert gm._PG_MMA_KERNEL == "f4b_grouped_int4_matmul_pg_mma_bf16"
+
+
+def test_walk_order_of_the_linear_rules_is_the_single_stage_one():
+    """Where K1's and K7's rules put kw > 1 warps along K, a warp holds one
+    stage (ws <= 32), so the body's stage order is the contiguous split they
+    have always had: their rows keep their bits."""
+    for n, k in ((4096, 4096), (1024, 4096), (8, 4096), (8192, 4096), (384, 512)):
+        for rule in (_mma_launch, _fold_mma_launch):
+            ws, kw, _ = rule(n, k, SMS)
+            assert kw == 1 or ws <= STAGE
+
+
+# --- the model against JAX's kernels in interpret mode ------------------------
+
+E, N, KDIM, TILE_M = 4, 384, 512, 16
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [8, 40])
+@pytest.mark.parametrize("kernel", ["K2", "K13"])
+def test_grouped_model_matches_jax_kernel(rng, kernel, t, dtype):
+    """The model at the rule's launch shape against JAX's grouped kernel
+    (K2: ``grouped_int4_matmul``; K13: ``grouped_int4_matmul_per_group`` on
+    planar_groups, gs 128) on the same bytes and the same dispatch, and the
+    zero padding rows exactly 0."""
+    w = rng.standard_normal((E, N, KDIM)).astype(np.float32) * KDIM ** -0.5
+    gs = 128 if kernel == "K13" else 0
+    ref_qt = (jax_quantize(jnp.asarray(w), granularity="per_group", layout="planar_groups",
+                           group_size=gs) if gs else jax_quantize(jnp.asarray(w)))
+    gids, rows, t_pad = _dispatch(rng, t, E, KDIM, TILE_M)
+    xs = _sorted(rng.standard_normal((t, KDIM)).astype(np.float32), rows, t_pad)
+    jx = jnp.asarray(xs).astype(dtype)
+    op = jax_grouped_pg if gs else jax_grouped
+    ref = np.asarray(op(jx, jnp.asarray(gids), ref_qt, tile_m=TILE_M).astype(jnp.float32))
+    staged = torch.from_numpy(np.asarray(jx.astype(jnp.float32)))       # the staged values
+    launch = gm._grouped_mma_launch(N, KDIM, SMS)
+    y = grouped_model(staged, torch.from_numpy(gids), _t(ref_qt.packed), _t(ref_qt.scales),
+                      _t(ref_qt.zero_points), TILE_M, launch, gs)
+    if dtype == "bfloat16":
+        y = y.bfloat16().float()
+    pad = (xs == 0).all(axis=1)
+    assert pad.any() and np.all(y.numpy()[pad] == 0)
+    assert np.max(np.abs(y.numpy() - ref)) <= TOL[dtype] * np.max(np.abs(ref))
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K13"])
+def test_grouped_model_token_rows_equal_in_t8_and_t40(rng, kernel):
+    """The same 8 tokens in a T=8 and a T=40 dispatch sit in other rows and
+    tiles; through the model at the rule's shape their rows are the same
+    bits, as the kernel's must be."""
+    w = torch.from_numpy(rng.standard_normal((E, N, KDIM)).astype(np.float32)) * KDIM ** -0.5
+    gs = 128 if kernel == "K13" else 0
+    qt = (quantize(w, granularity="per_group", layout="planar_groups", group_size=gs) if gs
+          else quantize(w))
+    x40 = rng.standard_normal((40, KDIM)).astype(np.float32)
+    logits = rng.standard_normal((40, E)).astype(np.float32)
+    launch = gm._grouped_mma_launch(N, KDIM, SMS)
+    got = []
+    for t in (8, 40):
+        gids, rows, t_pad = _dispatch(rng, t, E, KDIM, TILE_M, logits)
+        xs = torch.from_numpy(_sorted(x40[:t], rows, t_pad)).bfloat16().float()
+        y = grouped_model(xs, torch.from_numpy(gids), qt.packed, qt.scales, qt.zero_points,
+                          TILE_M, launch, gs)
+        got.append((y[torch.from_numpy(rows[:16])], rows[:16]))
+    (y8, r8), (y40, r40) = got
+    assert not np.array_equal(r8, r40)
+    assert torch.equal(y8, y40)
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """Every C entry point of ``csrc/`` is declared to ctypes with its own
+    parameters, a pointer for each pointer and an int for each int: ctypes
+    passes arguments beyond the declared ones unconverted, so a count that is
+    one short hands the kernel a size where it reads its stream."""
+    import re
+
+    from fused4bit_tpu_torch.ops import _build
+
+    found = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            found[name] = [_build._P if "*" in p else _build._I for p in params.split(",")]
+    assert found == _build._SIGNATURES

@@ -11,9 +11,9 @@ Phases, each of which raises on failure:
   2. build the kernels of fused4bit_tpu_torch/csrc (nvcc, sm_90a), print
      ptxas's registers and spills and the tensor-core instructions in the
      SASS of each instantiation of the tensor-core bodies: HMMA in the
-     linear one of K1, K6 and K7 and its grouped instantiations of K2 and
-     K13 (csrc/int4_mma.cuh) and the attention one of K3 and K3'
-     (csrc/decode_attention.cu), IMMA in the int8 one of K10 and K14
+     linear one of K1, K6 and K7 and its grouped instantiations of K2, K12
+     and K13 (csrc/int4_mma.cuh) and the attention one of K3 and K3'
+     (csrc/decode_attention.cu), IMMA in the int8 one of K10, K14 and K8
      (csrc/int8_mma.cuh), and fail if one has none;
   3. hold each kernel against its plain PyTorch version at the shapes the
      `layer2` serving path gives it (Mixtral-8x7B layer width), and time both
@@ -22,17 +22,21 @@ Phases, each of which raises on failure:
      1, 8, 32 and 40 rows, K6 at 8, 40 and 640, and rows 0-7 of each 40-row
      call equal to the 8-row call bit for bit (the self-draft verify's rows);
      The per-group kernels (K7, K8, K13, K14) are checked the same way, on
-     weights quantized per group of 128 columns (planar_groups), K7 also at
-     40 rows (rows 0-7 equal to the 8-row call bit for bit), at gs 64 (the
-     tensor-core body) and gs 32 (the CUDA-core loop), and K6 and
-     K12 on planar weights per group of 128 (what convert_checkpoint gives);
+     weights quantized per group of 128 columns (planar_groups), K7 and K8
+     also at 40 rows (rows 0-7 equal to the 8-row call bit for bit), K7 at
+     gs 64 (the tensor-core body) and gs 32 (the CUDA-core loop), K8 (the
+     int8 body) bit for bit against its plain version at 8, 40 and 640 rows
+     in bf16 and f32 and at gs 64, 32 and 16 (the CUDA-core loop), and K6
+     and K12 on planar weights per group of 128 (what convert_checkpoint
+     gives);
      K9 (grouped_int4_matmul(mode="ksplit")) on the down projection's stack
      against its plain version and K2, and on a narrow stack that it splits
-     over K. K2 and K13 (bf16, the tensor-core body) are held to their plain
-     versions at decode and prefill, gate/up and down, with zero padding
-     rows exactly 0; one token's rows must be the same bits in a T=8 and a
-     T=40 dispatch, and each expert's rows must equal the linear body (K1,
-     K7) at the same launch shape on that expert's weights, bit for bit.
+     over K. K2, K12 and K13 (bf16, the tensor-core body) are held to their
+     plain versions at decode and prefill, gate/up and down, with zero
+     padding rows exactly 0; one token's rows must be the same bits in a T=8
+     and a T=40 dispatch (K12 also at tile_m 16, 32 and 64), and each
+     expert's rows must equal the linear body (K1, K6, K7) at the same
+     launch shape on that expert's weights, bit for bit.
      Beside each
      kernel's time at its main shape stand its bound (the least time the card
      could take: bytes over 3.35 TB/s or operations over the peak of their
@@ -135,7 +139,13 @@ from fused4bit_tpu_torch.models import (
 )
 from fused4bit_tpu_torch.ops import _build
 from fused4bit_tpu_torch.ops.grouped_matmul import _ksplit_splits
-from fused4bit_tpu_torch.ops.int4_matmul import _fold_mma_launch, _k7_on_tensor_cores, _mma_launch
+from fused4bit_tpu_torch.ops.int4_matmul import (
+    _a8_mma_launch,
+    _fold_mma_launch,
+    _k7_on_tensor_cores,
+    _mma_launch,
+    _pg_a8_on_tensor_cores,
+)
 from fused4bit_tpu_torch.ops.int8_xla import _quantize_acts
 from fused4bit_tpu_torch.quant import planar_groups_to_planar, quantize, unpack_planar
 from fused4bit_tpu_torch.serving import GenerationRequest, ServingEngine, speculative_generate
@@ -191,7 +201,7 @@ SOURCES = {
                                      "fused4bit_tpu/ops/grouped_matmul.py:552"),
     "int4_matmul_per_group": ("fused4bit_tpu_torch/csrc/int4_mma.cuh",
                               "fused4bit_tpu/ops/int4_matmul.py:587"),
-    "int4_matmul_per_group_a8": ("fused4bit_tpu_torch/csrc/int4_matmul_pg.cu",
+    "int4_matmul_per_group_a8": ("fused4bit_tpu_torch/csrc/int8_mma.cuh",
                                  "fused4bit_tpu/ops/int4_matmul.py:761"),
     "grouped_int4_matmul_per_group": ("fused4bit_tpu_torch/csrc/int4_mma.cuh",
                                       "fused4bit_tpu/ops/grouped_matmul.py:994"),
@@ -201,7 +211,7 @@ SOURCES = {
                                      "fused4bit_tpu/ops/int4_matmul.py:427"),
     "grouped_int4_matmul_ksplit": ("fused4bit_tpu_torch/csrc/grouped_matmul.cu",
                                    "fused4bit_tpu/ops/grouped_matmul.py:241"),
-    "grouped_int4_matmul_per_group_planar": ("fused4bit_tpu_torch/csrc/grouped_matmul.cu",
+    "grouped_int4_matmul_per_group_planar": ("fused4bit_tpu_torch/csrc/int4_mma.cuh",
                                              "fused4bit_tpu/ops/grouped_matmul.py:859"),
 }
 # Each kernel's decode shape on the serving path: its ms / plain_ms in the
@@ -321,11 +331,11 @@ def build() -> float:
 
 # The tensor-core bodies, their instantiations and the tensor-core instruction
 # each must hold: the linear body (csrc/int4_mma.cuh) for K1, K6 and K7 in
-# bf16 and, with grouped addressing, K2 and K13, each with a 16-row and a
+# bf16 and, with grouped addressing, K2, K12 and K13, each with a 16-row and a
 # 64-row tile of x; the attention body (csrc/decode_attention.cu) for K3 and
 # K3', each at head_dim 64 and 128; the int8 body (csrc/int8_mma.cuh) for K10
-# and for K14 with 16- and 8-byte runs.
-TENSOR_CORE_KERNELS = {"int4_mma_kernel": (10, "HMMA"),
+# and for K14 with 16- and 8-byte runs (K8 runs K14's two).
+TENSOR_CORE_KERNELS = {"int4_mma_kernel": (12, "HMMA"),
                        "int4_attention_mma_kernel": (4, "HMMA"),
                        "int8_mma_kernel": (3, "IMMA")}
 
@@ -484,8 +494,9 @@ def _skewed_plan(t, e, top_k, tile_m, gen, device):
 
 def linear_at(x, qt, launch):
     """The linear tensor-core body at launch shape ``launch`` = (ws, kw,
-    splits), 16 rows of x per CTA: K1 on a per_row weight, K7 on a per_group
-    planar_groups one; as ops launches it, through the C entry points."""
+    splits), 16 rows of x per CTA: K1 on a per_row weight, K6 on a per_group
+    planar one, K7 on a per_group planar_groups one; as ops launches it,
+    through the C entry points."""
     ws, kw, splits = launch
     m, k = x.shape
     n = qt.out_dim
@@ -493,7 +504,9 @@ def linear_at(x, qt, launch):
     partial = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
     lib = _build.library()
     per_group = qt.granularity == "per_group"
-    fn = lib.f4b_int4_matmul_pg_mma_bf16 if per_group else lib.f4b_int4_matmul_bf16
+    fn = (lib.f4b_int4_matmul_bf16 if not per_group else
+          lib.f4b_int4_matmul_planar_pg_bf16 if qt.layout == "planar" else
+          lib.f4b_int4_matmul_pg_mma_bf16)
     err = fn(x.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(), qt.zero_points.data_ptr(),
              y.data_ptr(), partial.data_ptr(), m, n, k, *([qt.group_size] if per_group else []),
              ws, kw, splits, 16, _build.stream_of(x))
@@ -502,17 +515,16 @@ def linear_at(x, qt, launch):
 
 
 def same_as_linear(name, xs, gids, qt, tile_m, y, launch=None):
-    """Each expert's token rows of a grouped call ``y`` (K2 or K13 at
+    """Each expert's token rows of a grouped call ``y`` (K2, K12 or K13 at
     tile_m <= 64, at launch shape ``launch``, by default the grouped rule's)
-    equal the linear body (K1 or K7) at the same launch shape on that
+    equal the linear body (K1, K6 or K7) at the same launch shape on that
     expert's weights, bit for bit: the grouped addressing reads the right
     expert and rows, and a row's sums run in the linear body's order. Prints
     whether the shape is the linear rule's."""
     e, n, k = qt.shape
     sms = torch.cuda.get_device_properties(xs.device).multi_processor_count
     launch = launch or ops.grouped_matmul._grouped_mma_launch(n, k, sms)
-    per_group = qt.granularity == "per_group"
-    linear_rule = _fold_mma_launch if per_group else _mma_launch
+    linear_rule = _fold_mma_launch if qt.layout == "planar_groups" else _mma_launch
     token = (xs.abs().sum(dim=1) != 0).reshape(-1, tile_m)
     for ex in torch.unique(gids[token.any(dim=1)]).tolist():
         tiles = (gids == ex) & token.any(dim=1)
@@ -689,40 +701,49 @@ def _pg_quantize(w):
 
 def check_linear_pg(device, results, timer, gen):
     """K7 and K8 at the layer2 linear shapes, weights per group of 128
-    (planar_groups): the decode rows (8) and the long prefill's (640), bf16,
-    and the f32 instantiations at one shape; K7 also at the self-draft
-    verify's 40 rows, whose rows 0-7 must equal the 8-row call bit for bit.
-    Then K7 at gs 64 (the tensor-core body) and gs 32 (the CUDA-core loop)."""
+    (planar_groups): the decode rows (8), the self-draft verify's (40) and
+    the long prefill's (640) in bf16, and the f32 instantiations at N=1024
+    (K7 at 8 rows, K8 at 8 and 640); rows 0-7 of each 40-row call must equal
+    the 8-row call bit for bit. K8 (the int8 body) must equal its plain
+    version bit for bit; bf16 rows print the main kernel's device time.
+    Then K7 at gs 64 (the tensor-core body) and gs 32 (the CUDA-core loop),
+    and K8 at gs 64 and 32 (the int8 body's 16- and 8-byte runs) and gs 16
+    (the CUDA-core loop)."""
     for n, k in ((4096, 4096), (1024, 4096), (8192, 4096)):
         qt = _pg_quantize(torch.randn((n, k), generator=gen, device=device) * k ** -0.5)
         x640 = torch.randn((640, k), generator=gen, device=device).bfloat16()
-        rows = {}
+        rows = {"int4_matmul_per_group": {}, "int4_matmul_per_group_a8": {}}
         for m in (8, 40, 640):
             x = x640[:m].contiguous()
-            for xx in ((x, x.float()) if (m, n) == (8, 1024) else (x,)):
+            for xx in ((x, x.float()) if n == 1024 and m != 40 else (x,)):
                 f32 = xx.dtype == torch.float32
                 dt = "f32" if f32 else "bf16"
                 main = (m, n) == (8, 4096)
                 iters = 5 if m == 640 else 20
-                ref = ops.int4_matmul_per_group_reference(xx, qt)
-                tol = _a16_tol(ref)
-                y = ops.int4_matmul_per_group(xx, qt)
-                if not f32:
-                    rows[m] = y
-                _compare("int4_matmul_per_group", f"M={m} N={n} K={k} {dt}", y, ref, tol, results,
-                         None if f32 else timer, lambda: ops.int4_matmul_per_group(xx, qt),
-                         lambda: ops.int4_matmul_per_group_reference(xx, qt), iters=iters,
-                         work=linear_bound(xx, qt),
-                         library=int4pack_yardstick(xx, qt) if main else None)
-                if m == 40:
-                    continue
+                if not (f32 and m == 640):
+                    ref = ops.int4_matmul_per_group_reference(xx, qt)
+                    y = ops.int4_matmul_per_group(xx, qt)
+                    if not f32:
+                        rows["int4_matmul_per_group"][m] = y
+                    _compare("int4_matmul_per_group", f"M={m} N={n} K={k} {dt}", y, ref,
+                             _a16_tol(ref), results, None if f32 else timer,
+                             lambda: ops.int4_matmul_per_group(xx, qt),
+                             lambda: ops.int4_matmul_per_group_reference(xx, qt), iters=iters,
+                             work=linear_bound(xx, qt),
+                             library=int4pack_yardstick(xx, qt) if main else None)
                 ref = ops.int4_matmul_per_group_a8_reference(xx, qt)
-                _compare("int4_matmul_per_group_a8", f"M={m} N={n} K={k} {dt}",
-                         ops.int4_matmul_per_group_a8(xx, qt), ref, _a8_tol(ref), results,
-                         None if f32 else timer, lambda: ops.int4_matmul_per_group_a8(xx, qt),
+                y = ops.int4_matmul_per_group_a8(xx, qt)
+                if not f32:
+                    rows["int4_matmul_per_group_a8"][m] = y
+                timed = not f32 and m != 40
+                _compare("int4_matmul_per_group_a8", f"M={m} N={n} K={k} {dt}", y, ref,
+                         _a8_tol(ref), results, timer if timed else None,
+                         lambda: ops.int4_matmul_per_group_a8(xx, qt),
                          lambda: ops.int4_matmul_per_group_a8_reference(xx, qt), iters=iters,
-                         work=linear_bound(xx, qt, a8=True))
-        same_rows("int4_matmul_per_group", f"N={n} K={k} bf16", rows[8], rows[40])
+                         work=linear_bound(xx, qt, a8=True), exact=True,
+                         main="int8_mma_kernel" if timed else None)
+        for name, by_m in rows.items():
+            same_rows(name, f"N={n} K={k} bf16", by_m[8], by_m[40])
         del qt
     n = k = 4096
     w = torch.randn((n, k), generator=gen, device=device) * k ** -0.5
@@ -741,6 +762,15 @@ def check_linear_pg(device, results, timer, gen):
                      lambda: ops.int4_matmul_per_group_reference(x, qt), work=linear_bound(x, qt))
         if gs == 64:
             same_rows("int4_matmul_per_group", f"N={n} K={k} gs {gs} bf16", rows[8], rows[40])
+        del qt
+    x = x40[:8].contiguous()
+    for gs in (64, 32, 16):
+        qt = quantize(w, granularity="per_group", layout="planar_groups", group_size=gs)
+        body = "int8 body" if _pg_a8_on_tensor_cores(gs) else "CUDA-core loop"
+        ref = ops.int4_matmul_per_group_a8_reference(x, qt)
+        _compare("int4_matmul_per_group_a8", f"M=8 N={n} K={k} gs {gs} bf16 ({body})",
+                 ops.int4_matmul_per_group_a8(x, qt), ref, _a8_tol(ref), results, None, None,
+                 None, exact=True)
         del qt
 
 
@@ -798,7 +828,7 @@ def check_grouped_pg(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
     xs = dispatch(torch.randn((8, hidden), generator=gen, device=device).bfloat16(), routing, plan)
     for gs in (32, 16):
         qt = quantize(w, granularity="per_group", layout="planar_groups", group_size=gs)
-        body = "int8 body" if ops.grouped_matmul._k14_on_tensor_cores(gs) else "CUDA-core loop"
+        body = "int8 body" if _pg_a8_on_tensor_cores(gs) else "CUDA-core loop"
         ref = ops.grouped_int4_matmul_per_group_a8_reference(xs, plan.tile_group_ids, qt, tile_m=32)
         _compare("grouped_int4_matmul_per_group_a8", f"T=8 tile_m=32 N=1024 K={hidden} gs {gs}",
                  ops.grouped_int4_matmul_per_group_a8(xs, plan.tile_group_ids, qt, tile_m=32),
@@ -812,7 +842,7 @@ def check_grouped_pg(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
                           (ops.grouped_int4_matmul_per_group_a8,
                            ops.grouped_int4_matmul_per_group_a8_reference, _pg_quantize(w))):
         gs = qt.group_size if qt.granularity == "per_group" else 0
-        launch = ops.grouped_matmul._a8_mma_launch(256, hidden, gs, sms)
+        launch = _a8_mma_launch(256, hidden, gs, sms)
         if launch[2] < 2:
             raise AssertionError(f"{op.__name__} N=256: launch {launch} does not split K")
         ref = plain(xs, plan.tile_group_ids, qt, tile_m=32)
@@ -855,10 +885,33 @@ def check_linear_planar_pg(device, results, timer, gen):
         del qt
 
 
+def same_across_tile_m(name, op, qt, k, e, gen, device, tiles=(16, 32, 64)):
+    """One routing of T=8 dispatched at each tile_m of ``tiles``: every
+    token's rows give the same bits at each, though they sit in other rows
+    and tiles (the grouped rule reads no tile_m)."""
+    routing, _ = _skewed_plan(8, e, 2, tiles[0], gen, device)
+    x = torch.randn((8, k), generator=gen, device=device).bfloat16()
+    got = []
+    for tile_m in tiles:
+        plan = make_dispatch_plan(routing, e, tile_m=tile_m)
+        got.append(op(dispatch(x, routing, plan), plan.tile_group_ids, qt, tile_m=tile_m)[plan.rows])
+    for tile_m, y in zip(tiles[1:], got[1:]):
+        if not torch.equal(got[0], y):
+            d = (got[0].float() - y.float()).abs().max().item()
+            raise AssertionError(f"{name} N={qt.shape[1]} K={k}: token rows differ between "
+                                 f"tile_m {tiles[0]} and {tile_m} ({d})")
+    print(f"    {name} N={qt.shape[1]} K={k}: the token rows are the same bits at tile_m "
+          f"{', '.join(map(str, tiles))}")
+
+
 def check_grouped_planar_pg(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
     """K12 at the expert shapes, planar weights per group of 128: decode
     (T=8, tile_m 16; f32 too) and the prefill (T=600, tile_m 128), skewed
-    routing."""
+    routing, zero padding rows exactly 0. bf16 (the tensor-core body) prints
+    the main kernel's device time; its decode rows equal K6's body at the
+    same launch shape, and a token's rows are the same bits in a T=8 and a
+    T=40 dispatch and at tile_m 16, 32 and 64. f32 (the CUDA-core loop) is
+    held to its plain version."""
     for n, k in ((ffn, hidden), (hidden, ffn)):       # gate/up (Gh=16), then down (Gh=56)
         qt = _planar_pg_quantize(torch.randn((e, n, k), generator=gen, device=device)
                                  * k ** -0.5)
@@ -882,9 +935,16 @@ def check_grouped_planar_pg(device, results, timer, gen, e=8, ffn=14336, hidden=
                          lambda: ops.grouped_int4_matmul_per_group(xx, gids, qt, tile_m=tile_m),
                          lambda: ops.grouped_int4_matmul_per_group_planar_reference(
                              xx, gids, qt, tile_m=tile_m),
-                         iters=20 if t == 8 else 3, work=grouped_bound(xx, gids, qt, 2 * t))
+                         iters=20 if t == 8 else 3, work=grouped_bound(xx, gids, qt, 2 * t),
+                         main=None if f32 else "int4_mma_kernel")
+                if not f32 and t == 8:
+                    same_as_linear("grouped_int4_matmul_per_group_planar", xx, gids, qt, tile_m, y)
             print(f"    tokens per expert {routing.tokens_per_expert.tolist()}, "
                   f"T_pad {plan.t_pad}")
+        same_token_rows("grouped_int4_matmul_per_group_planar", ops.grouped_int4_matmul_per_group,
+                        qt, k, e, gen, device, tile_m=16)
+        same_across_tile_m("grouped_int4_matmul_per_group_planar",
+                           ops.grouped_int4_matmul_per_group, qt, k, e, gen, device)
         del qt
 
 

@@ -18,17 +18,19 @@
 // padding alone streams no weights (at decode, T=8, top-2, tile_m 16, 9
 // tiles, of which one per expert hit holds tokens).
 //
-// K2 in bf16 runs the tensor-core body of int4_mma.cuh (K1's RowScale
-// arithmetic with grouped addressing; its note gives the design and the
-// bound): a first pass flags the rows in use, then the main kernel at the
-// launch shape of the Python wrapper's rule (ops.grouped_matmul:
+// K2 and K12 in bf16 run the tensor-core body of int4_mma.cuh with grouped
+// addressing (its note gives the design and the bound): K2 under K1's
+// RowScale policy, K12 under K6's GroupDequant (bf16(bf16(s) * (q - zp)) in
+// registers, the scales and zero points [E, N, K/gs] offset by the block's
+// expert). A first pass flags the rows in use, then the main kernel runs at
+// the launch shape of the Python wrapper's rule (ops.grouped_matmul:
 // _grouped_mma_launch at tile_m <= 64, which reads N, K and the SM count
 // only, so a token row's bits do not depend on its dispatch; the 64-row tile
 // of _mma_tall_launch at tile_m 128), and with splits > 1 the ordered second
 // pass. f32 K2, K12 and K9 run the CUDA-core loop of int4_rows.cuh (K1's old
-// inner loop with the weight base chosen per CTA; at prefill its FMA loop is
-// the bound), after a first pass that finds the zero padding rows at the end
-// of each block of rows.
+// inner loop with the weight base chosen per CTA; an f32 tensor-core product
+// would be TF32), after a first pass that finds the zero padding rows at the
+// end of each block of rows.
 //
 // K9: on the TPU the k-split is a grid order that keeps one f32 accumulator
 // in VMEM across the k steps. Blocks of a GPU run in no order, so here the
@@ -69,16 +71,21 @@ extern "C" int f4b_grouped_int4_matmul_f32(const void* x, const void* gids,
                                              y, T, N, K, 0, stream);
 }
 
-// K12: scales/zps [E, N, K/gs] f32, gs % 128 == 0 and gs | K/2.
-extern "C" int f4b_grouped_int4_matmul_planar_pg_bf16(const void* x, const void* gids,
-                                                      const void* packed, const void* scales,
-                                                      const void* zps, void* rows_used,
-                                                      void* y, int T, int N, int K, int gs,
-                                                      int tile_m, void* stream) {
-  return f4b::launch_int4_rows<__nv_bfloat16, true>(x, packed, scales, zps, gids, tile_m,
-                                                    rows_used, y, T, N, K, gs, stream);
+// K12 on the tensor cores: x [T, K] bf16; packed [E, N, K/2]; scales/zps
+// [E, N, K/gs] f32, gs % 128 == 0 and gs | K/2; used, partial and mt as for K2.
+extern "C" int f4b_grouped_int4_matmul_planar_pg_mma_bf16(const void* x, const void* gids,
+                                                          const void* packed, const void* scales,
+                                                          const void* zps, void* used, void* y,
+                                                          void* partial, int T, int N, int K,
+                                                          int gs, int tile_m, int ws, int kw,
+                                                          int splits, int mt, void* stream) {
+  return f4b::launch_int4_mma<f4b::GroupDequant, true>(
+      f4b::mma_args(x, packed, scales, zps, y, partial, T, N, K, gs, ws, kw, splits, gids, used,
+                    tile_m),
+      mt, stream);
 }
 
+// K12 in f32 on the CUDA cores; rows_used: int32 scratch of ceil(T / 8).
 extern "C" int f4b_grouped_int4_matmul_planar_pg_f32(const void* x, const void* gids,
                                                      const void* packed, const void* scales,
                                                      const void* zps, void* rows_used,

@@ -85,7 +85,9 @@ extern "C" int f4b_grouped_int4_matmul_pg_a8_f32(const void* xq, const void* sx,
 
 // K14 at gs % 32 == 0 on the first pass's outputs (sums per group of gs);
 // y in bf16, or f32 with out_f32; partial: f32 scratch of splits * M * N when
-// splits > 1. 16 bytes per lane at gs % 64 == 0, else 8.
+// splits > 1. 16 bytes per lane at gs % 64 == 0, else 8. With gids NULL
+// (tile_m unread) it is K8: the linear [M, K] x [N, K] over packed [K/2/gs,
+// N, gs] and scales/zps [N, K/gs], at any M.
 extern "C" int f4b_grouped_int4_matmul_pg_a8_mma(const void* xq, const void* sx,
                                                  const void* sums, const void* used,
                                                  const void* gids, const void* packed,

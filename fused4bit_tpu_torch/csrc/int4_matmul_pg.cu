@@ -17,12 +17,21 @@
 // N, K and the SM count only) or _mma_tall_launch (above 64 rows), and
 // partial is f32 scratch of splits * M * N when splits > 1.
 //
+// K8 at gs % 32 == 0 runs the int8 tensor-core body of int8_mma.cuh: its
+// first pass (f4b_a8_prepass_*, grouped_matmul_a8.cu) quantizes x with the
+// TPU wrapper's arithmetic and sums each row per group, then K14's entry
+// point (f4b_grouped_int4_matmul_pg_a8_mma, grouped_matmul_pg.cu) runs the
+// linear as one expert with no tile map (gids NULL, any M), at the launch
+// shape of ops.int4_matmul._linear_a8_launch (N, K, gs and the SM count only).
+//
 // K7 in f32 (an f32 tensor-core product would be TF32) or at the other
-// group sizes planar_groups allows (gs % 16 == 0), and K8, run the CUDA-core
-// kernels of int4_rows_pg.cuh: a lane's 16-byte run lies in one group and
-// takes its fold at once. What bounds them on the H100 at decode is the
-// HBM bytes (K/2 packed bytes per output row plus 2 * K/gs f32 scales and
-// zero points), in practice the latency of walking K/2 in 512-byte chunks.
+// group sizes planar_groups allows (gs % 16 == 0), and K8 at gs % 32 != 0
+// (on activations the wrapper quantizes before the launch), run the
+// CUDA-core kernels of int4_rows_pg.cuh: a lane's 16-byte run lies in one
+// group and takes its fold at once. What bounds them on the H100 at decode
+// is the HBM bytes (K/2 packed bytes per output row plus 2 * K/gs f32 scales
+// and zero points), in practice the latency of walking K/2 in 512-byte
+// chunks.
 #include "int4_mma.cuh"
 #include "int4_rows_pg.cuh"
 
@@ -51,7 +60,7 @@ extern "C" int f4b_int4_matmul_pg_f32(const void* x, const void* packed, const v
                                          K, gs, stream);
 }
 
-// K8: xq [M, K] int8, sx [M] f32; y in the caller's activation type.
+// K8 at gs % 32 != 0: xq [M, K] int8, sx [M] f32; y in the caller's activation type.
 extern "C" int f4b_int4_matmul_pg_a8_bf16(const void* xq, const void* sx, const void* packed,
                                           const void* scales, const void* zps, void* y, int M,
                                           int N, int K, int gs, void* stream) {

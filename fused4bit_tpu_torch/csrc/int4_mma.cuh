@@ -2,9 +2,9 @@
 // K1 (per row) and K6 (per group, planar), launched by int4_matmul.cu; K7
 // (per group, planar_groups, gs % 64 == 0), launched by int4_matmul_pg.cu;
 // and, with grouped addressing (an expert per block of rows), K2 (K1's
-// arithmetic, grouped_matmul.cu) and K13 (K7's, gs % 64 == 0,
-// grouped_matmul_pg.cu). The f32 entry points, K7 and K13 at other group
-// sizes, and the grouped kernels K9 and K12 stay on int4_rows.cuh /
+// arithmetic) and K12 (K6's), launched by grouped_matmul.cu, and K13 (K7's,
+// gs % 64 == 0), launched by grouped_matmul_pg.cu. The f32 entry points, K7
+// and K13 at other group sizes, and K9 stay on int4_rows.cuh /
 // int4_rows_pg.cuh.
 //
 // What it computes (the TPU kernels' arithmetic, with the order of the f32
@@ -19,10 +19,10 @@
 //       kernel's batched-partials fold, fused4bit_tpu/ops/int4_matmul.py:
 //       _int4_group_bp_kernel: its a_hi * P_hi is (s_hi / 16) * 16 P_hi, the
 //       same product; it folds per group, here per chunk of its group).
-//   K2, K13: K1's and K7's sums over the weights of expert e = gids[m / tile_m],
-//       the expert of row m's tile (the TPU kernels _grouped_kernel and
-//       _grouped_pg_bp_kernel, fused4bit_tpu/ops/grouped_matmul.py; the
-//       latter folds per group).
+//   K2, K12, K13: K1's, K6's and K7's sums over the weights of expert
+//       e = gids[m / tile_m], the expert of row m's tile (the TPU kernels
+//       _grouped_kernel, _grouped_pg_kernel and _grouped_pg_bp_kernel,
+//       fused4bit_tpu/ops/grouped_matmul.py; the last folds per group).
 // with q the 4-bit codes of the planar bytes (byte c of row n: column c in
 // the low nibble, column K/2 + c XOR 8 in the high nibble) and integer zero
 // points in [0, 15], as the quantizer gives them. (q - zp) lies in [-15, 15]
@@ -73,11 +73,11 @@
 //   stages of up to 32 steps; in stage i the CTA's kw warps take kw
 //   consecutive runs of the stage's steps, warp 0 first. The launch rule
 //   (ops.int4_matmul._mma_launch; K7: _fold_mma_launch, whole chunks per
-//   warp; K2 and K13: ops.grouped_matmul._grouped_mma_launch) picks (ws, kw,
+//   warp; K2, K12, K13: ops.grouped_matmul._grouped_mma_launch) picks (ws, kw,
 //   splits) from (N, K, SM count) only, so every row's sum runs in the same
 //   order whatever rows sit beside it: a row's output does not depend on M
 //   up to 64 (the self-draft speculative verify at M = 40 must reproduce the
-//   M = 8 decode bit for bit), nor, for K2 and K13, on the T, the tile_m (up
+//   M = 8 decode bit for bit), nor, for K2, K12 and K13, on the T, the tile_m (up
 //   to 64) or the routing of the dispatch. Partial sums meet in a fixed order:
 //   through shared memory inside a CTA (warps kw = 0, 1, ...), then, with
 //   splits > 1, as f32 partials [splits, M, N] that a second kernel adds in
@@ -92,8 +92,8 @@
 //   from L2). Above 64 rows (prefill) it takes 64, so each A fragment feeds
 //   8 MMAs, and its warps (one per row tile) walk their range of K in stages
 //   of 32 k steps; there K is split across CTAs only until every SM has one
-//   (ops.int4_matmul._mma_tall_launch; K2 and K13 at tile_m 128).
-// * Grouped addressing (K2, K13): a CTA's block of rows lies in one tile
+//   (ops.int4_matmul._mma_tall_launch; K2, K12 and K13 at tile_m 128).
+// * Grouped addressing (K2, K12, K13): a CTA's block of rows lies in one tile
 //   (tile_m % 16 == 0, or % 64 with the tall tile) and reads its expert from
 //   gids, offsetting the weights, scales and zero points (size_t: a stack of
 //   experts passes 2^31 bytes). A first pass (rows_used_kernel, a CTA per
@@ -140,8 +140,8 @@ struct GroupFold {
 
 struct MmaArgs {
   const __nv_bfloat16* x;   // [M, K], 16-byte aligned
-  const uint8_t* packed;    // [N, K/2] planar (K1, K6) or [K/2/gs, N, gs] planar_groups (K7); a stack of E (K2, K13)
-  const float* scales;      // [N] (K1) or [N, K/gs] (K6, K7); a stack of E (K2, K13)
+  const uint8_t* packed;    // [N, K/2] planar (K1, K6) or [K/2/gs, N, gs] planar_groups (K7); a stack of E (K2, K12, K13)
+  const float* scales;      // [N] (K1) or [N, K/gs] (K6, K7); a stack of E (K2, K12, K13)
   const float* zps;         // the same shape, integers in [0, 15]
   __nv_bfloat16* y;         // [M, N]
   float* partial;           // [splits, M, N] f32 scratch when splits > 1
@@ -245,7 +245,7 @@ __device__ __forceinline__ int mma_rows_in_use(const int32_t* used, int m0, int 
 // NT n8 tiles of x rows per CTA (16 or 64 rows). One CTA: 8 warps, warp w
 // on row tile blockIdx.x * (8 / kw) + w / kw and K slice w % kw of the CTA's
 // range blockIdx.z; x rows blockIdx.y * 8 * NT onward. G: grouped addressing
-// (K2, K13), the block's expert from gids and only its rows in use.
+// (K2, K12, K13), the block's expert from gids and only its rows in use.
 template <class P, int NT, bool G>
 __global__ void __launch_bounds__(kMmaThreads, NT <= 2 ? 2 : 1) int4_mma_kernel(const MmaArgs args) {
   constexpr int MT = NT * 8;
@@ -585,7 +585,7 @@ int launch_mma_tile(const MmaArgs& p, dim3 grid, size_t smem, cudaStream_t st) {
 // K % 32 == 0, ws >= 1, kw in {1, 2, 4, 8}, kw * min(32, ws) a multiple of 8
 // (a CTA's stage is whole chunks), ws <= 32 or a multiple of 8, and
 // partial != nullptr when splits > 1. GroupFold also requires whole chunks
-// per warp (ws % 8 == 0) and gs % 64 == 0 dividing K/2. G (grouped: K2, K13)
+// per warp (ws % 8 == 0) and gs % 64 == 0 dividing K/2. G (grouped: K2, K12, K13)
 // requires gids, tile_m % mt == 0 and `used` (M ints of scratch for the first
 // pass, which runs before the main kernel).
 template <class P, bool G = false>

@@ -1,6 +1,7 @@
-// Shared inner loop of the w4a16 kernels on the planar layout: the linear
-// (int4_matmul.cu: K1 per row, K6 per group) and the grouped MoE product
-// (grouped_matmul.cu: K2 per row, K12 per group, K9 per row split over K).
+// Shared inner loop of the w4a16 kernels on the planar layout in f32 (bf16
+// runs int4_mma.cuh), and of K9: the linear (int4_matmul.cu: K1 per row, K6
+// per group) and the grouped MoE product (grouped_matmul.cu: K2 per row, K12
+// per group, K9 per row split over K, also in bf16).
 //
 // Per row (K1, K2, K9):
 //   y[m, n] = s[e, n] * sum_c ( x[m, c]        * (lo(p[e, n, c]) - zp[e, n])

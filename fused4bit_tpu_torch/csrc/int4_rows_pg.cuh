@@ -1,7 +1,8 @@
 // Shared kernels of the per-group products over planar_groups weights: the
-// w4a16 and w4a8 linears (int4_matmul_pg.cu: K7, K8) and the grouped MoE
-// products (grouped_matmul_pg.cu: K13, and K14 at group sizes that are not
-// multiples of 32; K14 at gs % 32 == 0 runs int8_mma.cuh).
+// w4a16 and w4a8 linears (int4_matmul_pg.cu: K7, and K8 at group sizes that
+// are not multiples of 32) and the grouped MoE products (grouped_matmul_pg.cu:
+// K13, and K14 at those group sizes; K8 and K14 at gs % 32 == 0 run
+// int8_mma.cuh).
 //
 // Weights: planar_groups bytes packed3[e, g, n, 0..gs) (Gh = K/2 / gs
 // groups; byte c of group g holds the code of column g*gs + c in its low

@@ -1,8 +1,10 @@
-// Int8 tensor-core body of the w4a8 grouped expert products: K10 (per-row
+// Int8 tensor-core body of the w4a8 grouped expert products, K10 (per-row
 // scales, planar bytes; grouped_matmul_a8.cu) and K14 (per-group scales,
-// planar_groups bytes, gs % 32 == 0; grouped_matmul_pg.cu). K11, K4 and K5
-// stay on int4_rows_a8.cuh, K8 and K14 at other group sizes on
-// int4_rows_pg.cuh.
+// planar_groups bytes, gs % 32 == 0; grouped_matmul_pg.cu), and of the w4a8
+// per-group linear K8 (gs % 32 == 0), which runs K14's entry point as one
+// expert with no tile map (gids NULL: every row reads expert 0, and M need
+// not be a multiple of 16). K11, K4 and K5 stay on int4_rows_a8.cuh, K8 and
+// K14 at other group sizes on int4_rows_pg.cuh.
 //
 // What it computes. The activations are quantized per row, symmetric int8,
 // by a first pass (a8_prepass_kernel) with the host quantizer's arithmetic,
@@ -25,13 +27,14 @@
 //          acc += s_lo * P_lo;  acc += c_lo * X_lo;
 //          acc += (s_hi / 16) * P_hi;  acc += c_hi * X_hi;
 //        with c_lo = -s_lo * zp_lo, c_hi = s_hi * (8 - zp_hi), X the group's
-//        sums of xq; y = acc * sx[m] (the TPU kernel's per-group terms,
-//        fused4bit_tpu/ops/grouped_matmul.py:_grouped_pg_bp_a8_kernel, which
-//        sums them in another order).
+//        sums of xq; y = acc * sx[m] (the TPU kernels' per-group terms,
+//        fused4bit_tpu/ops/grouped_matmul.py:_grouped_pg_bp_a8_kernel and,
+//        for K8, int4_matmul.py:_int4_group_bp_a8_kernel, which sum them in
+//        another order).
 // The epilogues use __fmul_rn / __fadd_rn / __fsub_rn so that nvcc cannot
 // contract them into FMAs. K10 equals ops.int4_matmul._a8_product bit for bit
-// for any split of K (its integers are exact); K14 equals
-// ops.grouped_matmul._pg_a8_fold_product at the same launch shape.
+// for any split of K (its integers are exact); K14 and K8 equal
+// ops.int4_matmul._pg_a8_fold_product at the same launch shape.
 //
 // What bounds it on the H100: at decode (T = 8 tokens, top-2) a block of 16
 // rows holds a token or a few, so the product streams each selected expert's
@@ -67,10 +70,11 @@
 //   rings of 4 and 6 measured slower on the H100; PERF.md.)
 // * Filling the card: a CTA of 8 warps takes 16 rows of xq and 8 / kw row
 //   tiles of 16 output rows, kw warps along K each on a slice of ws chunks;
-//   grid z splits K into `splits` ranges of kw * ws chunks (K14: whole
-//   groups). The launch rule (ops.grouped_matmul._a8_mma_launch) reads (N, K,
-//   gs, SM count) only, never T, tile_m or the routing, so a row's output
-//   bits do not depend on the tile or the T it sits in. Partial sums meet in
+//   grid z splits K into `splits` ranges of kw * ws chunks (K14, K8: whole
+//   groups). The launch rules (ops.int4_matmul._a8_mma_launch; K8:
+//   _linear_a8_launch, more warps along K and no split) read (N, K, gs, SM
+//   count) only, never M, T, tile_m or the routing, so a row's output
+//   bits do not depend on the tile, the T or the M it sits in. Partial sums meet in
 //   a fixed order: through shared memory in the CTA (warps kwi = 0, 1, ...),
 //   then, with splits > 1, as partials [splits, M, N] that a second kernel
 //   adds in order z = 0, 1, ... (int32 for K10, f32 for K14). No float
@@ -116,8 +120,8 @@ struct I8Args {
   const float* sx;           // [M] their scales
   const int32_t* sums;       // [M, K / gsum] int32 sums of xq per group (lo groups, hi groups)
   const int32_t* used;       // [M] 1 for a row that holds a nonzero, 0 for zero padding
-  const int32_t* gids;       // [M / tile_m] the expert of each tile
-  const uint8_t* packed;     // [E, N, K/2] planar (K10) or [E, K/2/gs, N, gs] planar_groups
+  const int32_t* gids;       // [M / tile_m] the expert of each tile; NULL: a linear (expert 0)
+  const uint8_t* packed;     // [E, N, K/2] planar (K10) or [E, K/2/gs, N, gs] planar_groups (E = 1: K8)
   const float* scales;       // [E, N] (K10) or [E, N, K/gs] (K14)
   const float* zps;          // the same shape, integers in [0, 15]
   void* y;                   // [M, N], bf16 or f32 (out_f32)
@@ -203,12 +207,20 @@ __device__ __forceinline__ void store_out(void* y, size_t at, float v, int out_f
 }
 
 // 1 + the last row of block b (16 rows) that holds a nonzero, 0 for a block
-// of zero padding rows.
-__device__ __forceinline__ int rows_in_use(const int32_t* __restrict__ used, int b) {
+// of zero padding rows; rows past M (a linear's last block) count as padding.
+__device__ __forceinline__ int rows_in_use(const int32_t* __restrict__ used, int b, int M) {
   int last = 0;
 #pragma unroll
-  for (int r = 0; r < kI8Mt; ++r) last = used[b * kI8Mt + r] ? r + 1 : last;
+  for (int r = 0; r < kI8Mt; ++r) {
+    const int m = b * kI8Mt + r;
+    last = m < M && used[m] ? r + 1 : last;
+  }
   return last;
+}
+
+// The expert of row m: its tile's, or 0 for a linear (gids NULL).
+__device__ __forceinline__ int i8_expert(const I8Args& p, int m) {
+  return p.gids != nullptr ? p.gids[m / p.tile_m] : 0;
 }
 
 // The output of row m, column n from its (reduced) sum v.
@@ -248,11 +260,12 @@ __global__ void __launch_bounds__(kI8Threads, 2) int8_mma_kernel(const I8Args p)
   const int ncols = min(per_cta * 16, p.N - ncta0);
   const int na = ncta0 + (warp / p.kw) * 16 + g, nb = na + 8;
   const int m0 = blockIdx.x * kI8Mt;
-  const int mcount = rows_in_use(p.used, blockIdx.x);
+  const int mrows = min(kI8Mt, p.M - m0);  // rows of y the CTA writes
+  const int mcount = rows_in_use(p.used, blockIdx.x, p.M);
 
   if (mcount == 0) {  // all zero padding: no weights, the outputs are 0
     if (p.splits == 1) {
-      for (int i = threadIdx.x; i < kI8Mt * ncols; i += kI8Threads) {
+      for (int i = threadIdx.x; i < mrows * ncols; i += kI8Threads) {
         const int r = i / ncols;
         store_out(p.y, static_cast<size_t>(m0 + r) * p.N + ncta0 + (i - r * ncols), 0.f,
                   p.out_f32);
@@ -260,7 +273,7 @@ __global__ void __launch_bounds__(kI8Threads, 2) int8_mma_kernel(const I8Args p)
     }
     return;
   }
-  const int e = p.gids[m0 / p.tile_m];
+  const int e = i8_expert(p, m0);
   const uint8_t* wexp = p.packed + static_cast<size_t>(e) * p.N * kh;
   const int nt = (mcount + 7) / 8;  // n8 tiles of xq in use, CTA-uniform
   const int c_begin = (blockIdx.z * p.kw + kwi) * p.ws;
@@ -294,9 +307,11 @@ __global__ void __launch_bounds__(kI8Threads, 2) int8_mma_kernel(const I8Args p)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         if (j >= nt) break;  // CTA-uniform
-        const int8_t* xr = p.xq + static_cast<size_t>(m0 + 8 * j + g) * p.K + byte;
-        i8_cp_async<R, false>(slot + I8Slot<R>::x(j, 0, lane), in_k ? xr : p.xq, in_k);
-        i8_cp_async<R, false>(slot + I8Slot<R>::x(j, 1, lane), in_k ? xr + kh : p.xq, in_k);
+        const int m = m0 + 8 * j + g;
+        const bool vx = in_k && m < p.M;  // rows past M read zeros
+        const int8_t* xr = p.xq + static_cast<size_t>(m) * p.K + byte;
+        i8_cp_async<R, false>(slot + I8Slot<R>::x(j, 0, lane), vx ? xr : p.xq, vx);
+        i8_cp_async<R, false>(slot + I8Slot<R>::x(j, 1, lane), vx ? xr + kh : p.xq, vx);
       }
     }
     i8_cp_async_commit();
@@ -356,11 +371,12 @@ __global__ void __launch_bounds__(kI8Threads, 2) int8_mma_kernel(const I8Args p)
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       if (j >= nt) break;
-      const int32_t* xs = p.sums + static_cast<size_t>(m0 + 8 * j + 2 * t) * ng + grp;
-      xv[j][0] = __ldg(xs);
-      xv[j][1] = __ldg(xs + ng);
-      xv[j][2] = __ldg(xs + gh);
-      xv[j][3] = __ldg(xs + ng + gh);
+      const int m = m0 + 8 * j + 2 * t;  // rows m and m + 1; past M: 0
+      const int32_t* xs = p.sums + static_cast<size_t>(m) * ng + grp;
+      xv[j][0] = m < p.M ? __ldg(xs) : 0;
+      xv[j][1] = m + 1 < p.M ? __ldg(xs + ng) : 0;
+      xv[j][2] = m < p.M ? __ldg(xs + gh) : 0;
+      xv[j][3] = m + 1 < p.M ? __ldg(xs + ng + gh) : 0;
     }
   };
   // K14: fold the group's int32 sums into acc (the group order is the loop's).
@@ -422,7 +438,7 @@ __global__ void __launch_bounds__(kI8Threads, 2) int8_mma_kernel(const I8Args p)
   // Add the kw warps of each row tile in order kwi = 0, 1, ...; write row by
   // row of y (or of the split's partials), consecutive threads on consecutive
   // columns.
-  for (int i = threadIdx.x; i < kI8Mt * ncols; i += kI8Threads) {
+  for (int i = threadIdx.x; i < mrows * ncols; i += kI8Threads) {
     const int r = i / ncols, col = i - r * ncols;
     const int tile = col >> 4, row = col & 15;
     const int m = m0 + r, n = ncta0 + col;
@@ -455,7 +471,7 @@ __global__ void __launch_bounds__(kI8Threads) int8_mma_reduce_kernel(const I8Arg
   if (i >= mn) return;
   const int m = static_cast<int>(i / p.N), n = static_cast<int>(i % p.N);
   float out = 0.f;
-  if (m % kI8Mt < rows_in_use(p.used, m / kI8Mt)) {
+  if (m % kI8Mt < rows_in_use(p.used, m / kI8Mt, p.M)) {
     const Acc* part = static_cast<const Acc*>(p.partial);
     Acc v = part[i];
     for (int z = 1; z < p.splits; ++z) {
@@ -465,7 +481,7 @@ __global__ void __launch_bounds__(kI8Threads) int8_mma_reduce_kernel(const I8Arg
         v += part[z * mn + i];
       }
     }
-    out = a8_epilogue<P>(p, p.gids[m / p.tile_m], m, n, v);
+    out = a8_epilogue<P>(p, i8_expert(p, m), m, n, v);
   }
   store_out(p.y, i, out, p.out_f32);
 }
@@ -535,15 +551,17 @@ int launch_a8_prepass(const void* x, void* xq, void* sx, void* sums, void* used,
 }
 
 // Launch the main kernel (and, with splits > 1, the ordered second pass) on
-// `stream`. Requires M % 16 == 0, tile_m % 16 == 0, K % 32 == 0, kw in {1, 2,
-// 4, 8}, ws >= 1, partial != nullptr when splits > 1; K14 also 4R | gs, gs |
-// K/2 and whole groups per warp (ws % (gs / 4R) == 0).
+// `stream`. Requires K % 32 == 0, kw in {1, 2, 4, 8}, ws >= 1, partial !=
+// nullptr when splits > 1; with gids (grouped) tile_m % 16 == 0 (M a multiple
+// of tile_m is the caller's); K14 and K8 also 4R | gs, gs | K/2 and whole
+// groups per warp (ws % (gs / 4R) == 0).
 template <class P>
 int launch_int8_mma(const I8Args& p, void* stream) {
   constexpr int CB = 4 * P::kRun;
   const bool groups_ok = !P::kGroups || (p.gs > 0 && p.gs % CB == 0 && (p.K / 2) % p.gs == 0 &&
                                          p.ws % (p.gs / CB) == 0);
-  const bool ok = p.M % kI8Mt == 0 && p.tile_m % kI8Mt == 0 && p.K % 32 == 0 && p.ws >= 1 &&
+  const bool tiles_ok = p.gids == nullptr || (p.tile_m > 0 && p.tile_m % kI8Mt == 0);
+  const bool ok = tiles_ok && p.K % 32 == 0 && p.ws >= 1 &&
                   (p.kw == 1 || p.kw == 2 || p.kw == 4 || p.kw == 8) && p.splits >= 1 &&
                   (p.splits == 1 || p.partial != nullptr) && groups_ok;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
@@ -551,7 +569,7 @@ int launch_int8_mma(const I8Args& p, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int tiles = (p.N + 15) / 16;
   const int per_cta = kI8Warps / p.kw;
-  const dim3 grid(p.M / kI8Mt, (tiles + per_cta - 1) / per_cta, p.splits);
+  const dim3 grid((p.M + kI8Mt - 1) / kI8Mt, (tiles + per_cta - 1) / per_cta, p.splits);
   const size_t smem = static_cast<size_t>(kI8Warps) * kI8Ring * I8Slot<P::kRun>::kBytes;
   // above 48 KB of dynamic shared memory, raised once per device
   constexpr int kDevices = 64;

@@ -47,6 +47,7 @@ _SIGNATURES = {
     # x, gids, packed, scales, zps, used, y, partial; T, N, K, (gs,) tile_m, ws, kw, splits, mt
     "f4b_grouped_int4_matmul_mma_bf16": [_P] * 8 + [_I] * 8 + [_P],
     "f4b_grouped_int4_matmul_pg_mma_bf16": [_P] * 8 + [_I] * 9 + [_P],
+    "f4b_grouped_int4_matmul_planar_pg_mma_bf16": [_P] * 8 + [_I] * 9 + [_P],
     "f4b_grouped_int4_matmul_f32": [_P] * 7 + [_I] * 4 + [_P],
     # q, kp, ks, kz, vp, vs, vz, lengths, starts, out, partial; B, Hkv, G, Tq, S, D, QT, seg
     "f4b_int4_attention_bf16": [_P] * 11 + [_I] * 8 + [_P],
@@ -62,7 +63,7 @@ _SIGNATURES = {
     "f4b_a8_prepass_bf16": [_P] * 5 + [_I] * 4 + [_P],
     "f4b_a8_prepass_f32": [_P] * 5 + [_I] * 4 + [_P],
     # xq, sx, sums, used, gids, packed, scales, zps, y, partial;
-    # M, N, K, (gs,) tile_m, out_f32, ws, kw, splits; stream
+    # M, N, K, (gs,) tile_m, out_f32, ws, kw, splits; stream (gids NULL: K8)
     "f4b_grouped_int4_matmul_a8_mma": [_P] * 10 + [_I] * 8 + [_P],
     "f4b_grouped_int4_matmul_pg_a8_mma": [_P] * 10 + [_I] * 9 + [_P],
     "f4b_grouped_int4_matmul_a8_fused_bf16": [_P] * 7 + [_I] * 4 + [_P],
@@ -79,7 +80,6 @@ _SIGNATURES = {
     "f4b_int4_matmul_planar_pg_bf16": [_P] * 6 + [_I] * 8 + [_P],
     "f4b_int4_matmul_pg_mma_bf16": [_P] * 6 + [_I] * 8 + [_P],
     "f4b_int4_matmul_planar_pg_f32": [_P] * 5 + [_I] * 4 + [_P],
-    "f4b_grouped_int4_matmul_planar_pg_bf16": [_P] * 7 + [_I] * 5 + [_P],
     "f4b_grouped_int4_matmul_planar_pg_f32": [_P] * 7 + [_I] * 5 + [_P],
     "f4b_grouped_int4_matmul_ksplit_bf16": [_P] * 8 + [_I] * 5 + [_P],
     "f4b_grouped_int4_matmul_ksplit_f32": [_P] * 8 + [_I] * 5 + [_P],

@@ -22,9 +22,9 @@ and no device-to-host sync, and runs its plain version on a CPU tensor:
   planar_groups layout ``csrc/grouped_matmul_pg.cu``, K13 (the port of
   ``_grouped_pg_bp_kernel``; bf16 at ``gs % 64 == 0`` on the tensor-core
   body, else the CUDA-core loop of ``csrc/int4_rows_pg.cuh``); in the
-  planar layout (what ``models.convert``
-  produces) ``csrc/grouped_matmul.cu``, K12 (the port of
-  ``_grouped_pg_kernel``);
+  planar layout (what ``models.convert`` produces) ``csrc/grouped_matmul.cu``,
+  K12 (the port of ``_grouped_pg_kernel``; bf16 on the tensor-core body
+  under K6's arithmetic, f32 on the CUDA-core loop of ``csrc/int4_rows.cuh``);
 * ``grouped_int4_matmul_per_group_a8`` (w4a8, the same experts): K14 (the
   port of ``_grouped_pg_bp_a8_kernel``) on activations quantized before the
   main kernel, as the TPU wrapper does: at ``gs % 32 == 0`` on the int8
@@ -32,10 +32,11 @@ and no device-to-host sync, and runs its plain version on a CPU tensor:
   ``csrc/int4_rows_pg.cuh``.
 
 The tensor-core bodies' launch shapes come from :func:`_grouped_mma_launch`
-(K2, K13) and :func:`_a8_mma_launch` (K10, K14), which read (N, K, SM count)
-and (N, K, gs, SM count) only: a token row's output bits do not depend on
-the tile, the T or the routing it sits in (K2 and K13 up to tile_m 64; at
-tile_m 128, the prefill's, they take 64-row tiles whose launch may read T).
+(K2, K12, K13) and ``int4_matmul._a8_mma_launch`` (K10, K14), which read (N,
+K, SM count) and (N, K, gs, SM count) only: a token row's output bits do not
+depend on the tile, the T or the routing it sits in (K2, K12 and K13 up to
+tile_m 64; at tile_m 128, the prefill's, they take 64-row tiles whose launch
+may read T).
 """
 from __future__ import annotations
 
@@ -44,18 +45,22 @@ from typing import Optional
 
 import torch
 
-from ..quant.core import QuantizedTensor, dequantize, planar_groups_to_planar, unpack_planar
+from ..quant.core import QuantizedTensor, dequantize
 from ..quant.reference import full_precision
 from . import _build
 from .int4_matmul import (
+    _A8_PREPASS,
     _MMA_TALL_M,
+    _a8_mma_launch,
     _a8_product,
     _check_per_group,
     _check_pg_operands,
     _compute_dtype,
     _k7_on_tensor_cores,
+    _launch_a8_mma,
     _mma_tall_launch,
-    _pg_a8_product,
+    _pg_a8_on_tensor_cores,
+    _pg_a8_plain,
     _sm_count,
     planar_pg_weight,
 )
@@ -74,6 +79,7 @@ _KERNELS = {
     torch.float32: "f4b_grouped_int4_matmul_f32",
 }
 _PG_MMA_KERNEL = "f4b_grouped_int4_matmul_pg_mma_bf16"   # K13 on the tensor-core body
+_PLANAR_PG_MMA_KERNEL = "f4b_grouped_int4_matmul_planar_pg_mma_bf16"   # K12 on it
 # x rows per CTA (bf16: the tensor-core body's decode tile; the CUDA-core
 # loops of csrc/int4_rows.cuh, RowsTile): an m-tile must hold a whole number
 # of them.
@@ -85,13 +91,6 @@ _A8_FUSED_KERNELS = {
 # x rows per CTA of the CUDA-core w4a8 bodies (csrc/int4_rows_a8.cuh): K11's,
 # and K14's at group sizes the int8 body does not take
 _A8_KERNEL_ROWS = 16
-# the first pass of the int8 tensor-core body (csrc/int8_mma.cuh): K10, and
-# K14 at gs % 32 == 0
-_A8_PREPASS = {torch.bfloat16: "f4b_a8_prepass_bf16", torch.float32: "f4b_a8_prepass_f32"}
-_I8_WARPS = 8        # warps per CTA of the int8 body
-# SM count the plain version of K14 assumes for CPU tensors: the H100's (the
-# launch rule, and so K14's order of f32 sums, depends on it)
-_PLAIN_SMS = 132
 _PG_KERNELS = {
     torch.bfloat16: "f4b_grouped_int4_matmul_pg_bf16",
     torch.float32: "f4b_grouped_int4_matmul_pg_f32",
@@ -100,10 +99,7 @@ _PG_A8_KERNELS = {
     torch.bfloat16: "f4b_grouped_int4_matmul_pg_a8_bf16",
     torch.float32: "f4b_grouped_int4_matmul_pg_a8_f32",
 }
-_PLANAR_PG_KERNELS = {
-    torch.bfloat16: "f4b_grouped_int4_matmul_planar_pg_bf16",
-    torch.float32: "f4b_grouped_int4_matmul_planar_pg_f32",
-}
+_PLANAR_PG_KERNELS = {torch.float32: "f4b_grouped_int4_matmul_planar_pg_f32"}   # K12 in f32
 _KSPLIT_KERNELS = {
     torch.bfloat16: "f4b_grouped_int4_matmul_ksplit_bf16",
     torch.float32: "f4b_grouped_int4_matmul_ksplit_f32",
@@ -198,14 +194,22 @@ def _ksplit_splits(t_pad: int, n: int, k: int, rows: int) -> int:
     return max(1, min(-(-(k // 2) // _CHUNK), -(-_KSPLIT_CTAS // ctas)))
 
 
-# --- the tensor-core body (csrc/int4_mma.cuh) with grouped addressing: K2, K13 ---
+# --- the tensor-core body (csrc/int4_mma.cuh) with grouped addressing: K2, K12, K13 ---
+
+
+def _k12_on_tensor_cores(dtype: torch.dtype) -> bool:
+    """K12's body, chosen by the activations' type alone, as K6's: the
+    tensor-core body (``csrc/int4_mma.cuh``, GroupDequant with grouped
+    addressing) for bf16 x, the CUDA-core loop of ``csrc/int4_rows.cuh``
+    for f32 x (an f32 tensor-core product would be TF32)."""
+    return dtype == torch.bfloat16
 
 
 def _grouped_mma_launch(n: int, k: int, sms: int) -> tuple:
-    """The launch shape ``(ws, kw, splits)`` of the tensor-core body for K2
-    and K13 at tile_m <= 64, for an [N, K] expert weight on a card of ``sms``
-    SMs: each warp takes a 16-row tile of output rows and ``ws`` k steps
-    (whole chunks of 64 packed bytes, 8 steps each, so K13 folds whole
+    """The launch shape ``(ws, kw, splits)`` of the tensor-core body for K2,
+    K12 and K13 at tile_m <= 64, for an [N, K] expert weight on a card of
+    ``sms`` SMs: each warp takes a 16-row tile of output rows and ``ws`` k
+    steps (whole chunks of 64 packed bytes, 8 steps each, so K13 folds whole
     chunks), a CTA of 8 warps puts ``kw`` of them along K (8 / kw row tiles),
     and ``splits`` CTAs cover K.
 
@@ -227,7 +231,8 @@ def _grouped_mma_launch(n: int, k: int, sms: int) -> tuple:
 
 def _launch_grouped_mma(x_sorted: torch.Tensor, tile_group_ids: torch.Tensor, qt: QuantizedTensor,
                         tile_m: int, *, launch: Optional[tuple] = None) -> torch.Tensor:
-    """K2 (per_row ``qt``) or K13 (per_group) on the tensor-core body: its
+    """K2 (per_row ``qt``), K12 (per_group, planar) or K13 (per_group,
+    planar_groups) on the tensor-core body: its
     first pass (which rows hold a nonzero), the main kernel with 16 rows of
     x per CTA at :func:`_grouped_mma_launch`'s shape (or ``launch``), or at
     tile_m 128 (a multiple of 64 above 64: the prefill's tiles) with 64 at
@@ -242,6 +247,8 @@ def _launch_grouped_mma(x_sorted: torch.Tensor, tile_group_ids: torch.Tensor, qt
         launch = _mma_tall_launch(n, k, m, sms) if tall else _grouped_mma_launch(n, k, sms)
     ws, kw, splits = launch
     per_group = qt.granularity == "per_group"
+    kernel = (_KERNELS[torch.bfloat16] if not per_group else
+              _PLANAR_PG_MMA_KERNEL if qt.layout == "planar" else _PG_MMA_KERNEL)
     y = torch.empty((m, n), dtype=x_sorted.dtype, device=dev)
     if m == 0:
         return y
@@ -249,7 +256,7 @@ def _launch_grouped_mma(x_sorted: torch.Tensor, tile_group_ids: torch.Tensor, qt
     partial = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
                if splits > 1 else None)
     with torch.cuda.device(dev):
-        err = getattr(_build.library(), _PG_MMA_KERNEL if per_group else _KERNELS[torch.bfloat16])(
+        err = getattr(_build.library(), kernel)(
             x_sorted.data_ptr(), tile_group_ids.data_ptr(), qt.packed.data_ptr(),
             qt.scales.data_ptr(), qt.zero_points.data_ptr(), used.data_ptr(), y.data_ptr(),
             None if partial is None else partial.data_ptr(), m, n, k,
@@ -425,154 +432,6 @@ grouped_int4_matmul_a8.launches = 0        # K10
 grouped_int4_matmul_a8.fused_launches = 0  # K11
 
 
-# --- the int8 tensor-core body (csrc/int8_mma.cuh): K10, and K14 at gs % 32 == 0 ---
-
-
-def _k14_on_tensor_cores(group_size: int) -> bool:
-    """K14's body, chosen by the group size alone: the int8 tensor-core body
-    at ``gs % 32 == 0`` (a chunk of 32 or 64 packed bytes never straddles a
-    group), else the CUDA-core loop of ``csrc/int4_rows_pg.cuh`` (the other
-    multiples of 16 that planar_groups allows)."""
-    return group_size % 32 == 0
-
-
-def _i8_chunk(gs: int) -> int:
-    """Packed bytes per chunk of a row in the int8 body: 4 lanes x 16 bytes,
-    or x 8 for K14 at ``gs % 64 != 0``. ``gs`` 0 means per row (K10)."""
-    return 64 if gs % 64 == 0 else 32
-
-
-def _a8_mma_launch(n: int, k: int, gs: int, sms: int) -> tuple:
-    """The launch shape ``(ws, kw, splits)`` of ``csrc/int8_mma.cuh`` for an
-    [N, K] expert weight (``gs`` its group size, 0 per row) on a card of
-    ``sms`` SMs: each warp takes a 16-row tile of output rows and a slice of
-    ``ws`` chunks of K/2 (whole groups for K14), a CTA of 8 warps puts ``kw``
-    of them along K (8 / kw row tiles), and ``splits`` CTAs cover K.
-
-    K is cut into the fewest slices that give every SM two warps from one
-    block of 16 rows alone (a decode step where one expert is hit): the
-    slices go to warps of a CTA first (up to 8, added through shared
-    memory), then to CTAs along K (added by a second pass). At the layer2
-    shapes that is one slice at gate/up (N=14336: ws 32, kw 1) and two at
-    down (N=4096: ws 56, kw 2), splits 1; more slices measured no faster
-    there at decode and slower at prefill on the H100
-    (``scripts/grouped_a8_sweep.py`` times the candidates; PERF.md).
-
-    It reads (N, K, gs, SMs) only, never T, tile_m or the routing: K14's f32
-    sums then run in the same order for a token row wherever it sits, so its
-    output bits do not depend on the tile or the T of the dispatch."""
-    cb = _i8_chunk(gs)
-    unit = gs // cb if gs else 1                      # chunks per group
-    units = -(-(k // 2) // (cb * unit))               # groups (K10: chunks)
-    tiles = -(-n // 16)
-    slices = max(1, min(units, -(-2 * sms // tiles)))
-    kw = min(_I8_WARPS, 1 << (slices - 1).bit_length())
-    ws = unit * -(-units // (kw * -(-slices // kw)))
-    return ws, kw, -(-units * unit // (kw * ws))
-
-
-def _launch_a8_mma(x_sorted: torch.Tensor, tile_group_ids: torch.Tensor, qt: QuantizedTensor,
-                   tile_m: int, ws: int, kw: int, splits: int) -> torch.Tensor:
-    """The int8 body at launch shape ``(ws, kw, splits)``: its first pass
-    (quantize, per-group sums, which rows hold a nonzero), the main kernel
-    and, with splits > 1, the ordered second pass. K10 for per_row ``qt``,
-    K14 for per_group. x_sorted 16-byte aligned, operands checked."""
-    e, n, k = qt.shape
-    m = x_sorted.shape[0]
-    per_group = qt.granularity == "per_group"
-    gs = qt.group_size if per_group else 0
-    gsum = gs or k // 2
-    dev = x_sorted.device
-    y = torch.empty((m, n), dtype=x_sorted.dtype, device=dev)
-    if m == 0:
-        return y
-    xq = torch.empty((m, k), dtype=torch.int8, device=dev)
-    sx = torch.empty((m,), dtype=torch.float32, device=dev)
-    sums = torch.empty((m, k // gsum), dtype=torch.int32, device=dev)
-    used = torch.empty((m,), dtype=torch.int32, device=dev)
-    partial = (torch.empty((splits, m, n), dtype=torch.float32 if per_group else torch.int32,
-                           device=dev) if splits > 1 else None)
-    lib = _build.library()
-    stream = _build.stream_of(x_sorted)
-    with torch.cuda.device(dev):
-        err = getattr(lib, _A8_PREPASS[x_sorted.dtype])(
-            x_sorted.data_ptr(), xq.data_ptr(), sx.data_ptr(), sums.data_ptr(), used.data_ptr(),
-            m, k, gsum, int(per_group), stream)
-        _build.check(err, "the int8 body's first pass")
-        ptrs = (xq.data_ptr(), sx.data_ptr(), sums.data_ptr(), used.data_ptr(),
-                tile_group_ids.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(),
-                qt.zero_points.data_ptr(), y.data_ptr(),
-                None if partial is None else partial.data_ptr())
-        tail = (tile_m, int(x_sorted.dtype == torch.float32), ws, kw, splits, stream)
-        if per_group:
-            err = lib.f4b_grouped_int4_matmul_pg_a8_mma(*ptrs, m, n, k, gs, *tail)
-        else:
-            err = lib.f4b_grouped_int4_matmul_a8_mma(*ptrs, m, n, k, *tail)
-    _build.check(err, "grouped_int4_matmul_per_group_a8" if per_group else
-                 "grouped_int4_matmul_a8")
-    return y
-
-
-def _pg_a8_fold_product(xq: torch.Tensor, sx: torch.Tensor, packed3: torch.Tensor,
-                        scales: torch.Tensor, zero_points: torch.Tensor, *,
-                        launch: tuple) -> torch.Tensor:
-    """The w4a8 per-group product in plain torch, f32 out, operation by
-    operation as K14 computes it on the int8 body at launch shape ``launch``
-    = ``(ws, kw, splits)`` (see :func:`_a8_mma_launch`).
-
-    xq [M, K] i8, sx [M, 1] f32, packed3 [Gh, N, gs] u8 (gs % 32 == 0),
-    scales/zero_points [N, 2Gh]. Per group g the exact integers P_lo = xq_lo .
-    q_lo, P_hi = xq_hi . 16 (q_hi - 8) and the sums X_lo, X_hi of xq over the
-    group's columns; K/2 is cut into kw * splits slices of ws chunks (whole
-    groups), slice i = z * kw + w. Each slice folds its groups in order into
-    an f32 sum from 0: ``acc += s_lo*P_lo; acc += c_lo*X_lo; acc +=
-    (s_hi/16)*P_hi; acc += c_hi*X_hi`` with c_lo = -s_lo*zp_lo, c_hi =
-    s_hi*(8 - zp_hi); the kw slices of split z are added in order w = 0, 1,
-    ..., then the splits in order z = 0, 1, ...; y = acc * sx. The integer
-    products run in float64, exact here (every sum is an integer below
-    2^24)."""
-    ws, kw, splits = launch
-    m, k = xq.shape
-    gh, n, gs = packed3.shape
-    kh = gh * gs
-    cpg = gs // _i8_chunk(gs)
-    if ws % cpg or ws * kw * splits * _i8_chunk(gs) < kh:
-        raise ValueError(f"launch {launch} does not cut K/2={kh} into whole groups of {gs}")
-    codes = unpack_planar(planar_groups_to_planar(packed3)).double()         # [N, K]
-    q_lo = codes[:, :kh].reshape(n, gh, gs)
-    v_hi = 16.0 * (codes[:, kh:].reshape(n, gh, gs) - 8.0)
-    s, z = scales.float(), zero_points.float()
-    fold = (s[:, :gh], (-s[:, :gh]) * z[:, :gh], s[:, gh:] * 0.0625,
-            s[:, gh:] * (8.0 - z[:, gh:]))                                    # [N, Gh] each
-    out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
-    for m0 in range(0, m, 64):  # 64 rows at a time bound the [Gh, rows, N] products
-        xb = xq[m0:m0 + 64].double()
-        rows = xb.shape[0]
-        x_lo = xb[:, :kh].reshape(rows, gh, gs)
-        x_hi = xb[:, kh:].reshape(rows, gh, gs)
-        p_lo = torch.einsum("rgc,ngc->grn", x_lo, q_lo).float()
-        p_hi = torch.einsum("rgc,ngc->grn", x_hi, v_hi).float()
-        xs_lo, xs_hi = x_lo.sum(-1).float(), x_hi.sum(-1).float()             # [rows, Gh]
-        parts = [torch.zeros((rows, n), dtype=torch.float32, device=xq.device)
-                 for _ in range(kw * splits)]
-        for g in range(gh):
-            i = g * cpg // ws
-            a = parts[i]
-            a = a + fold[0][:, g] * p_lo[g]
-            a = a + fold[1][:, g] * xs_lo[:, g:g + 1]
-            a = a + fold[2][:, g] * p_hi[g]
-            a = a + fold[3][:, g] * xs_hi[:, g:g + 1]
-            parts[i] = a
-        total = None
-        for zi in range(splits):
-            acc = parts[zi * kw]
-            for w in range(1, kw):
-                acc = acc + parts[zi * kw + w]
-            total = acc if total is None else total + acc
-        out[m0:m0 + rows] = total * sx[m0:m0 + 64].float()
-    return out
-
-
 # --- per-group experts in the planar_groups layout: K13 (w4a16), K14 (w4a8) ---
 
 
@@ -662,7 +521,8 @@ def grouped_int4_matmul_per_group(
     see ``int4_matmul._check_per_group``). Returns [T_pad, N] in x.dtype.
     K13 runs on the tensor-core body where K7 does
     (:func:`~.int4_matmul._k7_on_tensor_cores`: bf16 x, ``gs % 64 == 0``),
-    else on the CUDA-core loop; K12 on the CUDA-core loop.
+    else on the CUDA-core loop; K12 on the tensor-core body for bf16 x
+    (:func:`_k12_on_tensor_cores`), on the CUDA-core loop for f32 x.
     """
     _check_pg(x_sorted, tile_group_ids, qt, tile_m)
     planar = qt.layout == "planar"
@@ -675,7 +535,8 @@ def grouped_int4_matmul_per_group(
         raise TypeError(f"{what} takes bf16 or f32 activations, got {x_sorted.dtype}")
     x_sorted = _aligned_rows(x_sorted)
     rows = _KERNEL_ROWS[x_sorted.dtype]
-    if not planar and _k7_on_tensor_cores(x_sorted.dtype, qt.group_size):
+    if (_k12_on_tensor_cores(x_sorted.dtype) if planar
+            else _k7_on_tensor_cores(x_sorted.dtype, qt.group_size)):
         _check_device_operands(x_sorted, tile_group_ids, qt)
         _check_pg_operands(x_sorted, qt, what)
         if tile_m % rows != 0:
@@ -700,20 +561,14 @@ def grouped_int4_matmul_per_group_a8_reference(
     *, tile_m: int = 64, launch: Optional[tuple] = None,
 ) -> torch.Tensor:
     """Plain version of K14: the TPU wrapper's quantizer, then per expert,
-    over that expert's tiles, the order of the body K14 runs: at ``gs % 32
-    == 0`` :func:`_pg_a8_fold_product` at the launch shape ``launch``
-    (default :func:`_a8_mma_launch` on x's card, or on an H100's 132 SMs for
-    a CPU tensor), else :func:`~.int4_matmul._pg_a8_product`; x.dtype out."""
+    over that expert's tiles, the order of the body K14 runs
+    (``int4_matmul._pg_a8_plain``: at ``gs % 32 == 0`` the int8 body's fold
+    at the launch shape ``launch``, by default ``_a8_mma_launch``'s, else the
+    per-run fold of ``_pg_a8_product``); x.dtype out."""
     grouped_int4_matmul_per_group_a8_reference.calls += 1
     _check_pg(x_sorted, tile_group_ids, qt, tile_m, a8=True)
     e, n, k = qt.shape
-    if _k14_on_tensor_cores(qt.group_size):
-        if launch is None:
-            sms = _sm_count(x_sorted.device.index) if x_sorted.is_cuda else _PLAIN_SMS
-            launch = _a8_mma_launch(n, k, qt.group_size, sms)
-        product = lambda *a: _pg_a8_fold_product(*a, launch=launch)  # noqa: E731
-    else:
-        product = _pg_a8_product
+    product = _pg_a8_plain(x_sorted, n, k, qt.group_size, launch, _a8_mma_launch)
     xq, sx = _quantize_acts(x_sorted, fused=True)
     xqt, sxt = xq.reshape(-1, tile_m, k), sx.reshape(-1, tile_m, 1)
     out = torch.zeros((xqt.shape[0], tile_m, n), dtype=torch.float32, device=x_sorted.device)
@@ -745,9 +600,9 @@ def grouped_int4_matmul_per_group_a8(
     are quantized before the main kernel with the TPU wrapper's quantizer
     (``_quantize_acts(x, fused=True)``, see ``int4_matmul_per_group_a8``):
     at ``gs % 32 == 0`` by the int8 body's first pass, which then runs the
-    per-group fold of :func:`_pg_a8_fold_product`; at other group sizes by
-    the host quantizer, then the CUDA-core loop of ``_pg_a8_product``
-    (:func:`_k14_on_tensor_cores` says which).
+    per-group fold of ``_pg_a8_fold_product``; at other group sizes by the
+    host quantizer, then the CUDA-core loop of ``_pg_a8_product``
+    (``int4_matmul._pg_a8_on_tensor_cores`` says which, for K8 as well).
     """
     _check_pg(x_sorted, tile_group_ids, qt, tile_m, a8=True)
     if not x_sorted.is_cuda:
@@ -755,7 +610,7 @@ def grouped_int4_matmul_per_group_a8(
                                                           tile_m=tile_m)
     if x_sorted.dtype not in _PG_A8_KERNELS:
         raise TypeError(f"K14 takes bf16 or f32 activations, got {x_sorted.dtype}")
-    if _k14_on_tensor_cores(qt.group_size):
+    if _pg_a8_on_tensor_cores(qt.group_size):
         _check_device_operands(x_sorted, tile_group_ids, qt)
         _check_pg_operands(x_sorted, qt, "K14")
         e, n, k = qt.shape

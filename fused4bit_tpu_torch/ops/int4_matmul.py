@@ -29,9 +29,17 @@ Counterpart of ``fused4bit_tpu/ops/int4_matmul.py``:
   tensor-core body, f32 on the CUDA-core loop), or on a CPU tensor
   :func:`int4_matmul_per_group_planar_reference`.
 * ``int4_matmul_per_group_a8`` (w4a8, the same weights): the activations are
-  quantized before the launch, as the TPU wrapper does, then K8 (the port of
-  ``_int4_group_bp_a8_kernel``); on a CPU tensor it runs
+  quantized before the main kernel, as the TPU wrapper does, then K8 (the
+  port of ``_int4_group_bp_a8_kernel``): at ``gs % 32 == 0`` the int8
+  tensor-core body of ``csrc/int8_mma.cuh`` (its first pass quantizes) at
+  the launch shape of :func:`_linear_a8_launch`, as a one-expert stack; at
+  other group sizes the host quantizer, then the CUDA-core loop of
+  ``csrc/int4_rows_pg.cuh``. On a CPU tensor it runs
   :func:`int4_matmul_per_group_a8_reference`.
+
+The int8 body's helpers live here (its launch rule, its launcher and the
+plain version of its per-group fold); ``grouped_matmul`` imports them for
+K10 and K14.
 """
 from __future__ import annotations
 
@@ -61,7 +69,7 @@ _A8_FUSED_KERNELS = {
 _PG_KERNELS = {torch.bfloat16: "f4b_int4_matmul_pg_bf16", torch.float32: "f4b_int4_matmul_pg_f32"}
 _PG_MMA_KERNEL = "f4b_int4_matmul_pg_mma_bf16"   # K7 on the tensor-core body
 _FOLD_GS = 64     # K7 runs the tensor-core body at group sizes that are multiples of this
-_PG_A8_KERNELS = {
+_PG_A8_KERNELS = {   # K8 at group sizes the int8 body does not take
     torch.bfloat16: "f4b_int4_matmul_pg_a8_bf16",
     torch.float32: "f4b_int4_matmul_pg_a8_f32",
 }
@@ -506,7 +514,7 @@ _RUN = 16
 def _pg_a8_product(xq: torch.Tensor, sx: torch.Tensor, packed3: torch.Tensor,
                    scales: torch.Tensor, zero_points: torch.Tensor) -> torch.Tensor:
     """The w4a8 per-group product in plain torch, f32 out, operation by
-    operation as K8 (and K14 at gs % 32 != 0) compute it
+    operation as K8 and K14 at gs % 32 != 0 compute it
     (``csrc/int4_rows_pg.cuh``).
 
     xq [M, K] i8, sx [M, 1] f32, packed3 [Gh, N, gs] u8, scales/zero_points
@@ -559,12 +567,215 @@ def _pg_a8_product(xq: torch.Tensor, sx: torch.Tensor, packed3: torch.Tensor,
     return out
 
 
-def int4_matmul_per_group_a8_reference(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
-    """Plain version of K8: the TPU wrapper's activation quantizer, then
-    :func:`_pg_a8_product`; x.dtype out."""
+# --- the int8 tensor-core body (csrc/int8_mma.cuh): K8 here, K10 and K14 in grouped_matmul ---
+
+# the body's first pass (quantize, per-group sums, rows in use)
+_A8_PREPASS = {torch.bfloat16: "f4b_a8_prepass_bf16", torch.float32: "f4b_a8_prepass_f32"}
+_I8_WARPS = 8        # warps per CTA of the int8 body
+# SM count the plain versions of K8 and K14 assume for CPU tensors: the
+# H100's (the launch rule, and so their order of f32 sums, depends on it)
+_PLAIN_SMS = 132
+
+
+def _pg_a8_on_tensor_cores(group_size: int) -> bool:
+    """K8's and K14's body, chosen by the group size alone: the int8
+    tensor-core body at ``gs % 32 == 0`` (a chunk of 32 or 64 packed bytes
+    never straddles a group), else the CUDA-core loop of
+    ``csrc/int4_rows_pg.cuh`` (the other multiples of 16 that planar_groups
+    allows)."""
+    return group_size % 32 == 0
+
+
+def _i8_chunk(gs: int) -> int:
+    """Packed bytes per chunk of a row in the int8 body: 4 lanes x 16 bytes,
+    or x 8 for K8 and K14 at ``gs % 64 != 0``. ``gs`` 0 means per row (K10)."""
+    return 64 if gs % 64 == 0 else 32
+
+
+def _a8_mma_launch(n: int, k: int, gs: int, sms: int) -> tuple:
+    """The launch shape ``(ws, kw, splits)`` of ``csrc/int8_mma.cuh`` for
+    K10 and K14 on an [N, K] expert weight (``gs`` its group size, 0 per
+    row) on a card of ``sms`` SMs: each warp takes a 16-row tile of output
+    rows and a slice of ``ws`` chunks of K/2 (whole groups for K14), a CTA of
+    8 warps puts ``kw`` of them along K (8 / kw row tiles), and ``splits``
+    CTAs cover K.
+
+    K is cut into the fewest slices that give every SM two warps from one
+    block of 16 rows alone (a decode step where one expert is hit): the
+    slices go to warps of a CTA first (up to 8, added through shared
+    memory), then to CTAs along K (added by a second pass). At the layer2
+    shapes that is one slice at gate/up (N=14336: ws 32, kw 1) and two at
+    down (N=4096: ws 56, kw 2), splits 1; more slices measured no faster
+    there at decode and slower at prefill on the H100
+    (``scripts/grouped_a8_sweep.py`` times the candidates; PERF.md).
+
+    It reads (N, K, gs, SMs) only, never T, tile_m or the routing: K14's f32
+    sums then run in the same order for a token row wherever it sits, so
+    its output bits do not depend on the tile or the T of the dispatch."""
+    cb = _i8_chunk(gs)
+    unit = gs // cb if gs else 1                      # chunks per group
+    units = -(-(k // 2) // (cb * unit))               # groups (K10: chunks)
+    tiles = -(-n // 16)
+    slices = max(1, min(units, -(-2 * sms // tiles)))
+    kw = min(_I8_WARPS, 1 << (slices - 1).bit_length())
+    ws = unit * -(-units // (kw * -(-slices // kw)))
+    return ws, kw, -(-units * unit // (kw * ws))
+
+
+def _linear_a8_launch(n: int, k: int, gs: int, sms: int) -> tuple:
+    """K8's launch shape ``(ws, kw, 1)`` on the int8 body (see
+    :func:`_a8_mma_launch`) for an [N, K] weight per group of ``gs`` (gs %
+    32 == 0) on a card of ``sms`` SMs: the fewest warps along K, a power of
+    two up to 8 and up to K/2's groups, that give every SM a CTA of 8 warps
+    from one block of 16 rows (a decode step), each warp on whole groups; K
+    is never split across CTAs. At the layer2 linears that is (4, 8, 1) at
+    q/o (N=4096) and k/v (1024), (8, 4, 1) at the lm_head (8192): at 8 rows
+    they measured 0.0170, 0.0155 and 0.0222 ms on the H100 against 0.0235,
+    0.0155 and 0.0362 at :func:`_a8_mma_launch`'s shapes, which keep two
+    warps per SM, and 15-18 % slower at 640 rows
+    (``scripts/linear_a8_sweep.py --sweep``; PERF.md).
+
+    It reads (N, K, gs, SMs) only, never M: a row's f32 sums run in the same
+    order at every M, so its output bits do not depend on the rows beside it
+    (the self-draft verify at 40 rows reproduces the 8-row decode)."""
+    unit = gs // _i8_chunk(gs)                        # chunks per group
+    groups = (k // 2) // gs
+    tiles = -(-n // 16)
+    kw = 1
+    while kw < _I8_WARPS and kw < groups and tiles * kw < _I8_WARPS * sms:
+        kw *= 2
+    return unit * -(-groups // kw), kw, 1
+
+
+def _launch_a8_mma(x: torch.Tensor, tile_group_ids: Optional[torch.Tensor], qt: QuantizedTensor,
+                   tile_m: int, ws: int, kw: int, splits: int) -> torch.Tensor:
+    """The int8 body at launch shape ``(ws, kw, splits)``: its first pass
+    (quantize, per-group sums, which rows hold a nonzero), the main kernel
+    and, with splits > 1, the ordered second pass. K10 for a per_row stack,
+    K14 for a per_group one, K8 for a per_group linear (``tile_group_ids``
+    None: one expert, any M). x 16-byte aligned, operands checked."""
+    n, k = qt.shape[-2:]
+    m = x.shape[0]
+    per_group = qt.granularity == "per_group"
+    gs = qt.group_size if per_group else 0
+    gsum = gs or k // 2
+    dev = x.device
+    y = torch.empty((m, n), dtype=x.dtype, device=dev)
+    if m == 0:
+        return y
+    xq = torch.empty((m, k), dtype=torch.int8, device=dev)
+    sx = torch.empty((m,), dtype=torch.float32, device=dev)
+    sums = torch.empty((m, k // gsum), dtype=torch.int32, device=dev)
+    used = torch.empty((m,), dtype=torch.int32, device=dev)
+    partial = (torch.empty((splits, m, n), dtype=torch.float32 if per_group else torch.int32,
+                           device=dev) if splits > 1 else None)
+    lib = _build.library()
+    stream = _build.stream_of(x)
+    what = ("int4_matmul_per_group_a8" if tile_group_ids is None else
+            "grouped_int4_matmul_per_group_a8" if per_group else "grouped_int4_matmul_a8")
+    with torch.cuda.device(dev):
+        err = getattr(lib, _A8_PREPASS[x.dtype])(
+            x.data_ptr(), xq.data_ptr(), sx.data_ptr(), sums.data_ptr(), used.data_ptr(),
+            m, k, gsum, int(per_group), stream)
+        _build.check(err, f"{what}: the int8 body's first pass")
+        ptrs = (xq.data_ptr(), sx.data_ptr(), sums.data_ptr(), used.data_ptr(),
+                None if tile_group_ids is None else tile_group_ids.data_ptr(),
+                qt.packed.data_ptr(), qt.scales.data_ptr(), qt.zero_points.data_ptr(),
+                y.data_ptr(), None if partial is None else partial.data_ptr())
+        tail = (tile_m, int(x.dtype == torch.float32), ws, kw, splits, stream)
+        if per_group:
+            err = lib.f4b_grouped_int4_matmul_pg_a8_mma(*ptrs, m, n, k, gs, *tail)
+        else:
+            err = lib.f4b_grouped_int4_matmul_a8_mma(*ptrs, m, n, k, *tail)
+    _build.check(err, what)
+    return y
+
+
+def _pg_a8_fold_product(xq: torch.Tensor, sx: torch.Tensor, packed3: torch.Tensor,
+                        scales: torch.Tensor, zero_points: torch.Tensor, *,
+                        launch: tuple) -> torch.Tensor:
+    """The w4a8 per-group product in plain torch, f32 out, operation by
+    operation as K8 and K14 compute it on the int8 body at launch shape
+    ``launch`` = ``(ws, kw, splits)`` (see :func:`_a8_mma_launch`).
+
+    xq [M, K] i8, sx [M, 1] f32, packed3 [Gh, N, gs] u8 (gs % 32 == 0),
+    scales/zero_points [N, 2Gh]. Per group g the exact integers P_lo = xq_lo .
+    q_lo, P_hi = xq_hi . 16 (q_hi - 8) and the sums X_lo, X_hi of xq over the
+    group's columns; K/2 is cut into kw * splits slices of ws chunks (whole
+    groups), slice i = z * kw + w. Each slice folds its groups in order into
+    an f32 sum from 0: ``acc += s_lo*P_lo; acc += c_lo*X_lo; acc +=
+    (s_hi/16)*P_hi; acc += c_hi*X_hi`` with c_lo = -s_lo*zp_lo, c_hi =
+    s_hi*(8 - zp_hi); the kw slices of split z are added in order w = 0, 1,
+    ..., then the splits in order z = 0, 1, ...; y = acc * sx. The integer
+    products run in float64, exact here (every sum is an integer below
+    2^24)."""
+    ws, kw, splits = launch
+    m, k = xq.shape
+    gh, n, gs = packed3.shape
+    kh = gh * gs
+    cpg = gs // _i8_chunk(gs)
+    if ws % cpg or ws * kw * splits * _i8_chunk(gs) < kh:
+        raise ValueError(f"launch {launch} does not cut K/2={kh} into whole groups of {gs}")
+    codes = unpack_planar(planar_groups_to_planar(packed3)).double()         # [N, K]
+    q_lo = codes[:, :kh].reshape(n, gh, gs)
+    v_hi = 16.0 * (codes[:, kh:].reshape(n, gh, gs) - 8.0)
+    s, z = scales.float(), zero_points.float()
+    fold = (s[:, :gh], (-s[:, :gh]) * z[:, :gh], s[:, gh:] * 0.0625,
+            s[:, gh:] * (8.0 - z[:, gh:]))                                    # [N, Gh] each
+    out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
+    for m0 in range(0, m, 64):  # 64 rows at a time bound the [Gh, rows, N] products
+        xb = xq[m0:m0 + 64].double()
+        rows = xb.shape[0]
+        x_lo = xb[:, :kh].reshape(rows, gh, gs)
+        x_hi = xb[:, kh:].reshape(rows, gh, gs)
+        p_lo = torch.einsum("rgc,ngc->grn", x_lo, q_lo).float()
+        p_hi = torch.einsum("rgc,ngc->grn", x_hi, v_hi).float()
+        xs_lo, xs_hi = x_lo.sum(-1).float(), x_hi.sum(-1).float()             # [rows, Gh]
+        parts = [torch.zeros((rows, n), dtype=torch.float32, device=xq.device)
+                 for _ in range(kw * splits)]
+        for g in range(gh):
+            i = g * cpg // ws
+            a = parts[i]
+            a = a + fold[0][:, g] * p_lo[g]
+            a = a + fold[1][:, g] * xs_lo[:, g:g + 1]
+            a = a + fold[2][:, g] * p_hi[g]
+            a = a + fold[3][:, g] * xs_hi[:, g:g + 1]
+            parts[i] = a
+        total = None
+        for zi in range(splits):
+            acc = parts[zi * kw]
+            for w in range(1, kw):
+                acc = acc + parts[zi * kw + w]
+            total = acc if total is None else total + acc
+        out[m0:m0 + rows] = total * sx[m0:m0 + 64].float()
+    return out
+
+
+def _pg_a8_plain(x: torch.Tensor, n: int, k: int, gs: int, launch: Optional[tuple], rule):
+    """The plain per-group w4a8 product, ``(xq, sx, packed3, scales,
+    zero_points) -> f32``, of the body K8 or K14 runs for x: at ``gs % 32 ==
+    0`` :func:`_pg_a8_fold_product` at ``launch`` (default: the launch rule
+    ``rule`` on x's card, or on an H100's 132 SMs for a CPU tensor), else
+    :func:`_pg_a8_product`."""
+    if not _pg_a8_on_tensor_cores(gs):
+        return _pg_a8_product
+    if launch is None:
+        sms = _sm_count(x.device.index) if x.is_cuda else _PLAIN_SMS
+        launch = rule(n, k, gs, sms)
+    return functools.partial(_pg_a8_fold_product, launch=launch)
+
+
+def int4_matmul_per_group_a8_reference(x: torch.Tensor, qt: QuantizedTensor, *,
+                                       launch: Optional[tuple] = None) -> torch.Tensor:
+    """Plain version of K8: the TPU wrapper's activation quantizer, then the
+    product in the order of the body K8 runs (:func:`_pg_a8_plain`: at ``gs %
+    32 == 0`` the int8 body's fold at ``launch``, by default
+    :func:`_linear_a8_launch`'s shape, which reads no M); x.dtype out."""
     int4_matmul_per_group_a8_reference.calls += 1
+    n, k = qt.shape
     xq, sx = _quantize_acts(x, fused=True)
-    return _pg_a8_product(xq, sx, qt.packed, qt.scales, qt.zero_points).to(x.dtype)
+    product = _pg_a8_plain(x, n, k, qt.group_size, launch, _linear_a8_launch)
+    return product(xq, sx, qt.packed, qt.scales, qt.zero_points).to(x.dtype)
 
 
 int4_matmul_per_group_a8_reference.calls = 0
@@ -576,9 +787,11 @@ def int4_matmul_per_group_a8(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tens
 
     x: [..., K] (bf16 or f32); qt: per_group planar_groups [N, K] with
     ``127 * 128 * gs < 2**24``. Returns [..., N] in x.dtype. The activations
-    are quantized before the launch by the TPU wrapper's quantizer, which XLA
-    compiles with ``amax / 127.0`` folded into a multiply by f32(1/127):
-    ``_quantize_acts(x, fused=True)``.
+    are quantized before the main kernel with the TPU wrapper's quantizer,
+    which XLA compiles with ``amax / 127.0`` folded into a multiply by
+    f32(1/127) (``_quantize_acts(x, fused=True)``): at ``gs % 32 == 0`` by the
+    int8 body's first pass, at other group sizes by the host quantizer
+    (:func:`_pg_a8_on_tensor_cores` says which).
     """
     _check_per_group(qt, a8=True)
     n, k = qt.out_dim, qt.in_dim
@@ -594,15 +807,20 @@ def int4_matmul_per_group_a8(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tens
     m = x2.shape[0]
     if m == 0:
         return x.new_empty((*lead, n))
-    xq, sx = _quantize_acts(x2, fused=True)
-    y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
-    with torch.cuda.device(x2.device):
-        err = getattr(_build.library(), _PG_A8_KERNELS[x2.dtype])(
-            xq.data_ptr(), sx.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(),
-            qt.zero_points.data_ptr(), y.data_ptr(), m, n, k, qt.group_size,
-            _build.stream_of(x2),
-        )
-    _build.check(err, "int4_matmul_per_group_a8")
+    x2 = _aligned(x2)
+    if _pg_a8_on_tensor_cores(qt.group_size):
+        y = _launch_a8_mma(x2, None, qt, 0, *_linear_a8_launch(n, k, qt.group_size,
+                                                               _sm_count(x2.device.index)))
+    else:
+        xq, sx = _quantize_acts(x2, fused=True)
+        y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+        with torch.cuda.device(x2.device):
+            err = getattr(_build.library(), _PG_A8_KERNELS[x2.dtype])(
+                xq.data_ptr(), sx.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(),
+                qt.zero_points.data_ptr(), y.data_ptr(), m, n, k, qt.group_size,
+                _build.stream_of(x2),
+            )
+        _build.check(err, "int4_matmul_per_group_a8")
     int4_matmul_per_group_a8.launches += 1
     return y.reshape(*lead, n)
 

@@ -24,7 +24,7 @@ It calls only the public wrappers, so the same script times a parent tree
 (``cd <parent checkout> && env PYTHONPATH=. python3 <this script>``).
 
 ``--sweep`` launches the int8 tensor-core body (``csrc/int8_mma.cuh``) at
-the launch rule's shape (``ops.grouped_matmul._a8_mma_launch``) and at the
+the launch rule's shape (``ops.int4_matmul._a8_mma_launch``) and at the
 other candidate shapes (ws chunks per warp, kw warps along K per CTA, splits
 CTAs along K), each held bit for bit against the rule's output (K10's integers
 are exact; K14's f32 fold is compared with its plain version at the same
@@ -57,7 +57,9 @@ SLICES = ((1, 1), (2, 2), (4, 4), (8, 8), (8, 4), (16, 8))
 def candidates(k: int, gs: int) -> list:
     """Launch shapes ``(ws, kw, splits)`` timed beside the rule's, in whole
     chunks (whole groups for K14) of K/2."""
-    cb = ops.grouped_matmul._i8_chunk(gs)
+    from fused4bit_tpu_torch.ops.int4_matmul import _i8_chunk
+
+    cb = _i8_chunk(gs)
     unit = gs // cb if gs else 1
     units = -(-(k // 2) // (cb * unit))
     out = []
@@ -83,7 +85,8 @@ def _part(name: str) -> str:
 
 def device_parts(fn, flush, calls=10) -> dict:
     """Device ms per call of each part (see :func:`_part`), the L2 flushed
-    before each call by a kernel of its own (left out of the sums)."""
+    before each call by a kernel of its own (left out of the sums), and the
+    device kernels launched per call."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -91,16 +94,19 @@ def device_parts(fn, flush, calls=10) -> dict:
             flush.bitwise_not_()
             fn()
         torch.cuda.synchronize()
-    out, main = {}, []
+    out, main, kernels = {}, [], 0
     for e in prof.key_averages():
         t = getattr(e, "device_time_total", None)
         part = _part(e.key)
         out[part] = out.get(part, 0.0) + (e.cuda_time_total if t is None else t) / calls / 1e3
         if part == "main":
             main.append(e.key[:80])
+        if part != "flush" and e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels += e.count
     out.pop("flush", None)
     out["total"] = sum(out.values())
     out["main_kernels"] = main
+    out["kernels_per_call"] = kernels / calls
     return out
 
 
@@ -145,7 +151,10 @@ def profile_wrappers(gen, card) -> None:
 
 
 def sweep_shapes(gen, card) -> None:
-    grouped = ops.grouped_matmul
+    # the int8 body's launcher and rule (in ops.int4_matmul since K8 runs the
+    # body too; --profile alone also times older trees)
+    from fused4bit_tpu_torch.ops.int4_matmul import _a8_mma_launch, _launch_a8_mma
+
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     timer = cs.Timer("cuda")
     for proj, (n, k) in PROJECTIONS.items():
@@ -156,17 +165,17 @@ def sweep_shapes(gen, card) -> None:
             xs, gids, tile_m, loads = _inputs(gen, proj, shape)
             for kernel, qt in weights.items():
                 gs = qt.group_size if kernel == "K14" else 0
-                rule = grouped._a8_mma_launch(n, k, gs, sms)
-                ref = grouped._launch_a8_mma(xs, gids, qt, tile_m, *rule)
+                rule = _a8_mma_launch(n, k, gs, sms)
+                ref = _launch_a8_mma(xs, gids, qt, tile_m, *rule)
                 line = dict(kernel=kernel, projection=proj, shape=shape, n=n, k=k,
                             tokens_per_expert=loads, rule=list(rule), card=card)
                 for cand in dict.fromkeys([rule, *candidates(k, gs)]):
-                    fn = lambda: grouped._launch_a8_mma(xs, gids, qt, tile_m, *cand)  # noqa: E731
+                    fn = lambda: _launch_a8_mma(xs, gids, qt, tile_m, *cand)  # noqa: E731
                     y = fn()
                     if kernel == "K10" or cand == rule:
                         same = torch.equal(y, ref)
                     else:  # another split folds in another order: its own plain version
-                        plain = grouped.grouped_int4_matmul_per_group_a8_reference(
+                        plain = ops.grouped_int4_matmul_per_group_a8_reference(
                             xs, gids, qt, tile_m=tile_m, launch=cand)
                         same = torch.equal(y, plain)
                     if not same:

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The w4a16 grouped expert kernels K2 and K13 on one GPU: where their time
-goes, and the launch shapes of the tensor-core body they run in bf16.
+"""The w4a16 grouped expert kernels K2, K12 and K13 on one GPU: where their
+time goes, and the launch shapes of the tensor-core body they run in bf16.
 
 Run from the repository root:
 
@@ -13,8 +13,9 @@ experts hit at T=8) and a spread one that hits all 8 experts (each token's
 pair (2i, 2i + 1) mod 8, as a serving step's routing does).
 
 ``--profile`` (the default when neither is given) times K2
-``grouped_int4_matmul`` and K13 ``grouped_int4_matmul_per_group`` (per
-group of 128, planar_groups) at decode (T=8) at tile_m 16, 32 and 64 and at
+``grouped_int4_matmul``, K13 ``grouped_int4_matmul_per_group`` (per group of
+128, planar_groups) and K12 (the same wrapper on planar weights per group of
+128, what ``convert_checkpoint`` gives) at decode (T=8) at tile_m 16, 32 and 64 and at
 the prefill (T=600) at tile_m 128: each wrapper call with CUDA events, the
 L2 cache flushed before each call (``chip_smoke.Timer``), and under
 ``torch.profiler`` its device time split into the first pass over x (the
@@ -26,7 +27,7 @@ script> --profile``).
 
 ``--sweep`` launches the tensor-core body at decode (T=8, tile_m 16) at the
 launch rule's shape (``ops.grouped_matmul._grouped_mma_launch``), at the
-linear rule's (K1's ``_mma_launch``, K7's ``_fold_mma_launch``) and at other
+linear rule's (K1's and K6's ``_mma_launch``, K7's ``_fold_mma_launch``) and at other
 candidate shapes (ws k steps per warp, kw warps along K per CTA, splits CTAs
 along K), each held bit for bit against the linear body at the same shape
 on each expert's weights (``chip_smoke.same_as_linear``), and times each
@@ -106,7 +107,7 @@ def device_parts(fn, flush, calls=10) -> dict:
 
 def _weights(gen, n, k):
     w = torch.randn((E, n, k), generator=gen, device="cuda") * k ** -0.5
-    return {"K2": quantize(w), "K13": cs._pg_quantize(w)}
+    return {"K2": quantize(w), "K13": cs._pg_quantize(w), "K12": cs._planar_pg_quantize(w)}
 
 
 def _op(kernel):
@@ -146,11 +147,11 @@ def profile_wrappers(gen, card) -> None:
         torch.cuda.empty_cache()
 
 
-def candidates(n, k, sms, per_group) -> list:
-    """The rule's shape, the linear rule's, and K/2 cut into the slices of
-    :data:`SLICES`, in whole chunks."""
+def candidates(n, k, sms, fold) -> list:
+    """The rule's shape, the linear rule's (``fold``: K7's), and K/2 cut into
+    the slices of :data:`SLICES`, in whole chunks."""
     chunks = -(-(k // 2) // 64)
-    linear = cs._fold_mma_launch if per_group else cs._mma_launch
+    linear = cs._fold_mma_launch if fold else cs._mma_launch
     out = [ops.grouped_matmul._grouped_mma_launch(n, k, sms), linear(n, k, sms)]
     for slices, kw in SLICES:
         if slices <= chunks:
@@ -173,12 +174,11 @@ def sweep_shapes(gen, card) -> None:
                           plan)
             gids = plan.tile_group_ids
             for kernel, qt in weights.items():
-                per_group = kernel == "K13"
                 rule = ops.grouped_matmul._grouped_mma_launch(n, k, sms)
                 line = dict(kernel=kernel, projection=proj, routing=routing_name, n=n, k=k,
                             tokens_per_expert=routing.tokens_per_expert.tolist(),
                             rule=list(rule), card=card)
-                for cand in candidates(n, k, sms, per_group):
+                for cand in candidates(n, k, sms, kernel == "K13"):
                     fn = lambda: launch(xs, gids, qt, tile_m, launch=cand)  # noqa: E731
                     cs.same_as_linear(f"{kernel} {cand}", xs, gids, qt, tile_m, fn(), cand)
                     line[str(list(cand))] = dict(cold_ms=timer(fn),

@@ -35,8 +35,14 @@ from fused4bit_tpu.ops.grouped_matmul import (
 )
 from fused4bit_tpu_torch import ops
 from fused4bit_tpu_torch.layers import dispatch, make_dispatch_plan, topk_route
-from fused4bit_tpu_torch.ops import grouped_matmul as gm
-from fused4bit_tpu_torch.ops.int4_matmul import _a8_product, _pg_a8_product
+from fused4bit_tpu_torch.ops.int4_matmul import (
+    _a8_mma_launch,
+    _a8_product,
+    _i8_chunk,
+    _pg_a8_fold_product,
+    _pg_a8_on_tensor_cores,
+    _pg_a8_product,
+)
 from fused4bit_tpu_torch.ops.int8_xla import _quantize_acts
 from fused4bit_tpu_torch.quant import dequantize, quantize
 from test_torch_per_group import A8_TOL, _TORCH, _jax_pg, _port_qt
@@ -63,7 +69,7 @@ def test_pg_fold_product_matches_float64_golden(rng, launch):
     float64 product of the same quantized operands."""
     m, n, k, gs = 24, 48, 2048, 128
     qt, xq, sx = _pg_inputs(rng, m, n, k, gs)
-    y = gm._pg_a8_fold_product(xq, sx, qt.packed, qt.scales, qt.zero_points, launch=launch)
+    y = _pg_a8_fold_product(xq, sx, qt.packed, qt.scales, qt.zero_points, launch=launch)
     golden = (xq.double() * sx.double()) @ dequantize(qt, dtype=torch.float64).t()
     err = (y.double() - golden).abs().max().item()
     assert err <= GOLDEN_TOL * golden.abs().max().item()
@@ -74,9 +80,9 @@ def test_pg_fold_product_order_is_the_launch_shapes():
     other f32 sums, and the int32 partials are the same integers."""
     rng = np.random.default_rng(3)
     qt, xq, sx = _pg_inputs(rng, 16, 32, 1024, 64)
-    one = gm._pg_a8_fold_product(xq, sx, qt.packed, qt.scales, qt.zero_points, launch=(8, 1, 1))
-    two = gm._pg_a8_fold_product(xq, sx, qt.packed, qt.scales, qt.zero_points, launch=(4, 2, 1))
-    again = gm._pg_a8_fold_product(xq, sx, qt.packed, qt.scales, qt.zero_points, launch=(8, 1, 1))
+    one = _pg_a8_fold_product(xq, sx, qt.packed, qt.scales, qt.zero_points, launch=(8, 1, 1))
+    two = _pg_a8_fold_product(xq, sx, qt.packed, qt.scales, qt.zero_points, launch=(4, 2, 1))
+    again = _pg_a8_fold_product(xq, sx, qt.packed, qt.scales, qt.zero_points, launch=(8, 1, 1))
     assert torch.equal(one, again)
     assert not torch.equal(one, two)
     assert (one - two).abs().max().item() <= 1e-5 * one.abs().max().item()
@@ -170,10 +176,10 @@ def test_launch_rule_reads_no_t(n, k, gs, want):
     """``_a8_mma_launch`` is a pure function of (N, K, gs, SMs): no T, tile_m
     or routing reaches it. Its shape covers K/2 in whole chunks (whole groups
     for K14), kw a power of two up to 8, no split without work."""
-    assert list(inspect.signature(gm._a8_mma_launch).parameters) == ["n", "k", "gs", "sms"]
-    ws, kw, splits = gm._a8_mma_launch(n, k, gs, 132)
+    assert list(inspect.signature(_a8_mma_launch).parameters) == ["n", "k", "gs", "sms"]
+    ws, kw, splits = _a8_mma_launch(n, k, gs, 132)
     assert (ws, kw, splits) == want
-    cb = gm._i8_chunk(gs)
+    cb = _i8_chunk(gs)
     chunks = -(-(k // 2) // cb)
     assert kw in (1, 2, 4, 8) and ws >= 1 and splits >= 1
     assert ws * kw * splits >= chunks > ws * kw * (splits - 1)
@@ -352,14 +358,14 @@ def test_fragment_model_k14_equals_the_fold_plain_version(rng, gs, run):
                      for w in (0, 1)]
             _scatter(parts[0] + parts[1], acc, n0, tile)
     y = acc * sx.numpy()
-    want = gm._pg_a8_fold_product(xq, sx, qt.packed, qt.scales, qt.zero_points,
-                                  launch=(ws, 2, 1)).numpy()
+    want = _pg_a8_fold_product(xq, sx, qt.packed, qt.scales, qt.zero_points,
+                               launch=(ws, 2, 1)).numpy()
     np.testing.assert_array_equal(y, want)
 
 
 def test_k14_body_choice_reads_the_group_size():
     """K14's body: the int8 body at gs % 32 == 0, else the CUDA-core loop
     (and its per-run plain version)."""
-    assert [gm._k14_on_tensor_cores(gs) for gs in (16, 32, 48, 64, 96, 128)] == [
+    assert [_pg_a8_on_tensor_cores(gs) for gs in (16, 32, 48, 64, 96, 128)] == [
         False, True, False, True, True, True]
-    assert [gm._i8_chunk(gs) for gs in (0, 32, 64, 96, 128)] == [64, 32, 64, 32, 64]
+    assert [_i8_chunk(gs) for gs in (0, 32, 64, 96, 128)] == [64, 32, 64, 32, 64]

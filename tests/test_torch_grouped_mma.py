@@ -1,14 +1,17 @@
-"""K2 and K13 on the tensor-core body (``csrc/int4_mma.cuh`` with grouped
-addressing), in what the CPU can check: the launch rule as a pure function
-of (N, K, SMs), the body choice, and a plain-torch model of the grouped
-body held against the JAX package's ``grouped_int4_matmul`` (K2) and
-``grouped_int4_matmul_per_group`` (K13) in interpret mode on the same bytes.
+"""K2, K12 and K13 on the tensor-core body (``csrc/int4_mma.cuh`` with
+grouped addressing), in what the CPU can check: the launch rule as a pure
+function of (N, K, SMs), the body choice, and a plain-torch model of the
+grouped body held against the JAX package's ``grouped_int4_matmul`` (K2) and
+``grouped_int4_matmul_per_group`` (K13 on planar_groups bytes, K12 on planar
+ones) in interpret mode on the same bytes.
 
 The model repeats the body's arithmetic where it is fixed: per tile, the
 expert's weights; per warp, its chunks of 64 packed bytes in the order it
 walks them (stages of up to 32 k steps, the CTA's kw warps taking kw
 consecutive runs of each stage); K1's arithmetic (RowScale: the dot of x
-with q - zp, the scale on the f32 sum) or K7's fold per chunk (GroupFold,
+with q - zp, the scale on the f32 sum), K6's (GroupDequant: the dot of x with
+the weight dequantized to the compute type, ``bf16(bf16(s) * (q - zp))`` in
+bf16) or K7's fold per chunk (GroupFold,
 ``test_torch_pg_mma``'s ``acc += s_lo*P_lo; acc += c_lo*X_lo; acc +=
 s_hi*P_hi; acc += c_hi*X_hi``); the warps of a CTA added in order, then the
 CTAs along K; the rows after a block's last row in use written as 0. Where it
@@ -37,6 +40,7 @@ from fused4bit_tpu_torch.ops.int4_matmul import (
     _fold_mma_launch,
     _k7_on_tensor_cores,
     _mma_launch,
+    planar_pg_weight,
 )
 from fused4bit_tpu_torch.quant import planar_groups_to_planar, quantize, unpack_planar
 from test_torch_pg_mma import CHUNK, SMS, _chunk_sums
@@ -75,28 +79,32 @@ def warp_chunks(launch: tuple, chunks: int) -> list:
 
 
 def body_model(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, zps: torch.Tensor,
-               launch: tuple, gs: int = 0) -> torch.Tensor:
+               launch: tuple, gs: int = 0, dequant=None) -> torch.Tensor:
     """One expert's rows through the body, f32 out: x [M, K] (its values as
     the kernel stages them); per row (gs 0) planar bytes [N, K/2] and
-    scales/zero points [N], or per group planar_groups bytes [Gh, N, gs] and
-    [N, 2Gh]."""
+    scales/zero points [N]; per group planar_groups bytes [Gh, N, gs] and
+    [N, 2Gh] (K13's fold), or with ``dequant`` (K12) planar bytes [N, K/2]
+    and [N, 2Gh], the weight dequantized to the compute type ``dequant``."""
     m, k = x.shape
     kh = k // 2
     chunks = kh // CHUNK
-    codes = unpack_planar(planar_groups_to_planar(packed) if gs else packed).double()  # [N, K]
     xd = x.double()
     s, z = scales.float(), zps.float()
-    if gs:
+    fold = gs and dequant is None
+    if dequant is not None:  # GroupDequant: K6's weight, exact in float64
+        w = planar_pg_weight(packed, scales, zps, gs, dequant).double()
+    elif gs:
+        codes = unpack_planar(planar_groups_to_planar(packed)).double()  # [N, K]
         gh = kh // gs
         q_lo, q_hi = codes[:, :kh], codes[:, kh:] - 8.0                  # the raw codes
         x_lo, x_hi = _chunk_sums(x[:, :kh]), _chunk_sums(x[:, kh:])      # [M, chunks]
     else:
-        w = codes - z.double()[:, None]                                  # q - zp, exact
+        w = unpack_planar(packed).double() - z.double()[:, None]         # q - zp, exact
 
     def chunk(acc, c):
         cols = slice(c * CHUNK, (c + 1) * CHUNK)
         hcols = slice(kh + c * CHUNK, kh + (c + 1) * CHUNK)
-        if not gs:  # RowScale: the chunk's dot, exact, rounded once
+        if not fold:  # RowScale, GroupDequant: the chunk's dot, exact, rounded once
             return acc + (xd[:, cols] @ w[:, cols].t() + xd[:, hcols] @ w[:, hcols].t()).float()
         g = c * CHUNK // gs
         p_lo = (xd[:, cols] @ q_lo[:, cols].t()).float()
@@ -107,7 +115,7 @@ def body_model(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, zps:
         acc = acc + s_hi * p_hi
         return acc + (s_hi * (8.0 - z[:, gh + g])) * x_hi[:, c:c + 1]
 
-    y = torch.zeros((m, codes.shape[0]))
+    y = torch.zeros((m, s.shape[0]))
     for per_warp in warp_chunks(launch, chunks):          # CTAs along K, in order
         cta = torch.zeros_like(y)
         for mine in per_warp:                             # the CTA's warps, in order
@@ -120,10 +128,10 @@ def body_model(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, zps:
 
 
 def grouped_model(xs: torch.Tensor, gids: torch.Tensor, packed, scales, zps, tile_m: int,
-                  launch: tuple, gs: int = 0) -> torch.Tensor:
-    """K2 (gs 0) or K13 over a dispatch, f32 out: per block of 16 rows (one
-    tile's, tile_m % 16 == 0), its expert's weights, up to its last row that
-    holds a nonzero; the rows after it 0."""
+                  launch: tuple, gs: int = 0, dequant=None) -> torch.Tensor:
+    """K2 (gs 0), K13 or (``dequant``) K12 over a dispatch, f32 out: per
+    block of 16 rows (one tile's, tile_m % 16 == 0), its expert's weights,
+    up to its last row that holds a nonzero; the rows after it 0."""
     out = torch.zeros((xs.shape[0], packed.shape[-2]))
     for b0 in range(0, xs.shape[0], 16):
         rows = xs[b0:b0 + 16]
@@ -132,7 +140,8 @@ def grouped_model(xs: torch.Tensor, gids: torch.Tensor, packed, scales, zps, til
             continue
         used = int(nonzero.max()) + 1
         e = int(gids[b0 // tile_m])
-        out[b0:b0 + used] = body_model(rows[:used], packed[e], scales[e], zps[e], launch, gs)
+        out[b0:b0 + used] = body_model(rows[:used], packed[e], scales[e], zps[e], launch, gs,
+                                       dequant)
     return out
 
 
@@ -189,15 +198,21 @@ def test_grouped_launch_covers_k_in_whole_chunks(n, k):
 
 def test_body_choice_reads_dtype_and_group_size_only():
     """K13 takes the tensor-core body where K7 does, by the operands' format
-    alone (bf16 x, gs % 64 == 0); K2 takes it for bf16 x."""
+    alone (bf16 x, gs % 64 == 0); K2 and K12 take it for bf16 x (K12 at every
+    planar group size, gs % 128 == 0), f32 x keeps the CUDA-core loop."""
     assert list(inspect.signature(_k7_on_tensor_cores).parameters) == ["dtype", "group_size"]
     for gs in (64, 128, 256):
         assert _k7_on_tensor_cores(torch.bfloat16, gs)
         assert not _k7_on_tensor_cores(torch.float32, gs)
     for gs in (16, 32, 48, 96):
         assert not _k7_on_tensor_cores(torch.bfloat16, gs)
+    assert list(inspect.signature(gm._k12_on_tensor_cores).parameters) == ["dtype"]
+    assert gm._k12_on_tensor_cores(torch.bfloat16)
+    assert not gm._k12_on_tensor_cores(torch.float32)
     assert gm._KERNELS[torch.bfloat16] == "f4b_grouped_int4_matmul_mma_bf16"
     assert gm._PG_MMA_KERNEL == "f4b_grouped_int4_matmul_pg_mma_bf16"
+    assert gm._PLANAR_PG_MMA_KERNEL == "f4b_grouped_int4_matmul_planar_pg_mma_bf16"
+    assert list(gm._PLANAR_PG_KERNELS) == [torch.float32]
 
 
 def test_walk_order_of_the_linear_rules_is_the_single_stage_one():
@@ -215,17 +230,20 @@ def test_walk_order_of_the_linear_rules_is_the_single_stage_one():
 E, N, KDIM, TILE_M = 4, 384, 512, 16
 
 
+LAYOUT = {"K13": "planar_groups", "K12": "planar"}   # per group of 128; K2 per row
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("t", [8, 40])
-@pytest.mark.parametrize("kernel", ["K2", "K13"])
+@pytest.mark.parametrize("kernel", ["K2", "K13", "K12"])
 def test_grouped_model_matches_jax_kernel(rng, kernel, t, dtype):
     """The model at the rule's launch shape against JAX's grouped kernel
-    (K2: ``grouped_int4_matmul``; K13: ``grouped_int4_matmul_per_group`` on
-    planar_groups, gs 128) on the same bytes and the same dispatch, and the
-    zero padding rows exactly 0."""
+    (K2: ``grouped_int4_matmul``; K13 and K12: ``grouped_int4_matmul_per_group``
+    on planar_groups and on planar bytes, gs 128) on the same bytes and the
+    same dispatch, and the zero padding rows exactly 0."""
     w = rng.standard_normal((E, N, KDIM)).astype(np.float32) * KDIM ** -0.5
-    gs = 128 if kernel == "K13" else 0
-    ref_qt = (jax_quantize(jnp.asarray(w), granularity="per_group", layout="planar_groups",
+    gs = 128 if kernel in LAYOUT else 0
+    ref_qt = (jax_quantize(jnp.asarray(w), granularity="per_group", layout=LAYOUT[kernel],
                            group_size=gs) if gs else jax_quantize(jnp.asarray(w)))
     gids, rows, t_pad = _dispatch(rng, t, E, KDIM, TILE_M)
     xs = _sorted(rng.standard_normal((t, KDIM)).astype(np.float32), rows, t_pad)
@@ -234,8 +252,9 @@ def test_grouped_model_matches_jax_kernel(rng, kernel, t, dtype):
     ref = np.asarray(op(jx, jnp.asarray(gids), ref_qt, tile_m=TILE_M).astype(jnp.float32))
     staged = torch.from_numpy(np.asarray(jx.astype(jnp.float32)))       # the staged values
     launch = gm._grouped_mma_launch(N, KDIM, SMS)
+    dequant = getattr(torch, dtype) if kernel == "K12" else None
     y = grouped_model(staged, torch.from_numpy(gids), _t(ref_qt.packed), _t(ref_qt.scales),
-                      _t(ref_qt.zero_points), TILE_M, launch, gs)
+                      _t(ref_qt.zero_points), TILE_M, launch, gs, dequant)
     if dtype == "bfloat16":
         y = y.bfloat16().float()
     pad = (xs == 0).all(axis=1)
@@ -243,15 +262,16 @@ def test_grouped_model_matches_jax_kernel(rng, kernel, t, dtype):
     assert np.max(np.abs(y.numpy() - ref)) <= TOL[dtype] * np.max(np.abs(ref))
 
 
-@pytest.mark.parametrize("kernel", ["K2", "K13"])
+@pytest.mark.parametrize("kernel", ["K2", "K13", "K12"])
 def test_grouped_model_token_rows_equal_in_t8_and_t40(rng, kernel):
     """The same 8 tokens in a T=8 and a T=40 dispatch sit in other rows and
     tiles; through the model at the rule's shape their rows are the same
     bits, as the kernel's must be."""
     w = torch.from_numpy(rng.standard_normal((E, N, KDIM)).astype(np.float32)) * KDIM ** -0.5
-    gs = 128 if kernel == "K13" else 0
-    qt = (quantize(w, granularity="per_group", layout="planar_groups", group_size=gs) if gs
+    gs = 128 if kernel in LAYOUT else 0
+    qt = (quantize(w, granularity="per_group", layout=LAYOUT[kernel], group_size=gs) if gs
           else quantize(w))
+    dequant = torch.bfloat16 if kernel == "K12" else None
     x40 = rng.standard_normal((40, KDIM)).astype(np.float32)
     logits = rng.standard_normal((40, E)).astype(np.float32)
     launch = gm._grouped_mma_launch(N, KDIM, SMS)
@@ -260,7 +280,7 @@ def test_grouped_model_token_rows_equal_in_t8_and_t40(rng, kernel):
         gids, rows, t_pad = _dispatch(rng, t, E, KDIM, TILE_M, logits)
         xs = torch.from_numpy(_sorted(x40[:t], rows, t_pad)).bfloat16().float()
         y = grouped_model(xs, torch.from_numpy(gids), qt.packed, qt.scales, qt.zero_points,
-                          TILE_M, launch, gs)
+                          TILE_M, launch, gs, dequant)
         got.append((y[torch.from_numpy(rows[:16])], rows[:16]))
     (y8, r8), (y40, r40) = got
     assert not np.array_equal(r8, r40)

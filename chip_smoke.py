@@ -13,8 +13,8 @@ Phases, each of which raises on failure:
      SASS of each instantiation of the tensor-core bodies: HMMA in the
      linear one of K1, K6 and K7 and its grouped instantiations of K2, K12
      and K13 (csrc/int4_mma.cuh) and the attention one of K3 and K3'
-     (csrc/decode_attention.cu), IMMA in the int8 one of K10, K14 and K8
-     (csrc/int8_mma.cuh), and fail if one has none;
+     (csrc/decode_attention.cu), IMMA in the int8 one of K10, K11, K14, K8
+     and K5 (csrc/int8_mma.cuh), and fail if one has none;
   3. hold each kernel against its plain PyTorch version at the shapes the
      `layer2` serving path gives it (Mixtral-8x7B layer width), and time both
      with CUDA events (L2 flushed before each launch); time the integer-GEMM
@@ -47,13 +47,16 @@ Phases, each of which raises on failure:
      position's row of a T=5 chunked prefill over the same cache bit for
      bit, on the contiguous and the paged cache. K3' runs on a page pool
      holding a contiguous cache's bytes in shuffled page order and must
-     equal K3 on that cache bit for bit. K10 and K14 (the int8 body) must
-     equal their plain versions bit for bit at decode and prefill, gate/up
-     and down, in bf16 and f32, with zero padding rows exactly 0, and one
-     token's rows must be the same bits in a T=8 and a T=40 dispatch; K14
+     equal K3 on that cache bit for bit. K10, K11 and K14 (the int8 body)
+     must equal their plain versions bit for bit at decode and prefill,
+     gate/up and down, in bf16 and f32, with zero padding rows exactly 0, and
+     one token's rows must be the same bits in a T=8 and a T=40 dispatch; K14
      also at gs 32 (the body's 8-byte runs) and gs 16 (the CUDA-core loop),
-     and both on a narrow stack (N=256) whose launch splits K over CTAs.
-     Their rows print the main kernel's device time beside the wrapper's;
+     and K10 and K14 on a narrow stack (N=256) whose launch splits K over
+     CTAs. K5 (the int8 body as one expert) must equal its plain version bit
+     for bit at 1, 8, 32, 40 and 640 rows in bf16 (and in f32 at k/v), its
+     rows 0-7 the same bits at 8, 40 and 640 rows. These rows print the main
+     kernel's device time beside the wrapper's;
   4. serve 12 requests on the `layer2` model (random weights from a seeded
      generator) with 8 slots, in the default (w4a16) mode and then, on the
      same weights, in the `as_u4_turbo` (w4a8), `as_per_group` (w4a16,
@@ -84,12 +87,13 @@ Phases, each of which raises on failure:
      (the router is dense: no K1), no plain version;
   8. convert the trained h256 fixture (tests/fixtures) on the card in the
      four policies the port supports, and the router-dense model under
-     as_per_group (K7, K13, K3), pg_turbo (K8, K14) and u4_turbo (K5, K10,
-     K3; two rows a forward, below the integer-GEMM gates), evaluate each on the
-     held-out tail of its corpus against the bf16 twin built from the same
-     checkpoint (dense_from_params), print the numbers beside the JAX
+     as_per_group (K7, K13, K3), pg_turbo (K8, K14), u4_turbo (K5, K10,
+     K3; two rows a forward, below the integer-GEMM gates) and turbo (K5 at
+     every row count, K10 beside it; all rows in one forward), evaluate each
+     on the held-out tail of its corpus against the bf16 twin built from the
+     same checkpoint (dense_from_params), print the numbers beside the JAX
      package's committed record, hold them to tests/test_convert.py's gates
-     (as_per_group to the router-dense policy's), and check the
+     (as_per_group and turbo to the router-dense policy's), and check the
      per-group-128 model on the card against the CPU;
   9. run the `tiny` model with the same weights on the card and on the CPU,
      in the default mode and in each w4a8 and per-group mode, and on paged
@@ -103,6 +107,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import json
 import pathlib
 import statistics
@@ -161,10 +166,10 @@ from fused4bit_tpu_torch.serving import GenerationRequest, ServingEngine, specul
 BF16_REL_TOL = 1e-2
 F32_ABS_TOL = 1e-2
 ATTN_ABS_TOL = 2e-2
-# - w4a8 kernels (K4, K5, K10, K11): the same quantization and an exact
-#   integer dot on both sides, then the same f32 epilogue, operation by
-#   operation: max|d| <= 1e-6 * max|y_plain| in f32, one bf16 ulp
-#   (2^-7 * max|y_plain|) in bf16.
+# - w4a8 kernels: the same quantization and an exact integer dot on both
+#   sides, then the same f32 epilogue, operation by operation: K4 to max|d|
+#   <= 1e-6 * max|y_plain| in f32, one bf16 ulp (2^-7 * max|y_plain|) in
+#   bf16; the others (K5, K8, K10, K11, K14) bit for bit.
 A8_F32_REL_TOL = 1e-6
 A8_BF16_REL_TOL = 2.0 ** -7
 # Whole model on the card vs the CPU: bf16 activations through 2 layers.
@@ -193,11 +198,11 @@ SOURCES = {
                              "fused4bit_tpu/ops/decode_attention.py:311"),
     "int4_matmul_a8": ("fused4bit_tpu_torch/csrc/int4_matmul_a8.cu",
                        "fused4bit_tpu/ops/int4_matmul.py:1039"),
-    "int4_matmul_a8_fused": ("fused4bit_tpu_torch/csrc/int4_matmul_a8.cu",
+    "int4_matmul_a8_fused": ("fused4bit_tpu_torch/csrc/int8_mma.cuh",
                              "fused4bit_tpu/ops/int4_matmul.py:1094"),
     "grouped_int4_matmul_a8": ("fused4bit_tpu_torch/csrc/int8_mma.cuh",
                                "fused4bit_tpu/ops/grouped_matmul.py:500"),
-    "grouped_int4_matmul_a8_fused": ("fused4bit_tpu_torch/csrc/grouped_matmul_a8.cu",
+    "grouped_int4_matmul_a8_fused": ("fused4bit_tpu_torch/csrc/int8_mma.cuh",
                                      "fused4bit_tpu/ops/grouped_matmul.py:552"),
     "int4_matmul_per_group": ("fused4bit_tpu_torch/csrc/int4_mma.cuh",
                               "fused4bit_tpu/ops/int4_matmul.py:587"),
@@ -334,7 +339,8 @@ def build() -> float:
 # bf16 and, with grouped addressing, K2, K12 and K13, each with a 16-row and a
 # 64-row tile of x; the attention body (csrc/decode_attention.cu) for K3 and
 # K3', each at head_dim 64 and 128; the int8 body (csrc/int8_mma.cuh) for K10
-# and for K14 with 16- and 8-byte runs (K8 runs K14's two).
+# (K11 and K5 run its instantiation) and for K14 with 16- and 8-byte runs (K8
+# runs K14's two).
 TENSOR_CORE_KERNELS = {"int4_mma_kernel": (12, "HMMA"),
                        "int4_attention_mma_kernel": (4, "HMMA"),
                        "int8_mma_kernel": (3, "IMMA")}
@@ -450,13 +456,15 @@ def _compare(name, shape, y, ref, tol, results, timer, fn, ref_fn, iters=20, wor
 
 
 def same_rows(name, shape, small, big):
-    """Rows of an M=8 call equal rows 0-7 of an M=40 call on the same rows of
-    x bit for bit: the tensor-core body's launch rule reads (N, K, SMs) only,
-    as the self-draft speculative verify (40 rows) needs."""
+    """Rows of an M=8 call equal rows 0-7 of an M=40 call (or a larger one)
+    on the same rows of x bit for bit: the tensor-core body's launch rule
+    reads (N, K, SMs) only, as the self-draft speculative verify (40 rows)
+    needs (K5's may read M: its sums are exact)."""
+    m = big.shape[0]
     if not torch.equal(small, big[:small.shape[0]]):
         d = (small.float() - big[:small.shape[0]].float()).abs().max().item()
-        raise AssertionError(f"{name} {shape}: rows 0-7 differ between M=8 and M=40 ({d})")
-    print(f"    {name} {shape}: rows 0-7 of M=40 equal M=8 bit for bit")
+        raise AssertionError(f"{name} {shape}: rows 0-7 differ between M=8 and M={m} ({d})")
+    print(f"    {name} {shape}: rows 0-7 of M={m} equal M=8 bit for bit")
 
 
 def check_linear(device, results, timer, gen):
@@ -602,25 +610,34 @@ def _a8_tol(ref):
 
 def check_linear_a8(device, results, timer, gen):
     """K4 and K5 at the layer2 linear shapes (K4 also at deep K), each against
-    the plain version with its own quantizer; K5 also at M=640, the rows of
-    the long prefill (phase 6) in the turbo mode."""
+    the plain version with its own quantizer: K4 (the CUDA-core loop) at 1, 8
+    and 32 rows to the a8 bars; K5 (the int8 body) bit for bit at 1, 8, 32,
+    40 and 640 rows (the long prefill of phase 6 in the turbo mode), also in
+    f32 at k/v, its rows 0-7 the same bits at 8, 40 and 640 rows (its launch
+    rule reads M above 64 rows; its int32 sums are exact), bf16 rows with the
+    main kernel's device time."""
     for n, k in ((4096, 4096), (1024, 4096), (8, 4096), (8192, 4096), (4096, 14336)):
         qt = quantize(torch.randn((n, k), generator=gen, device=device) * k ** -0.5)
-        for m in ((1, 8, 32, 640) if k == 4096 else (8,)):
-            x = torch.randn((m, k), generator=gen, device=device).bfloat16()
-            xs = (x, x.float()) if n == 1024 and m == 8 else (x,)  # + the f32 instantiation
-            for xx in xs:
+        x640 = torch.randn((640 if k == 4096 else 8, k), generator=gen, device=device).bfloat16()
+        rows = {}
+        for m in ((1, 8, 32, 40, 640) if k == 4096 else (8,)):
+            x = x640[:m].contiguous()
+            f32 = n == 1024 and m in (8, 40, 640)
+            for xx in (x, x.float()) if f32 else (x,):  # + the f32 instantiations
                 dt = "bf16" if xx.dtype == torch.bfloat16 else "f32"
-                fuses = (False,) if k > 4096 else (True,) if m == 640 else (False, True)
+                fuses = (False,) if k > 4096 else (True,) if m in (40, 640) else (False, True)
                 for fuse in fuses:
                     ref = ops.int4_matmul_a8_reference(xx, qt, fuse_quant=fuse)
-                    timed = xx is x
-                    _compare(A8_NAMES[fuse][0], f"M={m} N={n} K={k} {dt}",
-                             ops.int4_matmul_a8(xx, qt, fuse_quant=fuse), ref, _a8_tol(ref),
+                    y = ops.int4_matmul_a8(xx, qt, fuse_quant=fuse)
+                    if fuse and xx is x:
+                        rows[m] = y
+                    timed = xx is x and m != 40
+                    _compare(A8_NAMES[fuse][0], f"M={m} N={n} K={k} {dt}", y, ref, _a8_tol(ref),
                              results, timer if timed else None,
                              lambda: ops.int4_matmul_a8(xx, qt, fuse_quant=fuse),
                              lambda: ops.int4_matmul_a8_reference(xx, qt, fuse_quant=fuse),
-                             iters=5 if m == 640 else 20, work=linear_bound(xx, qt, a8=True))
+                             iters=5 if m == 640 else 20, work=linear_bound(xx, qt, a8=True),
+                             exact=fuse, main="int8_mma_kernel" if fuse and timed else None)
             if (m, n, k) == (8, 4096, 4096) and timer:
                 # the input of the fuse gate: K4's time above includes the
                 # host quantizer's launches, timed here alone
@@ -628,6 +645,9 @@ def check_linear_a8(device, results, timer, gen):
                 print(f"    host quantizer alone M={m} K={k}: {q_ms:.4f} ms")
                 results.append(dict(name="host_quantizer", shape=f"M={m} K={k}", err=0.0,
                                     ms=q_ms, plain_ms=float("nan")))
+        if k == 4096:
+            for big in (40, 640):
+                same_rows(A8_NAMES[True][0], f"N={n} K={k} bf16", rows[8], rows[big])
         del qt
 
 
@@ -657,10 +677,11 @@ def same_token_rows(name, op, qt, k, e, gen, device, tile_m=32):
 
 def check_grouped_a8(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
     """K10 and K11 at the expert shapes: u4_turbo decode (T=8, tile_m 32) and
-    turbo prefill (T=600, tile_m 128), skewed routing. K10 (the int8 body)
-    must equal its plain version bit for bit in bf16 and f32, and a token's
-    rows must be the same bits in a T=8 and a T=40 dispatch; K11 is held to
-    the a8 bars."""
+    turbo prefill (T=600, tile_m 128), skewed routing. Both run the int8 body
+    (K10's first pass divides by 127, K11's multiplies by f32(1/127)) and
+    must equal their plain versions bit for bit in bf16 and f32, with
+    padding rows exactly 0, and a token's rows must be the same bits in a
+    T=8 and a T=40 dispatch."""
     for n, k in ((ffn, hidden), (hidden, ffn)):       # gate/up, then down
         qt = quantize(torch.randn((e, n, k), generator=gen, device=device) * k ** -0.5)
         for t, tile_m in ((8, 32), (600, 128)):
@@ -672,7 +693,7 @@ def check_grouped_a8(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
             iters = 20 if t == 8 else 5
             for xx in (xs, xs.float()):
                 f32 = xx.dtype == torch.float32
-                for fuse in (False, True) if t == 8 or not f32 else (False,):
+                for fuse in (False, True):
                     name = A8_NAMES[fuse][1]
                     ref = ops.grouped_int4_matmul_a8_reference(xx, gids, qt, tile_m=tile_m,
                                                                fuse_quant=fuse)
@@ -687,11 +708,14 @@ def check_grouped_a8(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
                              lambda: ops.grouped_int4_matmul_a8_reference(
                                  xx, gids, qt, tile_m=tile_m, fuse_quant=fuse),
                              iters=iters, work=grouped_bound(xx, gids, qt, 2 * t, a8=True),
-                             exact=not fuse, main=None if fuse else "int8_mma_kernel")
+                             exact=True, main="int8_mma_kernel")
             print(f"    tokens per expert {routing.tokens_per_expert.tolist()}, "
                   f"T_pad {plan.t_pad}")
         same_token_rows("grouped_int4_matmul_a8", ops.grouped_int4_matmul_a8, qt, k, e, gen,
                         device)
+        same_token_rows("grouped_int4_matmul_a8_fused",
+                        functools.partial(ops.grouped_int4_matmul_a8, fuse_quant=True), qt, k, e,
+                        gen, device)
         del qt
 
 
@@ -1844,7 +1868,9 @@ def quality_gates(res, nll_ref, vocab_size) -> dict:
 # then the mode's converter), the kernels each must launch and those it must
 # not, and the rows per forward: u4_turbo evaluates 2 rows (254 positions) a
 # forward, below the linears' 256-row transient gate and the MoE's 512-row
-# threshold, so that its linears run K5 and its experts K10, as at decode.
+# threshold, so that its linears run K5 and its experts K10, as at decode;
+# turbo evaluates all 16 rows (2032 positions) in one forward, its linears on
+# K5 at that row count and its experts on K10 at the prefill's tile_m.
 TRAINED_MODES = (
     ("as_per_group", as_per_group,
      ("int4_matmul_per_group", "grouped_int4_matmul_per_group", "int4_attention"),
@@ -1858,6 +1884,10 @@ TRAINED_MODES = (
      ("int4_matmul_a8_fused", "grouped_int4_matmul_a8", "int4_attention"),
      ("int4_matmul", "grouped_int4_matmul", "int4_matmul_a8", "grouped_int4_matmul_a8_fused",
       "int4_matmul_per_group_a8", "grouped_int4_matmul_per_group_a8"), 2),
+    ("turbo", as_turbo,
+     ("int4_matmul_a8_fused", "grouped_int4_matmul_a8", "int4_attention"),
+     ("int4_matmul", "grouped_int4_matmul", "int4_matmul_a8", "grouped_int4_matmul_a8_fused",
+      "int4_matmul_per_group_a8", "grouped_int4_matmul_per_group_a8"), None),
 )
 
 
@@ -1868,8 +1898,9 @@ def trained_checkpoint(card_line, device="cuda"):
     JAX package's committed record (a CPU run of the JAX package); held to
     the gates of tests/test_convert.py. Then the router-dense model under
     as_per_group (K7, K13, K3; held to the router-dense policy's gates),
-    pg_turbo (K8, K14) and u4_turbo (K5, K10, K3), and the per-group-128
-    model on the card against the CPU."""
+    pg_turbo (K8, K14), u4_turbo (K5, K10, K3) and turbo (K5, K10, K3; held
+    to the router-dense policy's gates), and the per-group-128 model on the
+    card against the CPU."""
     cfg = fixture_config(H256)
     raw = load_safetensors(H256)
     tokens = heldout_tokens(H256)
@@ -1917,10 +1948,11 @@ def trained_checkpoint(card_line, device="cuda"):
               f"{q['top1_agreement']:.4f}, cosine {q['logit_cosine_sim']:.4f}; launches "
               f"{ {k: v for k, v in launches.items() if v} }, plain-version calls {_plain_calls()}")
         _expect_launches(f"trained h256 [{label}]", launches, launched, idle)
-    mode_gates = policy_gates(res["as_per_group"])
-    if not all(mode_gates.values()):
-        raise AssertionError(f"trained h256 [as_per_group]: router-dense gates {mode_gates}")
-    print(f"trained h256 [as_per_group]: the router-dense policy's gates met {sorted(mode_gates)}")
+    for label in ("as_per_group", "turbo"):
+        mode_gates = policy_gates(res[label])
+        if not all(mode_gates.values()):
+            raise AssertionError(f"trained h256 [{label}]: router-dense gates {mode_gates}")
+        print(f"trained h256 [{label}]: the router-dense policy's gates met {sorted(mode_gates)}")
     kw = QUALITY_POLICIES["int4_per_group128"]
     card_vs_cpu(convert_checkpoint(raw, cfg, device="cpu", **kw),
                 convert_checkpoint(raw, cfg, device=device, **kw), cfg,

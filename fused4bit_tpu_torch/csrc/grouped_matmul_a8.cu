@@ -3,25 +3,23 @@
 // with per-row symmetric int8 activations and an exact integer dot.
 //
 // K10 replaces fused4bit_tpu/ops/grouped_matmul.py:_grouped_a8_kernel (int8
-// activations and their scales in). It runs the int8 tensor-core body of
-// int8_mma.cuh after its first pass (a8_prepass_kernel), which quantizes the
-// rows with the host quantizer's arithmetic, sums them, and marks the zero
-// padding rows; see int8_mma.cuh for what bounds it and
-// what its design does about it. K11 replaces _grouped_a8_fused_kernel (raw
-// bf16/f32 activations in, quantized inside the kernel) and runs the
-// CUDA-core kernel of int4_rows_a8.cuh, whose first pass (rows_in_use_kernel)
-// marks the zero padding rows at the end of each block of 16 rows. Both take
-// the expert per block of rows from tile_group_ids, K2's contract: one
-// launch, no host loop and no device-to-host sync, every column of N written
-// (also past 256), zero padding rows written as exactly 0 and an all-padding
-// block streams no weights.
-#include "int4_rows_a8.cuh"
+// activations and their scales in) and K11 replaces _grouped_a8_fused_kernel
+// (raw bf16/f32 activations in, quantized inside the kernel). Both run the
+// int8 tensor-core body of int8_mma.cuh after its first pass
+// (a8_prepass_kernel), which quantizes the rows, sums them, and marks the zero
+// padding rows: K10 with the host quantizer's division by 127, K11 with XLA's
+// folded multiply by f32(1/127) (fused = 1). See int8_mma.cuh for what bounds
+// them and what the design does about it. Both take the expert per block of
+// rows from tile_group_ids, K2's contract: one launch of each kernel, no host
+// loop and no device-to-host sync, every column of N written (also past 256),
+// zero padding rows written as exactly 0 and an all-padding block streams no
+// weights. K5 (int4_matmul_a8.cu) runs the same entry with gids NULL.
 #include "int8_mma.cuh"
 
-// The int8 body's first pass, shared with K14: x [M, K] bf16 or f32 -> xq
-// [M, K] i8, sx [M] f32, sums [M, K / gsum] i32, used [M] i32 (the row holds a
-// nonzero);
-// fused: sx by XLA's folded reciprocal (K14), else a division (K10).
+// The int8 body's first pass, shared with K5, K11, K14 and K8: x [M, K] bf16
+// or f32 -> xq [M, K] i8, sx [M] f32, sums [M, K / gsum] i32, used [M] i32
+// (the row holds a nonzero); fused: sx by XLA's folded reciprocal (K5, K11,
+// K14, K8), else a division (K10).
 extern "C" int f4b_a8_prepass_bf16(const void* x, void* xq, void* sx, void* sums,
                                    void* used, int M, int K, int gsum, int fused,
                                    void* stream) {
@@ -35,8 +33,9 @@ extern "C" int f4b_a8_prepass_f32(const void* x, void* xq, void* sx, void* sums,
   return f4b::launch_a8_prepass<float>(x, xq, sx, sums, used, M, K, gsum, fused, stream);
 }
 
-// K10 on the first pass's outputs (sums per half: gsum = K/2); y in bf16, or
-// f32 with out_f32; partial: int32 scratch of splits * M * N when splits > 1.
+// K10 and K11 (and K5 with gids NULL) on the first pass's outputs (sums per
+// half: gsum = K/2); y in bf16, or f32 with out_f32; partial: int32 scratch of
+// splits * M * N when splits > 1.
 extern "C" int f4b_grouped_int4_matmul_a8_mma(const void* xq, const void* sx, const void* sums,
                                               const void* used, const void* gids,
                                               const void* packed, const void* scales,
@@ -47,23 +46,4 @@ extern "C" int f4b_grouped_int4_matmul_a8_mma(const void* xq, const void* sx, co
       f4b::i8_args(xq, sx, sums, used, gids, packed, scales, zps, y, partial, M, N, K, 0,
                    tile_m, out_f32, ws, kw, splits),
       stream);
-}
-
-// K11: x [T, K] bf16 or f32, quantized in the kernel; y in x's type.
-extern "C" int f4b_grouped_int4_matmul_a8_fused_bf16(const void* x, const void* gids,
-                                                     const void* packed, const void* scales,
-                                                     const void* zps, void* rows_used, void* y,
-                                                     int T, int N, int K, int tile_m,
-                                                     void* stream) {
-  return f4b::launch_int4_a8_rows<__nv_bfloat16, __nv_bfloat16>(
-      x, nullptr, packed, scales, zps, gids, tile_m, rows_used, y, T, N, K, stream);
-}
-
-extern "C" int f4b_grouped_int4_matmul_a8_fused_f32(const void* x, const void* gids,
-                                                    const void* packed, const void* scales,
-                                                    const void* zps, void* rows_used, void* y,
-                                                    int T, int N, int K, int tile_m,
-                                                    void* stream) {
-  return f4b::launch_int4_a8_rows<float, float>(x, nullptr, packed, scales, zps, gids, tile_m,
-                                                rows_used, y, T, N, K, stream);
 }

@@ -57,17 +57,13 @@ _SIGNATURES = {
     "f4b_paged_int4_attention_f32": [_P] * 11 + [_I] * 8 + [_P],
     "f4b_int4_matmul_a8_bf16": [_P] * 6 + [_I] * 3 + [_P],
     "f4b_int4_matmul_a8_f32": [_P] * 6 + [_I] * 3 + [_P],
-    "f4b_int4_matmul_a8_fused_bf16": [_P] * 5 + [_I] * 3 + [_P],
-    "f4b_int4_matmul_a8_fused_f32": [_P] * 5 + [_I] * 3 + [_P],
     # x, xq, sx, sums, used; M, K, gsum, fused; stream
     "f4b_a8_prepass_bf16": [_P] * 5 + [_I] * 4 + [_P],
     "f4b_a8_prepass_f32": [_P] * 5 + [_I] * 4 + [_P],
     # xq, sx, sums, used, gids, packed, scales, zps, y, partial;
-    # M, N, K, (gs,) tile_m, out_f32, ws, kw, splits; stream (gids NULL: K8)
+    # M, N, K, (gs,) tile_m, out_f32, ws, kw, splits; stream (gids NULL: K5, K8)
     "f4b_grouped_int4_matmul_a8_mma": [_P] * 10 + [_I] * 8 + [_P],
     "f4b_grouped_int4_matmul_pg_a8_mma": [_P] * 10 + [_I] * 9 + [_P],
-    "f4b_grouped_int4_matmul_a8_fused_bf16": [_P] * 7 + [_I] * 4 + [_P],
-    "f4b_grouped_int4_matmul_a8_fused_f32": [_P] * 7 + [_I] * 4 + [_P],
     "f4b_int4_matmul_pg_bf16": [_P] * 5 + [_I] * 4 + [_P],
     "f4b_int4_matmul_pg_f32": [_P] * 5 + [_I] * 4 + [_P],
     "f4b_int4_matmul_pg_a8_bf16": [_P] * 6 + [_I] * 4 + [_P],

@@ -14,10 +14,10 @@ and no device-to-host sync, and runs its plain version on a CPU tensor:
   ``_grouped_ksplit_kernel``: the CUDA-core loop split over K);
 * ``grouped_int4_matmul_a8`` (w4a8, per-row int8 activations, exact integer
   dot): ``csrc/grouped_matmul_a8.cu``, K10 (the port of
-  ``_grouped_a8_kernel``) on the int8 tensor-core body of
-  ``csrc/int8_mma.cuh`` after a first pass that quantizes the rows, or K11
-  (the port of ``_grouped_a8_fused_kernel``) quantizing in its CUDA-core
-  kernel;
+  ``_grouped_a8_kernel``) and K11 (the port of ``_grouped_a8_fused_kernel``),
+  both on the int8 tensor-core body of ``csrc/int8_mma.cuh`` after a first
+  pass that quantizes the rows: K10 with the host quantizer's division by
+  127, K11 with XLA's folded multiply by f32(1/127);
 * ``grouped_int4_matmul_per_group`` (w4a16, per-group experts): in the
   planar_groups layout ``csrc/grouped_matmul_pg.cu``, K13 (the port of
   ``_grouped_pg_bp_kernel``; bf16 at ``gs % 64 == 0`` on the tensor-core
@@ -32,7 +32,7 @@ and no device-to-host sync, and runs its plain version on a CPU tensor:
   ``csrc/int4_rows_pg.cuh``.
 
 The tensor-core bodies' launch shapes come from :func:`_grouped_mma_launch`
-(K2, K12, K13) and ``int4_matmul._a8_mma_launch`` (K10, K14), which read (N,
+(K2, K12, K13) and ``int4_matmul._a8_mma_launch`` (K10, K11, K14), which read (N,
 K, SM count) and (N, K, gs, SM count) only: a token row's output bits do not
 depend on the tile, the T or the routing it sits in (K2, K12 and K13 up to
 tile_m 64; at tile_m 128, the prefill's, they take 64-row tiles whose launch
@@ -84,12 +84,8 @@ _PLANAR_PG_MMA_KERNEL = "f4b_grouped_int4_matmul_planar_pg_mma_bf16"   # K12 on 
 # loops of csrc/int4_rows.cuh, RowsTile): an m-tile must hold a whole number
 # of them.
 _KERNEL_ROWS = {torch.bfloat16: 16, torch.float32: 8}
-_A8_FUSED_KERNELS = {
-    torch.bfloat16: "f4b_grouped_int4_matmul_a8_fused_bf16",
-    torch.float32: "f4b_grouped_int4_matmul_a8_fused_f32",
-}
-# x rows per CTA of the CUDA-core w4a8 bodies (csrc/int4_rows_a8.cuh): K11's,
-# and K14's at group sizes the int8 body does not take
+# x rows per CTA of K14's CUDA-core loop (csrc/int4_rows_pg.cuh), at group
+# sizes the int8 body does not take
 _A8_KERNEL_ROWS = 16
 _PG_KERNELS = {
     torch.bfloat16: "f4b_grouped_int4_matmul_pg_bf16",
@@ -388,10 +384,12 @@ def grouped_int4_matmul_a8(
 
     x_sorted: [T_pad, K] bf16 or f32; tile_group_ids: [T_pad // tile_m] i32;
     qt: stacked per_row planar [E, N, K]; tile_m a multiple of 32. Returns
-    [T_pad, N] in x.dtype. ``fuse_quant``: quantize inside the kernel (K11)
-    rather than before it (K10: the int8 body's first pass, with the host
-    quantizer's arithmetic); None means False, as in JAX. On a CPU tensor
-    the plain version runs with the quantizer of the kernel it picks.
+    [T_pad, N] in x.dtype. ``fuse_quant``: quantize as the TPU kernel that
+    quantizes inside itself does (K11: XLA's folded multiply by f32(1/127))
+    rather than as the host quantizer (K10: a division by 127); on the card
+    both run the int8 body's first pass in that arithmetic, then its main
+    kernel. None means False, as in JAX. On a CPU tensor the plain version
+    runs with the quantizer of the kernel it picks.
     """
     fuse_quant = bool(fuse_quant)
     if not x_sorted.is_cuda:
@@ -399,7 +397,6 @@ def grouped_int4_matmul_a8(
                                                 fuse_quant=fuse_quant)
     _check_a8(x_sorted, tile_group_ids, qt, tile_m)
     e, n, k = qt.shape
-    t_pad = x_sorted.shape[0]
     dtype = x_sorted.dtype
     if dtype not in _A8_PREPASS:
         raise TypeError(f"K10/K11 take bf16 or f32 activations, got {dtype}")
@@ -407,24 +404,13 @@ def grouped_int4_matmul_a8(
         raise ValueError(f"K10/K11 need K % 32 == 0 (16-byte packed rows), got K={k}")
     _check_device_operands(x_sorted, tile_group_ids, qt)
     x_sorted = _aligned_rows(x_sorted)
-    if not fuse_quant:
-        y = _launch_a8_mma(x_sorted, tile_group_ids, qt, tile_m,
-                           *_a8_mma_launch(n, k, 0, _sm_count(x_sorted.device.index)))
+    y = _launch_a8_mma(x_sorted, tile_group_ids, qt, tile_m,
+                       *_a8_mma_launch(n, k, 0, _sm_count(x_sorted.device.index)),
+                       fused=fuse_quant)
+    if fuse_quant:
+        grouped_int4_matmul_a8.fused_launches += 1
+    else:
         grouped_int4_matmul_a8.launches += 1
-        return y
-    y = torch.empty((t_pad, n), dtype=dtype, device=x_sorted.device)
-    if t_pad == 0:
-        return y
-    # scratch: rows in use per block of kernel rows (the zero padding is skipped)
-    rows_used = torch.empty((-(-t_pad // _A8_KERNEL_ROWS),), dtype=torch.int32,
-                            device=x_sorted.device)
-    with torch.cuda.device(x_sorted.device):
-        err = getattr(_build.library(), _A8_FUSED_KERNELS[dtype])(
-            x_sorted.data_ptr(), tile_group_ids.data_ptr(), qt.packed.data_ptr(),
-            qt.scales.data_ptr(), qt.zero_points.data_ptr(), rows_used.data_ptr(), y.data_ptr(),
-            t_pad, n, k, tile_m, _build.stream_of(x_sorted))
-    _build.check(err, "grouped_int4_matmul_a8")
-    grouped_int4_matmul_a8.fused_launches += 1
     return y
 
 
@@ -616,7 +602,7 @@ def grouped_int4_matmul_per_group_a8(
         e, n, k = qt.shape
         y = _launch_a8_mma(_aligned_rows(x_sorted), tile_group_ids, qt, tile_m,
                            *_a8_mma_launch(n, k, qt.group_size,
-                                           _sm_count(x_sorted.device.index)))
+                                           _sm_count(x_sorted.device.index)), fused=True)
     else:
         xq, sx = _quantize_acts(x_sorted, fused=True)
         y = _launch_pg(_PG_A8_KERNELS, "grouped_int4_matmul_per_group_a8", xq, sx, x_sorted,

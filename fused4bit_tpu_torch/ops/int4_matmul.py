@@ -12,11 +12,14 @@ Counterpart of ``fused4bit_tpu/ops/int4_matmul.py``:
   rows, as in the JAX package, the product is computed outside any kernel:
   dequantize once, then a dense matmul.
 * ``int4_matmul_a8`` (w4a8): per-row int8 activations and an exact integer
-  dot. On a CUDA tensor it launches ``csrc/int4_matmul_a8.cu``: K4 (the port
-  of ``_int4_a8_kernel``) on activations quantized by
-  :func:`~.int8_xla._quantize_acts`, or K5 (the port of
-  ``_int4_a8_fused_kernel``) which quantizes inside the kernel. On a CPU
-  tensor it runs :func:`int4_matmul_a8_reference`.
+  dot. On a CUDA tensor it launches K4 (the port of ``_int4_a8_kernel``,
+  ``csrc/int4_matmul_a8.cu``: the CUDA-core loop of ``csrc/int4_rows_a8.cuh``)
+  on activations quantized by :func:`~.int8_xla._quantize_acts`, or K5 (the
+  port of ``_int4_a8_fused_kernel``), which quantizes with XLA's folded
+  f32(1/127): the int8 tensor-core body of ``csrc/int8_mma.cuh`` (its first
+  pass quantizes) as a one-expert stack, K10's arithmetic, at the launch
+  shape of :func:`_row_a8_launch`. On a CPU tensor it runs
+  :func:`int4_matmul_a8_reference`.
 * ``int4_matmul_per_group`` (w4a16, per-group weights), at every row count:
   in the planar_groups layout, on a CUDA tensor it launches
   ``csrc/int4_matmul_pg.cu``, K7 (the port of ``_int4_group_bp_kernel``;
@@ -37,9 +40,9 @@ Counterpart of ``fused4bit_tpu/ops/int4_matmul.py``:
   ``csrc/int4_rows_pg.cuh``. On a CPU tensor it runs
   :func:`int4_matmul_per_group_a8_reference`.
 
-The int8 body's helpers live here (its launch rule, its launcher and the
+The int8 body's helpers live here (its launch rules, its launcher and the
 plain version of its per-group fold); ``grouped_matmul`` imports them for
-K10 and K14.
+K10, K11 and K14.
 """
 from __future__ import annotations
 
@@ -62,10 +65,6 @@ __all__ = [
 
 _KERNELS = {torch.bfloat16: "f4b_int4_matmul_bf16", torch.float32: "f4b_int4_matmul_f32"}
 _A8_KERNELS = {torch.bfloat16: "f4b_int4_matmul_a8_bf16", torch.float32: "f4b_int4_matmul_a8_f32"}
-_A8_FUSED_KERNELS = {
-    torch.bfloat16: "f4b_int4_matmul_a8_fused_bf16",
-    torch.float32: "f4b_int4_matmul_a8_fused_f32",
-}
 _PG_KERNELS = {torch.bfloat16: "f4b_int4_matmul_pg_bf16", torch.float32: "f4b_int4_matmul_pg_f32"}
 _PG_MMA_KERNEL = "f4b_int4_matmul_pg_mma_bf16"   # K7 on the tensor-core body
 _FOLD_GS = 64     # K7 runs the tensor-core body at group sizes that are multiples of this
@@ -79,7 +78,12 @@ _PLANAR_PG_KERNELS = {
 }
 # The JAX fuse gate (int4_matmul.py:1289-1299), kept as it stands: fuse the
 # quantization at K <= 2 * _SHALLOW_KH while the raw-x block and its i8 copy
-# fit 4 MiB. It only moves time; re-deriving it for the H100 is later work.
+# fit 4 MiB. On the TPU it weighs quantizing inside the kernel against
+# before it; on the card both K4 and K5 quantize before their main kernel (K4
+# by the host quantizer's element-wise ops, K5 in the int8 body's first pass),
+# so that trade is gone. It stays JAX's because it picks the quantizer's
+# arithmetic (K4 divides by 127, K5 multiplies by f32(1/127)), and with it
+# the bits JAX gives.
 _SHALLOW_KH = 3072
 
 
@@ -302,9 +306,11 @@ def int4_matmul_a8(
 
     x: [..., K] (bf16 or f32); qt: per_row planar [N, K]. Returns [..., N] in
     x.dtype, at every row count (no dequantize fallback, as in JAX).
-    ``fuse_quant``: quantize inside the kernel (K5) rather than before it
-    (K4); None applies the JAX gate. On a CPU tensor the plain version runs
-    with the quantizer of the kernel that ``fuse_quant`` picks.
+    ``fuse_quant``: quantize as the TPU kernel that quantizes inside itself
+    does (K5: XLA's folded multiply by f32(1/127), in the int8 body's first
+    pass) rather than as the host quantizer (K4: a division by 127); None
+    applies the JAX gate. On a CPU tensor the plain version runs with the
+    quantizer of the kernel that ``fuse_quant`` picks.
     """
     _check_qt(qt)
     n, k = qt.out_dim, qt.in_dim
@@ -322,27 +328,21 @@ def int4_matmul_a8(
     if m == 0:
         return x.new_empty((*lead, n))
     x2 = _aligned(x2)
-    kernels = _A8_FUSED_KERNELS if fuse_quant else _A8_KERNELS
-    _check_operands(x2, qt, kernels, "K5" if fuse_quant else "K4")
-    y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
-    lib = _build.library()
-    with torch.cuda.device(x2.device):
-        if fuse_quant:
-            err = getattr(lib, kernels[x2.dtype])(
-                x2.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(),
-                qt.zero_points.data_ptr(), y.data_ptr(), m, n, k, _build.stream_of(x2),
-            )
-        else:
-            xq, sx = _quantize_acts(x2)
-            err = getattr(lib, kernels[x2.dtype])(
-                xq.data_ptr(), sx.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(),
-                qt.zero_points.data_ptr(), y.data_ptr(), m, n, k, _build.stream_of(x2),
-            )
-    _build.check(err, "int4_matmul_a8")
+    _check_operands(x2, qt, _A8_KERNELS, "K5" if fuse_quant else "K4")
     if fuse_quant:
+        y = _launch_a8_mma(x2, None, qt, 0, *_row_a8_launch(n, k, m, _sm_count(x2.device.index)),
+                           fused=True)
         int4_matmul_a8.fused_launches += 1
-    else:
-        int4_matmul_a8.launches += 1
+        return y.reshape(*lead, n)
+    xq, sx = _quantize_acts(x2)
+    y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+    with torch.cuda.device(x2.device):
+        err = getattr(_build.library(), _A8_KERNELS[x2.dtype])(
+            xq.data_ptr(), sx.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(),
+            qt.zero_points.data_ptr(), y.data_ptr(), m, n, k, _build.stream_of(x2),
+        )
+    _build.check(err, "int4_matmul_a8")
+    int4_matmul_a8.launches += 1
     return y.reshape(*lead, n)
 
 
@@ -625,8 +625,9 @@ def _a8_mma_launch(n: int, k: int, gs: int, sms: int) -> tuple:
 def _linear_a8_launch(n: int, k: int, gs: int, sms: int) -> tuple:
     """K8's launch shape ``(ws, kw, 1)`` on the int8 body (see
     :func:`_a8_mma_launch`) for an [N, K] weight per group of ``gs`` (gs %
-    32 == 0) on a card of ``sms`` SMs: the fewest warps along K, a power of
-    two up to 8 and up to K/2's groups, that give every SM a CTA of 8 warps
+    32 == 0; 0 per row, K5's decode shape, where one 64-byte chunk stands in
+    for a group) on a card of ``sms`` SMs: the fewest warps along K, a power
+    of two up to 8 and up to K/2's groups, that give every SM a CTA of 8 warps
     from one block of 16 rows (a decode step), each warp on whole groups; K
     is never split across CTAs. At the layer2 linears that is (4, 8, 1) at
     q/o (N=4096) and k/v (1024), (8, 4, 1) at the lm_head (8192): at 8 rows
@@ -638,8 +639,9 @@ def _linear_a8_launch(n: int, k: int, gs: int, sms: int) -> tuple:
     It reads (N, K, gs, SMs) only, never M: a row's f32 sums run in the same
     order at every M, so its output bits do not depend on the rows beside it
     (the self-draft verify at 40 rows reproduces the 8-row decode)."""
-    unit = gs // _i8_chunk(gs)                        # chunks per group
-    groups = (k // 2) // gs
+    cb = _i8_chunk(gs)
+    unit = gs // cb if gs else 1                      # chunks per group
+    groups = -(-(k // 2) // (cb * unit))
     tiles = -(-n // 16)
     kw = 1
     while kw < _I8_WARPS and kw < groups and tiles * kw < _I8_WARPS * sms:
@@ -647,13 +649,32 @@ def _linear_a8_launch(n: int, k: int, gs: int, sms: int) -> tuple:
     return unit * -(-groups // kw), kw, 1
 
 
+def _row_a8_launch(n: int, k: int, m: int, sms: int) -> tuple:
+    """K5's launch shape ``(ws, kw, splits)`` on the int8 body for an [N, K]
+    per-row weight and M rows of x on a card of ``sms`` SMs: K8's decode rule
+    :func:`_linear_a8_launch` (per row, one CTA of 8 warps per SM from one
+    block of 16 rows, no split) up to :data:`_MMA_TALL_M` rows, the grouped
+    rule :func:`_a8_mma_launch` (two warps per SM from one block of rows) above
+    it, where K8's decode shape measured 15-18 % slower at 640 rows.
+
+    Unlike the other launch rules it reads M. That is safe because K5's sums
+    are exact int32 (as K10's): its output bits are the same at every launch
+    shape, so a row's bits do not depend on the rows beside it."""
+    if m > _MMA_TALL_M:
+        return _a8_mma_launch(n, k, 0, sms)
+    return _linear_a8_launch(n, k, 0, sms)
+
+
 def _launch_a8_mma(x: torch.Tensor, tile_group_ids: Optional[torch.Tensor], qt: QuantizedTensor,
-                   tile_m: int, ws: int, kw: int, splits: int) -> torch.Tensor:
+                   tile_m: int, ws: int, kw: int, splits: int, *, fused: bool) -> torch.Tensor:
     """The int8 body at launch shape ``(ws, kw, splits)``: its first pass
     (quantize, per-group sums, which rows hold a nonzero), the main kernel
-    and, with splits > 1, the ordered second pass. K10 for a per_row stack,
-    K14 for a per_group one, K8 for a per_group linear (``tile_group_ids``
-    None: one expert, any M). x 16-byte aligned, operands checked."""
+    and, with splits > 1, the ordered second pass. K10 and K11 for a per_row
+    stack, K14 for a per_group one, K5 and K8 for a per_row and a per_group
+    linear (``tile_group_ids`` None: one expert, any M). The first pass's
+    quantizer: ``fused``, XLA's multiply by f32(1/127) (K5, K11, K14, K8),
+    else the host quantizer's division by 127 (K10); see
+    :func:`~.int8_xla._quantize_acts`. x 16-byte aligned, operands checked."""
     n, k = qt.shape[-2:]
     m = x.shape[0]
     per_group = qt.granularity == "per_group"
@@ -671,12 +692,12 @@ def _launch_a8_mma(x: torch.Tensor, tile_group_ids: Optional[torch.Tensor], qt: 
                            device=dev) if splits > 1 else None)
     lib = _build.library()
     stream = _build.stream_of(x)
-    what = ("int4_matmul_per_group_a8" if tile_group_ids is None else
-            "grouped_int4_matmul_per_group_a8" if per_group else "grouped_int4_matmul_a8")
+    what = (("int4_matmul" if tile_group_ids is None else "grouped_int4_matmul")
+            + ("_per_group_a8" if per_group else "_a8"))
     with torch.cuda.device(dev):
         err = getattr(lib, _A8_PREPASS[x.dtype])(
             x.data_ptr(), xq.data_ptr(), sx.data_ptr(), sums.data_ptr(), used.data_ptr(),
-            m, k, gsum, int(per_group), stream)
+            m, k, gsum, int(fused), stream)
         _build.check(err, f"{what}: the int8 body's first pass")
         ptrs = (xq.data_ptr(), sx.data_ptr(), sums.data_ptr(), used.data_ptr(),
                 None if tile_group_ids is None else tile_group_ids.data_ptr(),
@@ -810,7 +831,8 @@ def int4_matmul_per_group_a8(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tens
     x2 = _aligned(x2)
     if _pg_a8_on_tensor_cores(qt.group_size):
         y = _launch_a8_mma(x2, None, qt, 0, *_linear_a8_launch(n, k, qt.group_size,
-                                                               _sm_count(x2.device.index)))
+                                                               _sm_count(x2.device.index)),
+                           fused=True)
     else:
         xq, sx = _quantize_acts(x2, fused=True)
         y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)

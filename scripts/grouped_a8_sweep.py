@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The w4a8 grouped expert kernels K10 and K14 (and K11) on one GPU: where
-their time goes, and the launch shapes of the int8 tensor-core body.
+"""The w4a8 grouped expert kernels K10, K11 and K14 on one GPU: where their
+time goes, and the launch shapes of the int8 tensor-core body.
 
 Run from the repository root:
 
@@ -12,8 +12,8 @@ random weights from a seed, skewed top-2 routing), at the decode check (T=8,
 tile_m 32) and at prefill (T=600, tile_m 128), bf16 activations:
 
 * each wrapper call with CUDA events, the L2 cache flushed before each call
-  (``chip_smoke.Timer``): K10 ``grouped_int4_matmul_a8`` (host quantizer
-  included), K11 (``fuse_quant=True``) and K14
+  (``chip_smoke.Timer``): K10 ``grouped_int4_matmul_a8``, K11
+  (``fuse_quant=True``) and K14
   ``grouped_int4_matmul_per_group_a8`` (per group of 128, planar_groups);
 * under ``torch.profiler``, the device time per call split into the host
   quantizer's kernels, the pass over x before the main kernel (rows in use,
@@ -136,8 +136,6 @@ def profile_wrappers(gen, card) -> None:
                                                                     tile_m=tile_m),
             }
             for kernel, fn in calls.items():
-                if kernel == "K11" and shape == "decode":
-                    continue  # no serving path runs K11 at decode
                 qt = weights[kernel]
                 t = SHAPES[shape][0]
                 line = dict(kernel=kernel, projection=proj, shape=shape, t=t, tile_m=tile_m,
@@ -166,11 +164,13 @@ def sweep_shapes(gen, card) -> None:
             for kernel, qt in weights.items():
                 gs = qt.group_size if kernel == "K14" else 0
                 rule = _a8_mma_launch(n, k, gs, sms)
-                ref = _launch_a8_mma(xs, gids, qt, tile_m, *rule)
+                fused = kernel == "K14"    # the first pass's quantizer: K14 multiplies
+                ref = _launch_a8_mma(xs, gids, qt, tile_m, *rule, fused=fused)
                 line = dict(kernel=kernel, projection=proj, shape=shape, n=n, k=k,
                             tokens_per_expert=loads, rule=list(rule), card=card)
                 for cand in dict.fromkeys([rule, *candidates(k, gs)]):
-                    fn = lambda: _launch_a8_mma(xs, gids, qt, tile_m, *cand)  # noqa: E731
+                    fn = lambda: _launch_a8_mma(xs, gids, qt, tile_m, *cand,  # noqa: E731
+                                                fused=fused)
                     y = fn()
                     if kernel == "K10" or cand == rule:
                         same = torch.equal(y, ref)

@@ -1,25 +1,28 @@
 #!/usr/bin/env python3
-"""The w4a8 per-group linear K8 on one GPU: where its time goes, and the
-launch shapes of the int8 tensor-core body it runs at gs % 32 == 0.
+"""The w4a8 linears K8 (per group) and K5 (per row, quantizer in the
+kernel) on one GPU: where their time goes, and the launch shapes of the int8
+tensor-core body they run.
 
 Run from the repository root:
 
     env PYTHONPATH=. python3 scripts/linear_a8_sweep.py [--profile] [--sweep]
 
-At the `layer2` linear shapes that pg_turbo serves on K8 (K=4096; N=4096 for
-q and o, 1024 for k and v, 8192 for the lm_head; random weights from a seed,
-quantized per group of 128 in the planar_groups layout), bf16 activations:
+At the `layer2` linear shapes (K=4096; N=4096 for q and o, 1024 for k and v,
+8192 for the lm_head, and for K5 also 8 for the router; random weights from a
+seed, quantized per group of 128 in the planar_groups layout for K8, per row
+for K5), bf16 activations:
 
-``--profile`` (the default when neither is given) times
-``ops.int4_matmul_per_group_a8`` at M = 8 (a decode step), 40 (the
-self-draft verify) and 640 (the long prefill): each wrapper call with CUDA
-events, the L2 cache flushed before each call (``chip_smoke.Timer``), and
-under ``torch.profiler`` its device time split into the host quantizer's
-kernels, the first pass over x (quantize and sum per group), the main kernel
-and the second pass that adds a K split's partials, and the kernels it
-launches per call. It calls only the public wrapper, so the same script times a
-parent tree (``cd <parent checkout> && env PYTHONPATH=. python3 <this
-script> --profile``).
+``--profile`` (the default when neither is given) times, at M = 8 (a
+decode step), 40 (the self-draft verify) and 640 (the long prefill),
+``ops.int4_matmul_per_group_a8`` (K8) and ``ops.int4_matmul_a8(...,
+fuse_quant=True)`` (K5): each wrapper call with CUDA events, the L2 cache
+flushed before each call (``chip_smoke.Timer``), and under
+``torch.profiler`` its device time split into the host quantizer's kernels,
+the first pass over x (quantize and sum), the main kernel and the second
+pass that adds a K split's partials, the kernels it launches per call, and
+the gap (wrapper time less the device time of its kernels). It calls only
+the public wrappers, so the same script times a parent tree (``cd <parent
+checkout> && env PYTHONPATH=. python3 <this script> --profile``).
 
 ``--sweep`` launches the int8 body at M = 8 and 640 at the launch rule's
 shape (``ops.int4_matmul._linear_a8_launch``) and at other candidates (ws
@@ -40,10 +43,12 @@ import torch
 
 import chip_smoke as cs
 from fused4bit_tpu_torch import ops
+from fused4bit_tpu_torch.quant import quantize
 from grouped_a8_sweep import device_parts
 
 K, GS = 4096, 128
 PROJECTIONS = {"q_o": 4096, "k_v": 1024, "lm_head": 8192}
+K5_PROJECTIONS = {**PROJECTIONS, "router": 8}
 ROWS = (8, 40, 640)
 # K/2 cut into this many slices of whole groups, with this many warps along
 # K per CTA (the rest are CTAs along K).
@@ -69,20 +74,31 @@ def _weights(gen, n):
     return cs._pg_quantize(torch.randn((n, K), generator=gen, device="cuda") * K ** -0.5)
 
 
+def _timed(timer, fn, m) -> dict:
+    """A call's cold wrapper time, its device parts and the gap between."""
+    cold = timer(fn, iters=5 if m == 640 else 20)
+    parts = device_parts(fn, timer.flush)
+    return dict(wrapper_cold_ms=cold, device_ms=parts, gap_ms=cold - parts["total"])
+
+
 def profile_wrapper(gen, card) -> None:
     timer = cs.Timer("cuda")
-    for proj, n in PROJECTIONS.items():
-        qt = _weights(gen, n)
+    for proj, n in K5_PROJECTIONS.items():
+        qt = _weights(gen, n) if proj in PROJECTIONS else None
+        q5 = quantize(torch.randn((n, K), generator=gen, device="cuda") * K ** -0.5)
         x640 = torch.randn((640, K), generator=gen, device="cuda").bfloat16()
         for m in ROWS:
             x = x640[:m].contiguous()
-            fn = lambda: ops.int4_matmul_per_group_a8(x, qt)  # noqa: E731
-            line = dict(kernel="K8", projection=proj, m=m, n=n, k=K, gs=GS,
-                        wrapper_cold_ms=timer(fn, iters=5 if m == 640 else 20),
-                        device_ms=device_parts(fn, timer.flush),
-                        **cs.linear_bound(x, qt, a8=True), card=card)
-            print(json.dumps(line), flush=True)
-        del qt
+            if qt is not None:
+                fn = lambda: ops.int4_matmul_per_group_a8(x, qt)  # noqa: E731
+                print(json.dumps(dict(kernel="K8", projection=proj, m=m, n=n, k=K, gs=GS,
+                                      **_timed(timer, fn, m),
+                                      **cs.linear_bound(x, qt, a8=True), card=card)), flush=True)
+            fn = lambda: ops.int4_matmul_a8(x, q5, fuse_quant=True)  # noqa: E731
+            print(json.dumps(dict(kernel="K5", projection=proj, m=m, n=n, k=K,
+                                  **_timed(timer, fn, m), **cs.linear_bound(x, q5, a8=True),
+                                  card=card)), flush=True)
+        del qt, q5
         torch.cuda.empty_cache()
 
 
@@ -102,7 +118,7 @@ def sweep_shapes(gen, card) -> None:
             line = dict(kernel="K8", projection=proj, m=m, n=n, k=K, gs=GS, rule=list(rule),
                         **cs.linear_bound(x, qt, a8=True), card=card)
             for cand in dict.fromkeys([rule, *candidates(K, GS)]):
-                fn = lambda: _launch_a8_mma(x, None, qt, 0, *cand)  # noqa: E731
+                fn = lambda: _launch_a8_mma(x, None, qt, 0, *cand, fused=True)  # noqa: E731
                 if not torch.equal(fn(), ops.int4_matmul_per_group_a8_reference(x, qt,
                                                                                  launch=cand)):
                     raise AssertionError(f"K8 {proj} M={m} {cand}: not bit-equal to its plain "

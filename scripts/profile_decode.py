@@ -19,8 +19,12 @@ and runs STEPS more under `torch.profiler` to sum the device kernel time.
 The seven modes alternate within each of ROUNDS rounds, so they share the
 card's state. Prints one JSON line per (round, mode): wall ms/step, device
 ms/step, busy share (device / wall), kernels per step, the attention
-kernel's (K3 or K3') device ms/step and the five kernels with the most
-device time. Imports nothing of JAX.
+kernel's (K3 or K3') device ms/step, the five kernels with the most device
+time, and the device ms and launches per step of each w4a8 kernel (by name:
+the CUDA-core loops, the int8 body's first pass, main kernel and second
+pass). It calls only the package's public API, so it also profiles a parent
+tree (``cd <parent checkout> && env PYTHONPATH=. python3 <this script>``).
+Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -98,6 +102,11 @@ def _engine(model, cfg, **engine_kw):
     return eng
 
 
+def _short(name: str) -> str:
+    """A kernel's name without its namespaces and arguments."""
+    return name.replace("f4b::(anonymous namespace)::", "").split("(")[0].replace("void ", "")
+
+
 def _profile(eng) -> dict:
     t0 = time.perf_counter()
     for _ in range(STEPS):
@@ -112,11 +121,14 @@ def _profile(eng) -> dict:
     device = sum(e.self_device_time_total for e in kernels) / 1e3 / STEPS
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
     attention = sum(e.self_device_time_total for e in kernels if "attention" in e.key)
+    a8 = {_short(e.key): (e.self_device_time_total / 1e3 / STEPS, e.count / STEPS)
+          for e in kernels if "a8" in e.key or "int8_mma" in e.key}
     return dict(wall_ms_per_step=wall, device_ms_per_step=device, busy=device / wall,
                 kernels_per_step=sum(e.count for e in kernels) / STEPS,
                 attention_ms_per_step=attention / 1e3 / STEPS,
                 top=[(e.key[:60], e.self_device_time_total / 1e3 / STEPS, e.count // STEPS)
-                     for e in top])
+                     for e in top],
+                a8_kernels=a8)
 
 
 def main() -> None:

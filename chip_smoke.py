@@ -29,9 +29,12 @@ Phases, each of which raises on failure:
      in bf16 and f32 and at gs 64, 32 and 16 (the CUDA-core loop), and K6
      and K12 on planar weights per group of 128 (what convert_checkpoint
      gives);
-     K9 (grouped_int4_matmul(mode="ksplit")) on the down projection's stack
-     against its plain version and K2, and on a narrow stack that it splits
-     over K. K2, K12 and K13 (bf16, the tensor-core body) are held to their
+     K9 (grouped_int4_matmul(mode="ksplit"); bf16 on the tensor-core body
+     with K split across CTAs) on the down projection's stack at decode and
+     T=600 against its plain version and K2, with zero padding rows exactly
+     0, its token rows the same bits at T=8 and T=40 and at tile_m 16, 32
+     and 64, and on a narrow stack that it splits into many CTAs along K.
+     K2, K12 and K13 (bf16, the tensor-core body) are held to their
      plain versions at decode and prefill, gate/up and down, with zero
      padding rows exactly 0; one token's rows must be the same bits in a T=8
      and a T=40 dispatch (K12 also at tile_m 16, 32 and 64), and each
@@ -53,10 +56,11 @@ Phases, each of which raises on failure:
      one token's rows must be the same bits in a T=8 and a T=40 dispatch; K14
      also at gs 32 (the body's 8-byte runs) and gs 16 (the CUDA-core loop),
      and K10 and K14 on a narrow stack (N=256) whose launch splits K over
-     CTAs. K5 (the int8 body as one expert) must equal its plain version bit
-     for bit at 1, 8, 32, 40 and 640 rows in bf16 (and in f32 at k/v), its
-     rows 0-7 the same bits at 8, 40 and 640 rows. These rows print the main
-     kernel's device time beside the wrapper's;
+     CTAs. K5 and K4 (the int8 body as one expert, K4's first pass dividing
+     by 127) must equal their plain versions bit for bit at 1, 8, 32 and 640
+     rows (K5 also at 40) in bf16 (and in f32 at k/v), K4 also at deep K,
+     K5's rows 0-7 the same bits at 8, 40 and 640 rows. These rows print the
+     main kernel's device time beside the wrapper's;
   4. serve 12 requests on the `layer2` model (random weights from a seeded
      generator) with 8 slots, in the default (w4a16) mode and then, on the
      same weights, in the `as_u4_turbo` (w4a8), `as_per_group` (w4a16,
@@ -143,7 +147,7 @@ from fused4bit_tpu_torch.models import (
     load_safetensors,
 )
 from fused4bit_tpu_torch.ops import _build
-from fused4bit_tpu_torch.ops.grouped_matmul import _ksplit_splits
+from fused4bit_tpu_torch.ops.grouped_matmul import _ksplit_mma_launch, _ksplit_splits
 from fused4bit_tpu_torch.ops.int4_matmul import (
     _a8_mma_launch,
     _fold_mma_launch,
@@ -151,7 +155,6 @@ from fused4bit_tpu_torch.ops.int4_matmul import (
     _mma_launch,
     _pg_a8_on_tensor_cores,
 )
-from fused4bit_tpu_torch.ops.int8_xla import _quantize_acts
 from fused4bit_tpu_torch.quant import planar_groups_to_planar, quantize, unpack_planar
 from fused4bit_tpu_torch.serving import GenerationRequest, ServingEngine, speculative_generate
 
@@ -166,10 +169,11 @@ from fused4bit_tpu_torch.serving import GenerationRequest, ServingEngine, specul
 BF16_REL_TOL = 1e-2
 F32_ABS_TOL = 1e-2
 ATTN_ABS_TOL = 2e-2
-# - w4a8 kernels: the same quantization and an exact integer dot on both
-#   sides, then the same f32 epilogue, operation by operation: K4 to max|d|
-#   <= 1e-6 * max|y_plain| in f32, one bf16 ulp (2^-7 * max|y_plain|) in
-#   bf16; the others (K5, K8, K10, K11, K14) bit for bit.
+# - w4a8: the same quantization and an exact integer dot on both sides, then
+#   the same f32 epilogue, operation by operation: the kernels (K4, K5, K8,
+#   K10, K11, K14) bit for bit; the integer-GEMM path (int8_linear, whose
+#   epilogue is not the kernels') to max|d| <= 1e-6 * max|y_plain| in f32,
+#   one bf16 ulp (2^-7 * max|y_plain|) in bf16.
 A8_F32_REL_TOL = 1e-6
 A8_BF16_REL_TOL = 2.0 ** -7
 # Whole model on the card vs the CPU: bf16 activations through 2 layers.
@@ -196,7 +200,7 @@ SOURCES = {
                        "fused4bit_tpu/ops/decode_attention.py:71"),
     "paged_int4_attention": ("fused4bit_tpu_torch/csrc/decode_attention.cu",
                              "fused4bit_tpu/ops/decode_attention.py:311"),
-    "int4_matmul_a8": ("fused4bit_tpu_torch/csrc/int4_matmul_a8.cu",
+    "int4_matmul_a8": ("fused4bit_tpu_torch/csrc/int8_mma.cuh",
                        "fused4bit_tpu/ops/int4_matmul.py:1039"),
     "int4_matmul_a8_fused": ("fused4bit_tpu_torch/csrc/int8_mma.cuh",
                              "fused4bit_tpu/ops/int4_matmul.py:1094"),
@@ -214,7 +218,7 @@ SOURCES = {
                                          "fused4bit_tpu/ops/grouped_matmul.py:1101"),
     "int4_matmul_per_group_planar": ("fused4bit_tpu_torch/csrc/int4_mma.cuh",
                                      "fused4bit_tpu/ops/int4_matmul.py:427"),
-    "grouped_int4_matmul_ksplit": ("fused4bit_tpu_torch/csrc/grouped_matmul.cu",
+    "grouped_int4_matmul_ksplit": ("fused4bit_tpu_torch/csrc/int4_mma.cuh",
                                    "fused4bit_tpu/ops/grouped_matmul.py:241"),
     "grouped_int4_matmul_per_group_planar": ("fused4bit_tpu_torch/csrc/int4_mma.cuh",
                                              "fused4bit_tpu/ops/grouped_matmul.py:859"),
@@ -336,11 +340,11 @@ def build() -> float:
 
 # The tensor-core bodies, their instantiations and the tensor-core instruction
 # each must hold: the linear body (csrc/int4_mma.cuh) for K1, K6 and K7 in
-# bf16 and, with grouped addressing, K2, K12 and K13, each with a 16-row and a
-# 64-row tile of x; the attention body (csrc/decode_attention.cu) for K3 and
-# K3', each at head_dim 64 and 128; the int8 body (csrc/int8_mma.cuh) for K10
-# (K11 and K5 run its instantiation) and for K14 with 16- and 8-byte runs (K8
-# runs K14's two).
+# bf16 and, with grouped addressing, K2 (K9 runs its instantiation), K12 and
+# K13, each with a 16-row and a 64-row tile of x; the attention body
+# (csrc/decode_attention.cu) for K3 and K3', each at head_dim 64 and 128; the
+# int8 body (csrc/int8_mma.cuh) for K10 (K11, K5 and K4 run its
+# instantiation) and for K14 with 16- and 8-byte runs (K8 runs K14's two).
 TENSOR_CORE_KERNELS = {"int4_mma_kernel": (12, "HMMA"),
                        "int4_attention_mma_kernel": (4, "HMMA"),
                        "int8_mma_kernel": (3, "IMMA")}
@@ -609,12 +613,13 @@ def _a8_tol(ref):
 
 
 def check_linear_a8(device, results, timer, gen):
-    """K4 and K5 at the layer2 linear shapes (K4 also at deep K), each against
-    the plain version with its own quantizer: K4 (the CUDA-core loop) at 1, 8
-    and 32 rows to the a8 bars; K5 (the int8 body) bit for bit at 1, 8, 32,
-    40 and 640 rows (the long prefill of phase 6 in the turbo mode), also in
-    f32 at k/v, its rows 0-7 the same bits at 8, 40 and 640 rows (its launch
-    rule reads M above 64 rows; its int32 sums are exact), bf16 rows with the
+    """K4 and K5 at the layer2 linear shapes (K4 also at deep K), each bit
+    for bit against the plain version with its own quantizer, both on the
+    int8 body (K4's first pass divides by 127, K5's multiplies by
+    f32(1/127)): K4 at 1, 8, 32 and 640 rows, K5 at 1, 8, 32, 40 and 640
+    (the long prefill of phase 6 in the turbo mode), both also in f32 at
+    k/v; K5's rows 0-7 the same bits at 8, 40 and 640 rows (its launch rule
+    reads M above 64 rows; its int32 sums are exact), bf16 rows with the
     main kernel's device time."""
     for n, k in ((4096, 4096), (1024, 4096), (8, 4096), (8192, 4096), (4096, 14336)):
         qt = quantize(torch.randn((n, k), generator=gen, device=device) * k ** -0.5)
@@ -625,7 +630,7 @@ def check_linear_a8(device, results, timer, gen):
             f32 = n == 1024 and m in (8, 40, 640)
             for xx in (x, x.float()) if f32 else (x,):  # + the f32 instantiations
                 dt = "bf16" if xx.dtype == torch.bfloat16 else "f32"
-                fuses = (False,) if k > 4096 else (True,) if m in (40, 640) else (False, True)
+                fuses = (False,) if k > 4096 else (True,) if m == 40 else (False, True)
                 for fuse in fuses:
                     ref = ops.int4_matmul_a8_reference(xx, qt, fuse_quant=fuse)
                     y = ops.int4_matmul_a8(xx, qt, fuse_quant=fuse)
@@ -637,14 +642,7 @@ def check_linear_a8(device, results, timer, gen):
                              lambda: ops.int4_matmul_a8(xx, qt, fuse_quant=fuse),
                              lambda: ops.int4_matmul_a8_reference(xx, qt, fuse_quant=fuse),
                              iters=5 if m == 640 else 20, work=linear_bound(xx, qt, a8=True),
-                             exact=fuse, main="int8_mma_kernel" if fuse and timed else None)
-            if (m, n, k) == (8, 4096, 4096) and timer:
-                # the input of the fuse gate: K4's time above includes the
-                # host quantizer's launches, timed here alone
-                q_ms = timer(lambda: _quantize_acts(x))
-                print(f"    host quantizer alone M={m} K={k}: {q_ms:.4f} ms")
-                results.append(dict(name="host_quantizer", shape=f"M={m} K={k}", err=0.0,
-                                    ms=q_ms, plain_ms=float("nan")))
+                             exact=True, main="int8_mma_kernel" if timed else None)
         if k == 4096:
             for big in (40, 640):
                 same_rows(A8_NAMES[True][0], f"N={n} K={k} bf16", rows[8], rows[big])
@@ -975,9 +973,14 @@ def check_grouped_planar_pg(device, results, timer, gen, e=8, ffn=14336, hidden=
 def check_ksplit(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
     """K9 (``mode="ksplit"``) on the down stack (N=4096, K=14336) at T=8
     (tile_m 16; f32 too) and T=600 (tile_m 128), skewed routing: against
-    K2's plain version and against K2 on the same inputs, at K2's bars; K2 is
-    timed before and after K9."""
+    K2's plain version and against K2 on the same inputs, at K2's bars,
+    padding rows exactly 0; K2 is timed before and after K9, and bf16 rows
+    print the main kernel's and the second pass's device time. A token's
+    rows are the same bits in a T=8 and a T=40 dispatch and at tile_m 16, 32
+    and 64 (the launch rule reads no T or tile_m), and a narrow stack
+    (N=256) splits K/2 over many CTAs."""
     n, k = hidden, ffn
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     qt = quantize(torch.randn((e, n, k), generator=gen, device=device) * k ** -0.5)
     for t, tile_m in ((8, 16), (600, 128)):
         routing, plan = _skewed_plan(t, e, 2, tile_m, gen, device)
@@ -998,32 +1001,41 @@ def check_ksplit(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
             if not k2_err <= tol:
                 raise AssertionError(f"K9 vs K2 T={t}: max|d| {k2_err} > {tol}")
             k2 = (lambda: ops.grouped_int4_matmul(xx, gids, qt, tile_m=tile_m))
+            k9 = (lambda: ops.grouped_int4_matmul(xx, gids, qt, tile_m=tile_m, mode="ksplit"))
             k2_ms = [timer(k2, iters=iters)] if timer and not f32 else []
             _compare("grouped_int4_matmul_ksplit",
                      f"T={t} tile_m={tile_m} N={n} K={k}" + (" f32" if f32 else ""), y, ref, tol,
-                     results, None if f32 else timer,
-                     lambda: ops.grouped_int4_matmul(xx, gids, qt, tile_m=tile_m, mode="ksplit"),
+                     results, None if f32 else timer, k9,
                      lambda: ops.grouped_int4_matmul_reference(xx, gids, qt, tile_m=tile_m),
-                     iters=iters, work=grouped_bound(xx, gids, qt, 2 * t))
+                     iters=iters, work=grouped_bound(xx, gids, qt, 2 * t),
+                     main=None if f32 else "int4_mma_kernel")
             if k2_ms:
                 k2_ms.append(timer(k2, iters=iters))
-            splits = _ksplit_splits(plan.t_pad, n, k, 8 if f32 else 16)
-            print(f"    K9 splits {splits}; K9 vs K2 on the same inputs max|d| {k2_err:.3e} "
+                second = timer.device_ms(k9, "int4_mma_reduce_kernel")
+                print(f"    K9 second pass {second:.4f} ms")
+            launch = (f"{_ksplit_splits(plan.t_pad, n, k, 8, sms)} splits" if f32
+                      else f"launch {_ksplit_mma_launch(n, k, sms)}")
+            print(f"    K9 {launch}; K9 vs K2 on the same inputs max|d| {k2_err:.3e} "
                   f"(tol {tol:.3e}); K2 {', '.join(f'{v:.4f}' for v in k2_ms) or 'untimed'} ms "
                   f"(before, after K9)")
         print(f"    tokens per expert {routing.tokens_per_expert.tolist()}, T_pad {plan.t_pad}")
         if t == 8:
-            # the first 256 rows of each expert: a grid of 72 CTAs, so K9 splits K/2
+            # the first 256 rows of each expert: K9 splits K/2 over many CTAs
             sub = dataclasses.replace(qt, packed=qt.packed[:, :256].contiguous(),
                                       scales=qt.scales[:, :256].contiguous(),
                                       zero_points=qt.zero_points[:, :256].contiguous(),
                                       shape=(e, 256, k))
             y = ops.grouped_int4_matmul(xs, gids, sub, tile_m=tile_m, mode="ksplit")
             ref = ops.grouped_int4_matmul_reference(xs, gids, sub, tile_m=tile_m)
+            torch.cuda.synchronize()
+            if not bool((y[pad] == 0).all()):
+                raise AssertionError("K9 N=256: padding rows are not exactly zero")
             _compare("grouped_int4_matmul_ksplit",
-                     f"T={t} tile_m={tile_m} N=256 K={k} "
-                     f"{_ksplit_splits(plan.t_pad, 256, k, 16)} splits", y, ref, _a16_tol(ref),
-                     results, None, None, None)
+                     f"T={t} tile_m={tile_m} N=256 K={k} launch {_ksplit_mma_launch(256, k, sms)}",
+                     y, ref, _a16_tol(ref), results, None, None, None)
+    k9 = functools.partial(ops.grouped_int4_matmul, mode="ksplit")
+    same_token_rows("grouped_int4_matmul_ksplit", k9, qt, k, e, gen, device, tile_m=16)
+    same_across_tile_m("grouped_int4_matmul_ksplit", k9, qt, k, e, gen, device)
     del qt
 
 

@@ -18,35 +18,34 @@
 // padding alone streams no weights (at decode, T=8, top-2, tile_m 16, 9
 // tiles, of which one per expert hit holds tokens).
 //
-// K2 and K12 in bf16 run the tensor-core body of int4_mma.cuh with grouped
-// addressing (its note gives the design and the bound): K2 under K1's
-// RowScale policy, K12 under K6's GroupDequant (bf16(bf16(s) * (q - zp)) in
-// registers, the scales and zero points [E, N, K/gs] offset by the block's
-// expert). A first pass flags the rows in use, then the main kernel runs at
-// the launch shape of the Python wrapper's rule (ops.grouped_matmul:
-// _grouped_mma_launch at tile_m <= 64, which reads N, K and the SM count
-// only, so a token row's bits do not depend on its dispatch; the 64-row tile
-// of _mma_tall_launch at tile_m 128), and with splits > 1 the ordered second
-// pass. f32 K2, K12 and K9 run the CUDA-core loop of int4_rows.cuh (K1's old
-// inner loop with the weight base chosen per CTA; an f32 tensor-core product
-// would be TF32), after a first pass that finds the zero padding rows at the
-// end of each block of rows.
+// K2, K12 and K9 in bf16 run the tensor-core body of int4_mma.cuh with
+// grouped addressing (its note gives the design and the bound): K2 and K9
+// under K1's RowScale policy, K12 under K6's GroupDequant (bf16(bf16(s) *
+// (q - zp)) in registers, the scales and zero points [E, N, K/gs] offset by
+// the block's expert). A first pass flags the rows in use, then the main
+// kernel runs at the launch shape of the Python wrapper's rule
+// (ops.grouped_matmul: _grouped_mma_launch for K2 and K12 at tile_m <= 64,
+// _ksplit_mma_launch for K9 at every tile_m, which read N, K and the SM
+// count only, so a token row's bits do not depend on its dispatch; K2's and
+// K12's 64-row tile of _mma_tall_launch at tile_m 128), and with splits > 1
+// the ordered second pass. f32 K2, K12 and K9 run the CUDA-core loop of
+// int4_rows.cuh (K1's old inner loop with the weight base chosen per CTA;
+// an f32 tensor-core product would be TF32), after a first pass that finds
+// the zero padding rows at the end of each block of rows.
 //
 // K9: on the TPU the k-split is a grid order that keeps one f32 accumulator
 // in VMEM across the k steps. Blocks of a GPU run in no order, so here the
 // split is split-K: `splits` CTAs share each output tile, each walking its
-// own range of K/2 and writing f32 partial sums; a second kernel adds them in
-// a fixed order and applies the scale. Deterministic; in f32 equal to K2 up
-// to the reassociation of the f32 sum, in bf16 K2 runs another body, whose
-// f32 sums run in another order again. Splitting pays only where the grid has
-// fewer CTAs than SMs (one CTA of 256 threads is resident per SM at these
-// register counts): at the layer2 shapes every extra split measured slower,
-// so the wrapper picks 1 there and K9 is the CUDA-core loop plus the ordered
-// reduction.
+// own range of K/2 and writing f32 partial sums of the rows in use; a second
+// kernel adds them in a fixed order and applies the scale. In bf16 that is
+// K2's entry at K9's launch shape (K/2 cut into at least two slices handed
+// to CTAs along K, where K2's rule hands them to the warps of a CTA first);
+// in f32 the CUDA-core loop over `splits` ranges of whole 512-byte chunks.
+// Deterministic; equal to K2 up to the reassociation of the f32 sum.
 #include "int4_mma.cuh"
 #include "int4_rows.cuh"
 
-// K2 on the tensor cores: x [T, K] bf16; packed [E, N, K/2]; scales/zps [E, N];
+// K2 and K9 on the tensor cores: x [T, K] bf16; packed [E, N, K/2]; scales/zps [E, N];
 // used: int32 scratch of T (the first pass's row flags); partial: f32 scratch
 // of splits * T * N when splits > 1; mt 16, or 64 with tile_m % 64 == 0.
 extern "C" int f4b_grouped_int4_matmul_mma_bf16(const void* x, const void* gids,
@@ -95,18 +94,7 @@ extern "C" int f4b_grouped_int4_matmul_planar_pg_f32(const void* x, const void* 
                                             y, T, N, K, gs, stream);
 }
 
-// K9: partial: f32 scratch of splits * T * N.
-extern "C" int f4b_grouped_int4_matmul_ksplit_bf16(const void* x, const void* gids,
-                                                   const void* packed, const void* scales,
-                                                   const void* zps, void* rows_used,
-                                                   void* partial, void* y, int T, int N,
-                                                   int K, int tile_m, int splits,
-                                                   void* stream) {
-  return f4b::launch_int4_rows_ksplit<__nv_bfloat16>(x, packed, scales, zps, gids, tile_m,
-                                                     rows_used, partial, y, T, N, K, splits,
-                                                     stream);
-}
-
+// K9 in f32 on the CUDA cores; partial: f32 scratch of splits * T * N.
 extern "C" int f4b_grouped_int4_matmul_ksplit_f32(const void* x, const void* gids,
                                                   const void* packed, const void* scales,
                                                   const void* zps, void* rows_used,

@@ -13,13 +13,14 @@
 // rows from tile_group_ids, K2's contract: one launch of each kernel, no host
 // loop and no device-to-host sync, every column of N written (also past 256),
 // zero padding rows written as exactly 0 and an all-padding block streams no
-// weights. K5 (int4_matmul_a8.cu) runs the same entry with gids NULL.
+// weights. The linears K4 (the dividing first pass) and K5 (the multiplying
+// one) run the same entries with gids NULL (ops.int4_matmul.int4_matmul_a8).
 #include "int8_mma.cuh"
 
-// The int8 body's first pass, shared with K5, K11, K14 and K8: x [M, K] bf16
-// or f32 -> xq [M, K] i8, sx [M] f32, sums [M, K / gsum] i32, used [M] i32
-// (the row holds a nonzero); fused: sx by XLA's folded reciprocal (K5, K11,
-// K14, K8), else a division (K10).
+// The int8 body's first pass, shared with K4, K5, K11, K14 and K8: x [M, K]
+// bf16 or f32 -> xq [M, K] i8, sx [M] f32, sums [M, K / gsum] i32, used [M]
+// i32 (the row holds a nonzero); fused: sx by XLA's folded reciprocal (K5,
+// K11, K14, K8), else a division (K10, K4).
 extern "C" int f4b_a8_prepass_bf16(const void* x, void* xq, void* sx, void* sums,
                                    void* used, int M, int K, int gsum, int fused,
                                    void* stream) {
@@ -33,7 +34,7 @@ extern "C" int f4b_a8_prepass_f32(const void* x, void* xq, void* sx, void* sums,
   return f4b::launch_a8_prepass<float>(x, xq, sx, sums, used, M, K, gsum, fused, stream);
 }
 
-// K10 and K11 (and K5 with gids NULL) on the first pass's outputs (sums per
+// K10 and K11 (and K4, K5 with gids NULL) on the first pass's outputs (sums per
 // half: gsum = K/2); y in bf16, or f32 with out_f32; partial: int32 scratch of
 // splits * M * N when splits > 1.
 extern "C" int f4b_grouped_int4_matmul_a8_mma(const void* xq, const void* sx, const void* sums,

@@ -1,11 +1,11 @@
 // Tensor-core body of the bf16 w4a16 linears and grouped expert products:
 // K1 (per row) and K6 (per group, planar), launched by int4_matmul.cu; K7
 // (per group, planar_groups, gs % 64 == 0), launched by int4_matmul_pg.cu;
-// and, with grouped addressing (an expert per block of rows), K2 (K1's
-// arithmetic) and K12 (K6's), launched by grouped_matmul.cu, and K13 (K7's,
-// gs % 64 == 0), launched by grouped_matmul_pg.cu. The f32 entry points, K7
-// and K13 at other group sizes, and K9 stay on int4_rows.cuh /
-// int4_rows_pg.cuh.
+// and, with grouped addressing (an expert per block of rows), K2 and K9
+// (K1's arithmetic; K9 at a launch that splits K across CTAs) and K12 (K6's),
+// launched by grouped_matmul.cu, and K13 (K7's, gs % 64 == 0), launched by
+// grouped_matmul_pg.cu. The f32 entry points and K7 and K13 at other group
+// sizes stay on int4_rows.cuh / int4_rows_pg.cuh.
 //
 // What it computes (the TPU kernels' arithmetic, with the order of the f32
 // sum changed):
@@ -19,10 +19,11 @@
 //       kernel's batched-partials fold, fused4bit_tpu/ops/int4_matmul.py:
 //       _int4_group_bp_kernel: its a_hi * P_hi is (s_hi / 16) * 16 P_hi, the
 //       same product; it folds per group, here per chunk of its group).
-//   K2, K12, K13: K1's, K6's and K7's sums over the weights of expert
-//       e = gids[m / tile_m], the expert of row m's tile (the TPU kernels
-//       _grouped_kernel, _grouped_pg_kernel and _grouped_pg_bp_kernel,
-//       fused4bit_tpu/ops/grouped_matmul.py; the last folds per group).
+//   K2, K9, K12, K13: K1's, K1's, K6's and K7's sums over the weights of
+//       expert e = gids[m / tile_m], the expert of row m's tile (the TPU
+//       kernels _grouped_kernel, _grouped_ksplit_kernel, _grouped_pg_kernel
+//       and _grouped_pg_bp_kernel, fused4bit_tpu/ops/grouped_matmul.py; the
+//       last folds per group).
 // with q the 4-bit codes of the planar bytes (byte c of row n: column c in
 // the low nibble, column K/2 + c XOR 8 in the high nibble) and integer zero
 // points in [0, 15], as the quantizer gives them. (q - zp) lies in [-15, 15]
@@ -73,12 +74,14 @@
 //   stages of up to 32 steps; in stage i the CTA's kw warps take kw
 //   consecutive runs of the stage's steps, warp 0 first. The launch rule
 //   (ops.int4_matmul._mma_launch; K7: _fold_mma_launch, whole chunks per
-//   warp; K2, K12, K13: ops.grouped_matmul._grouped_mma_launch) picks (ws, kw,
-//   splits) from (N, K, SM count) only, so every row's sum runs in the same
-//   order whatever rows sit beside it: a row's output does not depend on M
-//   up to 64 (the self-draft speculative verify at M = 40 must reproduce the
-//   M = 8 decode bit for bit), nor, for K2, K12 and K13, on the T, the tile_m (up
-//   to 64) or the routing of the dispatch. Partial sums meet in a fixed order:
+//   warp; K2, K12, K13: ops.grouped_matmul._grouped_mma_launch; K9:
+//   _ksplit_mma_launch, at least two CTAs along K) picks (ws, kw, splits)
+//   from (N, K, SM count) only, so every row's sum runs in the same order
+//   whatever rows sit beside it: a row's output does not depend on M up to
+//   64 (the self-draft speculative verify at M = 40 must reproduce the M = 8
+//   decode bit for bit), nor, for K2, K9, K12 and K13, on the T, the tile_m
+//   (up to 64; K9 at every tile_m) or the routing of the dispatch. Partial
+//   sums meet in a fixed order:
 //   through shared memory inside a CTA (warps kw = 0, 1, ...), then, with
 //   splits > 1, as f32 partials [splits, M, N] that a second kernel adds in
 //   order z = 0, 1, ... No float atomics.
@@ -92,8 +95,9 @@
 //   from L2). Above 64 rows (prefill) it takes 64, so each A fragment feeds
 //   8 MMAs, and its warps (one per row tile) walk their range of K in stages
 //   of 32 k steps; there K is split across CTAs only until every SM has one
-//   (ops.int4_matmul._mma_tall_launch; K2, K12 and K13 at tile_m 128).
-// * Grouped addressing (K2, K12, K13): a CTA's block of rows lies in one tile
+//   (ops.int4_matmul._mma_tall_launch; K2, K12 and K13 at tile_m 128; K9
+//   keeps its own split there).
+// * Grouped addressing (K2, K9, K12, K13): a CTA's block of rows lies in one tile
 //   (tile_m % 16 == 0, or % 64 with the tall tile) and reads its expert from
 //   gids, offsetting the weights, scales and zero points (size_t: a stack of
 //   experts passes 2^31 bytes). A first pass (rows_used_kernel, a CTA per
@@ -537,29 +541,32 @@ __global__ void __launch_bounds__(kMmaThreads, NT <= 2 ? 2 : 1) int4_mma_kernel(
   }
 }
 
-// The splits' f32 partials added in order z = 0, 1, ..., then (K1, K2) the
-// scale. Grouped (gids): the row's expert's scale, and 0 for a row past its
-// block's rows in use (blocks of mt rows), for which no partial was written.
+// The splits' f32 partials added in order z = 0, 1, ..., then (K1, K2, K9)
+// the scale: a CTA per row of y and 256 of its columns, a thread per
+// element. Grouped (gids): the row's expert's scale, and 0 for a row past
+// its block's rows in use (blocks of mt <= kMmaThreads rows), for which no
+// partial was written and none is read; a row is in use if a row from it to
+// its block's end is flagged, which the CTA reads once (a flag per thread).
 template <class P>
 __global__ void __launch_bounds__(kMmaThreads) int4_mma_reduce_kernel(const MmaArgs p, int mt) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * kMmaThreads + threadIdx.x;
-  const size_t mn = static_cast<size_t>(p.M) * p.N;
-  if (i >= mn) return;
-  const int m = static_cast<int>(i / p.N), n = static_cast<int>(i % p.N);
+  const int m = blockIdx.x;
+  const int n = blockIdx.y * kMmaThreads + threadIdx.x;
+  const size_t at = static_cast<size_t>(m) * p.N + n;
   const float* s = p.scales;
   if (p.gids != nullptr) {
-    const int b0 = m - m % mt;
-    int last = 0;
-    for (int r = b0; r < min(b0 + mt, p.M); ++r) last = p.used[r] ? r - b0 + 1 : last;
-    if (m - b0 >= last) {
-      p.y[i] = __float2bfloat16(0.f);
+    const int r = m + static_cast<int>(threadIdx.x);
+    const bool flagged = r < min(m - m % mt + mt, p.M) && p.used[r] != 0;
+    if (!__syncthreads_or(flagged)) {  // CTA-uniform
+      if (n < p.N) p.y[at] = __float2bfloat16(0.f);
       return;
     }
     s += static_cast<size_t>(p.gids[m / p.tile_m]) * p.N;
   }
-  float v = p.partial[i];
-  for (int z = 1; z < p.splits; ++z) v += p.partial[z * mn + i];
-  p.y[i] = __float2bfloat16(P::kGroupScales ? v : s[n] * v);
+  if (n >= p.N) return;
+  const size_t mn = static_cast<size_t>(p.M) * p.N;
+  float v = p.partial[at];
+  for (int z = 1; z < p.splits; ++z) v += p.partial[z * mn + at];
+  p.y[at] = __float2bfloat16(P::kGroupScales ? v : s[n] * v);
 }
 
 template <class P, int NT, bool G>
@@ -618,9 +625,8 @@ int launch_int4_mma(const MmaArgs& p, int mt, void* stream) {
   const int err = mt == 16 ? launch_mma_tile<P, 2, G>(p, grid, smem, st)
                            : launch_mma_tile<P, 8, G>(p, grid, smem, st);
   if (err != 0 || p.splits == 1) return err;
-  const size_t mn = static_cast<size_t>(p.M) * p.N;
-  int4_mma_reduce_kernel<P><<<static_cast<unsigned>((mn + kMmaThreads - 1) / kMmaThreads),
-                              kMmaThreads, 0, st>>>(p, mt);
+  const dim3 rgrid(p.M, (p.N + kMmaThreads - 1) / kMmaThreads);
+  int4_mma_reduce_kernel<P><<<rgrid, kMmaThreads, 0, st>>>(p, mt);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,7 @@
 // Shared inner loop of the w4a16 kernels on the planar layout in f32 (bf16
-// runs int4_mma.cuh), and of K9: the linear (int4_matmul.cu: K1 per row, K6
-// per group) and the grouped MoE product (grouped_matmul.cu: K2 per row, K12
-// per group, K9 per row split over K, also in bf16).
+// runs int4_mma.cuh): the linear (int4_matmul.cu: K1 per row, K6 per group)
+// and the grouped MoE product (grouped_matmul.cu: K2 per row, K12 per group,
+// K9 per row split over K).
 //
 // Per row (K1, K2, K9):
 //   y[m, n] = s[e, n] * sum_c ( x[m, c]        * (lo(p[e, n, c]) - zp[e, n])
@@ -307,8 +307,9 @@ int launch_int4_rows(const void* x, const void* packed, const void* scales,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K9: the per-row grouped product split over K into `splits` ranges (partial:
-// f32 scratch of splits * M * N), then the ordered reduction with the scale.
+// K9 (f32; bf16 runs int4_mma.cuh): the per-row grouped product split over
+// K into `splits` ranges (partial: f32 scratch of splits * M * N), then the
+// ordered reduction with the scale.
 template <typename T>
 int launch_int4_rows_ksplit(const void* x, const void* packed, const void* scales,
                             const void* zps, const void* gids, int tile_m, void* rows_used,

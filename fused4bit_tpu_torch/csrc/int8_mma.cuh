@@ -1,15 +1,15 @@
 // Int8 tensor-core body of the w4a8 products: the grouped expert products K10
 // and K11 (per-row scales, planar bytes; grouped_matmul_a8.cu) and K14
 // (per-group scales, planar_groups bytes, gs % 32 == 0; grouped_matmul_pg.cu),
-// and the linears K5 (per row) and K8 (per group, gs % 32 == 0), which run
-// their grouped twin's entry point as one expert with no tile map (gids NULL:
-// every row reads expert 0, and M need not be a multiple of 16). K4 stays on
-// int4_rows_a8.cuh, K8 and K14 at other group sizes on int4_rows_pg.cuh.
+// and the linears K4 and K5 (per row) and K8 (per group, gs % 32 == 0), which
+// run their grouped twin's entry point as one expert with no tile map (gids
+// NULL: every row reads expert 0, and M need not be a multiple of 16). K8 and
+// K14 at other group sizes stay on int4_rows_pg.cuh.
 //
 // What it computes. The activations are quantized per row, symmetric int8,
 // by a first pass (a8_prepass_kernel) with the host quantizer's arithmetic,
 // operation for operation:
-//   sx[m] = max(max_c |x[m, c]|, 1e-8) / 127   (K10: IEEE division)
+//   sx[m] = max(max_c |x[m, c]|, 1e-8) / 127   (K10, K4: IEEE division)
 //         = max(...) * f32(1/127)             (K5, K11, K14, K8: XLA's folded
 //                                              reciprocal)
 //   xq[m, c] = clamp(rint(x[m, c] / sx[m]), -127, 127)
@@ -20,7 +20,7 @@
 // Then, with q the 4-bit codes of the JAX bytes (byte c of row n: column c in
 // the low nibble, column K/2 + c XOR 8 in the high nibble), e the expert of
 // the row's tile:
-//   K10, K11, K5: acc = sum_c xq[m, c] * q[e, n, c]             (int32, exact)
+//   K10, K11, K4, K5: acc = sum_c xq[m, c] * q[e, n, c]         (int32, exact)
 //        y   = (s[e, n] * sx[m]) * (f32(acc) - zp[e, n] * f32(xsum[m]))
 //   K14: per group g of gs columns, the exact int32 products
 //        P_lo = xq_lo . q_lo and P_hi = xq_hi . 16 (q_hi - 8), folded in
@@ -33,9 +33,10 @@
 //        for K8, int4_matmul.py:_int4_group_bp_a8_kernel, which sum them in
 //        another order).
 // The epilogues use __fmul_rn / __fadd_rn / __fsub_rn so that nvcc cannot
-// contract them into FMAs. K10, K11 and K5 equal ops.int4_matmul._a8_product
-// bit for bit for any split of K (their integers are exact), so K5's launch
-// rule may read M; K14 and K8 equal ops.int4_matmul._pg_a8_fold_product at
+// contract them into FMAs. K10, K11, K4 and K5 equal
+// ops.int4_matmul._a8_product bit for bit for any split of K (their integers
+// are exact), so K4's and K5's launch rule may read M; K14 and K8 equal
+// ops.int4_matmul._pg_a8_fold_product at
 // the same launch shape.
 //
 // What bounds it on the H100: at decode (T = 8 tokens, top-2) a block of 16
@@ -76,8 +77,8 @@
 //   groups). The launch rules (ops.int4_matmul._a8_mma_launch; K8:
 //   _linear_a8_launch, more warps along K and no split) read (N, K, gs, SM
 //   count) only, never M, T, tile_m or the routing, so a row's output
-//   bits do not depend on the tile, the T or the M it sits in (K5's rule,
-//   _row_a8_launch, reads M: its sums are exact). Partial sums meet in
+//   bits do not depend on the tile, the T or the M it sits in (K4's and
+//   K5's rule, _row_a8_launch, reads M: their sums are exact). Partial sums meet in
 //   a fixed order: through shared memory in the CTA (warps kwi = 0, 1, ...),
 //   then, with splits > 1, as partials [splits, M, N] that a second kernel
 //   adds in order z = 0, 1, ... (int32 for K10, f32 for K14). No float
@@ -109,7 +110,7 @@ constexpr int kI8Mt = 16;      // rows of xq per CTA: two n8 tiles
 constexpr int kI8Ring = 3;     // chunks in a warp's ring: 2 in flight while one is used
 
 // The body's policies: what a weight byte becomes and how the sums fold.
-//   RowA8      (K10, K11, K5): low and high codes in one int32 sum, JAX's
+//   RowA8      (K10, K11, K4, K5): low and high codes in one int32 sum, JAX's
 //              epilogue.
 //   GroupA8<R> (K14): low and high halves in separate int32 sums per group,
 //                     folded into f32 at each group's end; R bytes per lane.
@@ -498,7 +499,7 @@ __global__ void __launch_bounds__(kI8Threads) int8_mma_reduce_kernel(const I8Arg
 // sums of xq per group of gsum columns ([M, K/gsum]: the low half's groups,
 // then the high half's) and used[m] (1 if the row holds a nonzero, 0 for a
 // zero padding row, whose xq is written as zeros without a second read).
-// fused: sx = amax * f32(1/127) (K5, K11, K14, K8), else amax / 127 (K10). Requires K % 32 == 0, gsum
+// fused: sx = amax * f32(1/127) (K5, K11, K14, K8), else amax / 127 (K10, K4). Requires K % 32 == 0, gsum
 // % 16 == 0 dividing K/2, x 16-byte aligned.
 constexpr int kPrepassThreads = 512;  // a row of x per CTA of the first pass
 

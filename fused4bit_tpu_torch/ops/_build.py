@@ -55,13 +55,11 @@ _SIGNATURES = {
     # ..., table, lengths, starts, out, partial; B, Hkv, G, Tq, page, max_pages, D, QT, seg
     "f4b_paged_int4_attention_bf16": [_P] * 12 + [_I] * 9 + [_P],
     "f4b_paged_int4_attention_f32": [_P] * 11 + [_I] * 8 + [_P],
-    "f4b_int4_matmul_a8_bf16": [_P] * 6 + [_I] * 3 + [_P],
-    "f4b_int4_matmul_a8_f32": [_P] * 6 + [_I] * 3 + [_P],
-    # x, xq, sx, sums, used; M, K, gsum, fused; stream
+    # x, xq, sx, sums, used; M, K, gsum, fused; stream (K4, K5, K8, K10, K11, K14)
     "f4b_a8_prepass_bf16": [_P] * 5 + [_I] * 4 + [_P],
     "f4b_a8_prepass_f32": [_P] * 5 + [_I] * 4 + [_P],
     # xq, sx, sums, used, gids, packed, scales, zps, y, partial;
-    # M, N, K, (gs,) tile_m, out_f32, ws, kw, splits; stream (gids NULL: K5, K8)
+    # M, N, K, (gs,) tile_m, out_f32, ws, kw, splits; stream (gids NULL: K4, K5, K8)
     "f4b_grouped_int4_matmul_a8_mma": [_P] * 10 + [_I] * 8 + [_P],
     "f4b_grouped_int4_matmul_pg_a8_mma": [_P] * 10 + [_I] * 9 + [_P],
     "f4b_int4_matmul_pg_bf16": [_P] * 5 + [_I] * 4 + [_P],
@@ -77,7 +75,7 @@ _SIGNATURES = {
     "f4b_int4_matmul_pg_mma_bf16": [_P] * 6 + [_I] * 8 + [_P],
     "f4b_int4_matmul_planar_pg_f32": [_P] * 5 + [_I] * 4 + [_P],
     "f4b_grouped_int4_matmul_planar_pg_f32": [_P] * 7 + [_I] * 5 + [_P],
-    "f4b_grouped_int4_matmul_ksplit_bf16": [_P] * 8 + [_I] * 5 + [_P],
+    # x, gids, packed, scales, zps, rows_used, partial, y; T, N, K, tile_m, splits
     "f4b_grouped_int4_matmul_ksplit_f32": [_P] * 8 + [_I] * 5 + [_P],
 }
 

@@ -8,10 +8,11 @@ tokens sorted by expert, each expert's group zero-padded to a multiple of
 and no device-to-host sync, and runs its plain version on a CPU tensor:
 
 * ``grouped_int4_matmul`` (w4a16): ``csrc/grouped_matmul.cu``, K2 (the port
-  of the TPU kernel ``_grouped_kernel``; bf16 on the tensor-core body of
-  ``csrc/int4_mma.cuh``, f32 on the CUDA-core loop of
-  ``csrc/int4_rows.cuh``), or with ``mode="ksplit"`` K9 (the port of
-  ``_grouped_ksplit_kernel``: the CUDA-core loop split over K);
+  of the TPU kernel ``_grouped_kernel``), or with ``mode="ksplit"`` K9 (the
+  port of ``_grouped_ksplit_kernel``): bf16 on the tensor-core body of
+  ``csrc/int4_mma.cuh`` (K9 with K split across CTAs, the ordered second
+  pass adding them), f32 on the CUDA-core loop of ``csrc/int4_rows.cuh``
+  (K9's split over K as well);
 * ``grouped_int4_matmul_a8`` (w4a8, per-row int8 activations, exact integer
   dot): ``csrc/grouped_matmul_a8.cu``, K10 (the port of
   ``_grouped_a8_kernel``) and K11 (the port of ``_grouped_a8_fused_kernel``),
@@ -32,11 +33,12 @@ and no device-to-host sync, and runs its plain version on a CPU tensor:
   ``csrc/int4_rows_pg.cuh``.
 
 The tensor-core bodies' launch shapes come from :func:`_grouped_mma_launch`
-(K2, K12, K13) and ``int4_matmul._a8_mma_launch`` (K10, K11, K14), which read (N,
-K, SM count) and (N, K, gs, SM count) only: a token row's output bits do not
-depend on the tile, the T or the routing it sits in (K2, K12 and K13 up to
-tile_m 64; at tile_m 128, the prefill's, they take 64-row tiles whose launch
-may read T).
+(K2, K12, K13), :func:`_ksplit_mma_launch` (K9) and
+``int4_matmul._a8_mma_launch`` (K10, K11, K14), which read (N, K, SM count)
+and (N, K, gs, SM count) only: a token row's output bits do not depend on
+the tile, the T or the routing it sits in (K2, K12 and K13 up to tile_m 64;
+at tile_m 128, the prefill's, they take 64-row tiles whose launch may read
+T; K9 keeps its own launch there too).
 """
 from __future__ import annotations
 
@@ -96,23 +98,11 @@ _PG_A8_KERNELS = {
     torch.float32: "f4b_grouped_int4_matmul_pg_a8_f32",
 }
 _PLANAR_PG_KERNELS = {torch.float32: "f4b_grouped_int4_matmul_planar_pg_f32"}   # K12 in f32
-_KSPLIT_KERNELS = {
-    torch.bfloat16: "f4b_grouped_int4_matmul_ksplit_bf16",
-    torch.float32: "f4b_grouped_int4_matmul_ksplit_f32",
-}
 # grouped_int4_matmul's modes: None, "n_inner", "m_inner" and "x_resident"
 # are the TPU kernel's VMEM schedules of one computation (K2 here);
 # "ksplit" is K9.
 MODES = (None, "n_inner", "m_inner", "x_resident", "ksplit")
-# K9's splits: enough CTAs for one per SM of the H100's 132 (a CTA of 32
-# output rows x one block of kernel rows; at 166-186 registers per thread one
-# CTA of 256 threads is resident per SM), at most one per chunk of 512 packed
-# bytes. Past one CTA per SM a split only adds CTAs that walk shorter ranges
-# one after another: at the layer2 down projection 2, 4, 7 and 14 splits
-# measured 6-87 % slower than 1 at T = 8, 64 and 600 (H100 80GB HBM3, 700 W;
-# PERF.md).
-_KSPLIT_CTAS = 132
-_CHUNK = 512
+_CHUNK = 512   # packed bytes per chunk of the CUDA-core loop (f32 K9)
 
 
 def _check(x_sorted, tile_group_ids, qt: QuantizedTensor, tile_m: int):
@@ -182,12 +172,14 @@ def _grouped_golden(x_sorted, tile_group_ids, qt: QuantizedTensor, tile_m: int,
     return out.reshape(-1, n).to(x_sorted.dtype)
 
 
-def _ksplit_splits(t_pad: int, n: int, k: int, rows: int) -> int:
-    """K9's number of K splits for a [t_pad, K] x [N, K] product: enough
-    CTAs for :data:`_KSPLIT_CTAS`, between 1 and the chunks of K/2 (1 at
-    every layer2 shape: the grid fills the card already)."""
+def _ksplit_splits(t_pad: int, n: int, k: int, rows: int, sms: int) -> int:
+    """f32 K9's number of K splits on the CUDA-core loop for a [t_pad, K] x
+    [N, K] product (``rows`` x rows per CTA) on a card of ``sms`` SMs: enough
+    CTAs (32 output rows x one block of rows each) for one per SM, between 1
+    and the chunks of K/2 (1 at every layer2 shape: the grid fills the card
+    already)."""
     ctas = -(-n // 32) * -(-t_pad // rows)
-    return max(1, min(-(-(k // 2) // _CHUNK), -(-_KSPLIT_CTAS // ctas)))
+    return max(1, min(-(-(k // 2) // _CHUNK), -(-sms // ctas)))
 
 
 # --- the tensor-core body (csrc/int4_mma.cuh) with grouped addressing: K2, K12, K13 ---
@@ -225,15 +217,41 @@ def _grouped_mma_launch(n: int, k: int, sms: int) -> tuple:
     return ws, kw, -(-8 * chunks // (kw * ws))
 
 
+def _ksplit_mma_launch(n: int, k: int, sms: int) -> tuple:
+    """K9's launch shape ``(ws, 1, splits)`` on the tensor-core body (see
+    :func:`_grouped_mma_launch`) for an [N, K] expert weight on a card of
+    ``sms`` SMs, at every tile_m (the 64-row tile at tile_m 128 as well).
+
+    K/2 is cut into :func:`_grouped_mma_launch`'s count of slices, at least
+    two, of whole chunks; unlike K2's rule it hands each slice to a CTA
+    along K, and the body's ordered second pass adds them: the GPU form of
+    the TPU kernel's k grid axis, which carries one f32 sum across its k
+    tiles. K is left whole only where K/2 is a single chunk. At the layer2
+    down projection that is 2 CTAs along K, one warp each; 4 and 7 CTAs, and
+    two warps along K per CTA, measured at most 4 % faster at T = 8 and 64
+    and 4-42 % slower at T = 600 on the H100 (``scripts/ksplit_sweep.py``;
+    PERF.md).
+
+    It reads (N, K, SMs) only, never T, tile_m or the routing: a token row's
+    sums then run in the same order wherever it sits, so its output bits do
+    not depend on the tile, the tile_m or the T of its dispatch."""
+    tiles = -(-n // 16)
+    chunks = -(-(k // 2) // 64)
+    splits = min(chunks, max(2, -(-2 * sms // tiles)))
+    ws = 8 * -(-chunks // splits)
+    return ws, 1, -(-8 * chunks // ws)
+
+
 def _launch_grouped_mma(x_sorted: torch.Tensor, tile_group_ids: torch.Tensor, qt: QuantizedTensor,
                         tile_m: int, *, launch: Optional[tuple] = None) -> torch.Tensor:
-    """K2 (per_row ``qt``), K12 (per_group, planar) or K13 (per_group,
-    planar_groups) on the tensor-core body: its
-    first pass (which rows hold a nonzero), the main kernel with 16 rows of
-    x per CTA at :func:`_grouped_mma_launch`'s shape (or ``launch``), or at
-    tile_m 128 (a multiple of 64 above 64: the prefill's tiles) with 64 at
-    :func:`~.int4_matmul._mma_tall_launch`'s, and with splits > 1 the
-    ordered second pass. x_sorted 16-byte aligned, operands checked."""
+    """K2 (per_row ``qt``; K9 at :func:`_ksplit_mma_launch`'s ``launch``),
+    K12 (per_group, planar) or K13 (per_group, planar_groups) on the
+    tensor-core body: its first pass (which rows hold a nonzero), the main
+    kernel with 16 rows of x per CTA at :func:`_grouped_mma_launch`'s shape,
+    or at tile_m 128 (a multiple of 64 above 64: the prefill's tiles) with
+    64 at :func:`~.int4_matmul._mma_tall_launch`'s (either at ``launch``
+    where given), and with splits > 1 the ordered second pass. x_sorted
+    16-byte aligned, operands checked."""
     m, k = x_sorted.shape
     n = qt.shape[1]
     dev = x_sorted.device
@@ -277,10 +295,11 @@ def grouped_int4_matmul(
     K2 runs bf16 x on the tensor-core body (:func:`_launch_grouped_mma`),
     f32 x on the CUDA-core loop.
 
-    ``mode``, as in JAX: ``"ksplit"`` launches K9 (the CUDA-core loop split
-    over K into as many ranges as it takes to give every SM a CTA, f32
-    partial sums added in a fixed order: the same function as K2, its f32
-    sums in another order).
+    ``mode``, as in JAX: ``"ksplit"`` launches K9, the same function as K2
+    with its f32 sums in another order: bf16 x on the tensor-core body at
+    :func:`_ksplit_mma_launch`'s shape (K split across CTAs, their f32
+    partials added in a fixed order by the second pass), f32 x on the
+    CUDA-core loop split over K (:func:`_ksplit_splits`).
     ``None``, ``"n_inner"``, ``"m_inner"`` and ``"x_resident"`` launch K2: on the TPU
     they are VMEM schedules of one computation picked by a TPU traffic
     model, which is TPU tuning and not ported. Any other mode raises
@@ -305,30 +324,31 @@ def grouped_int4_matmul(
         raise ValueError(f"{what} needs K % 32 == 0 (16-byte packed rows), got K={k}")
     _check_device_operands(x_sorted, tile_group_ids, qt)
     x_sorted = _aligned_rows(x_sorted)
-    if mode != "ksplit" and dtype == torch.bfloat16:
-        y = _launch_grouped_mma(x_sorted, tile_group_ids, qt, tile_m)
-        grouped_int4_matmul.launches += 1
-        return y
-    y = torch.empty((t_pad, n), dtype=dtype, device=x_sorted.device)
-    if t_pad == 0:
-        return y
-    # scratch: rows in use per block of kernel rows (the zero padding is skipped)
-    rows_used = torch.empty((-(-t_pad // rows),), dtype=torch.int32, device=x_sorted.device)
-    lib = _build.library()
-    head = (x_sorted.data_ptr(), tile_group_ids.data_ptr(), qt.packed.data_ptr(),
-            qt.scales.data_ptr(), qt.zero_points.data_ptr(), rows_used.data_ptr())
-    with torch.cuda.device(x_sorted.device):
-        if mode == "ksplit":
-            splits = _ksplit_splits(t_pad, n, k, rows)
-            partial = torch.empty((splits, t_pad, n), dtype=torch.float32,
-                                  device=x_sorted.device)
-            err = getattr(lib, _KSPLIT_KERNELS[dtype])(
-                *head, partial.data_ptr(), y.data_ptr(), t_pad, n, k, tile_m, splits,
-                _build.stream_of(x_sorted))
-        else:
-            err = getattr(lib, _KERNELS[dtype])(
-                *head, y.data_ptr(), t_pad, n, k, tile_m, _build.stream_of(x_sorted))
-    _build.check(err, "grouped_int4_matmul")
+    sms = _sm_count(x_sorted.device.index)
+    if dtype == torch.bfloat16:
+        y = _launch_grouped_mma(x_sorted, tile_group_ids, qt, tile_m,
+                                launch=_ksplit_mma_launch(n, k, sms) if mode == "ksplit" else None)
+    else:
+        y = torch.empty((t_pad, n), dtype=dtype, device=x_sorted.device)
+        if t_pad == 0:
+            return y
+        # scratch: rows in use per block of kernel rows (the zero padding is skipped)
+        rows_used = torch.empty((-(-t_pad // rows),), dtype=torch.int32, device=x_sorted.device)
+        lib = _build.library()
+        head = (x_sorted.data_ptr(), tile_group_ids.data_ptr(), qt.packed.data_ptr(),
+                qt.scales.data_ptr(), qt.zero_points.data_ptr(), rows_used.data_ptr())
+        with torch.cuda.device(x_sorted.device):
+            if mode == "ksplit":
+                splits = _ksplit_splits(t_pad, n, k, rows, sms)
+                partial = torch.empty((splits, t_pad, n), dtype=torch.float32,
+                                      device=x_sorted.device)
+                err = lib.f4b_grouped_int4_matmul_ksplit_f32(
+                    *head, partial.data_ptr(), y.data_ptr(), t_pad, n, k, tile_m, splits,
+                    _build.stream_of(x_sorted))
+            else:
+                err = getattr(lib, _KERNELS[dtype])(
+                    *head, y.data_ptr(), t_pad, n, k, tile_m, _build.stream_of(x_sorted))
+        _build.check(err, "grouped_int4_matmul")
     if mode == "ksplit":
         grouped_int4_matmul.ksplit_launches += 1
     else:

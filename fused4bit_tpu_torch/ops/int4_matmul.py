@@ -13,13 +13,13 @@ Counterpart of ``fused4bit_tpu/ops/int4_matmul.py``:
   dequantize once, then a dense matmul.
 * ``int4_matmul_a8`` (w4a8): per-row int8 activations and an exact integer
   dot. On a CUDA tensor it launches K4 (the port of ``_int4_a8_kernel``,
-  ``csrc/int4_matmul_a8.cu``: the CUDA-core loop of ``csrc/int4_rows_a8.cuh``)
-  on activations quantized by :func:`~.int8_xla._quantize_acts`, or K5 (the
-  port of ``_int4_a8_fused_kernel``), which quantizes with XLA's folded
-  f32(1/127): the int8 tensor-core body of ``csrc/int8_mma.cuh`` (its first
-  pass quantizes) as a one-expert stack, K10's arithmetic, at the launch
-  shape of :func:`_row_a8_launch`. On a CPU tensor it runs
-  :func:`int4_matmul_a8_reference`.
+  which takes activations quantized by the host quantizer, a division by
+  127, see :func:`~.int8_xla._quantize_acts`) or K5 (the port of
+  ``_int4_a8_fused_kernel``, which quantizes with XLA's folded f32(1/127)):
+  both the int8 tensor-core body of ``csrc/int8_mma.cuh`` as a one-expert
+  stack, K10's arithmetic, at the launch shape of :func:`_row_a8_launch`,
+  its first pass quantizing in the kernel's own arithmetic. On a CPU tensor
+  it runs :func:`int4_matmul_a8_reference`.
 * ``int4_matmul_per_group`` (w4a16, per-group weights), at every row count:
   in the planar_groups layout, on a CUDA tensor it launches
   ``csrc/int4_matmul_pg.cu``, K7 (the port of ``_int4_group_bp_kernel``;
@@ -64,7 +64,6 @@ __all__ = [
 ]
 
 _KERNELS = {torch.bfloat16: "f4b_int4_matmul_bf16", torch.float32: "f4b_int4_matmul_f32"}
-_A8_KERNELS = {torch.bfloat16: "f4b_int4_matmul_a8_bf16", torch.float32: "f4b_int4_matmul_a8_f32"}
 _PG_KERNELS = {torch.bfloat16: "f4b_int4_matmul_pg_bf16", torch.float32: "f4b_int4_matmul_pg_f32"}
 _PG_MMA_KERNEL = "f4b_int4_matmul_pg_mma_bf16"   # K7 on the tensor-core body
 _FOLD_GS = 64     # K7 runs the tensor-core body at group sizes that are multiples of this
@@ -79,11 +78,10 @@ _PLANAR_PG_KERNELS = {
 # The JAX fuse gate (int4_matmul.py:1289-1299), kept as it stands: fuse the
 # quantization at K <= 2 * _SHALLOW_KH while the raw-x block and its i8 copy
 # fit 4 MiB. On the TPU it weighs quantizing inside the kernel against
-# before it; on the card both K4 and K5 quantize before their main kernel (K4
-# by the host quantizer's element-wise ops, K5 in the int8 body's first pass),
-# so that trade is gone. It stays JAX's because it picks the quantizer's
-# arithmetic (K4 divides by 127, K5 multiplies by f32(1/127)), and with it
-# the bits JAX gives.
+# before it; on the card K4 and K5 both quantize in the int8 body's first
+# pass, so that trade is gone. It stays JAX's because it picks the
+# quantizer's arithmetic (K4 divides by 127, K5 multiplies by f32(1/127)),
+# and with it the bits JAX gives.
 _SHALLOW_KH = 3072
 
 
@@ -307,10 +305,11 @@ def int4_matmul_a8(
     x: [..., K] (bf16 or f32); qt: per_row planar [N, K]. Returns [..., N] in
     x.dtype, at every row count (no dequantize fallback, as in JAX).
     ``fuse_quant``: quantize as the TPU kernel that quantizes inside itself
-    does (K5: XLA's folded multiply by f32(1/127), in the int8 body's first
-    pass) rather than as the host quantizer (K4: a division by 127); None
-    applies the JAX gate. On a CPU tensor the plain version runs with the
-    quantizer of the kernel that ``fuse_quant`` picks.
+    does (K5: XLA's folded multiply by f32(1/127)) rather than as the host
+    quantizer (K4: a division by 127); None applies the JAX gate. On the
+    card both run the int8 body's first pass in that arithmetic, then its
+    main kernel. On a CPU tensor the plain version runs with the quantizer
+    of the kernel that ``fuse_quant`` picks.
     """
     _check_qt(qt)
     n, k = qt.out_dim, qt.in_dim
@@ -328,21 +327,13 @@ def int4_matmul_a8(
     if m == 0:
         return x.new_empty((*lead, n))
     x2 = _aligned(x2)
-    _check_operands(x2, qt, _A8_KERNELS, "K5" if fuse_quant else "K4")
+    _check_operands(x2, qt, _A8_PREPASS, "K5" if fuse_quant else "K4")
+    y = _launch_a8_mma(x2, None, qt, 0, *_row_a8_launch(n, k, m, _sm_count(x2.device.index)),
+                       fused=fuse_quant)
     if fuse_quant:
-        y = _launch_a8_mma(x2, None, qt, 0, *_row_a8_launch(n, k, m, _sm_count(x2.device.index)),
-                           fused=True)
         int4_matmul_a8.fused_launches += 1
-        return y.reshape(*lead, n)
-    xq, sx = _quantize_acts(x2)
-    y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
-    with torch.cuda.device(x2.device):
-        err = getattr(_build.library(), _A8_KERNELS[x2.dtype])(
-            xq.data_ptr(), sx.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(),
-            qt.zero_points.data_ptr(), y.data_ptr(), m, n, k, _build.stream_of(x2),
-        )
-    _build.check(err, "int4_matmul_a8")
-    int4_matmul_a8.launches += 1
+    else:
+        int4_matmul_a8.launches += 1
     return y.reshape(*lead, n)
 
 
@@ -650,16 +641,18 @@ def _linear_a8_launch(n: int, k: int, gs: int, sms: int) -> tuple:
 
 
 def _row_a8_launch(n: int, k: int, m: int, sms: int) -> tuple:
-    """K5's launch shape ``(ws, kw, splits)`` on the int8 body for an [N, K]
-    per-row weight and M rows of x on a card of ``sms`` SMs: K8's decode rule
-    :func:`_linear_a8_launch` (per row, one CTA of 8 warps per SM from one
-    block of 16 rows, no split) up to :data:`_MMA_TALL_M` rows, the grouped
-    rule :func:`_a8_mma_launch` (two warps per SM from one block of rows) above
-    it, where K8's decode shape measured 15-18 % slower at 640 rows.
+    """K5's and K4's launch shape ``(ws, kw, splits)`` on the int8 body for
+    an [N, K] per-row weight and M rows of x on a card of ``sms`` SMs: K8's
+    decode rule :func:`_linear_a8_launch` (per row, one CTA of 8 warps per SM
+    from one block of 16 rows, no split) up to :data:`_MMA_TALL_M` rows, the
+    grouped rule :func:`_a8_mma_launch` (two warps per SM from one block of
+    rows) above it, where K8's decode shape measured 15-18 % slower at 640
+    rows.
 
-    Unlike the other launch rules it reads M. That is safe because K5's sums
-    are exact int32 (as K10's): its output bits are the same at every launch
-    shape, so a row's bits do not depend on the rows beside it."""
+    Unlike the other launch rules it reads M. That is safe because K5's and
+    K4's sums are exact int32 (as K10's): their output bits are the same at
+    every launch shape, so a row's bits do not depend on the rows beside
+    it."""
     if m > _MMA_TALL_M:
         return _a8_mma_launch(n, k, 0, sms)
     return _linear_a8_launch(n, k, 0, sms)
@@ -670,10 +663,10 @@ def _launch_a8_mma(x: torch.Tensor, tile_group_ids: Optional[torch.Tensor], qt: 
     """The int8 body at launch shape ``(ws, kw, splits)``: its first pass
     (quantize, per-group sums, which rows hold a nonzero), the main kernel
     and, with splits > 1, the ordered second pass. K10 and K11 for a per_row
-    stack, K14 for a per_group one, K5 and K8 for a per_row and a per_group
-    linear (``tile_group_ids`` None: one expert, any M). The first pass's
-    quantizer: ``fused``, XLA's multiply by f32(1/127) (K5, K11, K14, K8),
-    else the host quantizer's division by 127 (K10); see
+    stack, K14 for a per_group one, K4/K5 and K8 for a per_row and a
+    per_group linear (``tile_group_ids`` None: one expert, any M). The first
+    pass's quantizer: ``fused``, XLA's multiply by f32(1/127) (K5, K11, K14,
+    K8), else the host quantizer's division by 127 (K10, K4); see
     :func:`~.int8_xla._quantize_acts`. x 16-byte aligned, operands checked."""
     n, k = qt.shape[-2:]
     m = x.shape[0]

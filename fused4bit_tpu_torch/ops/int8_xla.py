@@ -2,9 +2,10 @@
 
 Counterpart of ``fused4bit_tpu/ops/int8_xla.py``, and home of the per-row
 symmetric int8 activation quantizer that the w4a8 kernels' plain versions
-share (K4, K10; K5, K11, K8 and K14 with ``fused=True``): K4 takes its
-output, the others repeat it in the int8 body's first pass
-(``csrc/int8_mma.cuh``). Two weight forms:
+share (K4, K10; K5, K11, K8 and K14 with ``fused=True``): the kernels
+repeat it in the int8 body's first pass (``csrc/int8_mma.cuh``), and K8 and
+K14 at group sizes that body does not take take its output. Two weight
+forms:
 
 * resident (``Int8Resident``, ``to_int8_resident``): the codes shifted by
   their zero point, ``q - zp`` in [-15, 15], kept permanently as i8 (2x the

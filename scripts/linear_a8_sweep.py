@@ -1,21 +1,23 @@
 #!/usr/bin/env python3
-"""The w4a8 linears K8 (per group) and K5 (per row, quantizer in the
-kernel) on one GPU: where their time goes, and the launch shapes of the int8
-tensor-core body they run.
+"""The w4a8 linears K8 (per group), K5 (per row, XLA's folded quantizer)
+and K4 (per row, the host quantizer's division) on one GPU: where their
+time goes, and the launch shapes of the int8 tensor-core body they run.
 
 Run from the repository root:
 
     env PYTHONPATH=. python3 scripts/linear_a8_sweep.py [--profile] [--sweep]
 
 At the `layer2` linear shapes (K=4096; N=4096 for q and o, 1024 for k and v,
-8192 for the lm_head, and for K5 also 8 for the router; random weights from a
-seed, quantized per group of 128 in the planar_groups layout for K8, per row
-for K5), bf16 activations:
+8192 for the lm_head, and for K5 and K4 also 8 for the router; random
+weights from a seed, quantized per group of 128 in the planar_groups layout
+for K8, per row for K5 and K4), and for K4 also at deep K (N=4096, K=14336,
+where the JAX fuse gate picks it), bf16 activations:
 
 ``--profile`` (the default when neither is given) times, at M = 8 (a
 decode step), 40 (the self-draft verify) and 640 (the long prefill),
-``ops.int4_matmul_per_group_a8`` (K8) and ``ops.int4_matmul_a8(...,
-fuse_quant=True)`` (K5): each wrapper call with CUDA events, the L2 cache
+``ops.int4_matmul_per_group_a8`` (K8), ``ops.int4_matmul_a8(...,
+fuse_quant=True)`` (K5) and ``ops.int4_matmul_a8(..., fuse_quant=False)``
+(K4): each wrapper call with CUDA events, the L2 cache
 flushed before each call (``chip_smoke.Timer``), and under
 ``torch.profiler`` its device time split into the host quantizer's kernels,
 the first pass over x (quantize and sum), the main kernel and the second
@@ -29,7 +31,10 @@ shape (``ops.int4_matmul._linear_a8_launch``) and at other candidates (ws
 chunks per warp, kw warps along K per CTA, splits CTAs along K; whole
 groups), each held bit for bit against the plain version at the same shape
 (``int4_matmul_per_group_a8_reference(..., launch=)``), and times each cold
-and under the profiler.
+and under the profiler; the same for K4 at deep K at its rule's shape
+(``ops.int4_matmul._row_a8_launch``) and per-row candidates, each held bit for
+bit against ``int4_matmul_a8_reference(..., fuse_quant=False)`` (its int32
+sums are exact at every shape).
 
 One JSON line per measurement; the card's name and power limit lead the
 output. Imports nothing of JAX.
@@ -50,6 +55,7 @@ K, GS = 4096, 128
 PROJECTIONS = {"q_o": 4096, "k_v": 1024, "lm_head": 8192}
 K5_PROJECTIONS = {**PROJECTIONS, "router": 8}
 ROWS = (8, 40, 640)
+K4_DEEP = (4096, 14336)   # (N, K) of the w4a8 linear at deep K
 # K/2 cut into this many slices of whole groups, with this many warps along
 # K per CTA (the rest are CTAs along K).
 SLICES = ((1, 1), (2, 1), (2, 2), (4, 2), (4, 4), (8, 4), (8, 8), (16, 8))
@@ -57,11 +63,12 @@ SLICES = ((1, 1), (2, 1), (2, 2), (4, 2), (4, 4), (8, 4), (8, 8), (16, 8))
 
 def candidates(k: int, gs: int) -> list:
     """Launch shapes ``(ws, kw, splits)`` timed beside the rule's: K/2 in
-    whole groups, cut into the slices of :data:`SLICES`."""
+    whole groups (``gs`` 0, per row: chunks of 64 packed bytes), cut into the
+    slices of :data:`SLICES`."""
     from fused4bit_tpu_torch.ops.int4_matmul import _i8_chunk
 
-    unit = gs // _i8_chunk(gs)                       # chunks per group
-    groups = (k // 2) // gs
+    unit = gs // _i8_chunk(gs) if gs else 1          # chunks per group
+    groups = -(-(k // 2) // (gs or 64))
     out = []
     for slices, kw in SLICES:
         if slices <= groups:
@@ -94,12 +101,22 @@ def profile_wrapper(gen, card) -> None:
                 print(json.dumps(dict(kernel="K8", projection=proj, m=m, n=n, k=K, gs=GS,
                                       **_timed(timer, fn, m),
                                       **cs.linear_bound(x, qt, a8=True), card=card)), flush=True)
-            fn = lambda: ops.int4_matmul_a8(x, q5, fuse_quant=True)  # noqa: E731
-            print(json.dumps(dict(kernel="K5", projection=proj, m=m, n=n, k=K,
-                                  **_timed(timer, fn, m), **cs.linear_bound(x, q5, a8=True),
-                                  card=card)), flush=True)
+            for kernel, fuse in (("K5", True), ("K4", False)):
+                fn = lambda: ops.int4_matmul_a8(x, q5, fuse_quant=fuse)  # noqa: E731
+                print(json.dumps(dict(kernel=kernel, projection=proj, m=m, n=n, k=K,
+                                      **_timed(timer, fn, m), **cs.linear_bound(x, q5, a8=True),
+                                      card=card)), flush=True)
         del qt, q5
         torch.cuda.empty_cache()
+    n, k = K4_DEEP
+    q4 = quantize(torch.randn((n, k), generator=gen, device="cuda") * k ** -0.5)
+    x640 = torch.randn((640, k), generator=gen, device="cuda").bfloat16()
+    for m in ROWS:
+        x = x640[:m].contiguous()
+        fn = lambda: ops.int4_matmul_a8(x, q4, fuse_quant=False)  # noqa: E731
+        print(json.dumps(dict(kernel="K4", projection="deep_k", m=m, n=n, k=k,
+                              **_timed(timer, fn, m), **cs.linear_bound(x, q4, a8=True),
+                              card=card)), flush=True)
 
 
 def sweep_shapes(gen, card) -> None:
@@ -130,6 +147,32 @@ def sweep_shapes(gen, card) -> None:
         torch.cuda.empty_cache()
 
 
+def sweep_k4(gen, card) -> None:
+    """K4 at deep K: the rule's shape and the per-row candidates, M 8 and
+    640, each bit for bit against the plain version."""
+    from fused4bit_tpu_torch.ops.int4_matmul import _launch_a8_mma, _row_a8_launch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    timer = cs.Timer("cuda")
+    n, k = K4_DEEP
+    qt = quantize(torch.randn((n, k), generator=gen, device="cuda") * k ** -0.5)
+    x640 = torch.randn((640, k), generator=gen, device="cuda").bfloat16()
+    for m in (8, 640):
+        x = x640[:m].contiguous()
+        rule = _row_a8_launch(n, k, m, sms)
+        want = ops.int4_matmul_a8_reference(x, qt, fuse_quant=False)
+        line = dict(kernel="K4", projection="deep_k", m=m, n=n, k=k, rule=list(rule),
+                    **cs.linear_bound(x, qt, a8=True), card=card)
+        for cand in dict.fromkeys([rule, *candidates(k, 0)]):
+            fn = lambda: _launch_a8_mma(x, None, qt, 0, *cand, fused=False)  # noqa: E731
+            if not torch.equal(fn(), want):
+                raise AssertionError(f"K4 deep K M={m} {cand}: not bit-equal to its plain "
+                                     "version")
+            line[str(list(cand))] = dict(cold_ms=timer(fn, iters=5 if m == 640 else 20),
+                                         device_ms=device_parts(fn, timer.flush))
+        print(json.dumps(line), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true")
@@ -146,6 +189,7 @@ def main() -> None:
             profile_wrapper(gen, card)
         if args.sweep:
             sweep_shapes(gen, card)
+            sweep_k4(gen, card)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
-"""K2, K12 and K13 on the tensor-core body (``csrc/int4_mma.cuh`` with
-grouped addressing), in what the CPU can check: the launch rule as a pure
-function of (N, K, SMs), the body choice, and a plain-torch model of the
-grouped body held against the JAX package's ``grouped_int4_matmul`` (K2) and
+"""K2, K9, K12 and K13 on the tensor-core body (``csrc/int4_mma.cuh`` with
+grouped addressing), in what the CPU can check: the launch rules as pure
+functions of (N, K, SMs), the body choice, and a plain-torch model of the
+grouped body held against the JAX package's ``grouped_int4_matmul`` (K2, and
+K9 at its own launch against ``mode="ksplit"``) and
 ``grouped_int4_matmul_per_group`` (K13 on planar_groups bytes, K12 on planar
 ones) in interpret mode on the same bytes.
 
@@ -170,10 +171,12 @@ def _sorted(x, rows, t_pad):
 
 
 def test_grouped_launch_reads_n_k_and_sms_only():
-    """No T, tile_m or routing among the rule's inputs: a token row's sums
-    run in one order in every dispatch at tile_m up to 64, so its bits do
-    not depend on the T, the tile or the tile_m it sits in."""
-    assert list(inspect.signature(gm._grouped_mma_launch).parameters) == ["n", "k", "sms"]
+    """No T, tile_m or routing among the rules' inputs (K2, K12, K13; K9):
+    a token row's sums run in one order in every dispatch at tile_m up to
+    64 (K9: at every tile_m), so its bits do not depend on the T, the tile
+    or the tile_m it sits in."""
+    for rule in (gm._grouped_mma_launch, gm._ksplit_mma_launch):
+        assert list(inspect.signature(rule).parameters) == ["n", "k", "sms"]
     assert _MMA_TALL_M == 64
 
 
@@ -194,6 +197,23 @@ def test_grouped_launch_covers_k_in_whole_chunks(n, k):
     if k >= 4096:
         assert (kw * ws) % 16 == 0
         assert -(-n // 16) * kw * splits >= 2 * SMS
+
+
+@pytest.mark.parametrize("n,k", SHAPES + [(64, 1024), (64, 128)])
+def test_ksplit_launch_splits_k_across_ctas(n, k):
+    """K9's launch: whole chunks per warp in a launch the body takes, every
+    chunk of K/2 walked once, no CTA beyond K, and K split across at least
+    two CTAs wherever K/2 holds two chunks (K=128: one chunk, one CTA), with
+    at least as many slices of K as K2's rule takes."""
+    launch = ws, kw, splits = gm._ksplit_mma_launch(n, k, SMS)
+    chunks = (k // 2) // CHUNK
+    assert ws % STEPS == 0 and kw in (1, 2, 4, 8) and splits >= 1
+    assert (splits - 1) * kw * ws < chunks * STEPS <= splits * kw * ws
+    walked = [c for per_warp in warp_chunks(launch, chunks) for mine in per_warp for c in mine]
+    assert sorted(walked) == list(range(chunks))
+    assert splits >= 2 if chunks >= 2 else splits == 1
+    k2_ws, k2_kw, k2_splits = gm._grouped_mma_launch(n, k, SMS)
+    assert kw * splits >= min(chunks, k2_kw * k2_splits)
 
 
 def test_body_choice_reads_dtype_and_group_size_only():
@@ -230,17 +250,25 @@ def test_walk_order_of_the_linear_rules_is_the_single_stage_one():
 E, N, KDIM, TILE_M = 4, 384, 512, 16
 
 
-LAYOUT = {"K13": "planar_groups", "K12": "planar"}   # per group of 128; K2 per row
+LAYOUT = {"K13": "planar_groups", "K12": "planar"}   # per group of 128; K2, K9 per row
+
+
+def _launch(kernel):
+    """The launch rule of ``kernel`` at the tests' shape."""
+    rule = gm._ksplit_mma_launch if kernel == "K9" else gm._grouped_mma_launch
+    return rule(N, KDIM, SMS)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("t", [8, 40])
-@pytest.mark.parametrize("kernel", ["K2", "K13", "K12"])
+@pytest.mark.parametrize("kernel", ["K2", "K13", "K12", "K9"])
 def test_grouped_model_matches_jax_kernel(rng, kernel, t, dtype):
-    """The model at the rule's launch shape against JAX's grouped kernel
-    (K2: ``grouped_int4_matmul``; K13 and K12: ``grouped_int4_matmul_per_group``
-    on planar_groups and on planar bytes, gs 128) on the same bytes and the
-    same dispatch, and the zero padding rows exactly 0."""
+    """The model at the kernel's launch shape against JAX's grouped kernel
+    (K2: ``grouped_int4_matmul``; K9: the same with ``mode="ksplit"``, the
+    model at K9's launch, K split across CTAs; K13 and K12:
+    ``grouped_int4_matmul_per_group`` on planar_groups and on planar bytes,
+    gs 128) on the same bytes and the same dispatch, and the zero padding
+    rows exactly 0."""
     w = rng.standard_normal((E, N, KDIM)).astype(np.float32) * KDIM ** -0.5
     gs = 128 if kernel in LAYOUT else 0
     ref_qt = (jax_quantize(jnp.asarray(w), granularity="per_group", layout=LAYOUT[kernel],
@@ -249,9 +277,12 @@ def test_grouped_model_matches_jax_kernel(rng, kernel, t, dtype):
     xs = _sorted(rng.standard_normal((t, KDIM)).astype(np.float32), rows, t_pad)
     jx = jnp.asarray(xs).astype(dtype)
     op = jax_grouped_pg if gs else jax_grouped
-    ref = np.asarray(op(jx, jnp.asarray(gids), ref_qt, tile_m=TILE_M).astype(jnp.float32))
+    mode = {"mode": "ksplit"} if kernel == "K9" else {}
+    ref = np.asarray(op(jx, jnp.asarray(gids), ref_qt, tile_m=TILE_M, **mode).astype(jnp.float32))
     staged = torch.from_numpy(np.asarray(jx.astype(jnp.float32)))       # the staged values
-    launch = gm._grouped_mma_launch(N, KDIM, SMS)
+    launch = _launch(kernel)
+    if kernel == "K9":
+        assert launch[2] >= 2
     dequant = getattr(torch, dtype) if kernel == "K12" else None
     y = grouped_model(staged, torch.from_numpy(gids), _t(ref_qt.packed), _t(ref_qt.scales),
                       _t(ref_qt.zero_points), TILE_M, launch, gs, dequant)
@@ -262,7 +293,7 @@ def test_grouped_model_matches_jax_kernel(rng, kernel, t, dtype):
     assert np.max(np.abs(y.numpy() - ref)) <= TOL[dtype] * np.max(np.abs(ref))
 
 
-@pytest.mark.parametrize("kernel", ["K2", "K13", "K12"])
+@pytest.mark.parametrize("kernel", ["K2", "K13", "K12", "K9"])
 def test_grouped_model_token_rows_equal_in_t8_and_t40(rng, kernel):
     """The same 8 tokens in a T=8 and a T=40 dispatch sit in other rows and
     tiles; through the model at the rule's shape their rows are the same
@@ -274,7 +305,7 @@ def test_grouped_model_token_rows_equal_in_t8_and_t40(rng, kernel):
     dequant = torch.bfloat16 if kernel == "K12" else None
     x40 = rng.standard_normal((40, KDIM)).astype(np.float32)
     logits = rng.standard_normal((40, E)).astype(np.float32)
-    launch = gm._grouped_mma_launch(N, KDIM, SMS)
+    launch = _launch(kernel)
     got = []
     for t in (8, 40):
         gids, rows, t_pad = _dispatch(rng, t, E, KDIM, TILE_M, logits)

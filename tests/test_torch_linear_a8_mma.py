@@ -1,6 +1,7 @@
-"""K5, the per-row w4a8 linear that quantizes its own activations, on the int8
-tensor-core body (``csrc/int8_mma.cuh``, K10's arithmetic run as a one-expert
-stack), and K11 beside it, in what the CPU can check:
+"""K5, the per-row w4a8 linear that quantizes its own activations, and K4,
+the same product on the host quantizer's arithmetic, on the int8 tensor-core
+body (``csrc/int8_mma.cuh``, K10's arithmetic run as a one-expert stack),
+and K11 beside them, in what the CPU can check:
 
 * K5's launch rule ``_row_a8_launch`` at the layer2 linear shapes;
 * a plain-numpy model of one warp's mma.sync m16n8k32 fragments run as K5
@@ -8,8 +9,8 @@ stack), and K11 beside it, in what the CPU can check:
   plain version with the fused quantizer bit for bit;
 * a row's output bits in an 8-row and a 40-row call;
 * the quantizer each wrapper hands the body's first pass: K5 and K11 multiply
-  by f32(1/127), K10 divides by 127 (``tests/test_torch_a8.py`` shows the two
-  differ in the last bit of some scales).
+  by f32(1/127), K10 and K4 divide by 127 (``tests/test_torch_a8.py`` shows
+  the two differ in the last bit of some scales), and K4's launch shape.
 
 The body's integer sums are exact, so K5's bits do not depend on its launch
 shape; ``chip_smoke.check_linear_a8`` holds the kernel to its plain version
@@ -162,8 +163,8 @@ def first_pass_calls(monkeypatch):
 
 def test_each_wrapper_hands_the_first_pass_its_quantizer(rng, first_pass_calls):
     """K5 (at a decode step's 8 rows and at 80, past its launch rule's
-    switch) and K11 pass ``fused=True``, K10 ``fused=False``, K8 and K14
-    ``fused=True``: a slip gives rows off in the last bit."""
+    switch) and K11 pass ``fused=True``, K10 and K4 ``fused=False``, K8 and
+    K14 ``fused=True``: a slip gives rows off in the last bit."""
     k, n, e, tile_m = 256, 64, 2, 32
     w = torch.from_numpy(rng.standard_normal((e, n, k)).astype(np.float32))
     qt, qe = quantize(w[0]), quantize(w)
@@ -175,11 +176,43 @@ def test_each_wrapper_hands_the_first_pass_its_quantizer(rng, first_pass_calls):
 
     ops.int4_matmul_a8(on_card[:8], qt, fuse_quant=True)              # K5, decode
     ops.int4_matmul_a8(on_card, qt, fuse_quant=True)                  # K5, 80 rows
+    ops.int4_matmul_a8(on_card[:8], qt, fuse_quant=False)             # K4
     on_card = on_card[:2 * tile_m]
     ops.grouped_int4_matmul_a8(on_card, gids, qe, tile_m=tile_m, fuse_quant=True)     # K11
     ops.grouped_int4_matmul_a8(on_card, gids, qe, tile_m=tile_m)                      # K10
     ops.int4_matmul_per_group_a8(on_card[:8], pg)                                     # K8
     ops.grouped_int4_matmul_per_group_a8(on_card, gids, pge, tile_m=tile_m)           # K14
     assert first_pass_calls == [("linear", "per_row", True), ("linear", "per_row", True),
+                                ("linear", "per_row", False),
                                 ("grouped", "per_row", True), ("grouped", "per_row", False),
                                 ("linear", "per_group", True), ("grouped", "per_group", True)]
+
+
+@pytest.mark.parametrize("m, k, fuse_quant", [
+    (8, K, False),       # a decode step's rows, asked for K4
+    (80, K, False),      # past the launch rule's switch at 64 rows
+    (8, 6400, None),     # deep K: the JAX fuse gate picks K4 by itself
+])
+def test_k4_launches_the_int8_body_with_the_dividing_first_pass(rng, monkeypatch, m, k,
+                                                                 fuse_quant):
+    """K4 on a CUDA tensor reaches the int8 body's launcher once, one expert
+    (no tile map), per-row weights, at ``_row_a8_launch``'s shape, with the
+    host quantizer's division (``fused=False``), and counts one K4 launch and
+    no K5 launch."""
+    calls = []
+
+    def launch(x, tile_group_ids, qt, tile_m, ws, kw, splits, *, fused):
+        calls.append((tile_group_ids, qt.granularity, tile_m, (ws, kw, splits), fused))
+        return torch.zeros((x.shape[0], qt.shape[-2]), dtype=x.dtype)
+
+    monkeypatch.setattr(linear_mod, "_launch_a8_mma", launch)
+    monkeypatch.setattr(linear_mod, "_sm_count", lambda index: SMS)
+    n = 64
+    qt = quantize(torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)))
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).bfloat16()
+    before = (ops.int4_matmul_a8.launches, ops.int4_matmul_a8.fused_launches)
+    y = ops.int4_matmul_a8(x.as_subclass(_OnCard), qt, fuse_quant=fuse_quant)
+    assert y.shape == (m, n)
+    assert calls == [(None, "per_row", 0, _row_a8_launch(n, k, m, SMS), False)]
+    assert (ops.int4_matmul_a8.launches, ops.int4_matmul_a8.fused_launches) == (
+        before[0] + 1, before[1])

@@ -27,7 +27,7 @@ from fused4bit_tpu.ops.int4_matmul import int4_matmul_per_group as jax_pg
 from fused4bit_tpu.quant.core import quantize as jax_quantize
 from fused4bit_tpu_torch import ops
 from fused4bit_tpu_torch.layers import MoEINT4, QuantizedLinear
-from fused4bit_tpu_torch.ops.grouped_matmul import MODES, _ksplit_splits
+from fused4bit_tpu_torch.ops.grouped_matmul import MODES, _ksplit_mma_launch, _ksplit_splits
 from fused4bit_tpu_torch.quant import QuantizedTensor, dequantize, quantize, reference_linear_qt
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -179,15 +179,32 @@ def test_grouped_modes():
         ops.grouped_int4_matmul(xs, gids, qt, tile_m=16, mode="k_split")
 
 
-@pytest.mark.parametrize("t_pad,n,k,splits", [
-    (144, 4096, 14336, 1),    # layer2 down projection at decode (T=8, tile_m 16): 1152 CTAs
-    (2304, 4096, 14336, 1),   # the down projection at the 600-token prefill
-    (16, 256, 14336, 14),     # 8 CTAs: split into all 14 chunks of K/2
-    (16, 1024, 14336, 5),     # 32 CTAs: 5 splits give 160
-    (16, 64, 1024, 1),        # K/2 = 512 is one chunk: nothing to split
+@pytest.mark.parametrize("n,k,launch", [
+    (4096, 14336, (448, 1, 2)),   # layer2 down projection: K2's two slices, on two CTAs
+    (14336, 4096, (128, 1, 2)),   # gate/up: K2 takes one slice; K9 at least two
+    (256, 14336, (56, 1, 16)),    # 16 row tiles: K2's 17 slices in whole chunks, 16 CTAs
+    (1024, 14336, (184, 1, 5)),   # 64 row tiles: 5 slices
+    (64, 1024, (8, 1, 8)),        # K/2 = 8 chunks: one CTA per chunk
 ])
-def test_ksplit_splits(t_pad, n, k, splits):
-    assert _ksplit_splits(t_pad, n, k, rows=16) == splits
+def test_ksplit_splits(n, k, launch):
+    """K9's launch on the tensor-core body (bf16): K2's slices of K/2, at
+    least two, on CTAs along K; it reads no T, so a decode step and the
+    600-token prefill of the down projection take the same shape."""
+    assert _ksplit_mma_launch(n, k, sms=132) == launch
+
+
+@pytest.mark.parametrize("t_pad,n,k,sms,splits", [
+    (144, 4096, 14336, 132, 1),   # layer2 down projection at decode (T=8): 2304 CTAs
+    (16, 256, 14336, 132, 9),     # 16 CTAs on the H100's 132 SMs
+    (16, 256, 14336, 114, 8),     # the same grid on a card of 114 SMs
+    (16, 1024, 14336, 114, 2),    # 64 CTAs: 2 splits give 128
+    (8, 64, 1024, 114, 1),        # K/2 = 512 is one chunk: nothing to split
+])
+def test_ksplit_f32_splits(t_pad, n, k, sms, splits):
+    """f32 K9 on the CUDA-core loop (8 rows of x per CTA): enough CTAs for one
+    per SM of the card it runs on, at most one per chunk of 512 packed
+    bytes."""
+    assert _ksplit_splits(t_pad, n, k, rows=8, sms=sms) == splits
 
 
 # --- layer dispatch ---------------------------------------------------------------

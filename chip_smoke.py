@@ -85,19 +85,28 @@ Phases, each of which raises on failure:
      with each other, and print their cosines against the default mode;
   7. make a seeded dense `layer2` checkpoint on the card one weight at a
      time (SeededCheckpoint), check that quantizing one full-width weight on
-     the card gives the CPU's bytes per row and per group, convert it with
-     convert_checkpoint per row and per group of 128, and serve phase 4's 12
-     requests on each: per row on K1, K2 and K3, per group on K6, K12 and K3
-     (the router is dense: no K1), no plain version;
+     the card gives the CPU's bytes per row, per group and per tensor,
+     convert it with convert_checkpoint per row, per group of 128, and per
+     row after AWQ equalization on 8 x 128 seeded token ids (printing its
+     seconds, peak device memory and each site's alpha), and serve phase 4's
+     12 requests on each: per row and AWQ on K1, K2 and K3, per group on K6,
+     K12 and K3 (the router is dense: no K1), no plain version;
   8. convert the trained h256 fixture (tests/fixtures) on the card in the
-     four policies the port supports, and the router-dense model under
+     seven policies of the JAX quality record (router dense, all quantized,
+     per group of 64 and 128, per tensor, AWQ per row and per group of 64,
+     calibrated on the corpus head as the JAX evaluation does; each AWQ
+     site's alpha printed, and an AWQ model whose sites all kept the
+     identity must hold the plain conversion's bytes), and the router-dense
+     model under
      as_per_group (K7, K13, K3), pg_turbo (K8, K14), u4_turbo (K5, K10,
      K3; two rows a forward, below the integer-GEMM gates) and turbo (K5 at
      every row count, K10 beside it; all rows in one forward), evaluate each
      on the held-out tail of its corpus against the bf16 twin built from the
      same checkpoint (dense_from_params), print the numbers beside the JAX
      package's committed record, hold them to tests/test_convert.py's gates
-     (as_per_group and turbo to the router-dense policy's), and check the
+     (as_per_group and turbo to the router-dense policy's; each AWQ policy's
+     cosine to at least its granularity's without AWQ less 1e-3, as
+     tests/test_equalize.py holds it), and check the
      per-group-128 model on the card against the CPU;
   9. run the `tiny` model with the same weights on the card and on the CPU,
      in the default mode and in each w4a8 and per-group mode, and on paged
@@ -1749,6 +1758,7 @@ def card_vs_cpu(cpu, gpu, cfg, what, caches=None, device="cuda"):
 
 # --- the conversion path: a dense checkpoint into an INT4 model ---------------
 
+SEEDED_TOKENS = "seeded"   # awq_tokens: 8 x 128 token ids from a seeded generator
 CONVERSIONS = (
     # (name, convert_checkpoint's arguments, kernels the serve must launch, and must not)
     ("per_row", {}, _DEFAULT_KERNELS + ("int4_attention",),
@@ -1758,6 +1768,9 @@ CONVERSIONS = (
      ("int4_matmul_per_group_planar", "grouped_int4_matmul_per_group_planar", "int4_attention"),
      ("int4_matmul", "grouped_int4_matmul", "int4_matmul_per_group",
       "grouped_int4_matmul_per_group")),
+    # AWQ rescales the dense weights and nothing after: per_row's kernels
+    ("per_row_awq", dict(awq_tokens=SEEDED_TOKENS), _DEFAULT_KERNELS + ("int4_attention",),
+     ("int4_matmul_per_group_planar", "grouped_int4_matmul_per_group_planar")),
 )
 
 
@@ -1765,23 +1778,30 @@ def full_width_conversion(card_line, device="cuda"):
     """Phase 7: a seeded dense layer2 checkpoint (Mixtral-8x7B layer widths,
     2 layers) converted on the card. Quantizing one full-width expert weight
     per format on the card gives the CPU's bytes; then the checkpoint is
-    converted per row and per group of 128, and each model serves phase 4's
-    12 requests: per row on K1, K2 and K3, per group on K6, K12 and K3, with
-    no plain version. Returns the launches of each serve."""
+    converted per row, per group of 128, and per row after AWQ equalization
+    calibrated on 8 x 128 seeded token ids (the alpha of each of its 5
+    sites printed), and each model serves phase 4's 12 requests: per row
+    and AWQ on K1, K2 and K3, per group on K6, K12 and K3, with no plain
+    version. Returns the launches of each serve."""
     cfg = flagship_model_config("layer2")
     params = SeededCheckpoint(cfg, device)
     w = params["layers.0.moe.experts.0.w1.weight"]
-    for kw in (dict(), dict(granularity="per_group", layout="planar", group_size=128)):
+    for kw in (dict(), dict(granularity="per_group", layout="planar", group_size=128),
+               dict(granularity="per_tensor")):
         on_card, on_cpu = quantize(w, **kw), quantize(w.cpu(), **kw)
         for field in ("packed", "scales", "zero_points"):
             if not torch.equal(getattr(on_card, field).cpu(), getattr(on_cpu, field)):
                 raise AssertionError(f"quantize {kw or 'per_row'} {tuple(w.shape)}: {field} on "
                                      "the card differ from the CPU's")
-    print(f"quantize on the card == on the CPU, byte for byte: {tuple(w.shape)} per_row and "
-          "per_group 128 planar (packed, scales, zero points)")
+    print(f"quantize on the card == on the CPU, byte for byte: {tuple(w.shape)} per_row, "
+          "per_group 128 planar and per_tensor (packed, scales, zero points)")
     del w, on_card, on_cpu
     runs = {}
     for name, kw, launched, idle in CONVERSIONS:
+        if kw.get("awq_tokens") == SEEDED_TOKENS:
+            gen = torch.Generator(device=device).manual_seed(5)
+            kw = dict(kw, awq_tokens=torch.randint(0, cfg.vocab_size, (8, 128), generator=gen,
+                                                   device=device))
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1792,7 +1812,10 @@ def full_width_conversion(card_line, device="cuda"):
         peak = torch.cuda.max_memory_allocated() - base
         print(f"convert_checkpoint [{name}] layer2: {time.perf_counter() - t0:.2f} s, model "
               f"{held / 2**30:.2f} GiB, peak {peak / 2**30:.2f} GiB on the card during the "
-              "conversion")
+              f"conversion, taken on {card_line}")
+        if model.awq_alphas is not None:
+            print(f"convert_checkpoint [{name}] layer2: alpha chosen at each AWQ site "
+                  f"{model.awq_alphas} (None: the identity)")
         launches, _, _ = serve(model, cfg, f"converted {name}", card_line)
         _expect_launches(f"serve [converted {name}]", launches, launched, idle)
         runs[name] = launches
@@ -1803,12 +1826,40 @@ def full_width_conversion(card_line, device="cuda"):
 
 H256 = "tests/fixtures/tiny_trained_h256_s1400.safetensors"
 JAX_QUALITY_RECORD = "benchmark/results/quality_trained_h256.json"
+CORPUS_HEAD = "corpus_head"   # awq_tokens: the fixture's calibration rows (calibration_tokens)
+# The JAX quality record's seven policies, with its keyword arguments
+# (benchmark/run_quality_eval.py)
 QUALITY_POLICIES = {
     "int4_router_dense": dict(quantize_router=False),
     "int4_all_quantized": dict(quantize_router=True),
     "int4_per_group64": dict(granularity="per_group", group_size=64),    # the golden path
     "int4_per_group128": dict(granularity="per_group", group_size=128),  # K6, K12
+    "int4_per_tensor": dict(quantize_router=False, granularity="per_tensor"),  # golden path
+    "int4_awq": dict(quantize_router=False, awq_tokens=CORPUS_HEAD),               # K1, K2
+    "int4_awq_per_group64": dict(quantize_router=False, granularity="per_group", group_size=64,
+                                 awq_tokens=CORPUS_HEAD),
 }
+# each AWQ policy and the policy of the same granularity without AWQ
+AWQ_BASELINES = {"int4_awq": "int4_router_dense", "int4_awq_per_group64": "int4_per_group64"}
+
+
+def calibration_tokens(path, seq=128, rows=8):
+    """The AWQ calibration sample, cut as the JAX package's quality
+    evaluation cuts it: 8 rows of 128 bytes, evenly strided over the corpus
+    before its 90 % mark (the held-out tail starts there)."""
+    corpus = np.fromfile(path.replace(".safetensors", ".corpus"), np.uint8)
+    head = corpus[: int(len(corpus) * 0.9)]
+    hb = head[: (len(head) // seq) * seq].reshape(-1, seq)
+    return hb[:: max(1, hb.shape[0] // rows)][:rows].astype(np.int64)
+
+
+def policy_kwargs(label, path) -> dict:
+    """convert_checkpoint's arguments of one quality policy on the fixture
+    at ``path`` (the calibration rows in place of CORPUS_HEAD)."""
+    kw = QUALITY_POLICIES[label]
+    if kw.get("awq_tokens") == CORPUS_HEAD:
+        kw = dict(kw, awq_tokens=calibration_tokens(path))
+    return kw
 
 
 def fixture_config(path) -> ModelConfig:
@@ -1873,7 +1924,11 @@ def quality_gates(res, nll_ref, vocab_size) -> dict:
     return {"NLL bf16 < 0.5 uniform": nll_ref < 0.5 * float(np.log(vocab_size)),
             **{f"router-dense {name}": ok for name, ok in policy_gates(q).items()},
             "per-group64 cosine >= router-dense - 1e-3":
-                pg["logit_cosine_sim"] >= q["logit_cosine_sim"] - 1e-3}
+                pg["logit_cosine_sim"] >= q["logit_cosine_sim"] - 1e-3,
+            # tests/test_equalize.py's property of an AWQ conversion
+            **{f"{awq} cosine >= {base} - 1e-3":
+               res[awq]["logit_cosine_sim"] >= res[base]["logit_cosine_sim"] - 1e-3
+               for awq, base in AWQ_BASELINES.items()}}
 
 
 # The execution modes on the trained fixture (the router-dense conversion,
@@ -1903,16 +1958,26 @@ TRAINED_MODES = (
 )
 
 
+def same_weights(a, b) -> bool:
+    """Whether two models hold the same tensors: packed bytes, scales, zero
+    points, norms and dense weights."""
+    sa, sb = a.state_dict(), b.state_dict()
+    return sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+
+
 def trained_checkpoint(card_line, device="cuda"):
-    """Phase 8: the trained h256 fixture converted on the card in the four
-    policies the port supports, each evaluated on the held-out tail of its
-    corpus against the bf16 twin built from the same checkpoint, beside the
-    JAX package's committed record (a CPU run of the JAX package); held to
-    the gates of tests/test_convert.py. Then the router-dense model under
-    as_per_group (K7, K13, K3; held to the router-dense policy's gates),
-    pg_turbo (K8, K14), u4_turbo (K5, K10, K3) and turbo (K5, K10, K3; held
-    to the router-dense policy's gates), and the per-group-128 model on the
-    card against the CPU."""
+    """Phase 8: the trained h256 fixture converted on the card in the seven
+    policies of the JAX quality record, each evaluated on the held-out tail
+    of its corpus against the bf16 twin built from the same checkpoint,
+    beside the JAX package's committed record (a CPU run of the JAX
+    package); held to the gates of tests/test_convert.py and, for the two
+    AWQ policies, to tests/test_equalize.py's cosine property. AWQ prints
+    the alpha of every site; where every site keeps the identity its model
+    must hold the bytes of the same granularity's conversion without AWQ.
+    Then the router-dense model under as_per_group (K7, K13, K3; held to the
+    router-dense policy's gates), pg_turbo (K8, K14), u4_turbo (K5, K10, K3)
+    and turbo (K5, K10, K3; held to the router-dense policy's gates), and the
+    per-group-128 model on the card against the CPU."""
     cfg = fixture_config(H256)
     raw = load_safetensors(H256)
     tokens = heldout_tokens(H256)
@@ -1920,12 +1985,13 @@ def trained_checkpoint(card_line, device="cuda"):
         record = json.load(f)
     ref, nll_ref = evaluate(dense_from_params(raw, cfg, device=device), cfg, tokens, device)
     print(f"trained h256: held-out NLL bf16 twin {nll_ref:.4f} (JAX record "
-          f"{record['heldout_nll_bf16']}), {tokens[:, 1:].size} tokens")
-    res = {}
-    for label, kw in QUALITY_POLICIES.items():
+          f"{record['heldout_nll_bf16']}), {tokens[:, 1:].size} tokens, on {card_line}")
+    res, models = {}, {}
+    for label in QUALITY_POLICIES:
+        model = models[label] = convert_safetensors(H256, cfg, device=device,
+                                                    **policy_kwargs(label, H256))
         _reset_counts()
-        got, nll = evaluate(convert_safetensors(H256, cfg, device=device, **kw), cfg, tokens,
-                            device)
+        got, nll = evaluate(model, cfg, tokens, device)
         torch.cuda.synchronize()
         launches = {k: v for k, v in _launch_counts().items() if v}
         res[label] = q = policy_metrics(got, nll, ref, nll_ref)
@@ -1940,6 +2006,22 @@ def trained_checkpoint(card_line, device="cuda"):
                              ("int4_matmul_per_group_planar",
                               "grouped_int4_matmul_per_group_planar", "int4_attention"),
                              ("int4_matmul", "grouped_int4_matmul"))
+        if label == "int4_awq":   # 2032 rows a forward: the linears are past K1's threshold
+            _expect_launches("trained h256 [int4_awq]", _launch_counts(),
+                             ("grouped_int4_matmul", "int4_attention"),
+                             ("int4_matmul_per_group_planar",
+                              "grouped_int4_matmul_per_group_planar"))
+        if model.awq_alphas is not None:
+            identity = set(model.awq_alphas.values()) == {None}
+            print(f"trained h256 [{label}]: alpha chosen at each AWQ site {model.awq_alphas} "
+                  "(None: the identity)")
+            if identity and not same_weights(model, models[AWQ_BASELINES[label]]):
+                raise AssertionError(f"trained h256 [{label}]: every site kept the identity, "
+                                     f"but the weights differ from {AWQ_BASELINES[label]}'s")
+            if identity:
+                print(f"trained h256 [{label}]: every site kept the identity; packed bytes, "
+                      f"scales and norms equal {AWQ_BASELINES[label]}'s")
+    del models
     gates = quality_gates(res, nll_ref, cfg.vocab_size)
     if not all(gates.values()):
         raise AssertionError(f"trained h256 quality gates: {gates}")

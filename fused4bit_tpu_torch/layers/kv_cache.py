@@ -21,9 +21,9 @@ from typing import Optional, Tuple
 import torch
 
 from .._device import resolve_device
-from ..quant.core import _affine_params
+from ..quant.core import _affine_params, pack_planar, unpack_planar
 
-__all__ = ["QuantizedKVCache"]
+__all__ = ["QuantizedKVCache", "quantize_kv", "dequantize_kv"]
 
 _MAXQ = 15
 
@@ -34,6 +34,22 @@ def _affine(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     scale, zp = _affine_params(x, dim=-1, max_val=_MAXQ)
     q = torch.clamp(torch.round(x / scale[..., None] + zp[..., None]), 0, _MAXQ)
     return q.to(torch.uint8), scale, zp
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Quantize [..., D] vectors to INT4 packed planar along D, with a
+    scale and zero point per vector: (packed u8 [..., D/2], scale, zp f32
+    [...]). The generic per-vector packer; the cache itself packs pairs of
+    positions."""
+    q, scale, zp = _affine(x)
+    return pack_planar(q), scale, zp
+
+
+def dequantize_kv(packed: torch.Tensor, scale: torch.Tensor, zp: torch.Tensor,
+                  dtype=torch.float32) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv`: [..., D/2] u8 -> [..., D]."""
+    q = unpack_planar(packed).float()
+    return ((q - zp[..., None]) * scale[..., None]).to(dtype)
 
 
 def _unpack_pairs(packed: torch.Tensor) -> torch.Tensor:

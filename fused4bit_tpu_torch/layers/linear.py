@@ -17,11 +17,16 @@ Per-group weights run ``ops.int4_matmul_per_group`` at every row count: K7
 in the planar_groups layout, K6 in the planar layout (what ``models.convert``
 produces); with ``"int8"``, planar_groups weights run
 ``ops.int4_matmul_per_group_a8`` (K8) and planar ones stay on K6, as in JAX;
-``"int8_auto"`` never sends per-group weights to the transient path. A
-per-group weight no kernel serves (a group size that is not a multiple of
-128, or that does not divide K/2) takes the golden path, dequantize and
-matmul, as in the JAX package: the counted plain version
-``ops.int4_matmul_per_group_reference``.
+``"int8_auto"`` sends per_row and per_tensor planar weights to the transient
+path at 256 rows and above, never per-group ones.
+
+Every format no kernel takes runs the golden path, dequantize and matmul,
+as in the JAX package: per_tensor weights (except on the transient path),
+the interleaved and block_planar layouts, per-group weights whose group
+size is not a multiple of 128 or does not divide K/2, and any weight with
+``use_kernel=False``. The golden path is the counted plain version
+``ops.int4_matmul_reference`` (``ops.int4_matmul_per_group_reference`` for
+per-group weights).
 
 Each op runs its kernel on a CUDA tensor and its plain version on a CPU one.
 """
@@ -39,14 +44,35 @@ from ..ops.int4_matmul import (
     int4_matmul_per_group,
     int4_matmul_per_group_a8,
     int4_matmul_per_group_reference,
+    int4_matmul_reference,
 )
-from ..ops.int8_xla import Int8Resident, int4_linear_transient, int8_linear, to_int8_resident
-from ..quant.core import QuantizedTensor, quantize
+from ..ops.int8_xla import (
+    ROW_MULTIPLE,
+    Int8Resident,
+    int4_linear_transient,
+    int8_linear,
+    to_int8_resident,
+)
+from ..quant.core import QuantizedTensor, pad_rows, quantize
 
 __all__ = ["QuantizedLinear", "DenseLinear"]
 
 ACTIVATIONS = ("bf16", "int8", "int8_auto", "int8_transient", "int8_xla")
-_FORMATS = (("per_row", "planar"), ("per_group", "planar"), ("per_group", "planar_groups"))
+
+
+def _golden(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """The golden path of a format no kernel takes (dequantize, then a
+    float32 matmul; x.dtype out), through its counted plain version."""
+    if qt.granularity == "per_group":
+        return int4_matmul_per_group_reference(x, qt)
+    return int4_matmul_reference(x, qt)
+
+
+def pg_kernel_format(qt: QuantizedTensor) -> bool:
+    """Whether the per-group w4a16 kernels take ``qt``: per_group, planar or
+    planar_groups, ``gs % 128 == 0`` dividing K/2 (K6, K7, K12, K13)."""
+    return (qt.granularity == "per_group" and qt.layout in ("planar", "planar_groups")
+            and qt.group_size % 128 == 0 and (qt.in_dim // 2) % qt.group_size == 0)
 
 
 def per_group_layout(k: int, granularity: str, group_size: int) -> str:
@@ -74,6 +100,11 @@ class DenseLinear(nn.Module):
     def out_dim(self) -> int:
         return self.weight.shape[0]
 
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (self.weight, self.bias)
+                   if t is not None)
+
     def as_xla_turbo(self) -> "DenseLinear":
         return self  # already a plain dense matmul
 
@@ -89,8 +120,9 @@ class QuantizedLinear(nn.Module):
 
     ``out_features``: the logical output width when the stored rows are
     padded; outputs are sliced back to it. ``activation``: the execution
-    mode (module docstring); ``w8``: the i8-resident copy of the same
-    weights that ``"int8_xla"`` runs on.
+    mode (module docstring); ``use_kernel=False`` sends every call that is
+    not on an integer-GEMM path to the golden path, as in JAX; ``w8``: the
+    i8-resident copy of the same weights that ``"int8_xla"`` runs on.
     """
 
     # Rows at which "int8_auto" leaves the w4a8 kernel for the transient
@@ -104,12 +136,10 @@ class QuantizedLinear(nn.Module):
         *,
         out_features: Optional[int] = None,
         activation: str = "bf16",
+        use_kernel: bool = True,
         w8: Optional[Int8Resident] = None,
     ):
         super().__init__()
-        if (weight.granularity, weight.layout) not in _FORMATS:
-            raise NotImplementedError(
-                f"{weight.granularity}/{weight.layout} weights are not ported")
         if activation not in ACTIVATIONS:
             raise ValueError(f"activation={activation!r} is not one of {ACTIVATIONS}")
         self.register_buffer("packed", weight.packed)
@@ -122,9 +152,11 @@ class QuantizedLinear(nn.Module):
         self.bits = weight.bits
         self.granularity = weight.granularity
         self.layout = weight.layout
+        self.block_k = weight.block_k
         self.group_size = weight.group_size
         self.out_features = out_features
         self.activation = activation
+        self.use_kernel = use_kernel
 
     @classmethod
     def from_dense(cls, weight: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
@@ -157,7 +189,7 @@ class QuantizedLinear(nn.Module):
     def weight(self) -> QuantizedTensor:
         return QuantizedTensor(self.packed, self.scales, self.zero_points, self.shape,
                                granularity=self.granularity, layout=self.layout,
-                               block_k=self.shape[-1], group_size=self.group_size,
+                               block_k=self.block_k, group_size=self.group_size,
                                bits=self.bits)
 
     @property
@@ -171,6 +203,29 @@ class QuantizedLinear(nn.Module):
     @property
     def out_dim(self) -> int:
         return self.out_features or self.shape[-2]
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the packed weight, its scales and zero points, and the bias."""
+        bias = 0 if self.bias is None else self.bias.numel() * self.bias.element_size()
+        return self.weight.nbytes + bias
+
+    def padded_for_kernel(self) -> "QuantizedLinear":
+        """The layer with its weight rows padded once to a multiple of
+        ``ops.int8_xla.ROW_MULTIPLE`` (what the integer GEMM takes), so that
+        no call pays ``_int_dot``'s per-call pad; padded rows dequantize to
+        exact zeros, and outputs are sliced back to ``out_features``.
+        per_tensor weights, and rows already at the multiple, return the
+        layer as it is."""
+        w = self.weight
+        if w.granularity not in ("per_row", "per_group"):
+            return self
+        padded = pad_rows(w, ROW_MULTIPLE)
+        if padded is w:
+            return self
+        return QuantizedLinear(padded, self.bias, out_features=self.out_dim,
+                               activation=self.activation, use_kernel=self.use_kernel,
+                               w8=self.w8)
 
     def as_xla_turbo(self) -> "QuantizedLinear":
         """Switch this layer, in place, to the i8-resident mode: attach
@@ -190,11 +245,12 @@ class QuantizedLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight
-        per_row = w.granularity == "per_row"
+        per_row = self.use_kernel and w.granularity == "per_row" and w.layout == "planar"
         activation = self.activation
         if activation == "int8_auto":
             m = x.numel() // x.shape[-1]
-            transient = m >= self._AUTO_PREFILL_M and per_row and w.layout == "planar"
+            transient = (m >= self._AUTO_PREFILL_M and w.layout == "planar"
+                         and w.granularity in ("per_row", "per_tensor"))
             activation = "int8_transient" if transient else "int8"
         if activation == "int8_transient":
             y = int4_linear_transient(x, w)
@@ -204,12 +260,13 @@ class QuantizedLinear(nn.Module):
             y = int4_matmul_a8(x, w)
         elif per_row:
             y = int4_matmul(x, w)
-        elif activation == "int8" and w.layout == "planar_groups":
+        elif (self.use_kernel and activation == "int8" and w.granularity == "per_group"
+              and w.layout == "planar_groups"):
             y = int4_matmul_per_group_a8(x, w)
-        elif w.group_size % 128 == 0 and (w.in_dim // 2) % w.group_size == 0:
+        elif self.use_kernel and pg_kernel_format(w):
             y = int4_matmul_per_group(x, w)   # K7 (planar_groups) or K6 (planar)
         else:
-            y = int4_matmul_per_group_reference(x, w)  # no kernel, as in JAX: golden
+            y = _golden(x, w)                 # no kernel, as in JAX
         if self.out_features and y.shape[-1] != self.out_features:
             y = y[..., : self.out_features]
         if self.bias is not None:
@@ -218,5 +275,5 @@ class QuantizedLinear(nn.Module):
 
     def extra_repr(self) -> str:
         return (f"in={self.in_dim}, out={self.out_dim}, bits={self.bits}, "
-                f"granularity={self.granularity}, bias={self.bias is not None}, "
-                f"activation={self.activation}")
+                f"granularity={self.granularity}, layout={self.layout}, "
+                f"bias={self.bias is not None}, activation={self.activation}")

@@ -12,7 +12,10 @@ renormalized weights, and two dispatch plans:
   reads as zero.
 
 Everything runs as tensor ops on the device with no device-to-host sync, so
-the grouped kernels see one launch per projection.
+the grouped kernels see one launch per projection. Also here, as in JAX:
+``simulate_router_logits`` (the reference library's three benchmark routing
+laws) and ``QuantizedMoE`` (dequantize, then a matmul per expert: the golden
+baseline module).
 """
 from __future__ import annotations
 
@@ -29,21 +32,25 @@ from ..ops.grouped_matmul import (
     grouped_int4_matmul_per_group,
     grouped_int4_matmul_per_group_a8,
     grouped_int4_matmul_per_group_reference,
+    grouped_int4_matmul_reference,
 )
 from ..ops.int8_xla import Int8Resident
-from ..quant.core import QuantizedTensor, quantize
-from .linear import _FORMATS, per_group_layout
+from ..quant.core import QuantizedTensor, dequantize, quantize
+from ..quant.reference import full_precision
+from .linear import per_group_layout, pg_kernel_format
 
 __all__ = [
     "RoutingResult",
     "DispatchPlan",
     "topk_route",
+    "simulate_router_logits",
     "make_dispatch_plan",
     "make_capacity_plan",
     "expert_load_stats",
     "dispatch",
     "combine",
     "MoEINT4",
+    "QuantizedMoE",
 ]
 
 
@@ -71,6 +78,26 @@ def topk_route(logits: torch.Tensor, top_k: int, num_experts: int) -> RoutingRes
     offsets = torch.zeros(num_experts + 1, dtype=torch.int32, device=logits.device)
     offsets[1:] = torch.cumsum(tokens_per_expert, 0)
     return RoutingResult(indices.to(torch.int32), weights, tokens_per_expert, offsets)
+
+
+def simulate_router_logits(generator: torch.Generator, num_tokens: int, num_experts: int,
+                           distribution: str = "uniform") -> torch.Tensor:
+    """Benchmark router logits [T, E] on the generator's device, by the
+    reference library's laws: "uniform" (N(0, 0.01^2)), "skewed" (zipf:
+    log(1/(i+1)) for expert i plus N(0, 1)) or "random" (N(0, 100)). The
+    laws are JAX's; the draws, from ``generator``, are not ``jax.random``'s."""
+    def normal() -> torch.Tensor:
+        return torch.randn((num_tokens, num_experts), generator=generator,
+                           device=generator.device)
+
+    if distribution == "uniform":
+        return normal() * 0.01
+    if distribution == "skewed":
+        ranks = torch.arange(num_experts, dtype=torch.float32, device=generator.device)
+        return torch.log(1.0 / (ranks + 1.0))[None, :] + normal()
+    if distribution == "random":
+        return normal() * 10.0
+    raise ValueError(f"unknown distribution {distribution!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,18 +211,21 @@ def combine(expert_out: torch.Tensor, routing: RoutingResult, plan: DispatchPlan
 
 class MoEINT4(nn.Module):
     """Stacked per-expert INT4 weights [E, N, K] applied by a grouped kernel
-    to pre-routed, tile-packed inputs: per_row weights on K2 (or K9 with
-    ``mode="ksplit"``) with ``activation="bf16"`` and K10 with ``"int8"``;
-    per_group planar_groups weights on K13 and K14; per_group planar weights
-    (what ``models.convert`` produces) on K12 in both activations, as in JAX.
-    ``w8``: the i8-resident copy the xla_turbo capacity path runs on."""
+    to pre-routed, tile-packed inputs: per_row planar weights on K2 (or K9
+    with ``mode="ksplit"``) with ``activation="bf16"`` and K10 with
+    ``"int8"``; per_group planar_groups weights on K13 and K14; per_group
+    planar weights (what ``models.convert`` produces) on K12 in both
+    activations, as in JAX. Every other format (per_tensor, the interleaved
+    and block_planar layouts, group sizes no kernel takes), and every weight
+    with ``use_kernel=False``, runs the golden path, as in JAX: dequantize,
+    then a float32 matmul per expert, through the counted plain versions
+    ``ops.grouped_int4_matmul_reference`` (per-group:
+    ``ops.grouped_int4_matmul_per_group_reference``). ``w8``: the
+    i8-resident copy the xla_turbo capacity path runs on."""
 
     def __init__(self, weight: QuantizedTensor, *, activation: str = "bf16",
-                 w8: Optional[Int8Resident] = None):
+                 use_kernel: bool = True, w8: Optional[Int8Resident] = None):
         super().__init__()
-        if (weight.granularity, weight.layout) not in _FORMATS:
-            raise NotImplementedError(
-                f"{weight.granularity}/{weight.layout} expert weights are not ported")
         if activation not in ("bf16", "int8"):
             raise ValueError(f"activation={activation!r} is not 'bf16' or 'int8'")
         self.register_buffer("packed", weight.packed)
@@ -207,8 +237,10 @@ class MoEINT4(nn.Module):
         self.bits = weight.bits
         self.granularity = weight.granularity
         self.layout = weight.layout
+        self.block_k = weight.block_k
         self.group_size = weight.group_size
         self.activation = activation
+        self.use_kernel = use_kernel
 
     @classmethod
     def from_dense(cls, weights: torch.Tensor, *, granularity: str = "per_row",
@@ -227,7 +259,7 @@ class MoEINT4(nn.Module):
     def weight(self) -> QuantizedTensor:
         return QuantizedTensor(self.packed, self.scales, self.zero_points, self.shape,
                                granularity=self.granularity, layout=self.layout,
-                               block_k=self.shape[-1], group_size=self.group_size,
+                               block_k=self.block_k, group_size=self.group_size,
                                bits=self.bits)
 
     @property
@@ -243,16 +275,55 @@ class MoEINT4(nn.Module):
         """The grouped product; ``kw`` (for example ``mode=`` of
         ``grouped_int4_matmul``) goes on to the grouped op, as in JAX."""
         w = self.weight
-        if w.granularity == "per_row":
+        if self.use_kernel and w.granularity == "per_row" and w.layout == "planar":
             if self.activation == "int8":
                 return grouped_int4_matmul_a8(x_sorted, tile_group_ids, w, tile_m=tile_m, **kw)
             return grouped_int4_matmul(x_sorted, tile_group_ids, w, tile_m=tile_m, **kw)
-        if self.activation == "int8" and w.layout == "planar_groups":
+        if (self.use_kernel and self.activation == "int8" and w.granularity == "per_group"
+                and w.layout == "planar_groups"):
             return grouped_int4_matmul_per_group_a8(x_sorted, tile_group_ids, w, tile_m=tile_m,
                                                     **kw)
-        if w.group_size % 128 == 0 and (w.in_dim // 2) % w.group_size == 0:
+        if self.use_kernel and pg_kernel_format(w):
             # K13 (planar_groups) or K12 (planar)
             return grouped_int4_matmul_per_group(x_sorted, tile_group_ids, w, tile_m=tile_m, **kw)
         # no kernel, as in JAX: the golden dequantize-and-matmul per expert
-        return grouped_int4_matmul_per_group_reference(x_sorted, tile_group_ids, w,
-                                                       tile_m=tile_m)
+        golden = (grouped_int4_matmul_per_group_reference if w.granularity == "per_group"
+                  else grouped_int4_matmul_reference)
+        return golden(x_sorted, tile_group_ids, w, tile_m=tile_m)
+
+
+class QuantizedMoE(nn.Module):
+    """Dequantize-then-matmul per-expert MoE over stacked INT4 weights
+    [E, N, K] (the reference library's golden baseline module): every token
+    through its top-k experts' dequantized weights in float32, weighted by
+    the router's renormalized scores."""
+
+    def __init__(self, weight: QuantizedTensor):
+        super().__init__()
+        self.register_buffer("packed", weight.packed)
+        self.register_buffer("scales", weight.scales)
+        self.register_buffer("zero_points", weight.zero_points)
+        self.meta = {f.name: getattr(weight, f.name) for f in dataclasses.fields(weight)
+                     if f.name not in ("packed", "scales", "zero_points")}
+
+    @classmethod
+    def from_dense(cls, weights: torch.Tensor, **kw) -> "QuantizedMoE":
+        """Quantize stacked dense weights [E, N, K], planar (``kw``: the
+        granularity and group size)."""
+        return cls(quantize(weights, layout="planar", **kw))
+
+    @property
+    def weight(self) -> QuantizedTensor:
+        return QuantizedTensor(self.packed, self.scales, self.zero_points, **self.meta)
+
+    def forward(self, x: torch.Tensor, routing: RoutingResult) -> torch.Tensor:
+        """Token-order input [T, K] -> combined output [T, N]."""
+        w = dequantize(self.weight, dtype=torch.float32)          # [E, N, K]
+        we = w[routing.expert_indices.long()]                      # [T, k, N, K]
+        with full_precision():
+            y = torch.einsum("tk,tenk->ten", x.float(), we)
+        return (y * routing.expert_weights[..., None]).sum(dim=1).to(x.dtype)
+
+    def total_memory_bytes(self) -> int:
+        """The packed weights', scales' and zero points' bytes."""
+        return self.weight.nbytes

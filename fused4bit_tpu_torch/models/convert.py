@@ -3,7 +3,8 @@
 Counterpart of ``fused4bit_tpu/models/convert.py``: a flat dict of dense
 weights (a ``.safetensors`` file, or a ``state_dict``-style mapping of numpy
 arrays or tensors) becomes a ``QuantizedTransformer`` with every projection
-INT4, per row or per group, under the JAX package's mixed-precision policy:
+INT4, per row, per tensor or per group, optionally after AWQ equalization
+(``quant.equalize``), under the JAX package's mixed-precision policy:
 the MoE router stays dense (bf16) unless ``quantize_router``, the lm_head is
 quantized unless ``quantize_lm_head=False``, the embedding and the norms are
 kept in ``dtype``.
@@ -16,7 +17,8 @@ the JAX package's: per row, its native packer gives ``quantize``'s bytes
 (``tests/test_native.py``), which the port's ``quant.core.quantize``
 reproduces; per group, the planar layout as in JAX, which runs kernels K6
 (linears) and K12 (experts) where ``gs % 128 == 0`` divides K/2 and the
-golden path otherwise.
+golden path otherwise; per tensor, the planar layout, which runs the golden
+path (and the integer GEMMs under ``as_u4_turbo`` at prefill), as in JAX.
 
 Expected key schema (HF-Mixtral-like, ``{L}`` = layer index, ``{E}`` =
 expert):
@@ -42,6 +44,7 @@ from .._device import resolve_device
 from ..layers.linear import DenseLinear, QuantizedLinear
 from ..layers.moe import MoEINT4
 from ..quant.core import QuantizedTensor, quantize
+from ..quant.equalize import awq_equalize_params
 from .config import ModelConfig
 from .transformer import Attention, MoEBlock, QuantizedTransformer, TransformerBlock
 
@@ -104,25 +107,26 @@ def convert_checkpoint(
     Mixed-precision policy, as in JAX: the MoE router defaults to DENSE
     (``DenseLinear`` in ``dtype``; ``quantize_router`` quantizes it per
     row), the lm_head is quantized unless ``quantize_lm_head=False``.
-    ``granularity``: "per_row" (planar) or "per_group" (planar, groups of
-    ``group_size`` columns). ``device``: where the model is built and every
-    weight quantized (None: the CUDA card; raises without one).
-    per_tensor quantization and AWQ equalization (``awq_tokens``,
-    ``awq_alpha``; ``fused4bit_tpu/quant/equalize.py``) are not ported and
-    raise NotImplementedError.
+    ``granularity``: "per_row", "per_tensor" (one scale per weight, per
+    expert in a stack) or "per_group" (groups of ``group_size`` columns), all
+    planar. ``awq_tokens``: optional [B, T] calibration token ids; the
+    weights are then equalized (``quant.equalize.awq_equalize_params``, the
+    alpha of every site grid-searched unless ``awq_alpha`` pins it) and read
+    through the scales one at a time, and the model's ``awq_alphas`` holds
+    each site's alpha. ``device``: where the model is built, the calibration
+    run and every weight quantized (None: the CUDA card; raises without one).
     """
-    if awq_tokens is not None or awq_alpha is not None:
-        raise NotImplementedError("AWQ equalization (quant/equalize.py) is not ported")
-    if granularity not in ("per_row", "per_group"):
-        raise NotImplementedError(f"granularity={granularity!r} is not ported (per_row, "
-                                  "per_group)")
     device = resolve_device(device)
+    alphas = None
+    if awq_tokens is not None:
+        params = awq_equalize_params(params, cfg, awq_tokens, granularity=granularity,
+                                     group_size=group_size, alpha=awq_alpha,
+                                     quantize_lm_head=quantize_lm_head, device=device)
+        alphas = params.alphas
 
     def qt(key: str) -> QuantizedTensor:
-        w = _dense(params[key], device)
-        if granularity == "per_row":
-            return quantize(w)
-        return quantize(w, granularity="per_group", layout="planar", group_size=group_size)
+        return quantize(_dense(params[key], device), granularity=granularity,
+                        layout="planar", group_size=group_size)
 
     def experts(pre: str, name: str) -> MoEINT4:
         return MoEINT4(_stack([qt(f"{pre}.moe.experts.{i}.{name}.weight")
@@ -151,8 +155,10 @@ def convert_checkpoint(
                                        kept(f"{pre}.moe_norm.weight"), moe, rms_eps=cfg.rms_eps))
     lm_head = (QuantizedLinear(qt("lm_head.weight")) if quantize_lm_head
                else DenseLinear(kept("lm_head.weight")))
-    return QuantizedTransformer(kept("embed.weight"), blocks, kept("final_norm.weight"), lm_head,
-                                rms_eps=cfg.rms_eps)
+    model = QuantizedTransformer(kept("embed.weight"), blocks, kept("final_norm.weight"),
+                                 lm_head, rms_eps=cfg.rms_eps)
+    model.awq_alphas = alphas
+    return model
 
 
 def checkpoint_shapes(cfg):

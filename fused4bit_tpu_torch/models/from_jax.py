@@ -10,11 +10,14 @@ JAX model holds is lost silently. A JAX execution mode is partly static
 (fields that are not leaves), so it is named by ``mode``. So is a weight's
 format: granularity, layout and group size are static fields of the JAX
 ``QuantizedTensor``, so each weight's format is read from its site (a linear
-or an expert stack) and its leaves' shapes, and a shape that fits no format
-of the site raises. A linear the JAX model holds dense (``DenseLinear``: the
-router and, with ``quantize_lm_head=False``, the lm_head of
-``models.convert``) has a ``.weight`` leaf of its own and is read as the
-port's ``DenseLinear``. This module imports no JAX.
+or an expert stack) and its leaves' shapes (per_row, per_tensor, per_group;
+planar_groups has a shape of its own), and a shape that fits no format of
+the site raises. The planar, interleaved and block_planar layouts hold the
+same shapes, so the layout of those bytes is named by ``layout``. A linear
+the JAX model holds dense (``DenseLinear``: the router and, with
+``quantize_lm_head=False``, the lm_head of ``models.convert``) has a
+``.weight`` leaf of its own and is read as the port's ``DenseLinear``. This
+module imports no JAX.
 """
 from __future__ import annotations
 
@@ -60,10 +63,13 @@ _PER_GROUP_MODES = ("per_group", "pg_turbo")
 class _Reader:
     """The leaves, with a record of which keys were read."""
 
-    def __init__(self, params: Params, device, per_group: bool):
+    def __init__(self, params: Params, device, per_group: bool, layout: str,
+                 block_k: Optional[int]):
         self.params = params
         self.device = device
         self.per_group = per_group  # whether per-group leaves may be read
+        self.layout = layout        # the layout of [..., N, K/2] bytes
+        self.block_k = block_k
         self.used = set()
         self.group_sizes = set()
 
@@ -76,7 +82,7 @@ class _Reader:
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    a = np.asarray(a)   # not ascontiguousarray: it makes a 0-d leaf (a per_tensor scale) 1-d
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: move the raw bits
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
     return torch.from_numpy(a.copy()).to(device)
@@ -84,24 +90,29 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
 
 def _qt(read: _Reader, prefix: str, lead: int) -> QuantizedTensor:
     """The QuantizedTensor at ``prefix``: a linear (``lead`` 0) or an expert
-    stack (``lead`` 1). per_row planar: packed [*lead, N, K/2], scales
-    [*lead, N]. per_group planar: packed [*lead, N, K/2], scales
-    [*lead, N, K/gs]. per_group planar_groups: packed [*lead, Gh, N, gs],
-    scales [*lead, N, 2*Gh]."""
+    stack (``lead`` 1). packed [*lead, N, K/2] in ``read.layout``: per_row
+    with scales [*lead, N], per_tensor with scales [*lead], per_group with
+    scales [*lead, N, K/gs]. per_group planar_groups: packed
+    [*lead, Gh, N, gs], scales [*lead, N, 2*Gh]."""
     packed = read(f"{prefix}.packed")
     scales = read(f"{prefix}.scales").float()
     zero_points = read(f"{prefix}.zero_points").float()
     p, sc = tuple(packed.shape), tuple(scales.shape)
     ok = tuple(zero_points.shape) == sc and packed.dtype == torch.uint8
-    if ok and len(p) == lead + 2 and sc == p[:-1]:
-        return QuantizedTensor(packed, scales, zero_points, p[:-1] + (2 * p[-1],),
-                               block_k=2 * p[-1])
-    if ok and len(p) == lead + 2 and sc[:-1] == p[:-1] and len(sc) == lead + 2:
-        g, k = sc[-1], 2 * p[-1]
-        if g % 2 == 0 and k % g == 0:   # Gh = g/2 groups per half
-            return _per_group(read, prefix, p, QuantizedTensor(
+    if ok and len(p) == lead + 2:
+        k = 2 * p[-1]
+        fmt = dict(layout=read.layout, block_k={"planar": k, "interleaved": read.block_k or 0,
+                                                "block_planar": read.block_k or k}[read.layout])
+        if sc == p[:-1]:
+            return QuantizedTensor(packed, scales, zero_points, p[:-1] + (k,), **fmt)
+        if sc == p[:lead]:
+            return QuantizedTensor(packed, scales, zero_points, p[:-1] + (k,),
+                                   granularity="per_tensor", **fmt)
+        g = sc[-1]
+        if len(sc) == lead + 2 and sc[:-1] == p[:-1] and g % 2 == 0 and k % g == 0:
+            return _per_group(read, prefix, p, QuantizedTensor(   # Gh = g/2 groups per half
                 packed, scales, zero_points, p[:-1] + (k,), granularity="per_group",
-                layout="planar", block_k=k, group_size=k // g))
+                group_size=k // g, **fmt))
     if ok and len(p) == lead + 3 and sc == p[:lead] + (p[-2], 2 * p[-3]):
         gh, n, gs = p[-3:]
         shape = p[:lead] + (n, 2 * gh * gs)
@@ -109,8 +120,8 @@ def _qt(read: _Reader, prefix: str, lead: int) -> QuantizedTensor:
             packed, scales, zero_points, shape, granularity="per_group", layout="planar_groups",
             block_k=shape[-1], group_size=gs))
     raise ValueError(f"{prefix}: packed {p} {packed.dtype}, scales {sc}, zero_points "
-                     f"{tuple(zero_points.shape)} fit neither per_row planar nor per_group "
-                     "planar or planar_groups")
+                     f"{tuple(zero_points.shape)} fit no format (per_row, per_tensor or "
+                     "per_group over [..., N, K/2] bytes, or per_group planar_groups)")
 
 
 def _per_group(read: _Reader, prefix: str, p, qt: QuantizedTensor) -> QuantizedTensor:
@@ -139,8 +150,9 @@ def _experts(read: _Reader, prefix: str, with_w8: bool) -> MoEINT4:
     return MoEINT4(_qt(read, f"{prefix}.weight", 1), w8=_w8(read, prefix, with_w8))
 
 
-def model_from_jax(params: Params, cfg: ModelConfig, device=None, *,
-                   mode: str = "kernel") -> QuantizedTransformer:
+def model_from_jax(params: Params, cfg: ModelConfig, device=None, *, mode: str = "kernel",
+                   layout: str = "planar", block_k: Optional[int] = None
+                   ) -> QuantizedTransformer:
     """The port's ``QuantizedTransformer`` holding the JAX model's leaves.
 
     ``mode``: the JAX execution mode the leaves come from ("kernel", the
@@ -152,7 +164,11 @@ def model_from_jax(params: Params, cfg: ModelConfig, device=None, *,
     converted); for "xla_turbo" the JAX ``.w8.q8`` / ``.w8.scales`` leaves
     are loaded as the i8-resident copies, not recomputed. A model from the
     JAX ``convert_checkpoint`` is read with "kernel" (per row) or
-    "per_group" (per group: planar leaves, K6 and K12, or the golden path). Raises
+    "per_group" (per group: planar leaves, K6 and K12, or the golden path).
+    ``layout``: the layout of the weights stored as [..., N, K/2] bytes,
+    "planar" (what the JAX converters produce), "interleaved" or
+    "block_planar" (``block_k`` columns per block, K by default); it is a
+    static field of the JAX weights, not a leaf. Raises
     ``ValueError`` naming any leaf left unconsumed (for example ``.w8``
     leaves passed with another mode), any weight whose shapes fit no format
     of its site, and per-group weights under a per-row mode. ``device``:
@@ -160,7 +176,9 @@ def model_from_jax(params: Params, cfg: ModelConfig, device=None, *,
     """
     if mode not in _CONVERTERS:
         raise ValueError(f"mode={mode!r} is not one of {sorted(_CONVERTERS)}")
-    read = _Reader(params, resolve_device(device), mode in _PER_GROUP_MODES)
+    if layout not in ("planar", "interleaved", "block_planar"):
+        raise ValueError(f"layout={layout!r} is not 'planar', 'interleaved' or 'block_planar'")
+    read = _Reader(params, resolve_device(device), mode in _PER_GROUP_MODES, layout, block_k)
     with_w8 = mode == "xla_turbo"
     blocks = []
     for i in range(cfg.num_layers):

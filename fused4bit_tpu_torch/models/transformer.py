@@ -192,7 +192,7 @@ class MoEBlock(nn.Module):
         # per_group scales cannot fold past an integer dot: under u4_turbo
         # such experts take the dropless grouped path at every size (JAX's
         # transient_ok rule)
-        transient_ok = self.w_gate.granularity == "per_row"
+        transient_ok = self.w_gate.granularity in ("per_row", "per_tensor")
         capacity_i8 = self.moe_impl == "xla_turbo" or (self.moe_impl == "u4_turbo"
                                                         and transient_ok)
         if b * t <= self.prefill_threshold:
@@ -274,7 +274,9 @@ class TransformerBlock(nn.Module):
 
 
 class QuantizedTransformer(nn.Module):
-    """INT4 weight-only Mixtral-style decoder."""
+    """INT4 weight-only Mixtral-style decoder. ``awq_alphas``: set by
+    ``models.convert.convert_checkpoint`` with ``awq_tokens``, each AWQ
+    site's chosen alpha (None: the identity); None otherwise."""
 
     def __init__(self, embed: torch.Tensor, blocks: Sequence[TransformerBlock],
                  final_norm: torch.Tensor, lm_head: Union[QuantizedLinear, DenseLinear], *,
@@ -285,6 +287,7 @@ class QuantizedTransformer(nn.Module):
         self.register_buffer("final_norm", final_norm)
         self.lm_head = lm_head
         self.rms_eps = rms_eps
+        self.awq_alphas = None
 
     @classmethod
     def init(cls, cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
@@ -312,6 +315,13 @@ class QuantizedTransformer(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of every tensor the model holds, counted at each place that
+        holds it, as the JAX package counts its model's leaves."""
+        return sum(t.numel() * t.element_size()
+                   for _, t in self.named_buffers(remove_duplicate=False))
 
     def init_cache(self, cfg: ModelConfig, batch: int, max_seq: int) -> Tuple[QuantizedKVCache, ...]:
         return tuple(

@@ -142,9 +142,11 @@ def grouped_int4_matmul_reference(
     *, tile_m: int = 64,
 ) -> torch.Tensor:
     """Plain version of K2: per expert, dequantize and run a float32 matmul
-    over that expert's tiles; x.dtype out."""
+    over that expert's tiles; x.dtype out. Any format: it is also the golden
+    path of the formats no grouped kernel takes (per_tensor, the interleaved
+    and block_planar layouts; ``MoEINT4``, as in JAX)."""
     grouped_int4_matmul_reference.calls += 1
-    _check(x_sorted, tile_group_ids, qt, tile_m)
+    _check_tiles(x_sorted, tile_group_ids, qt, tile_m)
     return _grouped_golden(x_sorted, tile_group_ids, qt, tile_m)
 
 
@@ -308,9 +310,9 @@ def grouped_int4_matmul(
     """
     if mode not in MODES:
         raise ValueError(f"mode={mode!r} is not one of {MODES}")
+    _check(x_sorted, tile_group_ids, qt, tile_m)
     if not x_sorted.is_cuda:
         return grouped_int4_matmul_reference(x_sorted, tile_group_ids, qt, tile_m=tile_m)
-    _check(x_sorted, tile_group_ids, qt, tile_m)
     e, n, k = qt.shape
     t_pad = x_sorted.shape[0]
     dtype = x_sorted.dtype

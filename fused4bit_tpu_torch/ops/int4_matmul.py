@@ -60,7 +60,7 @@ __all__ = [
     "int4_matmul", "int4_matmul_reference", "int4_matmul_a8", "int4_matmul_a8_reference",
     "int4_matmul_per_group", "int4_matmul_per_group_reference",
     "int4_matmul_per_group_planar_reference",
-    "int4_matmul_per_group_a8", "int4_matmul_per_group_a8_reference",
+    "int4_matmul_per_group_a8", "int4_matmul_per_group_a8_reference", "quantized_linear",
 ]
 
 _KERNELS = {torch.bfloat16: "f4b_int4_matmul_bf16", torch.float32: "f4b_int4_matmul_f32"}
@@ -86,7 +86,10 @@ _SHALLOW_KH = 3072
 
 
 def int4_matmul_reference(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
-    """Plain version of K1: dequantize, then a float32 matmul; x.dtype out."""
+    """Plain version of K1: dequantize, then a float32 matmul; x.dtype out.
+    Any format: it is also the golden path of the formats no kernel takes
+    (per_tensor, the interleaved and block_planar layouts; ``QuantizedLinear``,
+    as in JAX)."""
     int4_matmul_reference.calls += 1
     return reference_linear_qt(x, qt, dtype=x.dtype)
 
@@ -266,6 +269,11 @@ def int4_matmul(
 
 
 int4_matmul.launches = 0
+
+
+def quantized_linear(x: torch.Tensor, qt: QuantizedTensor, **kw) -> torch.Tensor:
+    """:func:`int4_matmul` under the reference library's forward name."""
+    return int4_matmul(x, qt, **kw)
 
 
 def _a8_product(xq: torch.Tensor, sx: torch.Tensor, packed: torch.Tensor,

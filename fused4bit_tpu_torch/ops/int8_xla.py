@@ -14,10 +14,12 @@ forms:
   packed u4 weights unpacked per call into a temporary i8 tensor — the
   prefill regime of the ``as_u4_turbo`` mode.
 
-Either way ``y = (f32(xq @ w8^T) * sx) * s`` with an exact int32 product.
-The JAX package leaves that product to XLA, outside any Pallas kernel; here
-it is ``torch._int_mm`` (a library GEMM, as XLA's is), which on CUDA needs
-more than 16 rows and widths that are multiples of 8: :func:`_int_dot` pads.
+Either way ``y = (f32(xq @ w8^T) * sx) * s`` with an exact int32 product,
+``s`` per row (per_row weights) or one per tensor (per_tensor weights, on
+the transient path). The JAX package leaves that product to XLA, outside any
+Pallas kernel; here it is ``torch._int_mm`` (a library GEMM, as XLA's is),
+which on CUDA needs more than 16 rows and widths that are multiples of
+:data:`ROW_MULTIPLE`: :func:`_int_dot` pads.
 """
 from __future__ import annotations
 
@@ -31,8 +33,13 @@ from ..quant.core import QuantizedTensor, dequantize, unpack_planar
 
 __all__ = [
     "Int8Resident", "to_int8_resident", "int8_linear", "int8_grouped_capacity",
-    "int4_linear_transient", "int4_grouped_transient",
+    "int4_linear_transient", "int4_grouped_transient", "ROW_MULTIPLE",
 ]
+
+# torch._int_mm on CUDA takes widths that are multiples of this: _int_dot
+# pads each call's weight rows to it, unless
+# QuantizedLinear.padded_for_kernel padded them once at conversion.
+ROW_MULTIPLE = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,10 +106,10 @@ def _int_dot(xq: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     n = w8.shape[0]
     if not xq.is_cuda:
         return torch._int_mm(xq, w8.t())
-    if k % 8:
+    if k % ROW_MULTIPLE:
         raise ValueError(f"the int8 GEMM needs K % 8 == 0, got K={k}")
-    m_pad = max(32, -(-m // 8) * 8)
-    n_pad = -(-n // 8) * 8
+    m_pad = max(32, -(-m // ROW_MULTIPLE) * ROW_MULTIPLE)
+    n_pad = -(-n // ROW_MULTIPLE) * ROW_MULTIPLE
     if m_pad != m:
         xq = F.pad(xq, (0, 0, 0, m_pad - m))
     if n_pad != n:
@@ -135,12 +142,22 @@ int8_grouped_capacity.calls = 0
 
 
 def _transient_w8(qt: QuantizedTensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Planar per_row weights -> (w8 = q - zp [..., N, K] i8, scales f32)."""
-    if qt.layout != "planar" or qt.granularity != "per_row":
-        raise ValueError("transient unpack requires per_row planar weights")
+    """Planar per_row or per_tensor weights -> (w8 = q - zp [..., N, K] i8,
+    scales f32 [..., N] per row, [..., 1] per tensor)."""
+    if qt.layout != "planar" or qt.granularity not in ("per_row", "per_tensor"):
+        raise ValueError("transient unpack requires per_row or per_tensor planar weights")
     codes = unpack_planar(qt.packed).to(torch.int8)
     zp8 = torch.round(qt.zero_points).to(torch.int8)[..., None]
-    return codes - zp8, qt.scales.float()
+    if qt.granularity == "per_tensor":
+        zp8 = zp8[..., None]
+    return codes - zp8, _row_scales(qt)
+
+
+def _row_scales(qt: QuantizedTensor) -> torch.Tensor:
+    """The scales as factors over the output rows: f32 [..., N] per row,
+    [..., 1] per tensor."""
+    s = qt.scales.float()
+    return s[..., None] if qt.granularity == "per_tensor" else s
 
 
 def int4_linear_transient(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
@@ -168,7 +185,7 @@ def int4_grouped_transient(xe: torch.Tensor, qt: QuantizedTensor) -> torch.Tenso
             qt, packed=qt.packed[e], scales=qt.scales[e], zero_points=qt.zero_points[e],
             shape=tuple(qt.shape[1:])))
         accs.append(_int_dot(xq[e], w8))
-    return (torch.stack(accs).float() * sx * qt.scales.float()[:, None, :]).to(xe.dtype)
+    return (torch.stack(accs).float() * sx * _row_scales(qt)[:, None, :]).to(xe.dtype)
 
 
 int4_grouped_transient.calls = 0

@@ -45,6 +45,7 @@ from chip_smoke import (
     evaluate,
     fixture_config,
     heldout_tokens,
+    policy_kwargs,
     policy_metrics,
     quality_gates,
 )
@@ -242,12 +243,21 @@ def test_mode_converters_pass_dense_linears_through(mode):
     assert logits.shape == (1, 4, cfg.vocab_size) and torch.isfinite(logits).all()
 
 
-def test_convert_refuses_what_is_not_ported():
+def test_convert_takes_per_tensor_and_awq():
+    """The two calls once refused build their models: per_tensor weights
+    (one scale per linear, one per expert), and an AWQ conversion whose
+    ``awq_alphas`` names the five sites of a two-layer model."""
     _, cfg = _configs(H256)
-    with pytest.raises(NotImplementedError, match="per_tensor"):
-        convert_checkpoint({}, cfg, granularity="per_tensor", device="cpu")
-    with pytest.raises(NotImplementedError, match="equalize"):
-        convert_checkpoint({}, cfg, awq_tokens=np.zeros((1, 4), np.int32), device="cpu")
+    params = _random_checkpoint(cfg)
+    model = convert_checkpoint(params, cfg, granularity="per_tensor", device="cpu")
+    blk = model.blocks[0]
+    assert (blk.attn.wq.granularity, blk.attn.wq.scales.shape) == ("per_tensor", ())
+    assert (blk.moe.w_up.granularity, blk.moe.w_up.scales.shape) == (
+        "per_tensor", (cfg.moe.num_experts,))
+    assert model.awq_alphas is None
+    model = convert_checkpoint(params, cfg, awq_tokens=np.zeros((1, 4), np.int32), device="cpu")
+    assert sorted(model.awq_alphas) == ["layers.0.attn", "layers.0.moe", "layers.1.attn",
+                                        "layers.1.moe", "lm_head"]
 
 
 @pytest.mark.parametrize("entry", ["convert_checkpoint", "quantize_dense_2d",
@@ -269,17 +279,18 @@ def test_conversion_entry_points_default_to_the_card(entry):
 
 
 def test_h256_fixture_quality_gates_through_the_port():
-    """``tests/test_convert.py``'s h256 gates (``chip_smoke.quality_gates``),
+    """``tests/test_convert.py``'s h256 gates (``chip_smoke.quality_gates``,
+    with the AWQ policies' cosine property of ``tests/test_equalize.py``),
     on the port's CPU path (the plain versions of K1, K2, K6, K12 and K3, and
-    the golden path at gs = 64), evaluated as ``chip_smoke`` does on the
-    card."""
+    the golden path at gs = 64 and per tensor) in the seven policies of the
+    JAX quality record, evaluated as ``chip_smoke`` does on the card."""
     cfg = fixture_config(H256)
     raw = load_safetensors(H256)
     tokens = heldout_tokens(H256)
     ref, nll_ref = evaluate(dense_from_params(raw, cfg, device="cpu"), cfg, tokens, "cpu")
-    res = {label: policy_metrics(*evaluate(convert_checkpoint(raw, cfg, device="cpu", **kw),
-                                           cfg, tokens, "cpu"), ref, nll_ref)
-           for label, kw in QUALITY_POLICIES.items()}
+    res = {label: policy_metrics(*evaluate(
+        convert_checkpoint(raw, cfg, device="cpu", **policy_kwargs(label, H256)),
+        cfg, tokens, "cpu"), ref, nll_ref) for label in QUALITY_POLICIES}
     gates = quality_gates(res, nll_ref, cfg.vocab_size)
     assert all(gates.values()), gates
     for label in QUALITY_POLICIES:

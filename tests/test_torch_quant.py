@@ -51,10 +51,14 @@ def test_pack_planar_roundtrip(rng):
     assert torch.equal((packed >> 4) ^ 8, q[:, 32:])
 
 
-def test_only_per_row_planar_is_ported():
-    """per_row and per_group are ported (tests/test_torch_per_group.py);
-    per_tensor and the interleaved layouts are not."""
-    with pytest.raises(NotImplementedError):
-        quantize(torch.zeros(4, 8), granularity="per_tensor")
-    with pytest.raises(NotImplementedError):
-        quantize(torch.zeros(4, 8), layout="interleaved")
+def test_per_tensor_and_interleaved_quantize_as_jax():
+    """per_tensor and the interleaved layout, once refused, quantize a
+    constant weight as JAX does: the scale guard's scale, zero point 0,
+    every code 0 (tests/test_torch_quant_formats.py covers them fully)."""
+    for kw in (dict(granularity="per_tensor"), dict(layout="interleaved")):
+        qt = quantize(torch.zeros(4, 8), **kw)
+        ref = jax_quantize(jnp.zeros((4, 8)), **kw)
+        for field in ("packed", "scales", "zero_points"):
+            np.testing.assert_array_equal(getattr(qt, field).numpy(),
+                                          np.asarray(getattr(ref, field)))
+        assert (qt.granularity, qt.layout) == (ref.granularity, ref.layout)

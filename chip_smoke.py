@@ -110,7 +110,24 @@ Phases, each of which raises on failure:
      per-group-128 model on the card against the CPU;
   9. run the `tiny` model with the same weights on the card and on the CPU,
      in the default mode and in each w4a8 and per-group mode, and on paged
-     caches, and compare the logits.
+     caches, and compare the logits;
+ 10. persistence and utilities: pack four full-width weights of phase 7's
+     seeded checkpoint with the native host packer (C++, g++) and hold its
+     bytes, scales and zero points to quantize's bit for bit; save the
+     default `layer2` model and the per-group-128 conversion, load each into
+     a template built on the card from another seed, and serve phase 4's
+     requests on each before and after (the same tokens, on K1/K2/K3 and on
+     K6/K12/K3, no plain version; bytes on disk, save and load seconds);
+     run 24 greedy decode steps of `layer2` at batch 8 through elastic_loop
+     with a transient fault at step 13 and a crash at step 17 and its
+     relaunch, each equal to an uninterrupted loop bit for bit; quantize
+     FP4 on the card (codes and scales equal to the CPU's; the gate stack's
+     peak memory; FP4's and INT4's error against the dense product); run
+     QuantizedDense 4096->14336 (K1, equal to QuantizedLinear on the same
+     bytes); count one decode step's kernels with device_op_times against
+     the launch counters, replay K1 in a CUDA graph (time_fn_scan; equal to
+     the eager call), hold linear_roofline to phase 3's K1 bound, and time
+     a 1 GiB device-to-device copy.
 The line before the last is a JSON summary of the kernels, with each
 kernel's launches counted over the phase that drives it (4, 5 or 7; K3' over
 the first paged serve); the last
@@ -122,20 +139,25 @@ import copy
 import dataclasses
 import functools
 import json
+import os
 import pathlib
+import shutil
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fused4bit_tpu_torch import ops
+from fused4bit_tpu_torch import native, ops
 from fused4bit_tpu_torch.layers import (
     MoEINT4,
     PagedKVCache,
+    QuantizedDense,
     QuantizedKVCache,
+    QuantizedLinear,
     dispatch,
     make_dispatch_plan,
     topk_route,
@@ -164,8 +186,26 @@ from fused4bit_tpu_torch.ops.int4_matmul import (
     _mma_launch,
     _pg_a8_on_tensor_cores,
 )
-from fused4bit_tpu_torch.quant import planar_groups_to_planar, quantize, unpack_planar
+from fused4bit_tpu_torch.quant import (
+    dequantize,
+    dequantize_fp4,
+    fp4_matmul,
+    planar_groups_to_planar,
+    quantize,
+    quantize_fp4,
+    unpack_planar,
+)
 from fused4bit_tpu_torch.serving import GenerationRequest, ServingEngine, speculative_generate
+from fused4bit_tpu_torch.utils import (
+    H100_SXM,
+    annotate,
+    checkpoint,
+    device_op_times,
+    elastic_loop,
+    latest_step,
+    linear_roofline,
+    time_fn_scan,
+)
 
 # Tolerances, kernel vs plain version on the same inputs:
 # - bf16 output: both round one f32 sum to bf16, summed in another order, so a
@@ -252,11 +292,8 @@ MAIN_SHAPE = {
     "grouped_int4_matmul_per_group_planar": "T=8 tile_m=16 N=14336 K=4096",
 }
 # The card's published rates (NVIDIA's H100 SXM data sheet, dense, at the
-# 700 W limit): HBM bytes/s and operations/s by operand type. A kernel's bound
-# is the larger of its bytes over HBM_BPS and its operations over the peak of
-# their type.
-HBM_BPS = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+# 700 W limit; utils.roofline.H100_SXM): a kernel's bound is the larger of its
+# bytes over the HBM rate and its operations over the peak of their type.
 
 
 def nbytes(*tensors) -> int:
@@ -266,7 +303,8 @@ def nbytes(*tensors) -> int:
 def bound(bytes_: float, ops: float, kind: str) -> dict:
     """The least time the card could take for ``bytes_`` moved and ``ops``
     operations of type ``kind``, in ms, and which of the two bounds it."""
-    by_bytes, by_ops = bytes_ / HBM_BPS * 1e3, ops / PEAK_OPS[kind] * 1e3
+    by_bytes = bytes_ / (H100_SXM.hbm_gbps * 1e9) * 1e3
+    by_ops = ops / H100_SXM.peak_ops(kind) * 1e3
     return dict(bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops
                 else "operations")
 
@@ -2054,6 +2092,376 @@ def trained_checkpoint(card_line, device="cuda"):
     return res
 
 
+# --- phase 10: persistence and utilities ---------------------------------------
+
+# Phase 7's seeded checkpoint's full-width weights for the native packer: a
+# linear, expert 0's gate/up and down projections, and the lm_head.
+PACKED_WEIGHTS = ("layers.0.attn.q_proj.weight", "layers.0.moe.experts.0.w1.weight",
+                  "layers.0.moe.experts.0.w2.weight", "lm_head.weight")
+# FP4's product against the f32 product of its dequantized weight: the same
+# f32 matmul on the same operands, so the same bits up to cuBLAS's choice of
+# algorithm: max|d| <= 1e-6 * max|y|.
+FP4_REL_TOL = 1e-6
+
+
+def native_packer(params, card_line):
+    """The native host packer (csrc/quantpack.cpp, built with g++) on four
+    full-width layer2 weights: bytes, scales and zero points equal the port's
+    quantize on the card, bit for bit, and come from the C++ library."""
+    if not native.native_available():
+        raise AssertionError("native packer: the C++ library did not build or load")
+    for key in PACKED_WEIGHTS:
+        w = params[key]
+        host = w.cpu().numpy()
+        calls = native.quantize_pack_planar.native_calls
+        t0 = time.perf_counter()
+        got = native.quantize_pack_planar(host)
+        secs = time.perf_counter() - t0
+        if native.quantize_pack_planar.native_calls != calls + 1:
+            raise AssertionError(f"native packer {key}: the bytes did not come from the library")
+        qt = quantize(w)
+        for name, a in zip(("packed", "scales", "zero_points"), got):
+            want = getattr(qt, name).cpu().numpy()
+            if not np.array_equal(a, want):
+                raise AssertionError(f"native packer {key} {tuple(w.shape)}: "
+                                     f"{int((a != want).sum())} {name} differ from quantize's")
+        print(f"native packer {key} {tuple(w.shape)}: packed bytes, scales and zero points == "
+              f"quantize on the card, bit for bit; {secs:.3f} s on the host's "
+              f"{os.cpu_count()} cores (card: {card_line})")
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in pathlib.Path(path).rglob("*") if f.is_file())
+
+
+def checkpoint_models(card_line, ref, device="cuda"):
+    """Save the default layer2 model (seed 0, phase 4's) and phase 7's
+    per-group-128 conversion, load each into a template built on the card
+    from another seed, and serve phase 4's 12 requests on each before the
+    save and after the load: the same weights and tokens, on K1/K2/K3 (per
+    group: K6/K12/K3) with no plain version. Returns the reloaded default
+    model."""
+    cfg = flagship_model_config("layer2")
+    pg = dict(granularity="per_group", group_size=128)
+    models = (
+        ("default", lambda seed: QuantizedTransformer.init(
+            cfg, generator=torch.Generator(device=device).manual_seed(seed), device=device),
+         _DEFAULT_KERNELS + ("int4_attention",),
+         ("int4_matmul_per_group_planar", "grouped_int4_matmul_per_group_planar")),
+        ("converted per_group128", lambda seed: convert_checkpoint(
+            SeededCheckpoint(cfg, device, seed=11 + seed), cfg, device=device, **pg),
+         ("int4_matmul_per_group_planar", "grouped_int4_matmul_per_group_planar",
+          "int4_attention"), _DEFAULT_KERNELS),
+    )
+    tmp = tempfile.mkdtemp(prefix="f4b_ckpt_")
+    try:
+        for name, make, launched, idle in models:
+            model = make(0)
+            _, eng, _ = serve(model, cfg, f"{name}, before the save", card_line)
+            before = dict(eng.finished)
+            if name == "default" and before != ref:
+                raise AssertionError("checkpoint [default]: the rebuilt model's tokens differ "
+                                     "from phase 4's")
+            path = os.path.join(tmp, name.replace(" ", "_"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            checkpoint.save(path, model)
+            save_s = time.perf_counter() - t0
+            template = make(1)
+            if same_weights(model, template):
+                raise AssertionError(f"checkpoint [{name}]: the template holds the same weights")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loaded = checkpoint.load(path, template)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            if loaded is not template or not same_weights(model, loaded):
+                raise AssertionError(f"checkpoint [{name}]: the loaded weights differ")
+            del model
+            launches, eng, _ = serve(loaded, cfg, f"{name}, reloaded", card_line)
+            _expect_launches(f"checkpoint [{name}] reloaded serve", launches, launched, idle)
+            differ = [uid for uid in before if eng.finished[uid] != before[uid]]
+            if differ:
+                raise AssertionError(f"checkpoint [{name}]: tokens differ after the reload for "
+                                     f"uids {differ}")
+            print(f"checkpoint [{name}] layer2: {_dir_bytes(path)} bytes on disk for nbytes "
+                  f"{loaded.nbytes}; save {save_s:.2f} s, load {load_s:.2f} s (host and card, "
+                  f"{card_line}); the reloaded model serves the 12 requests' tokens exactly")
+            shutil.rmtree(path)
+            if name == "default":
+                default = loaded
+            else:
+                del loaded
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return default, cfg
+
+
+def elastic_decode(model, cfg, card_line, device="cuda", b=8, prompt=8, steps=24):
+    """24 greedy decode steps of layer2 at batch 8 through elastic_loop: the
+    state is the KV caches (updated in place by each step), the last tokens
+    and the positions, saved every 8 steps, 2 kept. A step that raises once
+    at step 13, then a crash at step 17 with max_retries=0 and a relaunch
+    that must resume at 16: each run's tokens and final caches equal an
+    uninterrupted loop's bit for bit, on K1, K2 and K3."""
+    prompts = torch.from_numpy(np.random.default_rng(9).integers(1, cfg.vocab_size, (b, prompt)))
+    prompts = prompts.to(device)
+
+    def init_state():
+        caches = model.init_cache(cfg, b, 64)
+        logits, caches = model(prompts, caches, torch.arange(prompt, device=device))
+        return {"caches": caches, "tokens": logits[:, -1].argmax(-1, keepdim=True),
+                "positions": torch.full((b, 1), prompt, dtype=torch.int32, device=device)}
+
+    def step(state, i):
+        logits, caches = model(state["tokens"], state["caches"], state["positions"])
+        return {"caches": caches, "tokens": logits[:, -1].argmax(-1, keepdim=True),
+                "positions": state["positions"] + 1}
+
+    def faulty(at):
+        def f(state, i):
+            if i == at and at not in raised:
+                raised.add(at)
+                raise RuntimeError(f"injected fault at step {at}")
+            return step(state, i)
+        return f
+
+    raised = set()
+    with torch.no_grad():
+        want = init_state()
+        ref = {}
+        for i in range(steps):
+            want = step(want, i)
+            ref[i + 1] = want["tokens"][:, 0].cpu()
+        tmp = tempfile.mkdtemp(prefix="f4b_elastic_")
+        try:
+            runs = {}
+            for name in ("transient fault at step 13", "crash at step 17, relaunched"):
+                got, ckdir = {}, os.path.join(tmp, str(len(runs)))
+                kw = dict(ckpt_dir=ckdir, num_steps=steps, save_every=8, keep=2,
+                          on_step=lambda i, s: got.__setitem__(i, s["tokens"][:, 0].cpu()))
+                _reset_counts()
+                t0 = time.perf_counter()
+                if name.startswith("transient"):
+                    state, resumed = elastic_loop(faulty(13), init_state(), **kw)
+                else:
+                    try:
+                        elastic_loop(faulty(17), init_state(), max_retries=0, **kw)
+                        raise AssertionError("elastic: the crash at step 17 did not raise")
+                    except RuntimeError as exc:
+                        if "injected fault" not in str(exc):
+                            raise
+                    if latest_step(ckdir) != 16:
+                        raise AssertionError(f"elastic: newest checkpoint {latest_step(ckdir)} "
+                                             "after the crash, want 16")
+                    state, resumed = elastic_loop(step, init_state(), **kw)
+                    if resumed != 16:
+                        raise AssertionError(f"elastic: the relaunch resumed at {resumed}")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                _expect_launches(f"elastic [{name}]", _launch_counts(),
+                                 _DEFAULT_KERNELS + ("int4_attention",), ("paged_int4_attention",))
+                differ = [i for i in ref if not torch.equal(got.get(i, torch.empty(0)), ref[i])]
+                caches_equal = all(torch.equal(getattr(c, f), getattr(w, f))
+                                   for c, w in zip(state["caches"], want["caches"])
+                                   for f in QuantizedKVCache._FIELDS)
+                if differ or not caches_equal:
+                    raise AssertionError(f"elastic [{name}]: tokens differ at steps {differ}, "
+                                         f"caches equal {caches_equal}")
+                listing = sorted(os.listdir(ckdir))
+                runs[name] = resumed
+                print(f"elastic [{name}]: 24 decode steps of layer2 at batch 8, resumed from "
+                      f"{resumed}, checkpoints {listing}; every step's tokens and the final KV "
+                      f"caches equal the uninterrupted loop's bit for bit; {wall:.2f} s wall, "
+                      f"faults and relaunch included, on {card_line}")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
+def fp4_phase(params, card_line, device="cuda", e=8):
+    """FP4 on the card: expert 0's w1 gives the CPU's codes and scales bit for
+    bit; the whole gate stack's peak memory; fp4_matmul at M=8 against the
+    f32 product of the dequantized weight; FP4's and INT4-per-row's relative
+    error against the dense product."""
+    w1 = params["layers.0.moe.experts.0.w1.weight"]
+    on_card, on_cpu = quantize_fp4(w1), quantize_fp4(w1.cpu())
+    if not (torch.equal(on_card.codes.cpu(), on_cpu.codes)
+            and torch.equal(on_card.scale.cpu(), on_cpu.scale)):
+        raise AssertionError(f"fp4 {tuple(w1.shape)}: codes or scale on the card differ from "
+                             "the CPU's")
+    stack = torch.stack([params[f"layers.0.moe.experts.{i}.w1.weight"] for i in range(e)])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gate = quantize_fp4(stack)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    if not torch.equal(gate.codes[0], on_card.codes) or not torch.equal(gate.scale[0],
+                                                                          on_card.scale):
+        raise AssertionError("fp4: expert 0 of the stack differs from expert 0 alone")
+    print(f"fp4 gate stack {tuple(stack.shape)} f32 ({stack.numel() * 4 / 2**30:.2f} GiB): "
+          f"quantized in {secs:.3f} s, peak {peak / 2**30:.2f} GiB above the stack, codes "
+          f"{gate.codes.numel() / 2**30:.2f} GiB (ideal packed {gate.nbytes_ideal / 2**30:.2f} "
+          f"GiB), on {card_line}")
+    del stack, gate
+    gen = torch.Generator(device=device).manual_seed(4)
+    x = torch.randn((8, w1.shape[1]), generator=gen, device=device)
+    y = fp4_matmul(x, on_card)
+    ref = x @ dequantize_fp4(on_card).t()
+    err = (y - ref).abs().max().item()
+    if not (torch.isfinite(y).all() and err <= FP4_REL_TOL * ref.abs().max().item()):
+        raise AssertionError(f"fp4_matmul M=8: max|d| {err} against the dequantized product")
+    dense = x @ w1.t()
+    int4 = x @ dequantize(quantize(w1)).t()
+    rel = {name: ((a - dense).norm() / dense.norm()).item() for name, a in (("fp4", y),
+                                                                         ("int4", int4))}
+    print(f"fp4_matmul M=8 {tuple(w1.shape)}: max|d| {err:.3e} against the f32 product of the "
+          f"dequantized weight (tol {FP4_REL_TOL:g} * max|y|); relative error against the dense "
+          f"f32 product: FP4 per tensor {rel['fp4']:.4f}, INT4 per row {rel['int4']:.4f}")
+    return rel
+
+
+def quantized_dense(device="cuda"):
+    """QuantizedDense 4096 -> 14336 at M=8 (bf16): one K1 launch, no plain
+    version, and the output of QuantizedLinear on the same bytes, bit for bit."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    layer = QuantizedDense(4096, 14336, use_bias=True, generator=gen, device=device)
+    x = torch.randn((8, 4096), generator=gen, device=device).bfloat16()
+    _reset_counts()
+    y = layer(x)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    _expect_launches("QuantizedDense", launches, ("int4_matmul",), ())
+    if launches["int4_matmul"] != 1:
+        raise AssertionError(f"QuantizedDense: {launches['int4_matmul']} K1 launches, want 1")
+    if not torch.equal(y, QuantizedLinear(layer.weight, layer.bias)(x)):
+        raise AssertionError("QuantizedDense: output differs from QuantizedLinear's")
+    print(f"QuantizedDense 4096->14336 M=8 bf16: one K1 launch, equal to QuantizedLinear on the "
+          f"same bytes bit for bit, max|y| {y.abs().max().item():.3f}")
+
+
+def _kernel_counts(prof) -> dict:
+    """Launches per kernel counter of one traced run, from the kernel names
+    on the card's timeline (the profiler leaves names in anonymous
+    namespaces mangled): K1 and K2 are the linear body's RowScale
+    instantiations without and with grouped addressing (template flag
+    false / true, mangled Lb0E / Lb1E), K3 the attention body."""
+    def count(pred):
+        return sum(t.count for name, t in prof.by_op.items() if pred(name))
+
+    def row_scale(grouped):
+        flag = ("true", "Lb1E") if grouped else ("false", "Lb0E")
+        return lambda n: ("int4_mma_kernel" in n and "RowScale" in n
+                          and any(f in n for f in flag))
+
+    return {"int4_matmul": count(row_scale(False)),
+            "grouped_int4_matmul": count(row_scale(True)),
+            "int4_attention": count(lambda n: "int4_attention_mma_kernel" in n)}
+
+
+def utilities(model, cfg, results, card_line, device="cuda", b=8):
+    """device_op_times over one layer2 decode step (kernel counts equal the
+    launch counters), time_fn_scan on K1 at M=8 (its graph-replayed output
+    equals the eager call's), linear_roofline at phase 3's K1 shape (equals
+    its bound), and a 1 GiB device-to-device copy probe."""
+    gen = torch.Generator(device=device).manual_seed(6)
+    tokens = torch.randint(1, cfg.vocab_size, (b, 8), generator=gen, device=device)
+    with torch.no_grad():
+        caches = model.init_cache(cfg, b, 64)
+        logits, caches = model(tokens, caches, torch.arange(8, device=device))
+        nxt = logits[:, -1].argmax(-1, keepdim=True)
+        pos = torch.full((b, 1), 8, dtype=torch.int32, device=device)
+
+        def decode_step():
+            with annotate("decode_step"):
+                model(nxt, caches, pos)
+
+        decode_step()
+        _reset_counts()
+        with tempfile.TemporaryDirectory(prefix="f4b_trace_") as trace_dir:
+            prof = device_op_times(decode_step, trace_dir=trace_dir)
+        launches = {k: v for k, v in _launch_counts().items() if v}
+        counted = _kernel_counts(prof)
+        if counted != launches or _plain_calls():
+            names = {n: t.count for n, t in prof.by_op.items()}
+            raise AssertionError(f"device_op_times: kernel counts {counted} against launch "
+                                 f"counters {launches}; kernels on the card {names}")
+        print(f"device_op_times, one layer2 decode step at batch {b}: kernels {counted} == the "
+              f"launch counters; device {prof.total_ms:.4f} ms in kernels and copies, "
+              f"{prof.main_module_ms('decode_step'):.4f} ms from first to last kernel of the "
+              f"step, on {card_line}")
+
+        qt = model.blocks[0].attn.wq.weight
+        x = torch.randn((8, qt.in_dim), generator=gen, device=device).bfloat16()
+        seen_x, seen_y = torch.empty_like(x), torch.empty((8, qt.out_dim), dtype=x.dtype,
+                                                          device=device)
+
+        def recorded(xi, w):
+            seen_x.copy_(xi)
+            y = ops.int4_matmul(xi, w)
+            seen_y.copy_(y)
+            return y
+
+        time_fn_scan(recorded, x, consts=(qt,), iters=4, warmup=1, repeats=1)
+        eager = ops.int4_matmul(seen_x, qt)
+        if not (torch.equal(eager, seen_y) and seen_y.abs().sum().item() > 0):
+            raise AssertionError("time_fn_scan: K1's graph-replayed output differs from the "
+                                 "eager call's on the same input")
+        scan_ms = time_fn_scan(ops.int4_matmul, x, consts=(qt,), iters=50) * 1e3
+        event_ms = Timer(device)(lambda: ops.int4_matmul(x, qt))
+        print(f"time_fn_scan K1 M=8 N=K=4096 bf16: {scan_ms:.4f} ms per call (50 dependent "
+              f"calls in one CUDA graph, the carry's small kernels and a warm L2 included; "
+              f"the graph's output equals the eager call's bit for bit) against {event_ms:.4f} "
+              f"ms by CUDA events (L2 flushed), on {card_line}")
+
+        main_row = next(r for r in results if r["name"] == "int4_matmul"
+                        and r["shape"] == MAIN_SHAPE["int4_matmul"])
+        rep = linear_roofline(8, 4096, 4096, chip=H100_SXM)
+        if not np.isclose(rep.sol_latency_us / 1e3, main_row["bound_ms"], rtol=1e-9, atol=0):
+            raise AssertionError(f"linear_roofline: {rep.sol_latency_us / 1e3} ms against phase "
+                                 f"3's K1 bound {main_row['bound_ms']}")
+        print(f"linear_roofline(8, 4096, 4096, H100_SXM): {rep.sol_latency_us:.4f} us "
+              f"({rep.bound}-bound), phase 3's K1 bound {main_row['bound_ms'] * 1e3:.4f} us")
+
+        src = torch.empty(1 << 30, dtype=torch.uint8, device=device)
+        dst = torch.empty_like(src)
+        times = []
+        for i in range(12):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            dst.copy_(src)
+            end.record()
+            end.synchronize()
+            if i >= 2:
+                times.append(start.elapsed_time(end))
+        ms = statistics.median(times)
+        gbps = 2 * (1 << 30) / (ms / 1e3) / 1e9
+        print(f"copy probe: 1 GiB device to device in {ms:.4f} ms, {gbps:.1f} GB/s read + write "
+              f"({100 * gbps / H100_SXM.hbm_gbps:.1f} % of the data sheet's "
+              f"{H100_SXM.hbm_gbps:.0f} GB/s), on {card_line}")
+        del src, dst
+
+
+def persistence_and_utilities(card_line, ref, results, device="cuda"):
+    """Phase 10."""
+    t0 = time.perf_counter()
+    cfg = flagship_model_config("layer2")
+    params = SeededCheckpoint(cfg, device)
+    native_packer(params, card_line)
+    model, cfg = checkpoint_models(card_line, ref, device)
+    elastic_decode(model, cfg, card_line, device)
+    utilities(model, cfg, results, card_line, device)
+    del model
+    torch.cuda.empty_cache()
+    fp4_phase(params, card_line, device)
+    quantized_dense(device)
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card_line = require_card()
@@ -2120,6 +2528,7 @@ def main() -> None:
                           ("pg_turbo", as_pg_turbo)):
         whole_model(mode=mode, convert=convert)
     whole_model(paged=True)
+    persistence_and_utilities(card_line, ref, results)
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         rows = [r for r in results if r["name"] == name]

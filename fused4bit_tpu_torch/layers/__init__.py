@@ -1,3 +1,4 @@
+from .flax_compat import QuantizedDense
 from .kv_cache import QuantizedKVCache, dequantize_kv, quantize_kv
 from .linear import DenseLinear, QuantizedLinear
 from .paged_kv import PagedKVCache
@@ -20,6 +21,7 @@ __all__ = [
     "DispatchPlan",
     "MoEINT4",
     "PagedKVCache",
+    "QuantizedDense",
     "QuantizedKVCache",
     "QuantizedLinear",
     "QuantizedMoE",

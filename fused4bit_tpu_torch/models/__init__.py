@@ -13,7 +13,7 @@ from .dense_baseline import (
     dense_from_params,
     dense_from_quantized,
 )
-from .from_jax import kv_cache_from_jax, model_from_jax
+from .from_jax import fp4_from_jax, kv_cache_from_jax, model_from_jax, quantized_dense_from_jax
 from .safetensors_io import load_safetensors, save_safetensors
 from .transformer import (
     Attention,
@@ -49,11 +49,13 @@ __all__ = [
     "dense_from_params",
     "dense_from_quantized",
     "flagship_model_config",
+    "fp4_from_jax",
     "get_config_by_name",
     "kv_cache_from_jax",
     "load_safetensors",
     "model_from_jax",
     "quantize_dense_2d",
+    "quantized_dense_from_jax",
     "rms_norm",
     "rotary_embedding",
     "save_safetensors",

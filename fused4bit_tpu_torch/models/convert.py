@@ -12,10 +12,14 @@ kept in ``dtype``.
 Each weight is moved to ``device``, quantized there, and dropped before the
 next is read, so a full-width checkpoint never has to exist at once, on the
 host or on the card: a ``params`` mapping whose ``__getitem__`` loads or
-makes one weight at a time keeps the peak at one dense weight. The bytes are
-the JAX package's: per row, its native packer gives ``quantize``'s bytes
-(``tests/test_native.py``), which the port's ``quant.core.quantize``
-reproduces; per group, the planar layout as in JAX, which runs kernels K6
+makes one weight at a time keeps the peak at one dense weight. Per row, the
+bytes are ``quant.core.quantize``'s at every width, the JAX quantizer's bit
+for bit. JAX's ``convert_checkpoint`` packs per row with its native
+library, which multiplies by the scale's reciprocal: its bytes are these
+except where that arithmetic rounds a value next to a half-code boundary
+the other way (a few bytes of a full-width weight; the port's own packer,
+``native``, divides and gives these bytes). Per group, the planar layout as
+in JAX, which runs kernels K6
 (linears) and K12 (experts) where ``gs % 128 == 0`` divides K/2 and the
 golden path otherwise; per tensor, the planar layout, which runs the golden
 path (and the integer GEMMs under ``as_u4_turbo`` at prefill), as in JAX.

@@ -16,8 +16,10 @@ the site raises. The planar, interleaved and block_planar layouts hold the
 same shapes, so the layout of those bytes is named by ``layout``. A linear
 the JAX model holds dense (``DenseLinear``: the router and, with
 ``quantize_lm_head=False``, the lm_head of ``models.convert``) has a
-``.weight`` leaf of its own and is read as the port's ``DenseLinear``. This
-module imports no JAX.
+``.weight`` leaf of its own and is read as the port's ``DenseLinear``. The
+same holds for the smaller JAX types: an ``FP4Tensor``
+(:func:`fp4_from_jax`) and the variables of a flax ``QuantizedDense``
+(:func:`quantized_dense_from_jax`). This module imports no JAX.
 """
 from __future__ import annotations
 
@@ -27,12 +29,14 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..layers.flax_compat import QuantizedDense
 from ..layers.kv_cache import QuantizedKVCache
 from ..layers.linear import DenseLinear, QuantizedLinear
 from ..layers.moe import MoEINT4
 from ..layers.paged_kv import PagedKVCache
 from ..ops.int8_xla import Int8Resident
 from ..quant.core import QuantizedTensor
+from ..quant.fp4 import FP4Tensor
 from .config import ModelConfig
 from .transformer import (
     Attention,
@@ -45,7 +49,7 @@ from .transformer import (
     as_xla_turbo,
 )
 
-__all__ = ["model_from_jax", "kv_cache_from_jax"]
+__all__ = ["model_from_jax", "kv_cache_from_jax", "fp4_from_jax", "quantized_dense_from_jax"]
 
 Params = Dict[str, np.ndarray]
 
@@ -150,6 +154,13 @@ def _experts(read: _Reader, prefix: str, with_w8: bool) -> MoEINT4:
     return MoEINT4(_qt(read, f"{prefix}.weight", 1), w8=_w8(read, prefix, with_w8))
 
 
+def _all_read(read: _Reader, what: str) -> None:
+    unread = sorted(set(read.params) - read.used)
+    if unread:
+        raise ValueError(f"{what} left {len(unread)} leaves unconsumed: "
+                         f"{unread[:8]}{' ...' if len(unread) > 8 else ''}")
+
+
 def model_from_jax(params: Params, cfg: ModelConfig, device=None, *, mode: str = "kernel",
                    layout: str = "planar", block_k: Optional[int] = None
                    ) -> QuantizedTransformer:
@@ -200,12 +211,7 @@ def model_from_jax(params: Params, cfg: ModelConfig, device=None, *, mode: str =
         read(".embed"), blocks, read(".final_norm"), _linear(read, ".lm_head", with_w8),
         rms_eps=cfg.rms_eps,
     )
-    unread = sorted(set(params) - read.used)
-    if unread:
-        raise ValueError(
-            f"model_from_jax(mode={mode!r}) left {len(unread)} leaves unconsumed: "
-            f"{unread[:8]}{' ...' if len(unread) > 8 else ''}"
-        )
+    _all_read(read, f"model_from_jax(mode={mode!r})")
     if mode in _PER_GROUP_MODES:
         if len(read.group_sizes) > 1:
             raise ValueError(f"per-group leaves of several group sizes {sorted(read.group_sizes)}")
@@ -222,3 +228,31 @@ def kv_cache_from_jax(params: Params, prefix: str = "",
     device = resolve_device(device)
     cls = PagedKVCache if f"{prefix}.page_table" in params else QuantizedKVCache
     return cls(*(_tensor(params[f"{prefix}.{f}"], device) for f in cls._FIELDS))
+
+
+def fp4_from_jax(params: Params, prefix: str = "", device=None) -> FP4Tensor:
+    """The port's ``FP4Tensor`` holding a JAX ``FP4Tensor``'s leaves
+    (``{prefix}.codes``, ``{prefix}.scale``) byte for byte; the static
+    ``shape`` is the codes' shape. ``device`` None means the CUDA card."""
+    device = resolve_device(device)
+    codes, scale = (_tensor(params[f"{prefix}.{f}"], device) for f in ("codes", "scale"))
+    if codes.dtype != torch.uint8 or tuple(scale.shape) != tuple(codes.shape[:-2]):
+        raise ValueError(f"{prefix}: codes {tuple(codes.shape)} {codes.dtype} and scale "
+                         f"{tuple(scale.shape)} are not an FP4Tensor's")
+    return FP4Tensor(codes, scale.float(), tuple(codes.shape))
+
+
+def quantized_dense_from_jax(params: Params, device=None) -> QuantizedDense:
+    """The port's ``QuantizedDense`` holding the variables of a JAX
+    ``QuantizedDense`` (``model.init``'s dict, flattened by keypath:
+    ``['quantized']['weight'].packed`` and its scales and zero points, and
+    ``['params']['bias']`` with ``use_bias``), byte for byte. Raises on a
+    leaf it does not read or a weight that is not per_row planar [N, K/2].
+    ``device`` None means the CUDA card."""
+    read = _Reader(params, resolve_device(device), False, "planar", None)
+    weight = _qt(read, "['quantized']['weight']", 0)
+    if weight.granularity != "per_row":
+        raise ValueError(f"QuantizedDense weights are per_row, got {weight.granularity}")
+    layer = QuantizedDense.from_weight(weight, read.get("['params']['bias']"))
+    _all_read(read, "quantized_dense_from_jax")
+    return layer

@@ -127,16 +127,33 @@ Phases, each of which raises on failure:
      bytes); count one decode step's kernels with device_op_times against
      the launch counters, replay K1 in a CUDA graph (time_fn_scan; equal to
      the eager call), hold linear_roofline to phase 3's K1 bound, and time
-     a 1 GiB device-to-device copy.
+     a 1 GiB device-to-device copy;
+ 11. the parallel layer (fused4bit_tpu_torch.parallel) on a world-size-1 NCCL
+     group, mesh (data, expert) = (1, 1): sharded_decode_step on the placed
+     default model and on its as_per_group conversion (an 8 x 8 prefill and
+     one decode step at batch 8) equal to the model's forward bit for bit,
+     with wall and device ms per decode step of both; ServingEngine(mesh=...)
+     on phase 4's 12 requests against the single-card engine's tokens (where
+     they differ, the differing requests' prefill logits held to the model
+     bar); the per-rank bodies of a D-way split, D = 2 and 4, one after
+     another: EP-replicated on the gate stack (K2, and K13 per group) summed
+     in rank order by the module's own summation code, TP on a 4096 -> 14336
+     weight (K1) concatenated in rank order, each within the bf16 kernel bar
+     of the single-card product; and the world-size-1 collectives
+     (moe_ep_replicated, tp_int4_matmul) equal to it bit for bit. K1, K2, K3
+     and K13 must launch and no plain version run; the group is destroyed at
+     the end, also on failure.
 The line before the last is a JSON summary of the kernels, with each
 kernel's launches counted over the phase that drives it (4, 5 or 7; K3' over
-the first paged serve); the last
+the first paged serve) and, beside them, its launches in phase 11's parallel
+calls (``parallel_launches``); the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import datetime
 import functools
 import json
 import os
@@ -152,6 +169,7 @@ import torch
 import torch.nn.functional as F
 
 from fused4bit_tpu_torch import native, ops
+from fused4bit_tpu_torch import parallel as par
 from fused4bit_tpu_torch.layers import (
     MoEINT4,
     PagedKVCache,
@@ -180,6 +198,7 @@ from fused4bit_tpu_torch.models import (
 from fused4bit_tpu_torch.ops import _build
 from fused4bit_tpu_torch.ops.grouped_matmul import _ksplit_mma_launch, _ksplit_splits
 from fused4bit_tpu_torch.ops.int4_matmul import (
+    _MMA_TALL_M,
     _a8_mma_launch,
     _fold_mma_launch,
     _k7_on_tensor_cores,
@@ -195,6 +214,7 @@ from fused4bit_tpu_torch.quant import (
     quantize_fp4,
     unpack_planar,
 )
+from fused4bit_tpu_torch.parallel import multihost
 from fused4bit_tpu_torch.serving import GenerationRequest, ServingEngine, speculative_generate
 from fused4bit_tpu_torch.utils import (
     H100_SXM,
@@ -1417,6 +1437,23 @@ def _generated(eng) -> int:
     return sum(map(len, eng.generated.values())) + sum(map(len, eng.finished.values()))
 
 
+def _serve_loop(eng):
+    """Step ``eng`` until every request is done. Returns the wall ms of each
+    pure decode step (no admission) and the number of steps in which a
+    request waited in the queue beside a free slot."""
+    decode_ms, waits = [], 0
+    with torch.no_grad():
+        while eng.active or eng.queue:
+            queued = len(eng.queue)
+            s0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            if len(eng.queue) == queued:  # no admission: a pure decode step
+                decode_ms.append((time.perf_counter() - s0) * 1e3)
+            waits += bool(eng.queue) and len(eng.active) < eng.num_slots
+    return decode_ms, waits
+
+
 def serve(model, cfg, mode, card_line="", reqs=None, **engine_kw):
     """The continuous-batching server on ``reqs`` (phase 4's 12 requests by
     default), 8 slots, max_seq 256, prefill bucket 32; ``engine_kw`` picks
@@ -1430,17 +1467,8 @@ def serve(model, cfg, mode, card_line="", reqs=None, **engine_kw):
     for r in reqs:
         eng.submit(r)
     _reset_counts()
-    decode_ms, waits = [], 0
     t0 = time.perf_counter()
-    with torch.no_grad():
-        while eng.active or eng.queue:
-            queued = len(eng.queue)
-            s0 = time.perf_counter()
-            eng.step()
-            torch.cuda.synchronize()
-            if len(eng.queue) == queued:  # no admission: a pure decode step
-                decode_ms.append((time.perf_counter() - s0) * 1e3)
-            waits += bool(eng.queue) and len(eng.active) < eng.num_slots
+    decode_ms, waits = _serve_loop(eng)
     wall = time.perf_counter() - t0
     launches = _launch_counts()
     for r in reqs:
@@ -2462,6 +2490,321 @@ def persistence_and_utilities(card_line, ref, results, device="cuda"):
     print(f"phase 10: {time.perf_counter() - t0:.1f} s")
 
 
+# --- phase 11: the parallel layer ------------------------------------------------
+#
+# One card: the world-size-1 NCCL group runs the sharded path end to end (every
+# sum and gather over one rank: the same bits as the model's own forward), and
+# the per-rank bodies of a D-way split run one after another and meet in the
+# module's own summation code. Their bar against the single-card product is the
+# kernels' bf16 bar (BF16_REL_TOL of the largest output): EP sums the D partials
+# in bf16 in rank order where one combine sums a token's pairs, and TP's shards
+# launch K1 at another N.
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _counted(fn, counts):
+    """``fn()`` with the launch counters reset before and added to ``counts``
+    after; raises if a plain version ran."""
+    _reset_counts()
+    out = fn()
+    if _plain_calls():
+        raise AssertionError(f"phase 11: a plain version ran {_plain_calls()} times")
+    for k, v in _launch_counts().items():
+        counts[k] = counts.get(k, 0) + v
+    return out
+
+
+def _sync(device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def sharded_step_vs_forward(model, cfg, mesh, name, counts, card_line, device="cuda", b=8,
+                            prompt=8):
+    """sharded_decode_step on the placed model against the model's own
+    forward: an 8-token prefill and one decode step at batch 8, logits and
+    caches bit for bit; on the card, wall and device ms per decode step of
+    both."""
+    placed = par.place_model(model, mesh)
+    gen = torch.Generator(device=device).manual_seed(11)
+    tokens = torch.randint(1, cfg.vocab_size, (b, prompt), generator=gen, device=device)
+    positions = torch.arange(prompt, dtype=torch.int32, device=device)[None].expand(b, prompt)
+    caches_m, caches_s = model.init_cache(cfg, b, 64), placed.init_cache(cfg, b, 64)
+    with torch.no_grad():
+        want, caches_m = model(tokens, caches_m, positions)
+        got, caches_s = _counted(lambda: par.sharded_decode_step(placed, mesh, tokens, caches_s,
+                                                                 positions), counts)
+        nxt = want[:, -1].argmax(dim=-1, keepdim=True).to(torch.int32)
+        pos = torch.full((b, 1), prompt, dtype=torch.int32, device=device)
+        want1, caches_m = model(nxt, caches_m, pos)
+        got1, caches_s = _counted(lambda: par.sharded_decode_step(placed, mesh, nxt, caches_s,
+                                                                  pos), counts)
+        _sync(device)
+        same_caches = all(torch.equal(getattr(cm, f), getattr(cs, f))
+                          for cm, cs in zip(caches_m, caches_s) for f in cm._FIELDS)
+        if not (torch.equal(got, want) and torch.equal(got1, want1) and same_caches):
+            raise AssertionError(f"sharded step [{name}]: differs from the model's forward "
+                                 f"(prefill max|d| {(got.float() - want.float()).abs().max()}, "
+                                 f"decode {(got1.float() - want1.float()).abs().max()}, caches "
+                                 f"{'equal' if same_caches else 'differ'})")
+        msg = (f"sharded step [{name}], mesh (data, expert) = (1, 1) on "
+               f"{torch.distributed.get_backend()}: prefill {b} x {prompt} and one decode step "
+               f"equal to the model's forward bit for bit (logits, caches)")
+        if device != "cuda":
+            print(msg)
+            return
+        steps = {"forward": lambda: model(nxt, caches_m, pos),
+                 "sharded": lambda: par.sharded_decode_step(placed, mesh, nxt, caches_s, pos)}
+        wall = {k: [] for k in steps}
+        for _ in range(20):   # alternating, each step ended by a synchronize
+            for k, fn in steps.items():
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall[k].append((time.perf_counter() - t0) * 1e3)
+        dev = {}
+        for k, fn in steps.items():
+            with tempfile.TemporaryDirectory(prefix="f4b_trace_") as trace_dir:
+                prof = device_op_times(lambda: [fn() for _ in range(10)], trace_dir=trace_dir)
+            dev[k] = prof.total_ms / 10
+    print(f"{msg}; decode step wall ms (median of 20) forward {statistics.median(wall['forward']):.3f}, "
+          f"sharded {statistics.median(wall['sharded']):.3f}; device ms in kernels and copies "
+          f"(10 steps traced) forward {dev['forward']:.4f}, sharded {dev['sharded']:.4f}, "
+          f"on {card_line}")
+
+
+def _expert_slice(qt, r, d):
+    """Rank r's experts of a D-way split of a stacked QuantizedTensor."""
+    e = qt.shape[0] // d
+    return dataclasses.replace(qt, packed=qt.packed[r * e:(r + 1) * e],
+                               scales=qt.scales[r * e:(r + 1) * e],
+                               zero_points=qt.zero_points[r * e:(r + 1) * e],
+                               shape=(e,) + tuple(qt.shape[1:]))
+
+
+def _row_slice(qt, r, d):
+    """Rank r's output rows of a D-way column-parallel split of [N, K]."""
+    n = qt.out_dim // d
+    return dataclasses.replace(qt, packed=qt.packed[r * n:(r + 1) * n],
+                               scales=qt.scales[r * n:(r + 1) * n],
+                               zero_points=qt.zero_points[r * n:(r + 1) * n],
+                               shape=(n, qt.in_dim))
+
+
+def _within_bar(what, got, want):
+    err = (got.float() - want.float()).abs().max().item()
+    tol = BF16_REL_TOL * want.float().abs().max().item()
+    if not (torch.isfinite(got).all() and err <= tol):
+        raise AssertionError(f"{what}: max|d| {err} above {tol}")
+    return err, tol
+
+
+def split_bodies(model, pg, mesh, counts, device="cuda", t=8):
+    """The per-rank bodies of a D-way split, D = 2 and 4, one after another:
+    EP-replicated on the first block's gate stack (K2; K13 per group of 128)
+    summed in rank order by the module's own summation code, and TP on expert
+    0's 4096 -> 14336 gate weight (K1) concatenated in rank order, each
+    against the single-card product; and the collective versions at world
+    size 1, equal to it bit for bit."""
+    gen = torch.Generator(device=device).manual_seed(12)
+    qt = model.blocks[0].moe.w_gate.weight
+    e, hidden = qt.shape[0], qt.in_dim
+    x = torch.randn((t, hidden), generator=gen, device=device).bfloat16()
+    logits = torch.randn((t, e), generator=gen, device=device)
+    kw = dict(top_k=2, tile_m=16)
+    with torch.no_grad():
+        for label, stack in (("EP K2", qt), ("EP K13", pg.blocks[0].moe.w_gate.weight)):
+            whole = _counted(lambda: par.moe_ep_replicated_body(0, 1, x, logits, stack, **kw),
+                             counts)
+            world1 = _counted(lambda: par.moe_ep_replicated(x, logits, stack, mesh,
+                                                            axis="expert", **kw), counts)
+            if not torch.equal(world1, whole):
+                raise AssertionError(f"{label}: moe_ep_replicated at world size 1 differs")
+            for d in (2, 4):
+                parts = [_counted(lambda: par.moe_ep_replicated_body(
+                    r, d, x, logits, _expert_slice(stack, r, d), **kw), counts) for r in range(d)]
+                err, tol = _within_bar(f"{label} D={d}", par.sum_in_rank_order(parts), whole)
+                print(f"{label} D={d}: {d} bodies (E_local {e // d}) summed in rank order vs "
+                      f"the single-card product: max|d| {err:.5f} <= {tol:.5f}")
+        w2d = dataclasses.replace(qt, packed=qt.packed[0], scales=qt.scales[0],
+                                  zero_points=qt.zero_points[0], shape=tuple(qt.shape[1:]))
+        whole = _counted(lambda: par.tp_int4_matmul_body(x, w2d), counts)
+        world1 = _counted(lambda: par.tp_int4_matmul(x, w2d, mesh, axis="expert"), counts)
+        if not torch.equal(world1, whole):
+            raise AssertionError("TP K1: tp_int4_matmul at world size 1 differs")
+        for d in (2, 4):
+            parts = [_counted(lambda: par.tp_int4_matmul_body(x, _row_slice(w2d, r, d)),
+                              counts) for r in range(d)]
+            err, tol = _within_bar(f"TP K1 D={d}", torch.cat(parts, dim=-1), whole)
+            print(f"TP K1 D={d}: {d} shards of N={w2d.out_dim // d} concatenated in rank order "
+                  f"vs the single-card product: max|d| {err:.5f} <= {tol:.5f}")
+
+
+def _prefill_last_logits(forward, caches, prompt, row, b, device, bucket=32, max_seq=256):
+    """The last prompt position's logits of a chunked prefill of ``prompt`` in
+    row ``row`` of a batch of ``b``, the other rows parked in the last bucket,
+    as the engines run it (b = 1: the single-card engine's batch-1 forward)."""
+    n = len(prompt)
+    for c in range(-(-n // bucket)):
+        chunk = prompt[c * bucket:(c + 1) * bucket]
+        tokens = torch.zeros((b, bucket), dtype=torch.int32, device=device)
+        tokens[row, :len(chunk)] = torch.tensor(chunk, dtype=torch.int32, device=device)
+        starts = torch.full((b,), max_seq - bucket, dtype=torch.int32, device=device)
+        starts[row] = c * bucket
+        positions = starts[:, None] + torch.arange(bucket, dtype=torch.int32, device=device)
+        logits = forward(tokens, caches, positions)
+    return logits[row, len(chunk) - 1].float()
+
+
+def mesh_step_host_costs(mesh, cfg, card_line, b=8, n=200):
+    """Wall us per call, at world size 1, of what the mesh decode step adds
+    to the model's forward: the fixed-order sum over `expert` of a [B, 1, H]
+    bf16 partial and the local filter of a [B, 2] routing (once per MoE
+    block each), and the logits gather over `data` (once a step); each over
+    ``n`` calls ended by one synchronize."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    part = torch.randn((b, 1, cfg.num_heads * cfg.head_dim), generator=gen,
+                       device="cuda").bfloat16()
+    logits = torch.randn((b, 1, cfg.vocab_size), generator=gen, device="cuda").bfloat16()
+    e = cfg.moe.num_experts
+    idx = torch.randint(0, e, (b, 2), generator=gen, device="cuda", dtype=torch.int32)
+    w = torch.rand((b, 2), generator=gen, device="cuda")
+    calls = {"psum over expert": lambda: par.psum(part, mesh, "expert"),
+             "local_routing": lambda: par.expert_parallel.local_routing(idx, w, 0, e),
+             "logits gather over data": lambda: par.mesh.all_gather_dim(logits, mesh, "data", 0)}
+    us = {}
+    for name, fn in calls.items():
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        us[name] = (time.perf_counter() - t0) * 1e6 / n
+    layers = cfg.num_layers
+    per_step = (layers * (us["psum over expert"] + us["local_routing"])
+                + us["logits gather over data"])
+    print("mesh step host costs at world size 1, us per call: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in us.items()) + f"; {layers} MoE blocks a step: "
+        f"{per_step / 1e3:.3f} ms a decode step, on {card_line}")
+
+
+def decode_ms_alternating(model, placed, cfg, mesh, card_line, rounds=3):
+    """The single-card and the mesh engine on phase 4's 12 requests, serves
+    alternating, ``rounds`` each: each serve's median decode ms/step, and
+    the spread over the serves."""
+    runs = {"single-card": [], "mesh": []}
+    for _ in range(rounds):
+        for name, m, kw in (("single-card", model, {}), ("mesh", placed, {"mesh": mesh})):
+            eng = ServingEngine(m, cfg, num_slots=8, max_seq=256, prefill_bucket=32, **kw)
+            for r in phase4_requests(cfg):
+                eng.submit(r)
+            runs[name].append(statistics.median(_serve_loop(eng)[0]))
+    print("serve [mesh (1, 1)] vs single-card, " + "; ".join(
+        f"{name}: decode ms/step (median of each serve) "
+        f"{', '.join(f'{v:.3f}' for v in vals)}, spread {max(vals) - min(vals):.3f}"
+        for name, vals in runs.items()) + f"; {rounds} serves each, alternating, on {card_line}")
+
+
+def serve_mesh(model, cfg, mesh, ref, counts, card_line, device="cuda"):
+    """ServingEngine(mesh=...) on phase 4's 12 requests against the
+    single-card engine's tokens. Where they differ, the mesh engine's
+    full-batch prefill (8 x 32 rows) went through K1's tall launch
+    (ops.int4_matmul._MMA_TALL_M) where the single-card prefill (32 rows)
+    took the decode launch: the differing requests' prefill logits are then
+    held to the model bar (MODEL_REL_TOL of their max, the first token in the
+    single-card top-2)."""
+    placed = par.place_model(model, mesh)
+    launches, eng, _ = serve(placed, cfg, "mesh (1, 1)", card_line, mesh=mesh)
+    _expect_launches("serve [mesh]", launches,
+                     ("int4_matmul", "grouped_int4_matmul", "int4_attention"),
+                     ("grouped_int4_matmul_ksplit", "paged_int4_attention"))
+    for k, v in launches.items():
+        counts[k] = counts.get(k, 0) + v
+    if device == "cuda":
+        decode_ms_alternating(model, placed, cfg, mesh, card_line)
+    got = eng.finished
+    differ = [uid for uid in ref if got[uid] != ref[uid]]
+    if not differ:
+        print(f"serve [mesh (1, 1)]: all {len(ref)} requests' tokens equal the single-card "
+              f"engine's")
+        return
+    first = {uid: next(i for i, (a, b) in enumerate(zip(got[uid], ref[uid])) if a != b)
+             for uid in differ}
+    print(f"serve [mesh (1, 1)]: {len(ref) - len(differ)} of {len(ref)} requests' tokens equal "
+          f"the single-card engine's; uid: first differing token {first}")
+    prompts = {r.uid: r.prompt for r in phase4_requests(cfg)}
+    worst, same_as_model = 0.0, True
+    with torch.no_grad():
+        for uid in differ:
+            want = _prefill_last_logits(lambda *a: model(*a)[0], model.init_cache(cfg, 1, 256),
+                                        prompts[uid], 0, 1, device)
+            mesh_fwd = lambda *a: par.sharded_decode_step(placed, mesh, *a)[0]   # noqa: E731
+            have = _prefill_last_logits(mesh_fwd, placed.init_cache(cfg, 8, 256), prompts[uid],
+                                        3, 8, device)
+            # the model's own forward on the same full batch
+            full = _prefill_last_logits(lambda *a: model(*a)[0], model.init_cache(cfg, 8, 256),
+                                        prompts[uid], 3, 8, device)
+            same_as_model &= torch.equal(have, full)
+            err = (have - want).abs().max().item()
+            tol = MODEL_REL_TOL * want.abs().max().item()
+            worst = max(worst, err / tol)
+            if err > tol or got[uid][0] not in want.topk(2).indices.tolist():
+                raise AssertionError(f"serve [mesh]: uid {uid} prefill logits max|d| {err} "
+                                     f"(tol {tol}), first token {got[uid][0]} not in the "
+                                     f"single-card top-2 {want.topk(2).indices.tolist()}")
+    gen = torch.Generator(device=device).manual_seed(13)
+    x = torch.randn((8 * 32, cfg.num_heads * cfg.head_dim), generator=gen, device=device)
+    wq = model.blocks[0].attn.wq.weight
+    rows_same = torch.equal(ops.int4_matmul(x.bfloat16(), wq)[:32],
+                            ops.int4_matmul(x[:32].bfloat16(), wq))
+    print(f"serve [mesh (1, 1)]: the differing requests' prefill logits within the model bar, "
+          f"worst max|d|/tol {worst:.3f}, first tokens in the single-card top-2; the mesh "
+          f"prefill's logits {'equal' if same_as_model else 'differ from'} the model's own "
+          f"forward on the same 8-row batch bit for bit; K1's rows 0-31 at {8 * 32} rows (the "
+          f"tall launch above {_MMA_TALL_M} rows) {'equal' if rows_same else 'differ from'} "
+          f"those of a 32-row call (the decode launch)")
+
+
+def parallel_layer(card_line, ref, device="cuda", scale="layer2"):
+    """Phase 11: the parallel layer on one card. Returns the kernel launches
+    of its parallel-path calls."""
+    t0 = time.perf_counter()
+    on_card = device == "cuda"
+    multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0,
+                         device_type="cuda" if on_card else "cpu",
+                         timeout=datetime.timedelta(seconds=120))
+    counts: dict = {}
+    try:
+        mesh = par.make_mesh(("data", "expert"), (1, 1), device_type="cuda" if on_card else "cpu")
+        model, cfg = build_layer2(device, scale)
+        pg = as_per_group(model)
+        for name, m in (("default", model), ("per_group", pg)):
+            sharded_step_vs_forward(m, cfg, mesh, name, counts, card_line, device)
+        if on_card:
+            mesh_step_host_costs(mesh, cfg, card_line)
+        serve_mesh(model, cfg, mesh, ref, counts, card_line, device)
+        split_bodies(model, pg, mesh, counts, device)
+        _sync(device)
+    finally:
+        torch.distributed.destroy_process_group()
+    missing = [k for k in ("int4_matmul", "grouped_int4_matmul", "int4_attention",
+                           "grouped_int4_matmul_per_group") if not counts.get(k)]
+    if missing:
+        raise AssertionError(f"phase 11: never launched {missing}: {counts}")
+    print(f"phase 11: kernel launches {dict((k, v) for k, v in counts.items() if v)}, no plain "
+          f"version; {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card_line = require_card()
@@ -2529,12 +2872,15 @@ def main() -> None:
         whole_model(mode=mode, convert=convert)
     whole_model(paged=True)
     persistence_and_utilities(card_line, ref, results)
+    parallel_launches = parallel_layer(card_line, ref)
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         rows = [r for r in results if r["name"] == name]
         main_row = next(r for r in rows if r["shape"] == MAIN_SHAPE[name])
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=launches[name], max_abs_err=max(r["err"] for r in rows),
+                            launches=launches[name],
+                            parallel_launches=parallel_launches.get(name, 0),
+                            max_abs_err=max(r["err"] for r in rows),
                             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
                             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
                             library_ms=main_row["library_ms"]))

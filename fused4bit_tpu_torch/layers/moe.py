@@ -221,7 +221,12 @@ class MoEINT4(nn.Module):
     then a float32 matmul per expert, through the counted plain versions
     ``ops.grouped_int4_matmul_reference`` (per-group:
     ``ops.grouped_int4_matmul_per_group_reference``). ``w8``: the
-    i8-resident copy the xla_turbo capacity path runs on."""
+    i8-resident copy the xla_turbo capacity path runs on.
+
+    A module placed on a mesh (``parallel.place_model``) holds E_local of
+    the stack's experts: ``shape`` stays the whole stack's, as the JAX
+    package's static metadata does, and :attr:`weight` is the view of the
+    experts it holds."""
 
     def __init__(self, weight: QuantizedTensor, *, activation: str = "bf16",
                  use_kernel: bool = True, w8: Optional[Int8Resident] = None):
@@ -257,7 +262,8 @@ class MoEINT4(nn.Module):
 
     @property
     def weight(self) -> QuantizedTensor:
-        return QuantizedTensor(self.packed, self.scales, self.zero_points, self.shape,
+        shape = (self.packed.shape[0],) + tuple(self.shape[1:])
+        return QuantizedTensor(self.packed, self.scales, self.zero_points, shape,
                                granularity=self.granularity, layout=self.layout,
                                block_k=self.block_k, group_size=self.group_size,
                                bits=self.bits)

@@ -204,8 +204,10 @@ class SeededCheckpoint(Mapping):
         shape = self.shapes[key]
         if key.endswith("norm.weight"):
             return torch.ones(shape, device=self.device)
+        # seed and key hashed within 32 bits: the CPU generator keeps only
+        # the low 32 bits of its seed
         gen = torch.Generator(device=self.device).manual_seed(
-            self.seed * 2 ** 32 + zlib.crc32(key.encode()))
+            zlib.crc32(f"{self.seed}:{key}".encode()))
         scale = 0.02 if key == "embed.weight" else shape[-1] ** -0.5
         return torch.randn(shape, generator=gen, device=self.device) * scale
 

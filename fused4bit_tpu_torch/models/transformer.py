@@ -206,8 +206,9 @@ class MoEBlock(nn.Module):
         return out.reshape(b, t, h)
 
     def _grouped_forward(self, xf, routing, tile_m: int) -> torch.Tensor:
-        """Dropless path: tile-packed dispatch -> grouped kernel -> combine."""
-        plan = make_dispatch_plan(routing, self.num_experts, tile_m=tile_m)
+        """Dropless path: tile-packed dispatch -> grouped kernel -> combine,
+        over the routing's experts."""
+        plan = make_dispatch_plan(routing, routing.tokens_per_expert.shape[0], tile_m=tile_m)
         xs = dispatch(xf, routing, plan)                       # [T_pad, H]
         g = self.w_gate(xs, plan.tile_group_ids, tile_m=tile_m)
         u = self.w_up(xs, plan.tile_group_ids, tile_m=tile_m)
@@ -230,7 +231,7 @@ class MoEBlock(nn.Module):
         copies (xla_turbo)."""
         cap, plan = self._capacity_plan(xf, routing)
         xs = dispatch(xf, routing, plan)                       # [E*C, H]
-        xe = xs.reshape(self.num_experts, cap, -1)
+        xe = xs.reshape(-1, cap, xs.shape[1])
         if transient:
             def mm(a, lin):
                 return int4_grouped_transient(a, lin.weight)
@@ -241,19 +242,19 @@ class MoEBlock(nn.Module):
         u = mm(xe, self.w_up)
         hsw = (F.silu(g.float()) * u.float()).to(xs.dtype)
         d = mm(hsw, self.w_down)
-        return combine(d.reshape(self.num_experts * cap, -1), routing, plan)
+        return combine(d.reshape(xs.shape), routing, plan)
 
     def _prefill_forward(self, xf, routing) -> torch.Tensor:
         """Capacity layout + dequantize-once einsums (prefill_impl="einsum")."""
         cap, plan = self._capacity_plan(xf, routing)
         xs = dispatch(xf, routing, plan)
-        xe = xs.reshape(self.num_experts, cap, -1)
+        xe = xs.reshape(-1, cap, xs.shape[1])
         dt = xs.dtype
         g = torch.einsum("ech,enh->ecn", xe, dequantize(self.w_gate.weight, dtype=dt))
         u = torch.einsum("ech,enh->ecn", xe, dequantize(self.w_up.weight, dtype=dt))
         hsw = (F.silu(g.float()) * u.float()).to(dt)
         d = torch.einsum("ecn,ehn->ech", hsw, dequantize(self.w_down.weight, dtype=dt))
-        return combine(d.reshape(self.num_experts * cap, -1), routing, plan)
+        return combine(d.reshape(xs.shape), routing, plan)
 
 
 class TransformerBlock(nn.Module):

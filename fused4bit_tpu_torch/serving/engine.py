@@ -18,10 +18,14 @@ Counterpart of ``fused4bit_tpu/serving/engine.py``:
   control (a request waits at the head of the queue until retirements free
   enough pages) and prefix caching (requests whose prompts share full pages
   share the physical pages and skip their prefill);
-* ``draft_model``: speculative rounds (``serving.speculative``), greedy.
+* ``draft_model``: speculative rounds (``serving.speculative``), greedy;
+* ``mesh``: every forward through the sharded model step
+  (``parallel.sharded_decode_step``: DP batch x EP experts). Every rank runs
+  this same scheduler on the same requests, holds the caches of its `data`
+  shard of the slots, and samples from the same gathered logits.
 
 PyTorch runs eagerly: every prefill chunk and decode step is one call of
-the model. Mesh mode is not ported yet and raises ``NotImplementedError``.
+the model.
 """
 from __future__ import annotations
 
@@ -32,7 +36,10 @@ from typing import Callable, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
+from ..parallel.mesh import axis_index, axis_size
+from ..parallel.sharded_model import sharded_decode_step
 from .speculative import SpecStats, SpeculativeDecoder, _rollback
 
 __all__ = ["GenerationRequest", "Sampler", "ServingEngine"]
@@ -113,7 +120,17 @@ class ServingEngine:
         draft_cfg=None,
         spec_gamma: int = 4,
     ):
-        """``decode_block``: decode steps per :meth:`step`, run as one loop
+        """``mesh``: a ``DeviceMesh`` with a `data` and an `expert` axis
+        (``parallel.make_mesh``); ``model`` must be placed on it
+        (``parallel.place_model``) and ``num_slots`` must divide by the
+        `data` size. Rank d of `data` holds the caches of slots
+        [d * num_slots / D, (d + 1) * num_slots / D). A prefill chunk runs
+        the full batch, every other row parked in the reserved tail
+        [max_seq - prefill_bucket, max_seq) and its length rewound, so each
+        request's budget keeps ``prefill_bucket`` positions clear. Paged and
+        speculative serving are single-card.
+
+        ``decode_block``: decode steps per :meth:`step`, run as one loop
         over device tensors (sampling and the EOS/budget masks on the
         device) with one device-to-host copy at the end; slots that finish
         mid-block idle, parked, until the block ends.
@@ -142,11 +159,26 @@ class ServingEngine:
         self.prefill_bucket = prefill_bucket
         self.sampler = sampler
         self.device = model.device
+        self.mesh = mesh
+        data, data_index = 1, 0
+        if mesh is not None:
+            if paged:
+                raise ValueError("paged KV is single-chip for now (no mesh)")
+            if draft_model is not None:
+                raise ValueError("speculative serving is single-chip contiguous-cache for now")
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(f"mesh must be a DeviceMesh (parallel.make_mesh), got "
+                                f"{type(mesh).__name__}")
+            if "data" in mesh.mesh_dim_names:
+                data, data_index = axis_size(mesh, "data"), axis_index(mesh, "data")
+        if num_slots % data:
+            raise ValueError(f"num_slots ({num_slots}) must divide by the mesh's data size "
+                             f"({data})")
+        self._local_slots = num_slots // data
+        self._first_slot = data_index * self._local_slots   # of the caches this rank holds
 
         self.paged = paged
         if paged:
-            if mesh is not None:
-                raise ValueError("paged KV is single-chip for now (no mesh)")
             if page_size % prefill_bucket != 0:
                 raise ValueError(
                     f"page_size ({page_size}) must be a multiple of prefill_bucket "
@@ -183,7 +215,7 @@ class ServingEngine:
                                                  page_size=page_size,
                                                  max_pages_per_slot=max_pages)
         else:
-            self.caches = model.init_cache(cfg, num_slots, max_seq)
+            self.caches = model.init_cache(cfg, self._local_slots, max_seq)
         self.queue: Deque[GenerationRequest] = deque()
         self.active: Dict[int, GenerationRequest] = {}   # slot -> request
         self.generated: Dict[int, List[int]] = {}        # uid -> tokens
@@ -201,7 +233,7 @@ class ServingEngine:
         if draft_model is not None:
             if decode_block > 1:
                 raise ValueError("draft_model replaces decode_block; use one")
-            if mesh is not None or paged:
+            if paged:
                 raise ValueError("speculative serving is single-chip contiguous-cache for now")
             if sampler.temperature != 0.0:
                 raise ValueError("speculative serving is greedy-only (temperature=0)")
@@ -212,8 +244,6 @@ class ServingEngine:
             self.draft_caches = draft_model.init_cache(self.draft_cfg, num_slots, max_seq)
         if decode_block < 1:
             raise ValueError(f"decode_block must be >= 1, got {decode_block}")
-        if mesh is not None:
-            raise NotImplementedError(f"mesh={mesh!r} is not ported yet")
         self.decode_block = decode_block
         self._free = list(range(num_slots))
         self._cur = np.zeros((num_slots,), np.int32)     # last token per slot
@@ -226,6 +256,44 @@ class ServingEngine:
         self._deferred_cancels: List[int] = []
 
     # -- model calls ---------------------------------------------------------
+
+    def _forward(self, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """One forward of every slot: tokens and positions [B, T] of all
+        slots; returns the logits [B, T, V] and updates ``self.caches``."""
+        if self.mesh is None:
+            logits, self.caches = self.model(tokens, self.caches, positions)
+            return logits
+        rows = slice(self._first_slot, self._first_slot + self._local_slots)
+        logits, self.caches = sharded_decode_step(self.model, self.mesh, tokens[rows],
+                                                  self.caches, positions[rows])
+        return logits
+
+    def _cache_row(self, slot: int) -> Optional[int]:
+        """The row of ``slot`` in this rank's caches (None: another rank's)."""
+        row = slot - self._first_slot
+        return row if 0 <= row < self._local_slots else None
+
+    def _prefill_sharded(self, prompt_row: torch.Tensor, slot: int, start_pos: int):
+        """Mesh-mode prefill of one chunk: the full batch through the sharded
+        step (slicing one slot would fight the data split). The target row
+        carries the chunk at [start_pos, start_pos + bucket); every other row
+        runs zeros parked at [max_seq - bucket, max_seq), a region no live
+        row reaches (the budgets keep it clear), and its length is rewound
+        afterwards. Returns the target row's logits [bucket, V]."""
+        t = prompt_row.shape[0]
+        b = self.num_slots
+        tokens = torch.zeros((b, t), dtype=torch.int32, device=self.device)
+        tokens[slot] = prompt_row
+        starts = torch.full((b,), self.max_seq - t, dtype=torch.int32, device=self.device)
+        starts[slot] = start_pos
+        positions = starts[:, None] + torch.arange(t, dtype=torch.int32, device=self.device)
+        old = [c.lengths.clone() for c in self.caches]
+        logits = self._forward(tokens, positions)
+        row = self._cache_row(slot)
+        target = torch.arange(self._local_slots, device=self.device) == (-1 if row is None else row)
+        for c, o in zip(self.caches, old):
+            c.lengths.copy_(torch.where(target, c.lengths, o))
+        return logits[slot]
 
     def _prefill_impl(self, model, caches, prompt_row: torch.Tensor, slot: int,
                       start_pos: int):
@@ -254,7 +322,7 @@ class ServingEngine:
         cur, pos, remaining, eos, act = state.unbind(0)
         toks, acts, lps = [], [], []
         for _ in range(self.decode_block):
-            logits, self.caches = self.model(cur[:, None], self.caches, pos[:, None])
+            logits = self._forward(cur[:, None], pos[:, None])
             active = act.bool()
             nxt = torch.where(active, self.sampler.sample(logits[:, 0], self._generator), 0)
             lps.append(_logprob_of(logits[:, 0], nxt))
@@ -280,7 +348,8 @@ class ServingEngine:
             prompt = np.asarray(req.prompt, np.int32)
             true_len = len(prompt)
             bucket = self.prefill_bucket
-            reserved = 0
+            # mesh mode: the parked rows of every prefill write the last bucket
+            reserved = bucket if self.mesh is not None else 0
             if self.draft_model is not None:
                 # spec rounds write up to gamma+1 positions past `pos`
                 reserved += self._spec.gamma + 1
@@ -370,13 +439,18 @@ class ServingEngine:
                 start = shared_len + c * bucket
                 chunk = prompt[start: min(start + bucket, true_len)]
                 padded = torch.from_numpy(np.pad(chunk, (0, bucket - len(chunk)))).to(self.device)
-                logits_all, self.caches = self._prefill_impl(self.model, self.caches, padded,
-                                                             slot, start)
+                if self.mesh is not None:
+                    logits_all = self._prefill_sharded(padded, slot, start)
+                else:
+                    logits_all, self.caches = self._prefill_impl(self.model, self.caches, padded,
+                                                                 slot, start)
                 if self.draft_model is not None:
                     _, self.draft_caches = self._prefill_impl(self.draft_model, self.draft_caches,
                                                               padded, slot, start)
-            for c in self.caches:  # rewind the padded tail
-                c.lengths[slot] = true_len
+            row = self._cache_row(slot)
+            if row is not None:
+                for c in self.caches:  # rewind the padded tail
+                    c.lengths[row] = true_len
             if self.draft_model is not None:
                 for c in self.draft_caches:
                     c.lengths[slot] = true_len
@@ -403,7 +477,9 @@ class ServingEngine:
         req = self.active.pop(slot)
         self.finished[req.uid] = self.generated.pop(req.uid)
         self.finished_logprobs[req.uid] = self.logprobs.pop(req.uid, [])
-        self.caches = tuple(c.reset_slot(slot) for c in self.caches)
+        row = self._cache_row(slot)
+        if row is not None:
+            self.caches = tuple(c.reset_slot(row) for c in self.caches)
         if self.draft_model is not None:
             self.draft_caches = tuple(c.reset_slot(slot) for c in self.draft_caches)
             # park the retired slot at position 0: spec rounds write

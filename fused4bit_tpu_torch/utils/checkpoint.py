@@ -22,8 +22,18 @@ difference raises ``ValueError`` and nothing is loaded. Each tensor goes to
 the device of its counterpart in the template. An ``nn.Module`` in the
 template is loaded IN PLACE (``load_state_dict``, strict) and returned, the
 torch idiom; every other tensor comes back as a new tensor, and the
-template's own tensors stay as they were. JAX's ``shardings=`` argument (a
-restore onto a device mesh) waits for the port of ``parallel/``.
+template's own tensors stay as they were.
+
+Sharded state (``parallel``): ``shardings`` names, per tensor, the mesh
+axis and dim it is split on (``parallel.sharding.Shard``; None: whole), in
+a tree that follows the state's: a ``Shard`` for a whole subtree, a dict by
+``state_dict`` name for a module (``parallel.model_pspecs``), dicts, lists
+and tuples of the state's shape, a dict by field name for a dataclass. A
+checkpoint always holds whole tensors: :func:`save` all-gathers each split
+tensor over its axis (every rank calls it; rank 0 writes), and :func:`load`
+gives each rank its slice, so a state saved under one mesh restores under
+another, another `data` size included (JAX's Orbax restore with
+``shardings``).
 """
 from __future__ import annotations
 
@@ -72,7 +82,9 @@ def _flatten(tree: Any, path: str, tensors: Dict[str, torch.Tensor], scalars: Di
     elif isinstance(tree, nn.Module):
         static[path] = ("module",)
         for name, sub in tree.named_modules():
-            static[f"{path}:{name}"] = (type(sub).__name__, _module_attrs(sub))
+            # a module holding a share of another (parallel.EPMoEBlock) names it
+            kind = getattr(type(sub), "checkpoint_class", type(sub).__name__)
+            static[f"{path}:{name}"] = (kind, _module_attrs(sub))
         for k, t in tree.state_dict().items():
             tensors[f"{path}:{k}"] = t
     elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
@@ -126,14 +138,45 @@ def _fsync_dir(path: str) -> None:
         os.close(fd)
 
 
-def save(path: str, tree: Any) -> None:
-    """Write ``tree`` to the directory ``path``, which must not exist yet."""
-    path = os.path.abspath(os.path.expanduser(path))
+def _specs(tree: Any, spec: Any, path: str, out: Dict[str, Any]) -> None:
+    """The ``Shard`` of each tensor path of ``tree`` under ``shardings``."""
+    from ..parallel.sharding import Shard
+
+    if spec is None:
+        return
+    if isinstance(spec, Shard):
+        tensors: Dict[str, torch.Tensor] = {}
+        _flatten(tree, path, tensors, {}, {})
+        out.update(dict.fromkeys(tensors, spec))
+    elif isinstance(tree, nn.Module):
+        out.update({f"{path}:{k}": s for k, s in spec.items()})
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            _specs(getattr(tree, f.name), spec.get(f.name), f"{path}.{f.name}", out)
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            _specs(v, spec.get(k), f"{path}[{k!r}]", out)
+    elif isinstance(tree, (list, tuple)):
+        if len(spec) != len(tree):
+            raise ValueError(f"{path or 'tree'}: {len(spec)} shardings for {len(tree)} items")
+        for i, (v, s) in enumerate(zip(tree, spec)):
+            _specs(v, s, f"{path}[{i}]", out)
+    else:
+        raise TypeError(f"{path or 'tree'}: a {type(tree).__name__} takes no sharding {spec!r}")
+
+
+def _sharded(tree: Any, shardings: Any, mesh) -> Dict[str, Any]:
+    specs: Dict[str, Any] = {}
+    if shardings is not None:
+        if mesh is None:
+            raise ValueError("shardings need the mesh they name axes of")
+        _specs(tree, shardings, "", specs)
+    return specs
+
+
+def _write(path: str, tensors, scalars, static, carried) -> None:
     if os.path.exists(path):
         raise FileExistsError(f"checkpoint destination {path} already exists")
-    tensors, scalars, static, carried = {}, {}, {}, {}
-    _flatten(tree, "", tensors, scalars, static)
-    _carried(tree, "", carried)
     payload = dict(format=_FORMAT, static=static, scalars=scalars, carried=carried,
                    # a copy of just the tensor's elements, never a view's whole storage
                    tensors={k: t.detach().to("cpu", copy=True) for k, t in tensors.items()})
@@ -150,6 +193,46 @@ def save(path: str, tree: Any) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     _fsync_dir(parent)
+
+
+def _written(ok: bool, mesh) -> bool:
+    """Rank 0's ``ok``, on every rank, once rank 0 has written (or failed)."""
+    from ..parallel.mesh import local_device
+
+    flag = torch.tensor([int(ok)], dtype=torch.int32, device=local_device(mesh))
+    torch.distributed.broadcast(flag, src=0)
+    return bool(flag.item())
+
+
+def save(path: str, tree: Any, shardings: Any = None, mesh=None) -> None:
+    """Write ``tree`` to the directory ``path``, which must not exist yet.
+
+    With ``shardings`` (over ``mesh``), ``tree`` is this rank's share: every
+    rank calls :func:`save` (a None leaf of ``shardings``: the same on
+    every rank), the split tensors are gathered whole, rank 0 alone checks
+    ``path`` and writes, and every rank returns once the checkpoint is in
+    place, or raises if rank 0 could not write it."""
+    from ..parallel.sharding import unshard_tensor
+
+    path = os.path.abspath(os.path.expanduser(path))
+    specs = _sharded(tree, shardings, mesh)
+    tensors, scalars, static, carried = {}, {}, {}, {}
+    _flatten(tree, "", tensors, scalars, static)
+    _carried(tree, "", carried)
+    if shardings is None:
+        _write(path, tensors, scalars, static, carried)
+        return
+    tensors = {k: unshard_tensor(t, mesh, specs.get(k)) for k, t in tensors.items()}
+    if torch.distributed.get_rank() != 0:
+        if not _written(True, mesh):
+            raise RuntimeError(f"rank 0 could not write the checkpoint {path}")
+        return
+    ok = False
+    try:
+        _write(path, tensors, scalars, static, carried)
+        ok = True
+    finally:
+        _written(ok, mesh)
 
 
 def _check(path: str, payload: dict, tensors, scalars, static) -> None:
@@ -207,14 +290,24 @@ def _build(tree: Any, path: str, payload: dict) -> Any:
     return payload["scalars"][path]
 
 
-def load(path: str, template: Any) -> Any:
+def load(path: str, template: Any, shardings: Any = None, mesh=None) -> Any:
     """Restore a checkpoint written by :func:`save` into ``template``'s
     structure (a tree of the same kind, built with the same configuration;
     its tensor values are ignored). Raises ``ValueError`` and loads nothing
-    when the checkpoint does not fit the template."""
+    when the checkpoint does not fit the template.
+
+    With ``shardings`` (over ``mesh``), ``template`` is this rank's share
+    (``parallel.place_model`` of a model, the rank's caches): each split
+    tensor of the checkpoint is cut to the rank's slice before it is held to
+    the template's."""
+    from ..parallel.sharding import shard_tensor
+
     path = os.path.abspath(os.path.expanduser(path))
     payload = torch.load(os.path.join(path, _FILE), map_location="cpu", weights_only=True)
     tensors, scalars, static = {}, {}, {}
     _flatten(template, "", tensors, scalars, static)
+    for k, spec in _sharded(template, shardings, mesh).items():
+        if spec is not None and k in payload["tensors"]:
+            payload["tensors"][k] = shard_tensor(payload["tensors"][k], mesh, spec)
     _check(path, payload, tensors, scalars, static)
     return _build(template, "", payload)

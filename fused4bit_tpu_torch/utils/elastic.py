@@ -24,9 +24,12 @@ Multi-process (``torch.distributed`` initialized with a world size above
 1): in-process retry is DISABLED (``max_retries`` is forced to 0), because
 one process rolling back while its peers go on would pair collectives at
 mismatched steps; the recovery is to relaunch every process, and all resume
-from the newest complete checkpoint. The state must be the same on every
-process (a sharded state waits for the port of ``parallel/``): rank 0 alone
-saves and prunes, into a ``ckpt_dir`` on storage every process reads.
+from the newest complete checkpoint. Rank 0 alone writes and prunes, into
+a ``ckpt_dir`` on storage every process reads. A state that is the same on
+every process is saved by rank 0 alone; a sharded one (``shardings`` over
+``mesh``, as :func:`checkpoint.save` and :func:`checkpoint.load` take them)
+is gathered whole by every rank, written by rank 0, and each rank restores
+its own slice, under this mesh or another.
 """
 from __future__ import annotations
 
@@ -89,6 +92,8 @@ def elastic_loop(
     save_every: int = 100,
     keep: int = 2,
     max_retries: int = 3,
+    shardings: Any = None,
+    mesh=None,
     on_step: Optional[Callable[[int, Any], None]] = None,
 ) -> Tuple[Any, int]:
     """Run ``state = step_fn(state, i)`` for ``i in [0, num_steps)``,
@@ -96,8 +101,9 @@ def elastic_loop(
 
     Returns ``(final_state, resumed_from)``, ``resumed_from`` being the step
     the loop started at (0 for a fresh run). ``init_state`` is the restore
-    template too (``checkpoint.load``). ``on_step(i, state)`` is called
-    after each step with the count of steps done.
+    template too (``checkpoint.load``); ``shardings`` and ``mesh``: the
+    state's split over a mesh, for its saves and restores. ``on_step(i,
+    state)`` is called after each step with the count of steps done.
     """
     world, rank = _world()
     if world > 1:
@@ -107,7 +113,8 @@ def elastic_loop(
 
     def restore(step: int) -> Any:
         # a copy as the template: a module in it is loaded in place
-        return ckpt.load(os.path.join(ckpt_dir, f"step_{step}"), copy.deepcopy(pristine))
+        return ckpt.load(os.path.join(ckpt_dir, f"step_{step}"), copy.deepcopy(pristine),
+                         shardings, mesh)
 
     start = latest_step(ckpt_dir)
     if start is not None:
@@ -135,8 +142,9 @@ def elastic_loop(
         if on_step is not None:
             on_step(i, state)
         if i % save_every == 0 or i == num_steps:
+            if shardings is not None or rank == 0:
+                ckpt.save(os.path.join(ckpt_dir, f"step_{i}"), state, shardings, mesh)
             if rank == 0:
-                ckpt.save(os.path.join(ckpt_dir, f"step_{i}"), state)
                 prune_checkpoints(ckpt_dir, keep)
             retries = 0
     return state, resumed_from

@@ -82,6 +82,8 @@ def test_cancel_and_sampler(tiny):
 
 @pytest.mark.parametrize("kw", [dict(mesh=object())])
 def test_unported_modes_raise(tiny, kw):
+    """Mesh mode is ported (tests/test_torch_mesh_engine.py); a mesh that is
+    not a DeviceMesh raises."""
     model, cfg = tiny
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ServingEngine(model, cfg, num_slots=1, max_seq=32, prefill_bucket=8, **kw)

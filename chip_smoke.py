@@ -143,10 +143,19 @@ Phases, each of which raises on failure:
      (moe_ep_replicated, tp_int4_matmul) equal to it bit for bit. K1, K2, K3
      and K13 must launch and no plain version run; the group is destroyed at
      the end, also on failure.
+ 12. the graft entry points (fused4bit_tpu_torch.graft_entry): entry() on
+     the card, its step's logits within the model bar of a CPU copy (K1, K2
+     and K3 launched, no plain version); dryrun_multichip over the cards
+     (one rank per card, NCCL; one rank on one card), every check of its
+     nine parts printed beside its bar and the rank's launches (K1, K2 and
+     K3, no plain version); and moe_ep_a2a, moe_ep_a2a_dropless and
+     moe_ep_ring beside moe_ep_replicated at layer2's gate stack (8 experts,
+     4096 -> 14336, bf16, T=8) on a world-size-1 NCCL group, each within the
+     bf16 bar of the single-card grouped product, with wall ms a call.
 The line before the last is a JSON summary of the kernels, with each
 kernel's launches counted over the phase that drives it (4, 5 or 7; K3' over
 the first paged serve) and, beside them, its launches in phase 11's parallel
-calls (``parallel_launches``); the last
+calls (``parallel_launches``) and in phase 12 (``graft_launches``); the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -214,6 +223,7 @@ from fused4bit_tpu_torch.quant import (
     quantize_fp4,
     unpack_planar,
 )
+from fused4bit_tpu_torch.graft_entry import decode_step, dryrun_multichip, entry
 from fused4bit_tpu_torch.parallel import multihost
 from fused4bit_tpu_torch.serving import GenerationRequest, ServingEngine, speculative_generate
 from fused4bit_tpu_torch.utils import (
@@ -1346,57 +1356,12 @@ def check_kernels(device="cuda", timing=True):
     return results
 
 
-_REFERENCES = (ops.int4_matmul_reference, ops.grouped_int4_matmul_reference,
-               ops.int4_attention_reference, ops.paged_int4_attention_reference,
-               ops.int4_matmul_a8_reference,
-               ops.grouped_int4_matmul_a8_reference, ops.int4_matmul_per_group_reference,
-               ops.int4_matmul_per_group_a8_reference,
-               ops.grouped_int4_matmul_per_group_reference,
-               ops.grouped_int4_matmul_per_group_a8_reference,
-               ops.int4_matmul_per_group_planar_reference,
-               ops.grouped_int4_matmul_per_group_planar_reference)
 # the per-group kernels, each with one launch counter
 _PG_OPS = (ops.int4_matmul_per_group, ops.int4_matmul_per_group_a8,
            ops.grouped_int4_matmul_per_group, ops.grouped_int4_matmul_per_group_a8)
 _PATH_CALLS = (ops.int4_linear_transient, ops.int4_grouped_transient, ops.int8_linear,
                ops.int8_grouped_capacity)
-
-
-def _reset_counts():
-    ops.int4_matmul.launches = 0
-    ops.grouped_int4_matmul.launches = 0
-    ops.int4_attention.launches = 0
-    ops.paged_int4_attention.launches = 0
-    for fn in (ops.int4_matmul_a8, ops.grouped_int4_matmul_a8):
-        fn.launches = fn.fused_launches = 0
-    for fn in _PG_OPS:
-        fn.launches = 0
-    ops.int4_matmul_per_group.planar_launches = 0
-    ops.grouped_int4_matmul_per_group.planar_launches = 0
-    ops.grouped_int4_matmul.ksplit_launches = 0
-    for fn in _REFERENCES + _PATH_CALLS:
-        fn.calls = 0
-
-
-def _launch_counts() -> dict:
-    return {
-        "int4_matmul": ops.int4_matmul.launches,
-        "grouped_int4_matmul": ops.grouped_int4_matmul.launches,
-        "int4_attention": ops.int4_attention.launches,
-        "paged_int4_attention": ops.paged_int4_attention.launches,
-        "int4_matmul_a8": ops.int4_matmul_a8.launches,
-        "int4_matmul_a8_fused": ops.int4_matmul_a8.fused_launches,
-        "grouped_int4_matmul_a8": ops.grouped_int4_matmul_a8.launches,
-        "grouped_int4_matmul_a8_fused": ops.grouped_int4_matmul_a8.fused_launches,
-        **{fn.__name__: fn.launches for fn in _PG_OPS},
-        "int4_matmul_per_group_planar": ops.int4_matmul_per_group.planar_launches,
-        "grouped_int4_matmul_ksplit": ops.grouped_int4_matmul.ksplit_launches,
-        "grouped_int4_matmul_per_group_planar": ops.grouped_int4_matmul_per_group.planar_launches,
-    }
-
-
-def _plain_calls() -> int:
-    return sum(fn.calls for fn in _REFERENCES)
+_reset_counts, _launch_counts, _plain_calls = ops.reset_counts, ops.launch_counts, ops.plain_calls
 
 
 def _expect_launches(what, launches, launched, idle):
@@ -2805,6 +2770,140 @@ def parallel_layer(card_line, ref, device="cuda", scale="layer2"):
     return counts
 
 
+# --- phase 12: the graft entry points -------------------------------------------
+#
+# graft_entry.entry() and dryrun_multichip(n), the port's twins of the root's
+# __graft_entry__.py. The twin's ranks are processes of their own (NCCL takes
+# one rank per card), so their launches come back in each rank's report. Its
+# geometry is JAX's and tiny; the a2a, dropless and ring EP strategies also
+# run here at layer2's width on a world-size-1 group, against the single-card
+# grouped product.
+
+_PATH_KERNELS = ("int4_matmul", "grouped_int4_matmul", "int4_attention")   # K1, K2, K3
+
+
+def _add(counts, launches):
+    for k, v in launches.items():
+        counts[k] = counts.get(k, 0) + v
+
+
+def entry_on_card(card_line, counts):
+    """entry() with no device: the tiny model drawn on the CPU and copied to
+    the card; its step's logits against a CPU copy's within the model bar,
+    K1, K2 and K3 launched and no plain version."""
+    fn, (tokens, caches, positions) = entry()
+    cfg = flagship_model_config("tiny")
+    cpu = copy.deepcopy(fn.args[0]).cpu()
+    ref = decode_step(cpu, tokens.cpu(), cpu.init_cache(cfg, 2, 32), positions.cpu()).float()
+    _reset_counts()
+    got = fn(tokens, caches, positions)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    _expect_launches("entry()", launches, _PATH_KERNELS, ())
+    _add(counts, launches)
+    got = got.float().cpu()
+    err = (got - ref).abs().max().item()
+    tol = MODEL_REL_TOL * ref.abs().max().item()
+    top2 = ref[:, -1].topk(2, dim=-1).indices
+    nxt = got[:, -1].argmax(dim=-1)
+    if got.shape != (2, 1, cfg.vocab_size) or not (err <= tol) or not all(
+            nxt[i] in top2[i] for i in range(2)):
+        raise AssertionError(f"entry(): logits {tuple(got.shape)} max|d| {err} (tol {tol}), "
+                             f"argmax {nxt.tolist()} vs CPU top-2 {top2.tolist()}")
+    print(f"entry() on the card: logits {tuple(got.shape)} vs a CPU copy max|d| {err:.5f} <= "
+          f"{tol:.5f}, argmax in the CPU top-2; launches "
+          f"{dict((k, v) for k, v in launches.items() if v)}, no plain version, on {card_line}")
+
+
+def multichip_twin(card_line, counts):
+    """dryrun_multichip over every card (a power of two dividing 16): each
+    rank's checks beside their bars, its launches and seconds."""
+    n = max(d for d in (1, 2, 4, 8, 16) if d <= torch.cuda.device_count())
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reports = dryrun_multichip(n)
+    wall = time.perf_counter() - t0
+    for rep in reports:
+        for c in rep["checks"]:
+            if c["max_abs_diff"] is None:
+                verdict = f"{c['requests']} requests, {c['tokens_each']} tokens each"
+            elif c["bar"] is None:
+                verdict = f"max|d| {c['max_abs_diff']} (bit for bit)"
+            else:
+                verdict = f"max|d| {c['max_abs_diff']:.3e} < {c['bar']}"
+            print(f"dryrun_multichip({n}) rank {rep['rank']} part {c['part']} {c['name']}: "
+                  f"{verdict}")
+        missing = [k for k in _PATH_KERNELS if not rep["launches"][k]]
+        if missing or rep["plain_calls"]:
+            raise AssertionError(f"dryrun_multichip rank {rep['rank']}: never launched {missing}, "
+                                 f"{rep['plain_calls']} plain-version calls")
+        _add(counts, rep["launches"])
+        print(f"dryrun_multichip({n}) rank {rep['rank']} on {rep['device']} ({rep['backend']}): "
+              f"launches {dict((k, v) for k, v in rep['launches'].items() if v)}, plain calls "
+              f"{rep['plain_calls']}; parts {rep['total_seconds']:.2f} s ("
+              + ", ".join(f"{k} {v:.2f}" for k, v in rep["seconds"].items()) + ")")
+    print(f"dryrun_multichip({n}): {wall:.1f} s wall with the ranks' start, on {card_line}")
+
+
+def full_width_ep(card_line, counts, e=8, ffn=14336, hidden=4096, t=8, n=50):
+    """moe_ep_replicated, moe_ep_a2a (capacity factor 2: no pair drops at one
+    rank), moe_ep_a2a_dropless and moe_ep_ring on a world-size-1 NCCL group
+    at layer2's gate stack (8 experts, 4096 -> 14336, bf16) and T=8 decode
+    rows, each against the single-card grouped product
+    (moe_ep_replicated_body on the whole stack) within the bf16 bar; wall ms
+    a call over ``n`` calls ended by one synchronize."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    qt = quantize(torch.randn((e, ffn, hidden), generator=gen, device="cuda") * hidden ** -0.5,
+                  layout="planar")
+    x = torch.randn((t, hidden), generator=gen, device="cuda").bfloat16()
+    logits = torch.randn((t, e), generator=gen, device="cuda")
+    kw = dict(top_k=2, tile_m=16)
+    multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device_type="cuda",
+                         timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = par.make_mesh(("expert",), (1,), device_type="cuda")
+        calls = {"moe_ep_replicated": lambda: par.moe_ep_replicated(x, logits, qt, mesh, **kw),
+                 "moe_ep_a2a": lambda: par.moe_ep_a2a(x, logits, qt, mesh, **kw),
+                 "moe_ep_a2a_dropless": lambda: par.moe_ep_a2a_dropless(x, logits, qt, mesh, **kw),
+                 "moe_ep_ring": lambda: par.moe_ep_ring(x, logits, qt, mesh, **kw)}
+        with torch.no_grad():
+            whole = par.moe_ep_replicated_body(0, 1, x, logits, qt, **kw)
+            for name, fn in calls.items():
+                _reset_counts()
+                got = fn()
+                torch.cuda.synchronize()
+                launches = _launch_counts()
+                _expect_launches(f"full width {name}", launches, ("grouped_int4_matmul",), ())
+                _add(counts, launches)
+                err, tol = _within_bar(f"full width {name}", got, whole)
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3 / n
+                print(f"full width {name} at world size 1 ({e} experts {hidden} -> {ffn}, T={t}, "
+                      f"bf16): max|d| {err:.5f} <= {tol:.5f} vs the single-card grouped product"
+                      f"{' (bit for bit)' if torch.equal(got, whole) else ''}; {ms:.3f} ms a call "
+                      f"(wall, {n} calls), on {card_line}")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def graft_entry_phase(card_line):
+    """Phase 12. Returns the kernel launches of its three parts."""
+    t0 = time.perf_counter()
+    counts: dict = {}
+    entry_on_card(card_line, counts)
+    multichip_twin(card_line, counts)
+    full_width_ep(card_line, counts)
+    print(f"phase 12: kernel launches {dict((k, v) for k, v in counts.items() if v)}, no plain "
+          f"version; {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card_line = require_card()
@@ -2873,6 +2972,7 @@ def main() -> None:
     whole_model(paged=True)
     persistence_and_utilities(card_line, ref, results)
     parallel_launches = parallel_layer(card_line, ref)
+    graft_launches = graft_entry_phase(card_line)
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         rows = [r for r in results if r["name"] == name]
@@ -2880,6 +2980,7 @@ def main() -> None:
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=launches[name],
                             parallel_launches=parallel_launches.get(name, 0),
+                            graft_launches=graft_launches.get(name, 0),
                             max_abs_err=max(r["err"] for r in rows),
                             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
                             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],

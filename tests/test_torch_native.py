@@ -112,3 +112,18 @@ def test_rejects_odd_k_and_non_matrices():
         native.quantize_pack_planar(np.zeros((2, 3), np.float32))
     with pytest.raises(ValueError):
         native.quantize_pack_planar(np.zeros((2, 3, 4), np.float32))
+
+
+def test_every_csrc_file_is_package_data():
+    """An installed copy of the port holds every source it builds at first
+    use: the CUDA kernels and the native packer's csrc/quantpack.cpp."""
+    import fnmatch
+    import pathlib
+    import tomllib
+
+    root = pathlib.Path(native.__file__).resolve().parent
+    with open(root.parent / "pyproject.toml", "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"]["fused4bit_tpu_torch"]
+    files = [p.relative_to(root).as_posix() for p in (root / "csrc").iterdir() if p.is_file()]
+    assert "csrc/quantpack.cpp" in files
+    assert [f for f in files if not any(fnmatch.fnmatch(f, g) for g in globs)] == []

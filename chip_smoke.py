@@ -152,14 +152,36 @@ Phases, each of which raises on failure:
      moe_ep_ring beside moe_ep_replicated at layer2's gate stack (8 experts,
      4096 -> 14336, bf16, T=8) on a world-size-1 NCCL group, each within the
      bf16 bar of the single-card grouped product, with wall ms a call.
+ 13. the bench twin (fused4bit_tpu_torch.bench): bench.run() at full
+     geometry (`layer2` and `small`, batch 8, 24 steps, 4 repeats): the
+     INT4 model in the default, u4_turbo and xla_turbo modes and its
+     dense_all bf16 twin, then at `small` the INT4 model and its gather and
+     dense_all twins, each loop captured in one CUDA graph. For each loop
+     the graph's tokens must equal the eager decode_loop's from the same
+     first token, an INT4 loop's caches after a replay must hold the eager
+     loop's bytes, and a captured step must launch what
+     bench_step_launches reads from the code (K1 11, K2 6, K3 2 at
+     `layer2` in the default mode; K5 11, K10 6, K3 2 under u4_turbo; K2
+     6, K3 2 and 11 int8 linears under xla_turbo), no plain version; every
+     device ms must be a number. The default mode's loops (`layer2` and
+     `small`) hold K1, K2 and K3 against their plain versions at the loop's
+     own shapes: one more eager step in which every K1 and K2 call is made
+     again through its wrapper on the same inputs, and K3 on each layer's
+     cache after it (bf16 bars; these launches are not counted). One replay of each loop is traced under
+     torch.profiler (annotate("loop")): its main kernels must number the
+     graph's launches. Prints each loop's graph and eager wall ms per step,
+     its device ms per step by CUDA events beside the profiler's range, and
+     the twin's JSON line.
 The line before the last is a JSON summary of the kernels, with each
 kernel's launches counted over the phase that drives it (4, 5 or 7; K3' over
 the first paged serve) and, beside them, its launches in phase 11's parallel
-calls (``parallel_launches``) and in phase 12 (``graft_launches``); the last
-line is {"ok": true, "device": {...}}. Imports nothing of JAX.
+calls (``parallel_launches``), in phase 12 (``graft_launches``) and in phase
+13 (``bench_launches``); the last line is {"ok": true, "device": {...}}.
+Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import datetime
@@ -177,7 +199,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fused4bit_tpu_torch import native, ops
+from fused4bit_tpu_torch import bench, native, ops
 from fused4bit_tpu_torch import parallel as par
 from fused4bit_tpu_torch.layers import (
     MoEINT4,
@@ -384,11 +406,7 @@ def int4pack_yardstick(x, qt):
 
 
 def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
+    return bench.card_line(torch.device("cuda", 0))
 
 
 def require_card() -> str:
@@ -2904,6 +2922,188 @@ def graft_entry_phase(card_line):
     return counts
 
 
+# --- phase 13: the bench twin ------------------------------------------------------
+
+
+def bench_step_launches(mode: str, layers: int) -> dict:
+    """What one captured decode step of an INT4 loop launches, by counter:
+    5 linears a layer (q, k, v, o, router) and the lm_head, 3 expert
+    projections and one attention a layer; nothing for the dense twins."""
+    linears, experts = 5 * layers + 1, 3 * layers
+    return {"kernel": {"int4_matmul": linears, "grouped_int4_matmul": experts,
+                       "int4_attention": layers},
+            "u4_turbo": {"int4_matmul_a8_fused": linears, "grouped_int4_matmul_a8": experts,
+                         "int4_attention": layers},
+            "xla_turbo": {"int8_linear": linears, "grouped_int4_matmul": experts,
+                          "int4_attention": layers}}.get(mode, {})
+
+
+# The main kernel of each counted launch of the bench loops, as the profiler
+# names it: K1 and K2 (the linear body), K5 and K10 (the int8 body), K3 (the
+# attention body); first and second passes have other names.
+_MAIN_KERNELS = ("int4_mma_kernel", "int8_mma_kernel", "int4_attention_mma_kernel")
+
+
+def traced_replay(loop, tok0) -> tuple:
+    """One replay of ``loop`` under torch.profiler inside annotate("loop"):
+    the range's device ms per step, and the main kernels the trace holds,
+    which must be as many as the graph's counted launches."""
+    def replay():
+        loop.tok0.copy_(tok0)
+        with annotate("loop"):
+            loop.graph.replay()
+        loop.toks.cpu()
+
+    with tempfile.TemporaryDirectory(prefix="f4b_trace_") as trace_dir:
+        prof = device_op_times(replay, trace_dir=trace_dir)
+    seen = sum(t.count for name, t in prof.by_op.items() if any(k in name for k in _MAIN_KERNELS))
+    launched = sum(v for k, v in loop.launches.items() if k in ops.launch_counts())
+    if seen != launched:
+        raise AssertionError(f"traced replay: {seen} main kernels in the trace, the graph "
+                             f"launched {launched}")
+    return prof.main_module_ms("loop") / loop.steps, seen
+
+
+def _cache_tensors(caches) -> list:
+    return [getattr(c, f) for c in caches
+            for f in getattr(c, "_FIELDS", ("k", "v", "lengths"))]
+
+
+@contextlib.contextmanager
+def _uncounted():
+    """Launches and plain calls made inside are not counted: every counter
+    is put back as it was on the way out."""
+    saved = ([(fn, attr, getattr(fn, attr)) for _, fn, attr in ops._LAUNCH_COUNTERS]
+             + [(fn, "calls", fn.calls) for fn in ops._REFERENCES + ops._PATH_CALLS])
+    try:
+        yield
+    finally:
+        for fn, attr, n in saved:
+            setattr(fn, attr, n)
+
+
+def path_kernels_vs_plain(name, loop, results, gen):
+    """The default mode's kernels against their plain versions at the shapes
+    an INT4 loop gives them: one more eager decode step (at position
+    ``steps``, on the caches the loops filled) in which each K1 call (every
+    linear and the lm_head) and each K2 call (gate, up, down) is made again
+    through its wrapper and held against its plain version on the same
+    inputs, then K3 on each layer's cache after that step for a random
+    query; the bf16 bars of phase 3. Each shape's worst max|d| joins the
+    kernel's rows of ``results`` (``max_abs_err`` of the kernels line).
+    Nothing here is counted."""
+    worst = {}
+
+    def hold(kernel, shape, y, ref, tol):
+        err = (y.float() - ref.float()).abs().max().item()
+        if not torch.isfinite(y).all() or not err <= tol:
+            raise AssertionError(f"bench twin {name}: {kernel} {shape} max|d| {err} > {tol}")
+        key = (kernel, shape)
+        worst[key] = max(worst.get(key, (0.0, tol)), (err, tol), key=lambda e: e[0] / e[1])
+
+    def linear(mod, args, out):
+        x, w = args[0], mod.weight
+        if mod.activation != "bf16" or w.granularity != "per_row" or w.layout != "planar":
+            raise AssertionError(f"bench twin {name}: a linear off K1 ({mod.activation}, "
+                                 f"{w.granularity}, {w.layout})")
+        ref = ops.int4_matmul_reference(x, w)
+        hold("int4_matmul", f"M={x.numel() // x.shape[-1]} N={w.out_dim} K={w.in_dim} bf16",
+             ops.int4_matmul(x, w), ref, BF16_REL_TOL * ref.float().abs().max().item())
+
+    def grouped(mod, args, kwargs, out):
+        (xs, gids), tile_m, w = args, kwargs["tile_m"], mod.weight
+        ref = ops.grouped_int4_matmul_reference(xs, gids, w, tile_m=tile_m)
+        hold("grouped_int4_matmul",
+             f"T_pad={xs.shape[0]} tile_m={tile_m} N={w.shape[1]} K={w.shape[2]} bf16",
+             ops.grouped_int4_matmul(xs, gids, w, tile_m=tile_m), ref,
+             BF16_REL_TOL * ref.float().abs().max().item())
+
+    modules = list(loop.model.modules())
+    hooks = ([m.register_forward_hook(linear) for m in modules if isinstance(m, QuantizedLinear)]
+             + [m.register_forward_hook(grouped, with_kwargs=True)
+                for m in modules if isinstance(m, MoEINT4)])
+    with _uncounted():
+        try:
+            tok = torch.full_like(loop.pos0, 11)
+            bench.decode_loop(loop.model, loop.caches, tok, loop.pos0 + loop.steps, 1)
+        finally:
+            for h in hooks:
+                h.remove()
+        for cache in loop.caches:
+            b, h_kv, _, d = cache.k_packed.shape
+            hq = loop.model.blocks[0].attn.num_heads
+            q = torch.randn((b, hq, d), generator=gen, device=cache.lengths.device).bfloat16()
+            ref = ops.int4_attention_reference(q[:, :, None], cache, cache.lengths - 1)[:, :, 0]
+            hold("int4_attention", f"decode B={b} hq={hq} h_kv={h_kv} S={cache.max_seq} "
+                 f"length {loop.steps + 1}", ops.int4_decode_attention(q, cache), ref,
+                 ATTN_ABS_TOL)
+    if {k for k, _ in worst} != {"int4_matmul", "grouped_int4_matmul", "int4_attention"}:
+        raise AssertionError(f"bench twin {name}: held only {sorted(worst)}")
+    for (kernel, shape), (err, tol) in worst.items():
+        results.append(dict(name=kernel, shape=f"bench {name} {shape}", err=err))
+        print(f"    bench twin {name}: {kernel:20s} {shape:44s} max|d| {err:.3e} (tol "
+              f"{tol:.3e}) ok")
+
+
+def bench_twin(card_line, results):
+    """Phase 13: bench.run() at full geometry. For each of its seven loops
+    the graph's tokens from tok0 = 7 must equal the eager decode_loop's, an
+    INT4 loop's caches after a replay must hold the eager loop's bytes, and
+    the graph must hold bench_step_launches a step and no plain version; the
+    default mode's loops hold K1, K2 and K3 against their plain versions at
+    the loop's shapes (path_kernels_vs_plain). Returns the phase's kernel
+    launches."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def check(name, loop, seconds, device_ms):
+        scale, mode = name.split()
+        eager_s = bench.bench_eager(loop.model, loop.caches, steps=loop.steps)
+        tok0 = torch.full_like(loop.pos0, 7)
+        want = bench.decode_loop(loop.model, loop.caches, tok0, loop.pos0, loop.steps)
+        eager_caches = [t.clone() for t in _cache_tensors(loop.caches)]
+        got = loop(tok0)
+        same_caches = all(torch.equal(a, b) for a, b in zip(eager_caches,
+                                                            _cache_tensors(loop.caches)))
+        int4 = mode in ("kernel", "u4_turbo", "xla_turbo")
+        per_step = bench_step_launches(mode, flagship_model_config(scale).num_layers)
+        launches = {k: n * loop.steps for k, n in per_step.items()}
+        if not torch.equal(got, want) or (int4 and not same_caches) or loop.launches != launches:
+            raise AssertionError(
+                f"bench twin {name}: graph tokens equal eager {torch.equal(got, want)}, caches "
+                f"equal {same_caches}; the graph launched {loop.launches}, want {launches}")
+        traced_ms, seen = traced_replay(loop, tok0)
+        print(f"bench twin {name}: graph {seconds * 1e3:.4f} ms/step wall, {device_ms:.4f} device "
+              f"(CUDA events), {traced_ms:.4f} under torch.profiler (range 'loop', {seen} main "
+              f"kernels == the graph's launches); captured and instantiated in "
+              f"{loop.capture_seconds:.2f} s, first (untimed) replay "
+              f"{loop.first_replay_seconds * 1e3 / loop.steps:.4f} ms/step; eager "
+              f"{eager_s * 1e3:.4f} ms/step wall; graph tokens == eager tokens from tok0 = 7 "
+              f"({tuple(got.shape)}), caches after the replay "
+              f"{'==' if same_caches else '!='} the eager loop's; a captured step launches "
+              f"{per_step or 'no counted kernel'}, no plain version, on {card_line}", flush=True)
+        if mode == "kernel":
+            path_kernels_vs_plain(name, loop, results, gen)
+
+    _reset_counts()
+    result = bench.run(on_loop=check)
+    launches = _launch_counts()
+    _expect_launches("bench twin", launches,
+                     ("int4_matmul", "grouped_int4_matmul", "int4_attention",
+                      "int4_matmul_a8_fused", "grouped_int4_matmul_a8"), ())
+    device_keys = ("int4_kernel_device_ms", "int4_u4_turbo_device_ms", "bf16_strong_device_ms",
+                   "vs_strong_dense_device")
+    missing = [k for k in device_keys if not isinstance(result[k], float)]
+    if missing or not ops.int8_linear.calls or result["backend"] != "gpu":
+        raise AssertionError(f"bench twin: device ms missing {missing}, int8_linear calls "
+                             f"{ops.int8_linear.calls}, backend {result['backend']}")
+    print(json.dumps(result))
+    print(f"phase 13: kernel launches {dict((k, v) for k, v in launches.items() if v)}, "
+          f"int8_linear {ops.int8_linear.calls}, no plain version; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card_line = require_card()
@@ -2973,6 +3173,7 @@ def main() -> None:
     persistence_and_utilities(card_line, ref, results)
     parallel_launches = parallel_layer(card_line, ref)
     graft_launches = graft_entry_phase(card_line)
+    bench_launches = bench_twin(card_line, results)
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         rows = [r for r in results if r["name"] == name]
@@ -2981,6 +3182,7 @@ def main() -> None:
                             launches=launches[name],
                             parallel_launches=parallel_launches.get(name, 0),
                             graft_launches=graft_launches.get(name, 0),
+                            bench_launches=bench_launches.get(name, 0),
                             max_abs_err=max(r["err"] for r in rows),
                             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
                             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],

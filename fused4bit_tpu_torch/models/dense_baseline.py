@@ -117,8 +117,9 @@ class DenseBlock(nn.Module):
         scores = torch.einsum("bhtd,bhsd->bhts", q, kd) / math.sqrt(hd)
         span = torch.arange(cache.max_seq, device=x.device)
         causal = span[None, None, :] <= positions[:, :, None]
-        scores = torch.where(causal[:, None], scores.float(),
-                             torch.tensor(-1e30, device=x.device))
+        # masked_fill, not torch.where with torch.tensor(-1e30): that copies a
+        # host scalar to the card, which a CUDA graph capture refuses
+        scores = scores.float().masked_fill(~causal[:, None], -1e30)
         probs = torch.softmax(scores, dim=-1).to(q.dtype)
         attn = torch.einsum("bhts,bhsd->bhtd", probs, vd)
         x = x + attn.transpose(1, 2).reshape(b, t, nh * hd) @ self.wo.t()

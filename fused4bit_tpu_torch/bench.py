@@ -58,6 +58,7 @@ from . import ops
 from ._device import resolve_device
 from .models import QuantizedTransformer, as_u4_turbo, as_xla_turbo, dense_from_quantized
 from .models import flagship_model_config
+from .utils.profiling import entry, span
 
 __all__ = ["METRIC", "decode_loop", "CapturedLoop", "bench", "bench_eager", "bench_device",
            "run", "card_line", "main"]
@@ -87,16 +88,21 @@ def decode_loop(model, caches, tok0: torch.Tensor, pos0: torch.Tensor,
     (int32): each step's logits, their argmax over the last position as the
     next token, the positions plus one. Returns the tokens [steps, B, 1]
     int32, stacked as ``lax.scan`` stacks its outputs. The caches update in
-    place."""
+    place. Each step is a top-level entry of the layer spans
+    (``utils.profiling``); the argmax, the next positions and the stacked
+    tokens are its ``sample`` span."""
     toks = []
     tok, pos = tok0, pos0
     with torch.no_grad():
         for _ in range(steps):
-            logits, caches = model(tok, caches, pos)
-            tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
-            pos = pos + 1
+            with entry():
+                logits, caches = model(tok, caches, pos)
+                with span("sample"):
+                    tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+                    pos = pos + 1
             toks.append(tok)
-    return torch.stack(toks)
+    with entry(), span("sample"):
+        return torch.stack(toks)
 
 
 class _EagerLoop:

@@ -54,6 +54,7 @@ from ..ops.int8_xla import (
     to_int8_resident,
 )
 from ..quant.core import QuantizedTensor, pad_rows, quantize
+from ..utils.profiling import span
 
 __all__ = ["QuantizedLinear", "DenseLinear"]
 
@@ -109,10 +110,11 @@ class DenseLinear(nn.Module):
         return self  # already a plain dense matmul
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.weight.t().to(x.dtype)
-        if self.bias is not None:
-            y = y + self.bias.to(y.dtype)
-        return y
+        with span("linear"):
+            y = x @ self.weight.t().to(x.dtype)
+            if self.bias is not None:
+                y = y + self.bias.to(y.dtype)
+            return y
 
 
 class QuantizedLinear(nn.Module):
@@ -244,6 +246,10 @@ class QuantizedLinear(nn.Module):
         return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with span("linear"):
+            return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight
         per_row = self.use_kernel and w.granularity == "per_row" and w.layout == "planar"
         activation = self.activation

@@ -37,6 +37,7 @@ from ..ops.grouped_matmul import (
 from ..ops.int8_xla import Int8Resident
 from ..quant.core import QuantizedTensor, dequantize, quantize
 from ..quant.reference import full_precision
+from ..utils.profiling import span
 from .linear import per_group_layout, pg_kernel_format
 
 __all__ = [
@@ -280,6 +281,10 @@ class MoEINT4(nn.Module):
                 *, tile_m: int = 64, **kw) -> torch.Tensor:
         """The grouped product; ``kw`` (for example ``mode=`` of
         ``grouped_int4_matmul``) goes on to the grouped op, as in JAX."""
+        with span("experts"):
+            return self._forward(x_sorted, tile_group_ids, tile_m=tile_m, **kw)
+
+    def _forward(self, x_sorted, tile_group_ids, *, tile_m, **kw) -> torch.Tensor:
         w = self.weight
         if self.use_kernel and w.granularity == "per_row" and w.layout == "planar":
             if self.activation == "int8":

@@ -15,6 +15,12 @@ weight copies and integer GEMMs); ``as_per_group`` requantizes the weights
 per group (kernels K7 and K13, or K8 and K14 after ``as_turbo``).
 
 Every constructor builds on the CUDA card unless ``device`` names another.
+
+Each layer's work runs inside a layer span (``utils.profiling.span``:
+``embed``, ``norm``, ``residual``, ``attention.rope``,
+``attention.kv_append``, ``attention.kernel``, ``moe.route``,
+``moe.swiglu``, ``moe.combine``; ``linear`` and ``experts`` in the layers),
+and :meth:`QuantizedTransformer.forward` is a top-level entry of them.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from ..layers.moe import (
 from ..ops.decode_attention import int4_decode_attention, int4_prefill_attention
 from ..ops.int8_xla import int4_grouped_transient, int8_grouped_capacity, to_int8_resident
 from ..quant.core import dequantize, quantize
+from ..utils.profiling import entry, span
 from .config import ModelConfig
 
 KVCache = Union[QuantizedKVCache, PagedKVCache]
@@ -106,21 +113,26 @@ class Attention(nn.Module):
         K3'), the golden path reads its logical dequantized view."""
         b, t, _ = x.shape
         nh, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
-        q = self.wq(x).reshape(b, t, nh, hd).transpose(1, 2)
-        k = self.wk(x).reshape(b, t, nkv, hd).transpose(1, 2)
-        v = self.wv(x).reshape(b, t, nkv, hd).transpose(1, 2)
-        q = rotary_embedding(q, positions, self.rope_theta)
-        k = rotary_embedding(k, positions, self.rope_theta)
+        q, k, v = self.wq(x), self.wk(x), self.wv(x)
+        with span("attention.rope"):
+            q = q.reshape(b, t, nh, hd).transpose(1, 2)
+            k = k.reshape(b, t, nkv, hd).transpose(1, 2)
+            v = v.reshape(b, t, nkv, hd).transpose(1, 2)
+            q = rotary_embedding(q, positions, self.rope_theta)
+            k = rotary_embedding(k, positions, self.rope_theta)
 
         # Cache index == sequence position: row b writes at positions[b, 0].
-        cache = cache.append(k, v, start=positions[:, 0])
+        with span("attention.kv_append"):
+            cache = cache.append(k, v, start=positions[:, 0])
 
         if self.use_fused_attention:
-            if t == 1:
-                out = int4_decode_attention(q[:, :, 0, :], cache)          # [B, nh, D]
-            else:
-                out = int4_prefill_attention(q, cache, positions[:, 0]).transpose(1, 2)
-            return self.wo(out.reshape(b, t, nh * hd)), cache
+            with span("attention.kernel"):
+                if t == 1:
+                    out = int4_decode_attention(q[:, :, 0, :], cache)      # [B, nh, D]
+                else:
+                    out = int4_prefill_attention(q, cache, positions[:, 0]).transpose(1, 2)
+                out = out.reshape(b, t, nh * hd)
+            return self.wo(out), cache
 
         # Golden path: dequantize the whole (logical) cache, dense masked attention.
         kd, vd = cache.dequantize(dtype=q.dtype)                  # [B, nkv, S, D]
@@ -128,8 +140,8 @@ class Attention(nn.Module):
         kd = kd.repeat_interleave(rep, dim=1)
         vd = vd.repeat_interleave(rep, dim=1)
         scores = torch.einsum("bhtd,bhsd->bhts", q, kd) / math.sqrt(hd)
-        span = torch.arange(cache.max_seq, device=x.device)
-        causal = span[None, None, :] <= positions[:, :, None]    # [B, T, S]
+        cols = torch.arange(cache.max_seq, device=x.device)
+        causal = cols[None, None, :] <= positions[:, :, None]    # [B, T, S]
         scores = torch.where(causal[:, None], scores.float(), torch.tensor(-1e30, device=x.device))
         probs = torch.softmax(scores, dim=-1).to(q.dtype)
         out = torch.einsum("bhts,bhsd->bhtd", probs, vd)
@@ -187,8 +199,9 @@ class MoEBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, H]
         b, t, h = x.shape
-        xf = x.reshape(b * t, h)
-        routing = topk_route(self.router(xf), self.top_k, self.num_experts)
+        with span("moe.route"):
+            xf = x.reshape(b * t, h)
+            routing = topk_route(self.router(xf), self.top_k, self.num_experts)
         # per_group scales cannot fold past an integer dot: under u4_turbo
         # such experts take the dropless grouped path at every size (JAX's
         # transient_ok rule)
@@ -203,18 +216,22 @@ class MoEBlock(nn.Module):
             out = self._prefill_forward(xf, routing)
         else:
             out = self._grouped_forward(xf, routing, self.prefill_tile_m)
-        return out.reshape(b, t, h)
+        with span("moe.combine"):
+            return out.reshape(b, t, h)
 
     def _grouped_forward(self, xf, routing, tile_m: int) -> torch.Tensor:
         """Dropless path: tile-packed dispatch -> grouped kernel -> combine,
         over the routing's experts."""
-        plan = make_dispatch_plan(routing, routing.tokens_per_expert.shape[0], tile_m=tile_m)
-        xs = dispatch(xf, routing, plan)                       # [T_pad, H]
+        with span("moe.route"):
+            plan = make_dispatch_plan(routing, routing.tokens_per_expert.shape[0], tile_m=tile_m)
+            xs = dispatch(xf, routing, plan)                   # [T_pad, H]
         g = self.w_gate(xs, plan.tile_group_ids, tile_m=tile_m)
         u = self.w_up(xs, plan.tile_group_ids, tile_m=tile_m)
-        hsw = (F.silu(g.float()) * u.float()).to(xs.dtype)
+        with span("moe.swiglu"):
+            hsw = (F.silu(g.float()) * u.float()).to(xs.dtype)
         d = self.w_down(hsw, plan.tile_group_ids, tile_m=tile_m)
-        return combine(d, routing, plan)
+        with span("moe.combine"):
+            return combine(d, routing, plan)
 
     def _capacity_plan(self, xf, routing):
         """Capacity ``cf x mean load``, rounded up to ``tile_m``, by the JAX
@@ -268,9 +285,16 @@ class TransformerBlock(nn.Module):
         self.rms_eps = rms_eps
 
     def forward(self, x, cache, positions):
-        h, cache = self.attn(rms_norm(x, self.attn_norm, self.rms_eps), cache, positions)
-        x = x + h
-        x = x + self.moe(rms_norm(x, self.moe_norm, self.rms_eps))
+        with span("norm"):
+            h = rms_norm(x, self.attn_norm, self.rms_eps)
+        h, cache = self.attn(h, cache, positions)
+        with span("residual"):
+            x = x + h
+        with span("norm"):
+            h = rms_norm(x, self.moe_norm, self.rms_eps)
+        h = self.moe(h)
+        with span("residual"):
+            x = x + h
         return x, cache
 
 
@@ -345,15 +369,18 @@ class QuantizedTransformer(nn.Module):
     def forward(self, tokens: torch.Tensor, caches, positions: torch.Tensor):
         """tokens [B, T] int; positions [T] or [B, T]. Returns (logits [B, T, V],
         caches)."""
-        if positions.dim() == 1:
-            positions = positions[None, :].expand(tokens.shape)
-        x = F.embedding(tokens, self.embed)
-        new_caches = []
-        for blk, cache in zip(self.blocks, caches):
-            x, cache = blk(x, cache, positions)
-            new_caches.append(cache)
-        x = rms_norm(x, self.final_norm, self.rms_eps)
-        return self.lm_head(x), tuple(new_caches)
+        with entry():
+            if positions.dim() == 1:
+                positions = positions[None, :].expand(tokens.shape)
+            with span("embed"):
+                x = F.embedding(tokens, self.embed)
+            new_caches = []
+            for blk, cache in zip(self.blocks, caches):
+                x, cache = blk(x, cache, positions)
+                new_caches.append(cache)
+            with span("norm"):
+                x = rms_norm(x, self.final_norm, self.rms_eps)
+            return self.lm_head(x), tuple(new_caches)
 
 
 def _converted_copy(model: QuantizedTransformer) -> QuantizedTransformer:

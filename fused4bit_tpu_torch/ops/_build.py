@@ -77,6 +77,9 @@ _SIGNATURES = {
     "f4b_grouped_int4_matmul_planar_pg_f32": [_P] * 7 + [_I] * 5 + [_P],
     # x, gids, packed, scales, zps, rows_used, partial, y; T, N, K, tile_m, splits
     "f4b_grouped_int4_matmul_ksplit_f32": [_P] * 8 + [_I] * 5 + [_P],
+    # stream, since, id, last, count: the nodes a capturing stream added after
+    # `since` (a host function, no kernel; utils/profiling.py's layer spans)
+    "f4b_capture_nodes_since": [_P] * 5,
 }
 
 

@@ -53,6 +53,7 @@ import torch
 
 from ..quant.core import QuantizedTensor, dequantize, planar_groups_to_planar, unpack_planar
 from ..quant.reference import full_precision, reference_linear_qt
+from ..utils.profiling import span
 from . import _build
 from .int8_xla import _quantize_acts
 
@@ -259,8 +260,9 @@ def int4_matmul(
     x2 = x.reshape(-1, k)
     m = x2.shape[0]
     if m > prefill_threshold:
-        wd = dequantize(qt, dtype=x.dtype)
-        return torch.matmul(x2, wd.t()).reshape(*lead, n)
+        with span("linear.dense"):
+            wd = dequantize(qt, dtype=x.dtype)
+            return torch.matmul(x2, wd.t()).reshape(*lead, n)
     if not x.is_cuda:
         return int4_matmul_reference(x2, qt).reshape(*lead, n)
     if m == 0:

@@ -1,5 +1,6 @@
 """Persistence and measurement: checkpoints and the elastic step loop, the
-roofline model, profiler traces and per-kernel device times, and timers."""
+roofline model, profiler traces, layer spans and per-kernel device times,
+and timers."""
 from .benchmark import (
     BenchmarkResult,
     print_table,
@@ -11,7 +12,7 @@ from .benchmark import (
 from .checkpoint import load, save
 from .device_profile import DeviceProfile, OpTime, device_op_times
 from .elastic import elastic_loop, latest_step, prune_checkpoints
-from .profiling import Stopwatch, annotate, trace
+from .profiling import SpanMap, annotate, replay_span_ms, span_maps, trace
 from .roofline import H100_SXM, ChipSpec, RooflineReport, linear_roofline
 
 __all__ = [
@@ -21,7 +22,7 @@ __all__ = [
     "H100_SXM",
     "OpTime",
     "RooflineReport",
-    "Stopwatch",
+    "SpanMap",
     "annotate",
     "device_op_times",
     "elastic_loop",
@@ -30,7 +31,9 @@ __all__ = [
     "load",
     "print_table",
     "prune_checkpoints",
+    "replay_span_ms",
     "save",
+    "span_maps",
     "time_chain_slope",
     "time_fn",
     "time_fn_scan",

@@ -11,7 +11,6 @@ import gzip
 import json
 import math
 import os
-import time
 
 import numpy as np
 import pytest
@@ -24,7 +23,6 @@ from fused4bit_tpu_torch.utils import (
     H100_SXM,
     BenchmarkResult,
     ChipSpec,
-    Stopwatch,
     annotate,
     device_op_times,
     linear_roofline,
@@ -158,15 +156,6 @@ def test_cpu_run_traces_but_has_no_device_time(tmp_path):
 
 
 def test_stopwatch_and_table(capsys):
-    sw = Stopwatch()
-    with sw.section("a"):
-        time.sleep(0.01)
-    with sw.section("b"):
-        time.sleep(0.005)
-    with sw.section("a"):
-        pass
-    rep = sw.report()
-    assert rep.index("a") < rep.index("b") and sw.sections["a"] >= 0.01
     rows = [BenchmarkResult("base", 2.0, num_tokens=100), BenchmarkResult("fast", 1.0,
                                                                           num_tokens=100)]
     out = print_table(rows, baseline="base")

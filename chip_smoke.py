@@ -39,7 +39,13 @@ Phases, each of which raises on failure:
      padding rows exactly 0; one token's rows must be the same bits in a T=8
      and a T=40 dispatch (K12 also at tile_m 16, 32 and 64), and each
      expert's rows must equal the linear body (K1, K6, K7) at the same
-     launch shape on that expert's weights, bit for bit.
+     launch shape on that expert's weights, bit for bit. K2 and K13 on the
+     warpgroup body (csrc/grouped_wgmma.cu) are held to their plain
+     versions at the benchmark cells' widths and T_pad (K13 per group of 128
+     at Mixtral-8x22B's, T_pad 896 at tile_m 16; K2 at Mixtral-8x7B's, T_pad
+     2176 at tile_m 128), under spread and skewed routing (one expert past
+     256 rows, some with none), padding rows exactly 0, and a token's rows
+     the same bits at tile_m 16, 32, 64 and 128.
      Beside each
      kernel's time at its main shape stand its bound (the least time the card
      could take: bytes over 3.35 TB/s or operations over the peak of their
@@ -439,17 +445,26 @@ def build() -> float:
 # K13, each with a 16-row and a 64-row tile of x; the attention body
 # (csrc/decode_attention.cu) for K3 and K3', each at head_dim 64 and 128; the
 # int8 body (csrc/int8_mma.cuh) for K10 (K11, K5 and K4 run its
-# instantiation) and for K14 with 16- and 8-byte runs (K8 runs K14's two).
+# instantiation) and for K14 with 16- and 8-byte runs (K8 runs K14's two);
+# the warpgroup body (csrc/grouped_wgmma.cu, wgmma: HGMMA) for K2 and K13.
 TENSOR_CORE_KERNELS = {"int4_mma_kernel": (12, "HMMA"),
                        "int4_attention_mma_kernel": (4, "HMMA"),
-                       "int8_mma_kernel": (3, "IMMA")}
+                       "int8_mma_kernel": (3, "IMMA"),
+                       "int4_mma_kernel_wg": (2, "HGMMA")}
+
+
+def _tensor_core_body(fn: str):
+    """The body of TENSOR_CORE_KERNELS a kernel symbol instantiates (the
+    longest name it holds), or None."""
+    return max((k for k in TENSOR_CORE_KERNELS if k in fn), key=len, default=None)
 
 
 def tensor_core_sass() -> dict:
-    """The tensor-core instructions (HMMA, or IMMA for the int8 body) in the
-    SASS of each instantiation of the tensor-core bodies, from ``cuobjdump
-    -sass`` of the built library; raises if a kernel has none (it would not
-    run on the tensor cores) or if an instantiation is missing."""
+    """The tensor-core instructions (HMMA, IMMA for the int8 body, HGMMA for
+    the warpgroup body) in the SASS of each instantiation of the tensor-core
+    bodies, from ``cuobjdump -sass`` of the built library; raises if a
+    kernel has none (it would not run on the tensor cores) or if an
+    instantiation is missing."""
     cuobjdump = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path())],
                           capture_output=True, text=True, check=True).stdout
@@ -457,15 +472,15 @@ def tensor_core_sass() -> dict:
     for line in sass.splitlines():
         if "Function : " in line:
             fn = line.split("Function : ")[1].strip()
-            op = next((o for k, (_, o) in TENSOR_CORE_KERNELS.items() if k in fn), None)
+            body = _tensor_core_body(fn)
+            op = TENSOR_CORE_KERNELS[body][1] if body else None
             if op is not None:
                 counts[fn] = 0
         elif fn in counts and op in line:
             counts[fn] += 1
     for name, c in counts.items():
-        print(f"  sass: {c} {next(o for k, (_, o) in TENSOR_CORE_KERNELS.items() if k in name)} "
-              f"in {name}")
-    found = {k: sum(k in fn for fn in counts) for k in TENSOR_CORE_KERNELS}
+        print(f"  sass: {c} {TENSOR_CORE_KERNELS[_tensor_core_body(name)][1]} in {name}")
+    found = {k: sum(_tensor_core_body(fn) == k for fn in counts) for k in TENSOR_CORE_KERNELS}
     if found != {k: n for k, (n, _) in TENSOR_CORE_KERNELS.items()} or min(counts.values()) == 0:
         raise AssertionError(f"tensor-core bodies: instantiations {found}, counts {counts}")
     return counts
@@ -1002,12 +1017,12 @@ def check_linear_planar_pg(device, results, timer, gen):
         del qt
 
 
-def same_across_tile_m(name, op, qt, k, e, gen, device, tiles=(16, 32, 64)):
-    """One routing of T=8 dispatched at each tile_m of ``tiles``: every
-    token's rows give the same bits at each, though they sit in other rows
-    and tiles (the grouped rule reads no tile_m)."""
-    routing, _ = _skewed_plan(8, e, 2, tiles[0], gen, device)
-    x = torch.randn((8, k), generator=gen, device=device).bfloat16()
+def same_across_tile_m(name, op, qt, k, e, gen, device, tiles=(16, 32, 64), t=8):
+    """One routing of ``t`` tokens dispatched at each tile_m of ``tiles``:
+    every token's rows give the same bits at each, though they sit in other
+    rows and tiles (the grouped rule reads no tile_m)."""
+    routing, _ = _skewed_plan(t, e, 2, tiles[0], gen, device)
+    x = torch.randn((t, k), generator=gen, device=device).bfloat16()
     got = []
     for tile_m in tiles:
         plan = make_dispatch_plan(routing, e, tile_m=tile_m)
@@ -1017,8 +1032,62 @@ def same_across_tile_m(name, op, qt, k, e, gen, device, tiles=(16, 32, 64)):
             d = (got[0].float() - y.float()).abs().max().item()
             raise AssertionError(f"{name} N={qt.shape[1]} K={k}: token rows differ between "
                                  f"tile_m {tiles[0]} and {tile_m} ({d})")
-    print(f"    {name} N={qt.shape[1]} K={k}: the token rows are the same bits at tile_m "
+    print(f"    {name} N={qt.shape[1]} K={k} T={t}: the token rows are the same bits at tile_m "
           f"{', '.join(map(str, tiles))}")
+
+
+def check_grouped_wg(device, results, timer, gen, e=8):
+    """K2 and K13 on the warpgroup body (``csrc/grouped_wgmma.cu``) at the
+    benchmark cells' widths and T_pad: K13 per group of 128 at
+    Mixtral-8x22B's (gate/up N=16384 K=6144, down N=6144 K=16384; 384
+    tokens, T_pad 896 at tile_m 16) and K2 at Mixtral-8x7B's (N=14336
+    K=4096, N=4096 K=14336; 576 tokens, T_pad 2176 at tile_m 128), each
+    through its public wrapper (which must choose the body) against its
+    plain version, under random routing and under a skewed one (one expert
+    past 256 rows, some with none), the zero padding rows exactly 0; then
+    one skewed routing of 384 tokens at tile_m 16, 32, 64 and 128 (T_pad
+    896-1792, all in the body's domain), whose token rows must be the same
+    bits at each. Rows print the main kernel's device time."""
+    cases = (("grouped_int4_matmul_per_group", ops.grouped_int4_matmul_per_group,
+              ops.grouped_int4_matmul_per_group_reference, 384, 16,
+              ((16384, 6144), (6144, 16384))),
+             ("grouped_int4_matmul", ops.grouped_int4_matmul, ops.grouped_int4_matmul_reference,
+              576, 128, ((14336, 4096), (4096, 14336))))
+    for name, op, plain, t, tile_m, shapes in cases:
+        for n, k in shapes:
+            w = torch.randn((e, n, k), generator=gen, device=device) * k ** -0.5
+            qt = _pg_quantize(w) if op is ops.grouped_int4_matmul_per_group else quantize(w)
+            del w
+            for routing_name, skew in (("random", 0.0), ("skewed", 4.0)):
+                bias = torch.log(1.0 / (torch.arange(e, device=device) + 1.0)) * skew
+                routing = topk_route(bias[None, :] + torch.randn((t, e), generator=gen,
+                                                                 device=device), 2, e)
+                plan = make_dispatch_plan(routing, e, tile_m=tile_m)
+                loads = routing.tokens_per_expert.tolist()
+                if skew and not (max(loads) > 256 and min(loads) == 0):
+                    raise AssertionError(f"{name}: the skewed routing gave loads {loads}")
+                x = torch.randn((t, k), generator=gen, device=device).bfloat16()
+                xs, gids = dispatch(x, routing, plan), plan.tile_group_ids
+                before = op.wg_launches
+                y = op(xs, gids, qt, tile_m=tile_m)
+                if op.wg_launches != before + 1:
+                    raise AssertionError(f"{name} T_pad={plan.t_pad}: not the warpgroup body")
+                ref = plain(xs, gids, qt, tile_m=tile_m)
+                torch.cuda.synchronize()
+                pad = xs.abs().sum(dim=1) == 0
+                if not bool((y[pad] == 0).all()):
+                    raise AssertionError(f"{name} warpgroup body: padding rows are not exactly 0")
+                _compare(name, f"T={t} tile_m={tile_m} N={n} K={k} wg {routing_name}", y, ref,
+                         BF16_REL_TOL * ref.float().abs().max().item(), results,
+                         timer if not skew else None,
+                         lambda: op(xs, gids, qt, tile_m=tile_m),
+                         lambda: plain(xs, gids, qt, tile_m=tile_m), iters=10,
+                         work=grouped_bound(xs, gids, qt, 2 * t), main="int4_mma_kernel_wg")
+                print(f"    tokens per expert {loads}, T_pad {plan.t_pad}")
+            same_across_tile_m(f"{name} (warpgroup body)", op, qt, k, e, gen, device,
+                               tiles=(16, 32, 64, 128), t=384)
+            del qt
+            torch.cuda.empty_cache()
 
 
 def check_grouped_planar_pg(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
@@ -1366,6 +1435,7 @@ def check_kernels(device="cuda", timing=True):
     check_grouped_a8(device, results, timer, gen)
     check_linear_pg(device, results, timer, gen)
     check_grouped_pg(device, results, timer, gen)
+    check_grouped_wg(device, results, timer, gen)
     check_linear_planar_pg(device, results, timer, gen)
     check_grouped_planar_pg(device, results, timer, gen)
     check_ksplit(device, results, timer, gen)
@@ -2401,10 +2471,12 @@ def utilities(model, cfg, results, card_line, device="cuda", b=8):
             names = {n: t.count for n, t in prof.by_op.items()}
             raise AssertionError(f"device_op_times: kernel counts {counted} against launch "
                                  f"counters {launches}; kernels on the card {names}")
+        # The step's own range holds no kernel directly under the layer spans'
+        # f4b.* ranges, so the profiler gives it no device time: the kernels'
+        # sum stands for the step.
         print(f"device_op_times, one layer2 decode step at batch {b}: kernels {counted} == the "
               f"launch counters; device {prof.total_ms:.4f} ms in kernels and copies, "
-              f"{prof.main_module_ms('decode_step'):.4f} ms from first to last kernel of the "
-              f"step, on {card_line}")
+              f"ranges {sorted(prof.by_module)}, on {card_line}")
 
         qt = model.blocks[0].attn.wq.weight
         x = torch.randn((8, qt.in_dim), generator=gen, device=device).bfloat16()
@@ -2957,7 +3029,9 @@ def traced_replay(loop, tok0) -> tuple:
     with tempfile.TemporaryDirectory(prefix="f4b_trace_") as trace_dir:
         prof = device_op_times(replay, trace_dir=trace_dir)
     seen = sum(t.count for name, t in prof.by_op.items() if any(k in name for k in _MAIN_KERNELS))
-    launched = sum(v for k, v in loop.launches.items() if k in ops.launch_counts())
+    # the ``*_wg`` counters count a share of K2's and K13's launches again
+    launched = sum(v for k, v in loop.launches.items()
+                   if k in ops.launch_counts() and not k.endswith("_wg"))
     if seen != launched:
         raise AssertionError(f"traced replay: {seen} main kernels in the trace, the graph "
                              f"launched {launched}")

@@ -87,7 +87,8 @@ __all__ = [
     "to_int8_resident",
 ]
 
-# (name, wrapper, attribute) of every kernel's launch counter; K1-K14, K3'
+# (name, wrapper, attribute) of every kernel's launch counter; K1-K14, K3',
+# then the share of K2's and K13's launches that ran the warpgroup body
 _LAUNCH_COUNTERS = (
     ("int4_matmul", int4_matmul, "launches"),                                  # K1
     ("grouped_int4_matmul", grouped_int4_matmul, "launches"),                  # K2
@@ -105,6 +106,9 @@ _LAUNCH_COUNTERS = (
     ("grouped_int4_matmul_ksplit", grouped_int4_matmul, "ksplit_launches"),    # K9
     ("grouped_int4_matmul_per_group_planar", grouped_int4_matmul_per_group,
      "planar_launches"),                                                        # K12
+    ("grouped_int4_matmul_wg", grouped_int4_matmul, "wg_launches"),            # of K2
+    ("grouped_int4_matmul_per_group_wg", grouped_int4_matmul_per_group,
+     "wg_launches"),                                                            # of K13
 )
 _REFERENCES = (int4_matmul_reference, grouped_int4_matmul_reference, int4_attention_reference,
                paged_int4_attention_reference, int4_matmul_a8_reference,

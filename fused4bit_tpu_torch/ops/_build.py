@@ -49,6 +49,9 @@ _SIGNATURES = {
     "f4b_grouped_int4_matmul_pg_mma_bf16": [_P] * 8 + [_I] * 9 + [_P],
     "f4b_grouped_int4_matmul_planar_pg_mma_bf16": [_P] * 8 + [_I] * 9 + [_P],
     "f4b_grouped_int4_matmul_f32": [_P] * 7 + [_I] * 4 + [_P],
+    # x, gids, packed, scales, zps, used, (xsum,) y; T, N, K, E, (gs,) tile_m, grid
+    "f4b_grouped_int4_matmul_wg_bf16": [_P] * 7 + [_I] * 6 + [_P],
+    "f4b_grouped_int4_matmul_pg_wg_bf16": [_P] * 8 + [_I] * 7 + [_P],
     # q, kp, ks, kz, vp, vs, vz, lengths, starts, out, partial; B, Hkv, G, Tq, S, D, QT, seg
     "f4b_int4_attention_bf16": [_P] * 11 + [_I] * 8 + [_P],
     "f4b_int4_attention_f32": [_P] * 10 + [_I] * 7 + [_P],

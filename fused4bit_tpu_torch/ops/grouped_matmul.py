@@ -39,6 +39,15 @@ and (N, K, gs, SM count) only: a token row's output bits do not depend on
 the tile, the T or the routing it sits in (K2, K12 and K13 up to tile_m 64;
 at tile_m 128, the prefill's, they take 64-row tiles whose launch may read
 T; K9 keeps its own launch there too).
+
+bf16 K2 and K13 calls of at least :data:`WG_MIN_EXPERT_ROWS` routed rows an
+expert (T_pad less the experts' padding, ``E * tile_m``, over E; at whole
+slices of N and whole chunks of K; :func:`_wg_body`) run the warpgroup body
+of ``csrc/grouped_wgmma.cu`` instead: one CTA holds all of an
+expert's routed rows for a slice of 128 output features and walks K once, so
+each weight byte is streamed and dequantized once per call. Its sums run in
+an order fixed by (N, K): a row's bits do not depend on the T_pad, the tile_m
+or the routing within its domain either.
 """
 from __future__ import annotations
 
@@ -82,6 +91,9 @@ _KERNELS = {
 }
 _PG_MMA_KERNEL = "f4b_grouped_int4_matmul_pg_mma_bf16"   # K13 on the tensor-core body
 _PLANAR_PG_MMA_KERNEL = "f4b_grouped_int4_matmul_planar_pg_mma_bf16"   # K12 on it
+# K2 and K13 on the warpgroup body (csrc/grouped_wgmma.cu)
+_WG_KERNELS = {"per_row": "f4b_grouped_int4_matmul_wg_bf16",
+               "per_group": "f4b_grouped_int4_matmul_pg_wg_bf16"}
 # x rows per CTA (bf16: the tensor-core body's decode tile; the CUDA-core
 # loops of csrc/int4_rows.cuh, RowsTile): an m-tile must hold a whole number
 # of them.
@@ -244,6 +256,80 @@ def _ksplit_mma_launch(n: int, k: int, sms: int) -> tuple:
     return ws, 1, -(-8 * chunks // ws)
 
 
+# The warpgroup body's output features per work item and packed bytes per
+# chunk of K/2 (csrc/grouped_wgmma.cu: kWgSlice, kChunkBytes).
+_WG_SLICE = 128
+_WG_CHUNK = 64
+# Routed rows an expert from which a bf16 K2 or K13 call runs the warpgroup
+# body: ``T_pad - E * tile_m`` (a dropless plan's T_pad less the tile of
+# padding it gives each expert, fixed at capture) over E. Measured on the
+# H100 (scripts/grouped_mma_sweep.py --crossover; PERF.md) at 8 experts
+# top-2 (the benchmark cells' widths), 16 top-2 and 64 top-8: at 24 rows an
+# expert the body is the faster in every projection (1.2-1.6x), at 20 too
+# (16 and 64 experts), at 16 in all but K13 at 64 experts, and from 12 rows
+# down it loses, by up to 1.9x. There an expert's rows fit one tile, its
+# weights stream once on either body, and the old body's split of K across
+# many CTAs fills the card: decode (T=8) and the self-draft verify (T=40)
+# stay on it at 8 to 128 experts.
+WG_MIN_EXPERT_ROWS = 24
+
+
+def _wg_body(dtype: torch.dtype, granularity: str, group_size: int, t_pad: int, e: int,
+             tile_m: int, n: int, k: int) -> bool:
+    """Whether a grouped w4a16 call runs the warpgroup body
+    (``csrc/grouped_wgmma.cu``) rather than ``csrc/int4_mma.cuh``'s: bf16 x,
+    per row (K2) or per group with ``group_size % 64 == 0`` dividing K/2
+    (K13 at K7's group sizes), N in whole slices of 128, K/2 in whole chunks
+    of 64 bytes, and at least :data:`WG_MIN_EXPERT_ROWS` rows an expert
+    beyond the padding (``t_pad - e * tile_m >= e * WG_MIN_EXPERT_ROWS``).
+    It reads the call's shapes, tile size and format only, never the tile
+    map's contents, the rows' or the routing, so a CUDA graph replays the
+    body its capture chose."""
+    if dtype != torch.bfloat16 or t_pad - e * tile_m < e * WG_MIN_EXPERT_ROWS:
+        return False
+    if n % _WG_SLICE or (k // 2) % _WG_CHUNK:
+        return False
+    if granularity == "per_row":
+        return True
+    return (granularity == "per_group" and group_size > 0 and group_size % _WG_CHUNK == 0
+            and (k // 2) % group_size == 0)
+
+
+def _wg_grid(e: int, n: int, sms: int) -> int:
+    """The warpgroup body's persistent grid: a CTA per SM, at most one per
+    work item (an expert's slice of 128 output features). It reads (E, N,
+    SMs) only, never the routing."""
+    return max(1, min(e * (n // _WG_SLICE), sms))
+
+
+def _launch_grouped_wg(x_sorted: torch.Tensor, tile_group_ids: torch.Tensor,
+                       qt: QuantizedTensor, tile_m: int) -> torch.Tensor:
+    """K2 (per_row ``qt``) or K13 (per_group, planar_groups) on the warpgroup
+    body: its first pass (the rows in use; K13 also the x sums of every chunk
+    and half), then the persistent main kernel on :func:`_wg_grid`'s CTAs.
+    Operands checked, x_sorted 16-byte aligned."""
+    m, k = x_sorted.shape
+    e, n, _ = qt.shape
+    dev = x_sorted.device
+    fold = qt.granularity == "per_group"
+    if qt.packed.data_ptr() % 16:
+        raise ValueError("the warpgroup body needs 16-byte aligned packed weights")
+    y = torch.empty((m, n), dtype=x_sorted.dtype, device=dev)
+    if m == 0:
+        return y
+    used = torch.empty((m,), dtype=torch.int32, device=dev)
+    xsum = torch.empty((k // _WG_CHUNK, m), dtype=torch.float32, device=dev) if fold else None
+    grid = _wg_grid(e, n, _sm_count(dev.index))
+    with torch.cuda.device(dev):
+        err = getattr(_build.library(), _WG_KERNELS[qt.granularity])(
+            x_sorted.data_ptr(), tile_group_ids.data_ptr(), qt.packed.data_ptr(),
+            qt.scales.data_ptr(), qt.zero_points.data_ptr(), used.data_ptr(),
+            *([xsum.data_ptr()] if fold else []), y.data_ptr(), m, n, k, e,
+            *([qt.group_size] if fold else []), tile_m, grid, _build.stream_of(x_sorted))
+    _build.check(err, "grouped_int4_matmul_per_group" if fold else "grouped_int4_matmul")
+    return y
+
+
 def _launch_grouped_mma(x_sorted: torch.Tensor, tile_group_ids: torch.Tensor, qt: QuantizedTensor,
                         tile_m: int, *, launch: Optional[tuple] = None) -> torch.Tensor:
     """K2 (per_row ``qt``; K9 at :func:`_ksplit_mma_launch`'s ``launch``),
@@ -295,7 +381,9 @@ def grouped_int4_matmul(
     x_sorted: [T_pad, K] bf16 or f32; tile_group_ids: [T_pad // tile_m] i32;
     qt: stacked per_row planar [E, N, K]. Returns [T_pad, N] in x.dtype.
     K2 runs bf16 x on the tensor-core body (:func:`_launch_grouped_mma`),
-    f32 x on the CUDA-core loop.
+    or from :data:`WG_MIN_EXPERT_ROWS` rows an expert on the warpgroup body
+    (:func:`_launch_grouped_wg`, :func:`_wg_body`), f32 x on the CUDA-core
+    loop.
 
     ``mode``, as in JAX: ``"ksplit"`` launches K9, the same function as K2
     with its f32 sums in another order: bf16 x on the tensor-core body at
@@ -327,7 +415,10 @@ def grouped_int4_matmul(
     _check_device_operands(x_sorted, tile_group_ids, qt)
     x_sorted = _aligned_rows(x_sorted)
     sms = _sm_count(x_sorted.device.index)
-    if dtype == torch.bfloat16:
+    wg = mode != "ksplit" and _wg_body(dtype, qt.granularity, 0, t_pad, e, tile_m, n, k)
+    if wg:
+        y = _launch_grouped_wg(x_sorted, tile_group_ids, qt, tile_m)
+    elif dtype == torch.bfloat16:
         y = _launch_grouped_mma(x_sorted, tile_group_ids, qt, tile_m,
                                 launch=_ksplit_mma_launch(n, k, sms) if mode == "ksplit" else None)
     else:
@@ -355,10 +446,12 @@ def grouped_int4_matmul(
         grouped_int4_matmul.ksplit_launches += 1
     else:
         grouped_int4_matmul.launches += 1
+        grouped_int4_matmul.wg_launches += wg
     return y
 
 
-grouped_int4_matmul.launches = 0         # K2
+grouped_int4_matmul.launches = 0         # K2, either body
+grouped_int4_matmul.wg_launches = 0      # of which on the warpgroup body
 grouped_int4_matmul.ksplit_launches = 0  # K9
 
 
@@ -528,7 +621,9 @@ def grouped_int4_matmul_per_group(
     dividing K/2 (K13) or planar with gs a multiple of 128 dividing K/2 (K12;
     see ``int4_matmul._check_per_group``). Returns [T_pad, N] in x.dtype.
     K13 runs on the tensor-core body where K7 does
-    (:func:`~.int4_matmul._k7_on_tensor_cores`: bf16 x, ``gs % 64 == 0``),
+    (:func:`~.int4_matmul._k7_on_tensor_cores`: bf16 x, ``gs % 64 == 0``;
+    from :data:`WG_MIN_EXPERT_ROWS` rows an expert the warpgroup body,
+    :func:`_wg_body`),
     else on the CUDA-core loop; K12 on the tensor-core body for bf16 x
     (:func:`_k12_on_tensor_cores`), on the CUDA-core loop for f32 x.
     """
@@ -543,13 +638,18 @@ def grouped_int4_matmul_per_group(
         raise TypeError(f"{what} takes bf16 or f32 activations, got {x_sorted.dtype}")
     x_sorted = _aligned_rows(x_sorted)
     rows = _KERNEL_ROWS[x_sorted.dtype]
+    wg = False
     if (_k12_on_tensor_cores(x_sorted.dtype) if planar
             else _k7_on_tensor_cores(x_sorted.dtype, qt.group_size)):
         _check_device_operands(x_sorted, tile_group_ids, qt)
         _check_pg_operands(x_sorted, qt, what)
         if tile_m % rows != 0:
             raise ValueError(f"{what} needs tile_m % {rows} == 0 for {x_sorted.dtype}")
-        y = _launch_grouped_mma(x_sorted, tile_group_ids, qt, tile_m)
+        e, n, k = qt.shape
+        wg = not planar and _wg_body(x_sorted.dtype, qt.granularity, qt.group_size,
+                                     x_sorted.shape[0], e, tile_m, n, k)
+        y = (_launch_grouped_wg(x_sorted, tile_group_ids, qt, tile_m) if wg else
+             _launch_grouped_mma(x_sorted, tile_group_ids, qt, tile_m))
     else:
         y = _launch_pg(_PLANAR_PG_KERNELS if planar else _PG_KERNELS, what, x_sorted, None,
                        x_sorted, tile_group_ids, qt, tile_m, rows)
@@ -557,10 +657,12 @@ def grouped_int4_matmul_per_group(
         grouped_int4_matmul_per_group.planar_launches += 1
     else:
         grouped_int4_matmul_per_group.launches += 1
+        grouped_int4_matmul_per_group.wg_launches += wg
     return y
 
 
-grouped_int4_matmul_per_group.launches = 0         # K13
+grouped_int4_matmul_per_group.launches = 0         # K13, any body
+grouped_int4_matmul_per_group.wg_launches = 0      # of which on the warpgroup body
 grouped_int4_matmul_per_group.planar_launches = 0  # K12
 
 

@@ -4,7 +4,7 @@ time goes, and the launch shapes of the tensor-core body they run in bf16.
 
 Run from the repository root:
 
-    env PYTHONPATH=. python3 scripts/grouped_mma_sweep.py [--profile] [--sweep]
+    env PYTHONPATH=. python3 scripts/grouped_mma_sweep.py [--profile] [--sweep] [--crossover]
 
 At the `layer2` expert shapes (8 experts, gate/up N=14336 K=4096 and down
 N=4096 K=14336, random weights from a seed), bf16 activations, under two
@@ -32,6 +32,22 @@ candidate shapes (ws k steps per warp, kw warps along K per CTA, splits CTAs
 along K), each held bit for bit against the linear body at the same shape
 on each expert's weights (``chip_smoke.same_as_linear``), and times each
 cold and under the profiler.
+
+``--crossover`` times K2 and K13 on both bodies, ``csrc/int4_mma.cuh``'s
+(``ops.grouped_matmul._launch_grouped_mma``) and the warpgroup body of
+``csrc/grouped_wgmma.cu`` (``_launch_grouped_wg``), under random routing:
+at 8 experts top-2 at the benchmark cells' widths (K2: Mixtral-8x7B's
+gate/up N=14336 K=4096 and down N=4096 K=14336; K13 per group of 128:
+Mixtral-8x22B's N=16384 K=6144 and N=6144 K=16384), T tokens at tile_m 16
+(T_pad 144 to 4096) and a prefill of 2048 tokens at tile_m 128; then K2 at
+16 experts top-2 (Mixtral-8x7B's widths) and K2 and K13 at 64 experts top-8
+(``models/config.py``'s DEEPSEEK_V3: N=11008 K=4096, N=4096 K=11008) at
+tile_m 16, decode (T=8) and the self-draft verify (T=40) among them. Each
+call is timed with CUDA events, the L2 flushed before it; the two bodies'
+outputs are held to each other within the bf16 bar, and each line gives
+the routed rows an expert (``(T_pad - E * tile_m) / E``) and names the body
+``_wg_body`` chooses (``ops.grouped_matmul.WG_MIN_EXPERT_ROWS`` comes from
+this sweep).
 
 One JSON line per measurement; the card's name and power limit lead the
 output. Imports nothing of JAX.
@@ -188,10 +204,61 @@ def sweep_shapes(gen, card) -> None:
         torch.cuda.empty_cache()
 
 
+# The crossover sweep: (experts, top-k, kernel, {projection: (N, K)},
+# tokens at tile_m 16). At 8 experts the cells' widths (T_pad 144 to 4096 at
+# top-2), then the prefill's 2048 tokens at tile_m 128; at 16 and 64
+# experts decode, the verify and the rows an expert around the crossover.
+MIXTRAL_8X7B = {"gate_up": (14336, 4096), "down": (4096, 14336)}
+MIXTRAL_8X22B = {"gate_up": (16384, 6144), "down": (6144, 16384)}
+DEEPSEEK_V3 = {"gate_up": (11008, 4096), "down": (4096, 11008)}
+CELL_T = (8, 16, 24, 32, 40, 48, 64, 96, 128, 192, 256, 384, 512, 1024, 1984)
+CROSSOVER = ((8, 2, "K2", MIXTRAL_8X7B, CELL_T), (8, 2, "K13", MIXTRAL_8X22B, CELL_T),
+             (16, 2, "K2", MIXTRAL_8X7B, (8, 40, 64, 96, 128, 160, 192, 256)),
+             (64, 8, "K2", DEEPSEEK_V3, (8, 40, 64, 96, 128, 160, 192, 256, 384, 512)),
+             (64, 8, "K13", DEEPSEEK_V3, (8, 40, 64, 96, 128, 160, 192, 256, 384, 512)))
+
+
+def crossover(gen, card) -> None:
+    gm = ops.grouped_matmul
+    timer = cs.Timer("cuda")
+    for e, top_k, kernel, projections, tokens in CROSSOVER:
+        for proj, (n, k) in projections.items():
+            w = torch.randn((e, n, k), generator=gen, device="cuda") * k ** -0.5
+            qt = quantize(w) if kernel == "K2" else cs._pg_quantize(w)
+            del w
+            runs = [(t, 16) for t in tokens] + ([(2048, 128)] if e == 8 else [])
+            for t, tile_m in runs:
+                routing = topk_route(torch.randn((t, e), generator=gen, device="cuda"), top_k, e)
+                plan = make_dispatch_plan(routing, e, tile_m=tile_m)
+                x = torch.randn((t, k), generator=gen, device="cuda").bfloat16()
+                xs, gids = dispatch(x, routing, plan), plan.tile_group_ids
+                old = lambda: gm._launch_grouped_mma(xs, gids, qt, tile_m)  # noqa: E731
+                new = lambda: gm._launch_grouped_wg(xs, gids, qt, tile_m)  # noqa: E731
+                y_old, y_new = old(), new()
+                tol = cs.BF16_REL_TOL * y_old.float().abs().max().item()
+                diff = (y_old.float() - y_new.float()).abs().max().item()
+                if diff > 2 * tol:
+                    raise AssertionError(f"{kernel} {proj} E={e} T={t}: the bodies differ by "
+                                         f"{diff}")
+                chosen = gm._wg_body(torch.bfloat16, qt.granularity, qt.group_size or 0,
+                                     plan.t_pad, e, tile_m, n, k)
+                line = dict(kernel=kernel, projection=proj, experts=e, top_k=top_k, n=n, k=k,
+                            t=t, tile_m=tile_m, t_pad=plan.t_pad,
+                            rows_an_expert=(plan.t_pad - e * tile_m) / e,
+                            tokens_per_expert=routing.tokens_per_expert.tolist(),
+                            old_ms=timer(old, iters=10), wg_ms=timer(new, iters=10),
+                            chosen="wg" if chosen else "old", max_diff=diff,
+                            **cs.grouped_bound(xs, gids, qt, top_k * t), card=card)
+                print(json.dumps(line), flush=True)
+            del qt
+            torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--crossover", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("grouped_mma_sweep: no CUDA device")
@@ -200,10 +267,12 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(9)
     with torch.no_grad():
-        if args.profile or not args.sweep:
+        if args.profile or not (args.sweep or args.crossover):
             profile_wrappers(gen, card)
         if args.sweep:
             sweep_shapes(gen, card)
+        if args.crossover:
+            crossover(gen, card)
 
 
 if __name__ == "__main__":

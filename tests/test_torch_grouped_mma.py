@@ -235,6 +235,229 @@ def test_body_choice_reads_dtype_and_group_size_only():
     assert list(gm._PLANAR_PG_KERNELS) == [torch.float32]
 
 
+# --- the warpgroup body (csrc/grouped_wgmma.cu) --------------------------------
+
+# The benchmark cells' expert widths (Mixtral-8x22B per group of 128: K13;
+# Mixtral-8x7B per row: K2), the layer2 ones and the trained h256 fixture's.
+WG_SHAPES = [(16384, 6144), (6144, 16384), (14336, 4096), (4096, 14336), (512, 256), (256, 512)]
+
+
+def _t_pad(t, e, tile_m, top_k=2):
+    """T_pad of a dropless dispatch of t tokens (the port's own plan)."""
+    from fused4bit_tpu_torch.layers import make_dispatch_plan, topk_route
+
+    routing = topk_route(torch.randn((t, e), generator=torch.Generator().manual_seed(t)), top_k, e)
+    return make_dispatch_plan(routing, e, tile_m=tile_m).t_pad
+
+
+def test_wg_body_choice_reads_shape_and_format_only():
+    """The body choice reads dtype, granularity, group size, T_pad, E,
+    tile_m, N and K, never the tile map's contents, the rows' or the
+    routing. The cells' calls take the warpgroup body (Mixtral-8x22B's K13
+    at 384 tokens: T_pad 896 at tile_m 16; Mixtral-8x7B's K2 at 576: T_pad
+    2176 at tile_m 128); decode (T=8) and the self-draft verify (T=40) at
+    tile_m 16 keep the old body, as do f32, K7's other group sizes, N off
+    whole slices and K off whole chunks."""
+    params = list(inspect.signature(gm._wg_body).parameters)
+    assert set(params) <= {"dtype", "granularity", "group_size", "t_pad", "e", "tile_m", "n",
+                           "k", "sms"}
+    bf16 = torch.bfloat16
+    assert _t_pad(384, 8, 16) == 896 and _t_pad(576, 8, 128) == 2176
+    for n, k in ((16384, 6144), (6144, 16384)):
+        assert gm._wg_body(bf16, "per_group", 128, 896, 8, 16, n, k)
+        assert gm._wg_body(bf16, "per_group", 64, 896, 8, 16, n, k)
+    for n, k in ((14336, 4096), (4096, 14336)):
+        assert gm._wg_body(bf16, "per_row", 0, 2176, 8, 128, n, k)
+    for t in (8, 40):
+        t_pad = _t_pad(t, 8, 16)
+        assert t_pad - 8 * 16 < 8 * gm.WG_MIN_EXPERT_ROWS
+        for n, k in WG_SHAPES:
+            assert not gm._wg_body(bf16, "per_row", 0, t_pad, 8, 16, n, k)
+            assert not gm._wg_body(bf16, "per_group", 128, t_pad, 8, 16, n, k)
+    assert 8 * gm.WG_MIN_EXPERT_ROWS <= 896 - 8 * 16
+    assert not gm._wg_body(torch.float32, "per_row", 0, 2176, 8, 128, 14336, 4096)
+    for gs in (16, 32, 48, 96):
+        assert not gm._wg_body(bf16, "per_group", gs, 896, 8, 16, 16384, 6144)
+    assert not gm._wg_body(bf16, "per_group", 128, 896, 8, 16, 320, 512)   # N: 2.5 slices
+    assert not gm._wg_body(bf16, "per_row", 0, 2176, 8, 128, 4096, 4160)   # K/2: 32.5 chunks
+    assert gm._WG_KERNELS == {"per_row": "f4b_grouped_int4_matmul_wg_bf16",
+                              "per_group": "f4b_grouped_int4_matmul_pg_wg_bf16"}
+
+
+@pytest.mark.parametrize("e,top_k,hidden,ffn", [
+    (8, 2, 4096, 14336),       # Mixtral-8x7B
+    (16, 2, 4096, 14336),
+    (64, 8, 4096, 11008),      # DEEPSEEK_V3, QWEN3_235B (models/config.py)
+    (128, 8, 5120, 13696),     # GLM_5
+])
+def test_wg_body_same_for_decode_and_verify_at_every_expert_count(e, top_k, hidden, ffn):
+    """Decode (T=8) and the self-draft verify (T=40) choose the same body,
+    the old one, at the port's expert counts and widths (which the warpgroup
+    body would take), at tile_m 16, 32 and 64: the verify's rows stay the
+    decode's bits. The padding a dispatch gives each expert does not count
+    as rows, so at 8 to 128 experts the body starts at the same rows an
+    expert, whatever E: 24 (96 tokens at 8 experts top-2, 192 at 64 top-8)."""
+    for n, k in ((ffn, hidden), (hidden, ffn)):
+        for gran, gs in (("per_row", 0), ("per_group", 128)):
+            if (k // 2) % max(gs, 1):
+                continue                # GLM_5's down: K/2 is no whole number of groups of 128
+            assert gm._wg_body(torch.bfloat16, gran, gs, 1 << 20, e, 16, n, k)
+            for tile_m in (16, 32, 64):
+                chosen = {gm._wg_body(torch.bfloat16, gran, gs, _t_pad(t, e, tile_m, top_k), e,
+                                      tile_m, n, k) for t in (8, 40)}
+                assert chosen == {False}
+            start = e * gm.WG_MIN_EXPERT_ROWS // top_k
+            assert gm._wg_body(torch.bfloat16, gran, gs, _t_pad(start, e, 16, top_k), e, 16, n, k)
+            assert not gm._wg_body(torch.bfloat16, gran, gs, _t_pad(start - 8, e, 16, top_k), e,
+                                   16, n, k)
+
+
+@pytest.mark.parametrize("n,k", WG_SHAPES)
+def test_wg_launch_covers_k_in_whole_chunks_and_n_in_whole_slices(n, k):
+    """At the cells', layer2's and the h256 fixture's widths the body takes
+    the call; its persistent grid (E, N and SMs only, a CTA per SM at most)
+    walks every (expert, slice of 128 features) item exactly once, and each
+    item walks K/2 in whole chunks of 64 bytes (whole groups of 128 in K13)."""
+    assert gm._wg_body(torch.bfloat16, "per_row", 0, 4096, 8, 16, n, k)
+    assert gm._wg_body(torch.bfloat16, "per_group", 128, 4096, 8, 16, n, k)
+    assert list(inspect.signature(gm._wg_grid).parameters) == ["e", "n", "sms"]
+    for e in (4, 8):
+        grid = gm._wg_grid(e, n, SMS)
+        items = e * n // gm._WG_SLICE
+        assert 1 <= grid <= min(SMS, items)
+        walked = sorted(i for cta in range(grid) for i in range(cta, items, grid))
+        assert walked == list(range(items))
+        covered = sorted((i // (n // gm._WG_SLICE), (i % (n // gm._WG_SLICE)) * gm._WG_SLICE + f)
+                         for i in walked for f in range(gm._WG_SLICE))
+        assert covered == [(ex, f) for ex in range(e) for f in range(n)]
+    chunks = (k // 2) // gm._WG_CHUNK
+    assert chunks * gm._WG_CHUNK == k // 2 and (chunks * gm._WG_CHUNK) % 128 == 0
+
+
+def _family_rules():
+    """The benchmark's kernel-family rules of the expert and linear rooflines."""
+    import importlib.util
+    import pathlib
+
+    rules = {}
+    for name in ("grouped_matmul_roofline", "int4_matmul_roofline"):
+        path = pathlib.Path(__file__).resolve().parents[1] / "portbench" / "metrics" / f"{name}.py"
+        spec = importlib.util.spec_from_file_location(f"_metric_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        rules[name] = mod._main
+    return rules
+
+
+@pytest.mark.parametrize("policy", ["RowScale", "GroupFold"])
+def test_wg_kernel_symbols_fall_in_the_grouped_family(policy):
+    """The warpgroup body's main kernel, mangled (as nvcc names it in an
+    anonymous namespace) and demangled (as the profiler may give it), is an
+    ``int4_mma_kernel`` instantiation with the grouped flag true: the
+    benchmark counts it, and its first passes, among the expert kernels and
+    not among the linears."""
+    from portbench import trace
+
+    from fused4bit_tpu_torch.ops import _build
+
+    assert {"int4_mma_kernel_wg", "fold_rows_used_kernel"} <= set(trace.csrc_kernels(_build.CSRC))
+    ns = "_ZN3f4b49_GLOBAL__N__3a36cd68_16_grouped_wgmma_cu_f47962b8"
+    mangled = (f"{ns}18int4_mma_kernel_wgINS0_{len(policy)}{policy}ELb1EEEv14CUtensorMap_stS3_"
+               "NS0_6WgArgsE")
+    anon = "f4b::(anonymous namespace)::"
+    demangled = (f"void {anon}int4_mma_kernel_wg<{anon}{policy}, true>(CUtensorMap_st, "
+                 f"CUtensorMap_st, {anon}WgArgs)")
+    rules = _family_rules()
+    for name in (mangled, demangled):
+        assert trace.grouped_flag(name) is True
+        assert rules["grouped_matmul_roofline"](name)
+        assert not rules["int4_matmul_roofline"](name)
+    for first in (f"{ns}21fold_rows_used_kernelEPK13__nv_bfloat16iiPiPf",
+                  f"void {anon}fold_rows_used_kernel(__nv_bfloat16 const*, int, int, int*, float*)"):
+        assert rules["grouped_matmul_roofline"](first) and not rules["int4_matmul_roofline"](first)
+
+
+WG_TILES = (16, 32, 64, 128)
+
+
+def _wg_launch(k):
+    """The warpgroup body's walk in the model's terms: one warp, all of K/2
+    in chunk order, no split."""
+    return (8 * ((k // 2) // CHUNK), 1, 1)
+
+
+def wg_model(xs, gids, packed, scales, zps, tile_m, gs=0):
+    """The warpgroup body over a dispatch, f32 out: per run of consecutive
+    tiles of one expert, its rows up to the run's last row that holds a
+    nonzero through the expert's weights, all of K in chunk order (the fold
+    per chunk in K13); the rows after it 0."""
+    out = torch.zeros((xs.shape[0], packed.shape[-2]))
+    tiles = gids.shape[0]
+    t = 0
+    while t < tiles:
+        end = t
+        while end < tiles and int(gids[end]) == int(gids[t]):
+            end += 1
+        r0, r1 = t * tile_m, end * tile_m
+        nonzero = (xs[r0:r1] != 0).any(dim=1).nonzero()
+        if nonzero.numel():
+            used = int(nonzero.max()) + 1
+            e = int(gids[t])
+            out[r0:r0 + used] = body_model(xs[r0:r0 + used], packed[e], scales[e], zps[e],
+                                           _wg_launch(xs.shape[1]), gs)
+        t = end
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["K2", "K13"])
+def test_wg_model_matches_jax_kernel(rng, kernel, dtype):
+    """The warpgroup body's model (whole K per expert in chunk order, K13's
+    fold per chunk) against JAX's grouped kernels in interpret mode on the
+    same bytes and dispatch at tile_m 16 and 128, with the zero padding rows
+    exactly 0."""
+    w = rng.standard_normal((E, N, KDIM)).astype(np.float32) * KDIM ** -0.5
+    gs = 128 if kernel == "K13" else 0
+    ref_qt = (jax_quantize(jnp.asarray(w), granularity="per_group", layout="planar_groups",
+                           group_size=gs) if gs else jax_quantize(jnp.asarray(w)))
+    op = jax_grouped_pg if gs else jax_grouped
+    for tile_m in (16, 128):
+        gids, rows, t_pad = _dispatch(rng, 40, E, KDIM, tile_m)
+        xs = _sorted(rng.standard_normal((40, KDIM)).astype(np.float32), rows, t_pad)
+        jx = jnp.asarray(xs).astype(dtype)
+        ref = np.asarray(op(jx, jnp.asarray(gids), ref_qt, tile_m=tile_m).astype(jnp.float32))
+        staged = torch.from_numpy(np.array(jx.astype(jnp.float32)))
+        y = wg_model(staged, torch.from_numpy(gids), _t(ref_qt.packed), _t(ref_qt.scales),
+                     _t(ref_qt.zero_points), tile_m, gs)
+        if dtype == "bfloat16":
+            y = y.bfloat16().float()
+        pad = (xs == 0).all(axis=1)
+        assert pad.any() and np.all(y.numpy()[pad] == 0)
+        assert np.max(np.abs(y.numpy() - ref)) <= TOL[dtype] * np.max(np.abs(ref))
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K13"])
+def test_wg_model_token_rows_equal_across_tile_m(rng, kernel):
+    """One routing dispatched at tile_m 16, 32, 64 and 128 puts the tokens in
+    other rows and runs; through the warpgroup body's model their rows are
+    the same bits, as the kernel's must be within its domain."""
+    w = torch.from_numpy(rng.standard_normal((E, N, KDIM)).astype(np.float32)) * KDIM ** -0.5
+    gs = 128 if kernel == "K13" else 0
+    qt = (quantize(w, granularity="per_group", layout="planar_groups", group_size=gs) if gs
+          else quantize(w))
+    x = rng.standard_normal((40, KDIM)).astype(np.float32)
+    logits = rng.standard_normal((40, E)).astype(np.float32)
+    got = []
+    for tile_m in WG_TILES:
+        gids, rows, t_pad = _dispatch(rng, 40, E, KDIM, tile_m, logits)
+        xs = torch.from_numpy(_sorted(x, rows, t_pad)).bfloat16().float()
+        y = wg_model(xs, torch.from_numpy(gids), qt.packed, qt.scales, qt.zero_points, tile_m, gs)
+        got.append((y[torch.from_numpy(rows)], rows))
+    for y, rows in got[1:]:
+        assert not np.array_equal(rows, got[0][1])
+        assert torch.equal(y, got[0][0])
+
+
 def test_walk_order_of_the_linear_rules_is_the_single_stage_one():
     """Where K1's and K7's rules put kw > 1 warps along K, a warp holds one
     stage (ws <= 32), so the body's stage order is the contiguous split they

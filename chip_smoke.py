@@ -66,7 +66,16 @@ Phases, each of which raises on failure:
      by 127) must equal their plain versions bit for bit at 1, 8, 32 and 640
      rows (K5 also at 40) in bf16 (and in f32 at k/v), K4 also at deep K,
      K5's rows 0-7 the same bits at 8, 40 and 640 rows. These rows print the
-     main kernel's device time beside the wrapper's;
+     main kernel's device time beside the wrapper's. K3 with a window
+     (int4_attention_window_kernel) is held to its plain version at the
+     K-EXAONE cell's shapes (896 rows, 8 KV heads of 128, 8 query heads
+     each, a window of 128 after 2048 positions): decode over the cell's
+     wrapped ring of 130 slots (timed, beside the bound of the 128 visible
+     positions), a 32-position chunk over a ring sized for it, and K3' over
+     full pages with the window a mask; one decode step of a small
+     K-EXAONE-shaped model, the counters reset just before it, must launch
+     K3 8 times, 6 of them over a window (the JSON line's
+     "window_launches");
   4. serve 12 requests on the `layer2` model (random weights from a seeded
      generator) with 8 slots, in the default (w4a16) mode and then, on the
      same weights, in the `as_u4_turbo` (w4a8), `as_per_group` (w4a16,
@@ -1419,6 +1428,132 @@ def check_decode_equals_prefill(device, gen, b=8, hq=32, h_kv=8, d=128):
                                      f"(query {query}): max|d| {d_max}")
     print(f"    K3 and K3': decode rows == T=5 prefill rows bit for bit (queries 4, 2, 0), "
           f"lengths {sorted(set(lengths))}")
+
+
+# K-EXAONE's window layers: 8 KV heads of 128, 8 query heads each, a window
+# of 128 over a prompt of 2048, at the benchmark cell's 896 rows
+WINDOW_SHAPE = dict(b=896, h_kv=8, g=8, d=128, window=128, context=2048)
+
+
+def window_bound(q, h_kv, window, t) -> dict:
+    """Windowed attention of t query rows a slot: q, the packed K/V bytes and
+    planes of the ``window`` visible positions of each query read once (a
+    chunk's rows share all but t - 1 of them), the output written once; 4*D
+    operations per (query head, query, visible key) pair."""
+    b, hq, d = q.shape[0], q.shape[1], q.shape[-1]
+    used = b * (window + t - 1)
+    kv = 2 * h_kv * used * (d // 2 + 2 * 4)
+    return bound(2 * nbytes(q) + 4 * b + kv, 4.0 * hq * d * b * t * window, "bf16")
+
+
+def _ring_cache(gen, device, b, h_kv, d, window, context, max_tokens):
+    """A window layer's ring for forwards of up to ``max_tokens`` positions,
+    holding the last of ``context`` seeded positions: wrapped many times."""
+    cache = QuantizedKVCache.init(b, h_kv, context + 128, d, device=device, window=window,
+                                  max_tokens=max_tokens)
+    for p0 in range(0, context, 512):
+        kv = torch.randn((2, b, h_kv, 512, d), generator=gen, device=device)
+        cache.append(kv[0], kv[1], start=torch.full((b,), p0, dtype=torch.int32, device=device))
+    return cache
+
+
+def window_model_launches(device) -> dict:
+    """The main path's windowed launches: one decode step of a small
+    K-EXAONE-shaped model (q 1024 wide at hidden 512, two "LLLG" periods of
+    window 8, a dense first layer, a shared expert, a sigmoid router, 4 of
+    16 experts held) through its own forward, the
+    counters reset just before it. Six of the eight K3 launches run over a
+    window."""
+    cfg = ModelConfig(
+        name="k-exaone-small", moe=MoEConfig("k-exaone-small", 16, 512, 512, 4),
+        num_layers=8, num_heads=8, num_kv_heads=2, head_dim=128, vocab_size=512,
+        max_seq_len=64, rope_theta=1e6, rms_eps=1e-5, hidden_size=512,
+        windows=(8, 8, 8, 0) * 2, dense_layers=1, dense_ffn=1024, shared_ffn=512,
+        router="sigmoid", routed_scale=2.5, block="exaone4", first_expert=4, held_experts=4)
+    model = QuantizedTransformer.init(cfg, generator=torch.Generator(device=device).manual_seed(5),
+                                      device=device)
+    caches = model.init_cache(cfg, 4, cfg.max_seq_len, max_tokens=20)
+    tokens = torch.randint(1, cfg.vocab_size, (4, 21), device=device,
+                           generator=torch.Generator(device=device).manual_seed(6))
+    model(tokens[:, :20], caches, torch.arange(20, device=device))
+    _reset_counts()
+    model(tokens[:, 20:], caches, torch.tensor([20], device=device))
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _launch_counts().items() if v}
+    if (launches.get("int4_attention"), launches.get("int4_attention_window")) != (8, 6):
+        raise AssertionError(f"k-exaone-small decode step: K3 launches {launches}, want 8 "
+                             "of which 6 over a window")
+    return launches
+
+
+def check_window_attention(device="cuda", timer=None, results=None):
+    """K3, K3' and the multi-token path with a window against their plain
+    versions at the K-EXAONE cell's shapes: decode over a wrapped ring of
+    window + 1 slots (the cell's), a 32-position chunk over a ring sized for
+    it whose first queries need the keys before it, and K3' over full pages
+    with the window a mask; then the main path's windowed launch count."""
+    results = [] if results is None else results
+    gen = torch.Generator(device=device).manual_seed(22)
+    sh = WINDOW_SHAPE
+    b, h_kv, g, d, w, ctx = (sh[k] for k in ("b", "h_kv", "g", "d", "window", "context"))
+    ring = _ring_cache(gen, device, b, h_kv, d, w, ctx, 1)
+    if not (ring.ring and ring.max_seq == w + 2):
+        raise AssertionError(f"a decode ring of window {w} holds {ring.max_seq} slots")
+    for pos in range(ctx, ctx + 32):       # a replay's 32 steps; three checked
+        kv = torch.randn((2, b, h_kv, 1, d), generator=gen, device=device)
+        ring.append(kv[0], kv[1], start=torch.full((b,), pos, dtype=torch.int32, device=device))
+        if pos not in (ctx, ctx + 1, ctx + 31):
+            continue
+        q = torch.randn((b, h_kv * g, d), generator=gen, device=device).bfloat16()
+        starts = ring.lengths - 1
+        before = ops.int4_attention.window_launches
+        y = ops.int4_decode_attention(q, ring)
+        if ops.int4_attention.window_launches != before + 1:
+            raise AssertionError("K3 over a ring did not count a windowed launch")
+        _compare("int4_attention", f"window {w} decode B={b} ring {ring.max_seq} pos {pos}", y,
+                 ops.int4_attention_reference(q[:, :, None], ring, starts)[:, :, 0],
+                 ATTN_ABS_TOL, results, timer if pos == ctx else None,
+                 lambda: ops.int4_decode_attention(q, ring),
+                 lambda: ops.int4_attention_reference(q[:, :, None], ring, starts),
+                 work=window_bound(q, h_kv, w, 1))
+    del ring
+    t = 32
+    chunk = _ring_cache(gen, device, b, h_kv, d, w, ctx, t)
+    starts = torch.full((b,), ctx, dtype=torch.int32, device=device)
+    kv = torch.randn((2, b, h_kv, t, d), generator=gen, device=device)
+    chunk.append(kv[0], kv[1], start=starts)
+    q = torch.randn((b, h_kv * g, t, d), generator=gen, device=device).bfloat16()
+    _compare("int4_attention", f"window {w} chunk B={b} T={t} ring {chunk.max_seq}",
+             ops.int4_prefill_attention(q, chunk, starts),
+             ops.int4_attention_reference(q, chunk, starts), ATTN_ABS_TOL, results, None,
+             None, None)
+    del chunk, q, kv
+    pb, page, pages = 64, 128, (ctx + 128) // 128
+    paged = PagedKVCache.init(pb, h_kv, d, num_pages=pb * pages + 1, page_size=page,
+                              max_pages_per_slot=pages, device=device, window=w)
+    for r in range(pb):
+        paged.assign_pages(r, range(1 + r * pages, 1 + (r + 1) * pages))
+    for p0 in range(0, ctx + t, page):
+        n = min(page, ctx + t - p0)
+        kv = torch.randn((2, pb, h_kv, n, d), generator=gen, device=device)
+        paged.append(kv[0], kv[1], start=torch.full((pb,), p0, dtype=torch.int32, device=device))
+    starts = torch.full((pb,), ctx, dtype=torch.int32, device=device)
+    q = torch.randn((pb, h_kv * g, t, d), generator=gen, device=device).bfloat16()
+    _compare("paged_int4_attention", f"window {w} chunk B={pb} T={t} page {page}",
+             ops.int4_prefill_attention(q, paged, starts),
+             ops.paged_int4_attention_reference(q, paged, starts), ATTN_ABS_TOL, results, None,
+             None, None)
+    last = paged.lengths - 1
+    _compare("paged_int4_attention", f"window {w} decode B={pb} page {page}",
+             ops.int4_decode_attention(q[:, :, -1], paged),
+             ops.paged_int4_attention_reference(q[:, :, -1:], paged, last)[:, :, 0],
+             ATTN_ABS_TOL, results, None, None, None)
+    del paged
+    torch.cuda.empty_cache()
+    launches = window_model_launches(device)
+    print(f"    windowed K3 launches of one k-exaone-small decode step: "
+          f"{launches['int4_attention_window']} of {launches['int4_attention']}")
+    return launches
 
 
 def check_kernels(device="cuda", timing=True):
@@ -3029,9 +3164,10 @@ def traced_replay(loop, tok0) -> tuple:
     with tempfile.TemporaryDirectory(prefix="f4b_trace_") as trace_dir:
         prof = device_op_times(replay, trace_dir=trace_dir)
     seen = sum(t.count for name, t in prof.by_op.items() if any(k in name for k in _MAIN_KERNELS))
-    # the ``*_wg`` counters count a share of K2's and K13's launches again
+    # the ``*_wg`` and ``*_window`` counters count a share of K2's, K13's,
+    # K3's and K3''s launches again
     launched = sum(v for k, v in loop.launches.items()
-                   if k in ops.launch_counts() and not k.endswith("_wg"))
+                   if k in ops.launch_counts() and not k.endswith(("_wg", "_window")))
     if seen != launched:
         raise AssertionError(f"traced replay: {seen} main kernels in the trace, the graph "
                              f"launched {launched}")
@@ -3187,6 +3323,7 @@ def main() -> None:
     with torch.no_grad():
         print(f"kernels vs plain versions (times: median, L2 flushed, on {card_line}):")
         results = check_kernels()
+        window_launches = check_window_attention(timer=Timer("cuda"), results=results)
     model, cfg = build_layer2()
     pg_kernels = tuple(fn.__name__ for fn in _PG_OPS)
     launches, eng, _ = serve(model, cfg, "default", card_line)
@@ -3262,7 +3399,7 @@ def main() -> None:
                             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
                             library_ms=main_row["library_ms"]))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "window_launches": window_launches}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

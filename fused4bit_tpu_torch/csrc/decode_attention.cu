@@ -22,6 +22,14 @@
 // pre-gathered to a logical row per call and layer because of a Mosaic
 // block-shape rule; nothing here needs that gather.)
 //
+// Windows. A window layer's contiguous cache is a ring of S slots (ring = 1):
+// position p lies in slot p % S, and every written slot is walked. With
+// window > 0 a query at q_pos sees the keys at q_pos - window < k_pos <=
+// q_pos, so a chunk's early queries still see the keys before the chunk. A
+// call with neither runs the kernel it ran before windows existed
+// (int4_attention_mma_kernel; a windowed call int4_attention_window_kernel,
+// the same body with key_visible's mask): the same code, the same bits.
+//
 // bf16 queries run the tensor-core body below; f32 queries keep the
 // CUDA-core body (int4_attention_rows_kernel), as f32 K1 keeps its CUDA-core
 // loop: an f32 tensor-core product would be TF32.
@@ -221,13 +229,38 @@ struct AttnArgs {
   __nv_bfloat16* out;       // [B, Hkv*G, Tq, D]
   float* partial;           // [B*Hkv, nqt, Z, 16*D + 32] f32 when Z > 1: acc [16][D], m, l
   int Hkv, G, Tq, S, QT, seg;
+  int window;               // > 0: a query sees only the last `window` positions
+  int ring;                 // 1: the contiguous cache is a ring of S slots
 };
 
+// Whether the key in `slot` is visible to the query at position `qpos`: the
+// slot exists and is written (slot < S, slot < length), and the position it
+// holds is at or before the query and, where a window is set, inside it. A
+// slot holds position `slot`, or on a ring of S slots the newest position
+// p < length with p % S == slot. Without a window or a ring this is the
+// causal mask `slot < length && slot <= qpos` alone (length <= S there).
+__device__ __forceinline__ bool key_visible(int slot, int length, int qpos, int S, int window,
+                                            int ring) {
+  if (slot >= length || slot >= S) return false;
+  int pos = slot;
+  if (ring) {
+    const int last = length - 1;
+    pos = last - (last - slot) % S;
+  }
+  return pos <= qpos && (window == 0 || pos > qpos - window);
+}
+
 // The end of the positions a query tile reads: min(length, its last query
-// position + 1, S). The same in both kernels of a launch.
-__device__ __forceinline__ int tile_end(const AttnArgs& p, int b, int t0) {
+// position + 1, S).
+__device__ __forceinline__ int causal_end(const AttnArgs& p, int b, int t0) {
   const int nq = min(p.QT, p.Tq - t0);
   return min(min(p.lengths[b], p.starts[b] + t0 + nq), p.S);
+}
+
+// The end of the slots a query tile reads: causal_end, or on a ring every
+// written slot, min(length, S). The same in both kernels of a launch.
+__device__ __forceinline__ int tile_end(const AttnArgs& p, int b, int t0) {
+  return p.ring ? min(p.lengths[b], p.S) : causal_end(p, b, t0);
 }
 
 // Output element i (fragment order: i = (j * 4 + e) * 32 + lane) of a 16-row
@@ -248,10 +281,12 @@ __device__ __forceinline__ void store_row(const AttnArgs& p, int b, int kv, int 
   p.out[((static_cast<size_t>(b) * p.Hkv * p.G + h) * p.Tq + t) * D + ch] = __float2bfloat16(v);
 }
 
-// One CTA per (batch row * kv head, query tile, range z of 4 segments).
-template <int D, typename Cache>
-__global__ void __launch_bounds__(kAttnThreads) int4_attention_mma_kernel(const AttnArgs p,
-                                                                         const Cache cache) {
+// One CTA per (batch row * kv head, query tile, range z of 4 segments). The
+// body of two kernels: kWindow false, the causal mask alone (calls without
+// a window or a ring, compiled as before the window existed); true,
+// key_visible's window and ring.
+template <int D, typename Cache, bool kWindow>
+__device__ __forceinline__ void attention_mma_body(const AttnArgs& p, const Cache& cache) {
   using Sm = AttnSmem<D>;
   constexpr int KS = D / 16;   // k steps of QK^T
   constexpr int NJ = D / 8;    // n8 tiles (channels) of PV
@@ -264,7 +299,7 @@ __global__ void __launch_bounds__(kAttnThreads) int4_attention_mma_kernel(const 
   const int rows = min(p.QT, p.Tq - t0) * p.G;
   const int length = p.lengths[b];
   const int qstart = p.starts[b];
-  const int s_end = tile_end(p, b, t0);
+  const int s_end = kWindow ? tile_end(p, b, t0) : causal_end(p, b, t0);
   const int cta_pos = kAttnWarps * p.seg;
   if (gridDim.z > 1 && static_cast<int>(blockIdx.z) * cta_pos >= s_end) return;  // uniform
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -279,7 +314,10 @@ __global__ void __launch_bounds__(kAttnThreads) int4_attention_mma_kernel(const 
   unsigned char* wbuf = smem + warp * Sm::kWarpBytes;
 
   // Issue block i's loads into buffer i & 1: K and V codes of the units that
-  // start below s_end, and the four planes of the same positions.
+  // start below s_end, and the four planes of the same positions. With a
+  // window, also no slot at or past S: a ring's S need not be a multiple of
+  // a unit, and its last unit would read past the row's slots (past the
+  // cache, in the last row); those slots are zero-filled and masked.
   auto issue = [&](int i) {
     unsigned char* buf = wbuf + (i & 1) * Sm::kBufBytes;
     const int bs = seg_lo + i * kBlockPos;
@@ -291,7 +329,7 @@ __global__ void __launch_bounds__(kAttnThreads) int4_attention_mma_kernel(const 
     for (int k = 0; k < kBlockRows / kRowsPerRound; ++k) {
       const int row = lane / Sm::kCols + k * kRowsPerRound, col = lane % Sm::kCols;
       const bool u1 = k * kRowsPerRound >= kUnitRows;  // the round's unit, fixed per k
-      const bool in = u1 ? in1 : in0;
+      const bool in = (u1 ? in1 : in0) && (!kWindow || bs + 2 * row < p.S);
       const size_t g = ((u1 ? at1.packed_row : at0.packed_row) + (row - (u1 ? kUnitRows : 0))) * D +
                        col * 16;
       const int off = code_off<D>(row, col * 16);
@@ -301,7 +339,7 @@ __global__ void __launch_bounds__(kAttnThreads) int4_attention_mma_kernel(const 
     // the four planes, 8 bytes (2 positions) per lane each: positions 2 lane, + 1
     float* pl = reinterpret_cast<float*>(buf + 2 * Sm::kCodeBytes);
     const bool u1 = 2 * lane >= kSTile;
-    const bool in = u1 ? in1 : in0;
+    const bool in = (u1 ? in1 : in0) && (!kWindow || bs + 2 * lane < p.S);
     const size_t at = (u1 ? at1.plane : at0.plane) + (2 * lane - (u1 ? kSTile : 0));
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -413,7 +451,9 @@ __global__ void __launch_bounds__(kAttnThreads) int4_attention_mma_kernel(const 
           if (e == 1 && !two) continue;
           const int pos = bs + p0 + k;
           const float s = (raw[k] * ksv[k] - qsum[e] * (ksv[k] * kzv[k])) * inv_sqrt_d;
-          if (pos < length && pos <= qpos[e]) sc[u][e][k] = s;
+          if (kWindow ? key_visible(pos, length, qpos[e], p.S, p.window, p.ring)
+                      : pos < length && pos <= qpos[e])
+            sc[u][e][k] = s;
         }
       }
     }
@@ -573,6 +613,18 @@ __global__ void __launch_bounds__(kAttnThreads) int4_attention_mma_kernel(const 
   }
 }
 
+template <int D, typename Cache>
+__global__ void __launch_bounds__(kAttnThreads) int4_attention_mma_kernel(const AttnArgs p,
+                                                                         const Cache cache) {
+  attention_mma_body<D, Cache, false>(p, cache);
+}
+
+template <int D, typename Cache>
+__global__ void __launch_bounds__(kAttnThreads) int4_attention_window_kernel(const AttnArgs p,
+                                                                            const Cache cache) {
+  attention_mma_body<D, Cache, true>(p, cache);
+}
+
 // The second pass with Z > 1: one thread per output element (row, channel)
 // of a (batch row * kv head, query tile) merges the CTAs' partials in order
 // z = 0, 1, ... as the CTA merges its segments; the CTAs past the tile's end
@@ -615,20 +667,22 @@ int launch_attention_mma(const AttnArgs& p, const Cache& cache, int B, void* str
   const dim3 grid(B * p.Hkv, (p.Tq + p.QT - 1) / p.QT, Z);
   if (Z > 65535 || grid.y > 65535 || (Z > 1 && p.partial == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool windowed = p.window > 0 || p.ring;
+  const auto kernel = windowed ? int4_attention_window_kernel<D, Cache>
+                               : int4_attention_mma_kernel<D, Cache>;
   // The dynamic shared memory each device already allows the kernel (48 KB
-  // by default), raised once per device.
+  // by default), raised once per device and kernel.
   constexpr int kDevices = 64;
-  static bool raised[kDevices] = {};
+  static bool raised[2][kDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (Sm::kBytes > 48 * 1024 && (dev >= kDevices || !raised[dev])) {
-    err = cudaFuncSetAttribute(int4_attention_mma_kernel<D, Cache>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, Sm::kBytes);
+  if (Sm::kBytes > 48 * 1024 && (dev >= kDevices || !raised[windowed][dev])) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sm::kBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < kDevices) raised[dev] = true;
+    if (dev < kDevices) raised[windowed][dev] = true;
   }
-  int4_attention_mma_kernel<D, Cache><<<grid, kAttnThreads, Sm::kBytes, st>>>(p, cache);
+  kernel<<<grid, kAttnThreads, Sm::kBytes, st>>>(p, cache);
   err = cudaGetLastError();
   if (err != cudaSuccess || Z == 1) return static_cast<int>(err);
   const dim3 merge_grid(grid.x, grid.y, (p.QT * p.G * D + kAttnThreads - 1) / kAttnThreads);
@@ -639,7 +693,7 @@ int launch_attention_mma(const AttnArgs& p, const Cache& cache, int B, void* str
 template <typename Cache>
 int dispatch_attention_mma(const AttnArgs& p, const Cache& cache, int B, int D, void* stream) {
   if (p.QT * p.G > kMaxRows || p.QT < 1 || p.seg < kBlockPos || p.seg % kBlockPos != 0 ||
-      p.S % 2 != 0)
+      p.S % 2 != 0 || p.window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (D == 64) return launch_attention_mma<64>(p, cache, B, stream);
   if (D == 128) return launch_attention_mma<128>(p, cache, B, stream);
@@ -664,7 +718,8 @@ __global__ void __launch_bounds__(kAttnThreads) int4_attention_rows_kernel(
     const int32_t* __restrict__ lengths,  // [B]
     const int32_t* __restrict__ starts,   // [B] position of each row's first query
     float* __restrict__ out,          // [B, Hkv*G, Tq, D]
-    Cache cache, int Hkv, int G, int Tq, int S, int QT) {  // S: logical positions per row
+    Cache cache, int Hkv, int G, int Tq, int S, int QT,  // S: logical positions per row
+    int window, int ring) {
   constexpr int DL = D / 32;  // channels per lane
   __shared__ float qs[kMaxRows][D];
   __shared__ float kt[kSTile][D + 1];  // +1: lane j reads row j without bank conflicts
@@ -680,7 +735,8 @@ __global__ void __launch_bounds__(kAttnThreads) int4_attention_rows_kernel(
   const int rows = nq * G;
   const int length = lengths[b];
   const int qstart = starts[b];
-  const int s_end = min(min(length, qstart + t0 + nq), S);  // last query position + 1
+  // last query position + 1; on a ring every written slot
+  const int s_end = ring ? min(length, S) : min(min(length, qstart + t0 + nq), S);
   const float sm_scale = 1.f / sqrtf(static_cast<float>(D));
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -738,7 +794,7 @@ __global__ void __launch_bounds__(kAttnThreads) int4_attention_rows_kernel(
       const int r = warp + rr * kAttnWarps;
       if (r < rows) {  // uniform across the warp
         const int qpos = qstart + t0 + r / G;
-        const bool valid = pos < length && pos <= qpos;
+        const bool valid = key_visible(pos, length, qpos, S, window, ring);
         float score = kNegInf;
         if (valid) {
           float dot = 0.f;
@@ -782,7 +838,8 @@ template <int D, typename Cache>
 int launch_attention_rows(const void* q, const void* kp, const void* ks, const void* kz,
                      const void* vp, const void* vs, const void* vz,
                      const void* lengths, const void* starts, void* out, Cache cache,
-                     int B, int Hkv, int G, int Tq, int S, int QT, void* stream) {
+                     int B, int Hkv, int G, int Tq, int S, int QT, int window, int ring,
+                     void* stream) {
   const dim3 grid(B * Hkv, (Tq + QT - 1) / QT);
   int4_attention_rows_kernel<D, Cache>
       <<<grid, kAttnThreads, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -791,7 +848,7 @@ int launch_attention_rows(const void* q, const void* kp, const void* ks, const v
           static_cast<const uint8_t*>(vp), static_cast<const float*>(vs),
           static_cast<const float*>(vz), static_cast<const int32_t*>(lengths),
           static_cast<const int32_t*>(starts), static_cast<float*>(out), cache, Hkv, G, Tq, S,
-          QT);
+          QT, window, ring);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -799,25 +856,27 @@ template <typename Cache>
 int dispatch_attention_rows(const void* q, const void* kp, const void* ks, const void* kz,
                        const void* vp, const void* vs, const void* vz,
                        const void* lengths, const void* starts, void* out, Cache cache,
-                       int B, int Hkv, int G, int Tq, int S, int D, int QT, void* stream) {
-  if (QT * G > kMaxRows || QT < 1) return static_cast<int>(cudaErrorInvalidValue);
+                       int B, int Hkv, int G, int Tq, int S, int D, int QT, int window,
+                       int ring, void* stream) {
+  if (QT * G > kMaxRows || QT < 1 || window < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (D == 64)
     return launch_attention_rows<64>(q, kp, ks, kz, vp, vs, vz, lengths, starts, out, cache,
-                                   B, Hkv, G, Tq, S, QT, stream);
+                                   B, Hkv, G, Tq, S, QT, window, ring, stream);
   if (D == 128)
     return launch_attention_rows<128>(q, kp, ks, kz, vp, vs, vz, lengths, starts, out, cache,
-                                    B, Hkv, G, Tq, S, QT, stream);
+                                    B, Hkv, G, Tq, S, QT, window, ring, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int dispatch_paged_rows(const void* q, const void* kp, const void* ks, const void* kz,
                    const void* vp, const void* vs, const void* vz, const void* table,
                    const void* lengths, const void* starts, void* out, int B, int Hkv,
-                   int G, int Tq, int page, int max_pages, int D, int QT, void* stream) {
+                   int G, int Tq, int page, int max_pages, int D, int QT, int window,
+                   void* stream) {
   if (page % kSTile != 0 || page <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const PagedCache cache{static_cast<const int32_t*>(table), page, max_pages};
   return dispatch_attention_rows(q, kp, ks, kz, vp, vs, vz, lengths, starts, out, cache, B,
-                               Hkv, G, Tq, page * max_pages, D, QT, stream);
+                               Hkv, G, Tq, page * max_pages, D, QT, window, 0, stream);
 }
 
 }  // namespace
@@ -828,53 +887,57 @@ namespace {
 f4b::AttnArgs attn_args(const void* q, const void* kp, const void* ks, const void* kz,
                         const void* vp, const void* vs, const void* vz, const void* lengths,
                         const void* starts, void* out, void* partial, int Hkv, int G, int Tq,
-                        int S, int QT, int seg) {
+                        int S, int QT, int seg, int window, int ring) {
   return f4b::AttnArgs{static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(kp),
                        static_cast<const float*>(ks), static_cast<const float*>(kz),
                        static_cast<const uint8_t*>(vp), static_cast<const float*>(vs),
                        static_cast<const float*>(vz), static_cast<const int32_t*>(lengths),
                        static_cast<const int32_t*>(starts), static_cast<__nv_bfloat16*>(out),
-                       static_cast<float*>(partial), Hkv, G, Tq, S, QT, seg};
+                       static_cast<float*>(partial), Hkv, G, Tq, S, QT, seg, window, ring};
 }
 
 }  // namespace
 
 // K3, bf16: the tensor-core body. partial: f32 scratch of
 // B*Hkv * ceil(Tq/QT) * Z * (16*D + 32) floats when Z = ceil(S / (4 seg)) > 1.
+// window: 0, or the positions a query sees (its own included); ring: 1 when
+// the cache is a ring of S slots (a window layer's), 0 when slot = position.
 extern "C" int f4b_int4_attention_bf16(const void* q, const void* kp, const void* ks,
                                        const void* kz, const void* vp, const void* vs,
                                        const void* vz, const void* lengths,
                                        const void* starts, void* out, void* partial, int B,
                                        int Hkv, int G, int Tq, int S, int D, int QT, int seg,
-                                       void* stream) {
-  return f4b::dispatch_attention_mma(
-      attn_args(q, kp, ks, kz, vp, vs, vz, lengths, starts, out, partial, Hkv, G, Tq, S, QT, seg),
-      f4b::ContiguousCache{S}, B, D, stream);
+                                       int window, int ring, void* stream) {
+  return f4b::dispatch_attention_mma(attn_args(q, kp, ks, kz, vp, vs, vz, lengths, starts, out,
+                                               partial, Hkv, G, Tq, S, QT, seg, window, ring),
+                                     f4b::ContiguousCache{S}, B, D, stream);
 }
 
 extern "C" int f4b_int4_attention_f32(const void* q, const void* kp, const void* ks,
                                       const void* kz, const void* vp, const void* vs,
                                       const void* vz, const void* lengths,
                                       const void* starts, void* out, int B, int Hkv,
-                                      int G, int Tq, int S, int D, int QT,
-                                      void* stream) {
+                                      int G, int Tq, int S, int D, int QT, int window,
+                                      int ring, void* stream) {
   return f4b::dispatch_attention_rows(q, kp, ks, kz, vp, vs, vz, lengths, starts, out,
                                              f4b::ContiguousCache{S}, B, Hkv, G, Tq, S, D, QT,
-                                             stream);
+                                             window, ring, stream);
 }
 
 // K3', bf16: the tensor-core body on the page pool; S = page * max_pages.
+// A window masks positions; the pages hold every position of the slot.
 extern "C" int f4b_paged_int4_attention_bf16(const void* q, const void* kp, const void* ks,
                                              const void* kz, const void* vp, const void* vs,
                                              const void* vz, const void* table,
                                              const void* lengths, const void* starts,
                                              void* out, void* partial, int B, int Hkv, int G,
                                              int Tq, int page, int max_pages, int D, int QT,
-                                             int seg, void* stream) {
+                                             int seg, int window, void* stream) {
   if (page % f4b::kSTile != 0 || page <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const f4b::PagedCache cache{static_cast<const int32_t*>(table), page, max_pages};
   return f4b::dispatch_attention_mma(attn_args(q, kp, ks, kz, vp, vs, vz, lengths, starts, out,
-                                               partial, Hkv, G, Tq, page * max_pages, QT, seg),
+                                               partial, Hkv, G, Tq, page * max_pages, QT, seg,
+                                               window, 0),
                                      cache, B, D, stream);
 }
 
@@ -884,7 +947,8 @@ extern "C" int f4b_paged_int4_attention_f32(const void* q, const void* kp, const
                                             const void* lengths, const void* starts,
                                             void* out, int B, int Hkv, int G, int Tq,
                                             int page, int max_pages, int D, int QT,
-                                            void* stream) {
+                                            int window, void* stream) {
   return f4b::dispatch_paged_rows(q, kp, ks, kz, vp, vs, vz, table, lengths, starts,
-                                         out, B, Hkv, G, Tq, page, max_pages, D, QT, stream);
+                                         out, B, Hkv, G, Tq, page, max_pages, D, QT, window,
+                                         stream);
 }

@@ -12,6 +12,14 @@ vector over head_dim. Unlike the JAX cache, which is immutable, this one is
 updated IN PLACE: :meth:`QuantizedKVCache.append`, :meth:`reset_slot` and
 :meth:`merge_slot` write into the existing tensors and return ``self``, and
 :meth:`slice_slot` returns views that share memory with the full cache.
+
+A window layer's cache (``window`` > 0, built by :meth:`QuantizedKVCache.init`
+with a window) is a ring: it holds ``max_seq`` slots, sized to the window
+plus the longest multi-token forward its caller declares, and position p
+lies in slot ``p % max_seq``. ``lengths`` still counts positions, so it
+grows past the ring; an append longer than the ring keeps its last
+positions. Attention masks each key by the position its slot holds
+(:meth:`QuantizedKVCache.positions`) to ``q - window < p <= q``.
 """
 from __future__ import annotations
 
@@ -88,6 +96,38 @@ def _merge_packed(buf: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> None:
     buf.scatter_(2, row_idx, ((hi ^ 0x8) << 4) | lo)
 
 
+def _merge_ring(buf: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> None:
+    """Insert T <= R new position codes into a pair-packed ring of R = 2 x
+    ``buf.shape[2]`` slots, in place: position s[b] + t goes to slot
+    (s[b] + t) % R. The touched byte rows are distinct modulo the ring;
+    each nibble takes the new position that falls on its slot, if any, or
+    keeps what it held."""
+    b, h, r2, d = buf.shape
+    ring, t_new = 2 * r2, q.shape[2]
+    t2 = min(t_new // 2 + 1, r2)
+    s = s.long()
+    rows = (torch.div(s, 2, rounding_mode="floor")[:, None]
+            + torch.arange(t2, device=buf.device)) % r2                   # [B, t2]
+    row_idx = rows[:, None, :, None].expand(b, h, t2, d)
+    cur = torch.gather(buf, 2, row_idx)                                     # [B, H, t2, D]
+    slot = 2 * rows[:, :, None] + torch.arange(2, device=buf.device)        # [B, t2, 2]
+    rel = torch.remainder(slot - s[:, None, None], ring)                   # new position's index
+    valid = rel < t_new
+    src = rel.clamp(max=t_new - 1).reshape(b, 1, t2 * 2, 1).expand(b, h, t2 * 2, d)
+    newq = torch.gather(q, 2, src).reshape(b, h, t2, 2, d)
+    lo = torch.where(valid[:, None, :, 0, None], newq[:, :, :, 0], cur & 0x0F)
+    hi = torch.where(valid[:, None, :, 1, None], newq[:, :, :, 1], (cur >> 4) ^ 0x8)
+    buf.scatter_(2, row_idx, ((hi ^ 0x8) << 4) | lo)
+
+
+def _update_ring(plane: torch.Tensor, val: torch.Tensor, s: torch.Tensor) -> None:
+    """plane [B, H, R] <- val [B, H, T] (T <= R) at slots (s[b] + t) % R."""
+    b, h, ring = plane.shape
+    t = val.shape[2]
+    cols = ((s.long()[:, None] + torch.arange(t, device=plane.device)) % ring)[:, None, :]
+    plane.scatter_(2, cols.expand(b, h, t), val)
+
+
 def _update_positions(plane: torch.Tensor, val: torch.Tensor, s: torch.Tensor) -> None:
     """plane [B, H, S] <- val [B, H, T] at [s[b], s[b] + T), in place, with the
     start clamped to S - T as ``jax.lax.dynamic_update_slice`` clamps it."""
@@ -109,15 +149,24 @@ class QuantizedKVCache:
     v_scale: torch.Tensor
     v_zp: torch.Tensor
     lengths: torch.Tensor    # [B] i32
+    window: int = 0          # > 0: a query sees the last ``window`` positions
+    ring: bool = False       # slots hold positions modulo max_seq
 
     _FIELDS = ("k_packed", "v_packed", "k_scale", "k_zp", "v_scale", "v_zp", "lengths")
 
     @classmethod
     def init(cls, batch: int, num_kv_heads: int, max_seq: int, head_dim: int,
-             device: Optional[torch.device] = None) -> "QuantizedKVCache":
-        """An empty cache on ``device`` (None: the CUDA card)."""
+             device: Optional[torch.device] = None, *, window: int = 0,
+             max_tokens: Optional[int] = None) -> "QuantizedKVCache":
+        """An empty cache on ``device`` (None: the CUDA card). With a
+        ``window``, a ring of ``window + max_tokens`` slots (rounded up to
+        even, at most ``max_seq``): ``max_tokens`` is the most positions one
+        forward appends (None: ``max_seq``)."""
         if max_seq % 2:
             raise ValueError(f"max_seq={max_seq} must be even (pair packing)")
+        if window:
+            ring = window + (max_seq if max_tokens is None else max_tokens)
+            max_seq = min(max_seq, ring + ring % 2)
         device = resolve_device(device)
 
         def z8():
@@ -127,7 +176,8 @@ class QuantizedKVCache:
             return torch.zeros((batch, num_kv_heads, max_seq), dtype=torch.float32,
                                device=device)
         return cls(z8(), z8(), zf(), zf(), zf(), zf(),
-                   torch.zeros((batch,), dtype=torch.int32, device=device))
+                   torch.zeros((batch,), dtype=torch.int32, device=device),
+                   window=window, ring=bool(window))
 
     @property
     def max_seq(self) -> int:
@@ -148,23 +198,42 @@ class QuantizedKVCache:
         return sum(getattr(self, f).numel() * getattr(self, f).element_size()
                    for f in self._FIELDS[:6])
 
+    def positions(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(the position each slot holds [B, S] i64, whether the slot is
+        written [B, S] bool): slot s holds position s, or on a ring the
+        newest position p < length with p % S == s."""
+        s = torch.arange(self.max_seq, device=self.lengths.device)
+        length = self.lengths.long()[:, None]
+        written = s[None, :] < length
+        if not self.ring:
+            return s[None, :].expand(written.shape), written
+        last = length - 1
+        return last - torch.remainder(last - s[None, :], self.max_seq), written
+
     def append(self, k: torch.Tensor, v: torch.Tensor,
                start: Optional[torch.Tensor] = None) -> "QuantizedKVCache":
         """Quantize and insert new steps, in place; returns ``self``.
 
         k, v: [B, H, T_new, D]; row b is written at positions
         [start[b], start[b] + T_new), ``start`` defaulting to the row's length.
+        A ring takes each position at its slot and keeps the last
+        ``max_seq`` of a longer append.
         """
         t_new = k.shape[2]
-        qk, ks, kz = _affine(k)
-        qv, vs, vz = _affine(v)
         start = (self.lengths if start is None else start).to(self.lengths.device)
         new_lengths = (start + t_new).to(torch.int32)
-        _merge_packed(self.k_packed, qk, start)
-        _merge_packed(self.v_packed, qv, start)
+        if self.ring and t_new > self.max_seq:
+            cut = t_new - self.max_seq
+            k, v, start = k[:, :, cut:], v[:, :, cut:], start + cut
+        qk, ks, kz = _affine(k)
+        qv, vs, vz = _affine(v)
+        merge, update = (_merge_ring, _update_ring) if self.ring else (_merge_packed,
+                                                                         _update_positions)
+        merge(self.k_packed, qk, start)
+        merge(self.v_packed, qv, start)
         for plane, val in ((self.k_scale, ks), (self.k_zp, kz),
                            (self.v_scale, vs), (self.v_zp, vz)):
-            _update_positions(plane, val, start)
+            update(plane, val, start)
         self.lengths.copy_(new_lengths)
         return self
 
@@ -175,7 +244,8 @@ class QuantizedKVCache:
 
     def slice_slot(self, slot: int) -> "QuantizedKVCache":
         """Batch-1 view of one slot; writes to it land in this cache."""
-        return QuantizedKVCache(*(getattr(self, f)[slot:slot + 1] for f in self._FIELDS))
+        return dataclasses.replace(self, **{f: getattr(self, f)[slot:slot + 1]
+                                            for f in self._FIELDS})
 
     def merge_slot(self, part: "QuantizedKVCache", slot: int) -> "QuantizedKVCache":
         """Write a batch-1 cache back into ``slot`` (nothing to copy when
@@ -188,7 +258,8 @@ class QuantizedKVCache:
         return self
 
     def dequantize(self, dtype=torch.bfloat16):
-        """Dense K, V [B, H, S, D] (positions past a slot's length are junk)."""
+        """Dense K, V [B, H, S, D] by slot (:meth:`positions` gives each
+        slot's position; unwritten slots are junk)."""
         def dq(packed, scale, zp):
             q = _unpack_pairs(packed).float()
             return ((q - zp[..., None]) * scale[..., None]).to(dtype)

@@ -1,7 +1,9 @@
 """Mixture-of-Experts routing, dispatch/combine, and the INT4 expert module.
 
 Counterpart of ``fused4bit_tpu/layers/moe.py``: top-k softmax routing with
-renormalized weights, and two dispatch plans:
+renormalized weights (and the port's own sigmoid routing with a selection
+bias, :func:`sigmoid_route`), the view of a routing from a layer that holds
+a share of the experts (:func:`local_routing`), and two dispatch plans:
 
 * dropless (``make_dispatch_plan``): every expert's group is padded to a
   ``tile_m`` boundary inside a buffer of static size
@@ -44,6 +46,8 @@ __all__ = [
     "RoutingResult",
     "DispatchPlan",
     "topk_route",
+    "sigmoid_route",
+    "local_routing",
     "simulate_router_logits",
     "make_dispatch_plan",
     "make_capacity_plan",
@@ -65,6 +69,24 @@ class RoutingResult:
     expert_weights: torch.Tensor        # [T, k] f32, renormalized over k
     tokens_per_expert: torch.Tensor     # [E] i32
     expert_token_offsets: torch.Tensor  # [E+1] i32 (unpadded, cumulative)
+    # pairs routed to experts not held here carry the id E and weight 0
+    # (local_routing); a plan drops them
+    foreign: bool = False
+
+
+def _routing(indices: torch.Tensor, weights: torch.Tensor, num_experts: int,
+             foreign: bool = False) -> RoutingResult:
+    """The routing of ``indices`` [T, k] (ids up to ``num_experts``, the
+    last one standing for foreign pairs when ``foreign``) with ``weights``,
+    its per-expert counts and offsets computed on the device."""
+    flat = indices.reshape(-1).long()
+    # scatter_add, not bincount: bincount reads the max back to the host
+    counts = torch.zeros(num_experts + int(foreign), dtype=torch.int32, device=indices.device)
+    counts.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    tokens_per_expert = counts[:num_experts]
+    offsets = torch.zeros(num_experts + 1, dtype=torch.int32, device=indices.device)
+    offsets[1:] = torch.cumsum(tokens_per_expert, 0)
+    return RoutingResult(indices.to(torch.int32), weights, tokens_per_expert, offsets, foreign)
 
 
 def topk_route(logits: torch.Tensor, top_k: int, num_experts: int) -> RoutingResult:
@@ -72,13 +94,33 @@ def topk_route(logits: torch.Tensor, top_k: int, num_experts: int) -> RoutingRes
     probs = torch.softmax(logits.float(), dim=-1)
     weights, indices = torch.topk(probs, top_k, dim=-1)
     weights = weights / weights.sum(dim=-1, keepdim=True)
-    flat = indices.reshape(-1)
-    # scatter_add, not bincount: bincount reads the max back to the host
-    tokens_per_expert = torch.zeros(num_experts, dtype=torch.int32, device=logits.device)
-    tokens_per_expert.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
-    offsets = torch.zeros(num_experts + 1, dtype=torch.int32, device=logits.device)
-    offsets[1:] = torch.cumsum(tokens_per_expert, 0)
-    return RoutingResult(indices.to(torch.int32), weights, tokens_per_expert, offsets)
+    return _routing(indices, weights, num_experts)
+
+
+def sigmoid_route(logits: torch.Tensor, bias: torch.Tensor, top_k: int, num_experts: int,
+                  scale: float = 1.0) -> RoutingResult:
+    """Sigmoid routing with a selection bias (DeepSeek-V3's ``noaux_tc`` at
+    one group, as K-EXAONE routes): the top-k of ``sigmoid(logits) + bias``
+    are chosen; their weights are the unbiased sigmoid scores, divided by
+    their sum and multiplied by ``scale``."""
+    scores = torch.sigmoid(logits.float())
+    indices = torch.topk(scores + bias.float(), top_k, dim=-1).indices
+    weights = scores.gather(-1, indices)
+    weights = weights / weights.sum(dim=-1, keepdim=True) * scale
+    return _routing(indices, weights, num_experts)
+
+
+def local_routing(expert_indices: torch.Tensor, expert_weights: torch.Tensor, lo: int,
+                  e_local: int) -> RoutingResult:
+    """The global routing seen by a layer that holds experts [lo, lo +
+    e_local): its own pairs keep their weights under local ids; foreign pairs
+    take the id ``e_local`` and weight 0, and a dispatch plan drops them, so
+    the grouped kernel sees this layer's pairs alone."""
+    local_ids = expert_indices - lo
+    mine = (local_ids >= 0) & (local_ids < e_local)
+    local_ids = torch.where(mine, local_ids, e_local)
+    weights = torch.where(mine, expert_weights, 0.0)
+    return _routing(local_ids, weights, e_local, foreign=True)
 
 
 def simulate_router_logits(generator: torch.Generator, num_tokens: int, num_experts: int,
@@ -127,6 +169,7 @@ def make_dispatch_plan(routing: RoutingResult, num_experts: int, tile_m: int = 6
     flat_ids = routing.expert_indices.reshape(-1).long()
     tk = flat_ids.shape[0]
     device = flat_ids.device
+    # the static bound: every pair, foreign ones included, could be this layer's
     t_pad = _cdiv(tk, tile_m) * tile_m + num_experts * tile_m
     num_tiles = t_pad // tile_m
 
@@ -142,6 +185,8 @@ def make_dispatch_plan(routing: RoutingResult, num_experts: int, tile_m: int = 6
     ranks = torch.empty_like(ranks_sorted)
     ranks[sort_idx] = ranks_sorted
     rows = padded_offsets[flat_ids] + ranks
+    if routing.foreign:   # foreign pairs (id E, sorted last) are dropped
+        rows = torch.where(flat_ids < num_experts, rows, torch.full_like(rows, t_pad))
 
     # Tile t belongs to expert e iff padded_offsets[e] <= t*tile_m <
     # padded_offsets[e+1]; tiles past the last group map to expert E-1 and
@@ -150,7 +195,7 @@ def make_dispatch_plan(routing: RoutingResult, num_experts: int, tile_m: int = 6
     tile_group_ids = torch.searchsorted(
         padded_offsets[1:].contiguous(), tile_starts, right=True
     ).clamp(0, num_experts - 1).to(torch.int32)
-    return DispatchPlan(rows, tile_group_ids, t_pad, tile_m)
+    return DispatchPlan(rows, tile_group_ids, t_pad, tile_m, drops=routing.foreign)
 
 
 def make_capacity_plan(routing: RoutingResult, num_experts: int, capacity: int,
@@ -201,11 +246,15 @@ def dispatch(x: torch.Tensor, routing: RoutingResult, plan: DispatchPlan) -> tor
 
 def combine(expert_out: torch.Tensor, routing: RoutingResult, plan: DispatchPlan) -> torch.Tensor:
     """Gather back to token order and weight-sum over the top-k. Dropped
-    pairs (row t_pad) read a zero row."""
+    pairs (row t_pad) read a zero row; foreign pairs, whose weight is 0, read
+    the last row instead."""
     t, k = routing.expert_weights.shape
-    if plan.drops:
+    rows = plan.rows
+    if routing.foreign:   # weight 0 already: any row will do, and none is copied
+        rows = rows.clamp(max=plan.t_pad - 1)
+    elif plan.drops:
         expert_out = torch.cat([expert_out, expert_out.new_zeros((1, expert_out.shape[1]))])
-    per_pair = expert_out.index_select(0, plan.rows).reshape(t, k, -1)
+    per_pair = expert_out.index_select(0, rows).reshape(t, k, -1)
     w = routing.expert_weights.to(per_pair.dtype)[..., None]
     return (per_pair * w).sum(dim=1)
 

@@ -51,6 +51,7 @@ class PagedKVCache:
     v_zp: torch.Tensor
     page_table: torch.Tensor  # [B, max_pages] i32 (unused entries -> 0)
     lengths: torch.Tensor     # [B] i32
+    window: int = 0           # > 0: a query sees the last ``window`` positions (a mask)
 
     _FIELDS = ("k_pool", "v_pool", "k_scale", "k_zp", "v_scale", "v_zp",
                "page_table", "lengths")
@@ -59,8 +60,9 @@ class PagedKVCache:
     @classmethod
     def init(cls, batch: int, num_kv_heads: int, head_dim: int, *, num_pages: int,
              page_size: int, max_pages_per_slot: int,
-             device: Optional[torch.device] = None) -> "PagedKVCache":
-        """An empty pool on ``device`` (None: the CUDA card)."""
+             device: Optional[torch.device] = None, window: int = 0) -> "PagedKVCache":
+        """An empty pool on ``device`` (None: the CUDA card). A ``window``
+        masks the keys a query sees; the pages still hold every position."""
         if page_size % 2:
             raise ValueError(f"page_size={page_size} must be even (pair packing)")
         device = resolve_device(device)
@@ -75,7 +77,7 @@ class PagedKVCache:
 
         return cls(z8(), z8(), zf(), zf(), zf(), zf(),
                    torch.zeros((batch, max_pages_per_slot), dtype=torch.int32, device=device),
-                   torch.zeros((batch,), dtype=torch.int32, device=device))
+                   torch.zeros((batch,), dtype=torch.int32, device=device), window=window)
 
     # -- geometry ------------------------------------------------------------
 
@@ -210,4 +212,4 @@ class PagedKVCache:
             return g.reshape(b, g.shape[1], mp * g.shape[3], *g.shape[4:])
 
         return QuantizedKVCache(*(gather(getattr(self, f)) for f in self._POOLS),
-                                self.lengths)
+                                self.lengths, window=self.window)

@@ -2,11 +2,16 @@
 
 A copy of ``fused4bit_tpu/models/config.py``: plain dataclasses, so both
 packages describe a model with the same fields and the same registry.
+``ModelConfig``'s fields past ``rms_eps`` are the port's own: they describe
+decoders other than Mixtral's (a hidden size of their own, window layers,
+leading dense layers, a shared expert, a sigmoid router, the EXAONE 4.0
+block, a share of the experts), and their defaults leave a Mixtral config
+as it was. ``MODEL_CONFIGS`` holds such models at their published widths.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 __all__ = [
     "MoEConfig",
@@ -20,6 +25,9 @@ __all__ = [
     "ALL_CONFIGS",
     "MIXTRAL_BENCHMARK_CONFIGS",
     "get_config_by_name",
+    "K_EXAONE_236B",
+    "MODEL_CONFIGS",
+    "port_config",
 ]
 
 
@@ -61,6 +69,39 @@ class ModelConfig:
     max_seq_len: int = 4096
     rope_theta: float = 1e6
     rms_eps: float = 1e-5
+    # The port's own fields; the defaults are Mixtral's decoder.
+    hidden_size: int = 0             # 0: num_heads * head_dim
+    windows: Tuple[int, ...] = ()    # each layer's attention window, 0 full; (): all full
+    dense_layers: int = 0            # the first layers' feed-forward is a dense SwiGLU ...
+    dense_ffn: int = 0               # ... of this width
+    shared_ffn: int = 0              # > 0: each MoE layer adds a shared SwiGLU expert
+    router: str = "softmax"          # "sigmoid": sigmoid scores, top-k by score + bias
+    routed_scale: float = 1.0        # the routed weights' factor after renormalizing
+    block: str = "mixtral"           # "exaone4": QK-norm, RoPE on window layers, post-norms
+    first_expert: int = 0            # the experts held here: [first_expert,
+    held_experts: int = 0            #   first_expert + held_experts); 0: all of them
+
+    @property
+    def hidden(self) -> int:
+        return self.hidden_size or self.num_heads * self.head_dim
+
+    @property
+    def held(self) -> int:
+        """The routed experts each MoE layer holds here."""
+        return self.held_experts or self.moe.num_experts
+
+    def window(self, layer: int) -> int:
+        """Layer ``layer``'s attention window (0: full attention)."""
+        return self.windows[layer] if self.windows else 0
+
+
+def port_config(cfg) -> ModelConfig:
+    """``cfg`` as the port's ``ModelConfig``: a config that has Mixtral's
+    fields alone (the JAX package's) takes the defaults of the others."""
+    if isinstance(cfg, ModelConfig):
+        return cfg
+    return ModelConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(ModelConfig)
+                          if hasattr(cfg, f.name)})
 
 
 # Real geometries, matching reference `config.py:70-109`.
@@ -202,3 +243,23 @@ def flagship_model_config(scale: str = "tiny") -> ModelConfig:
         vocab_size=512,
         max_seq_len=256,
     )
+
+
+# K-EXAONE-236B-A23B (huggingface.co/LGAI-EXAONE/K-EXAONE-236B-A23B,
+# config.json): 48 layers "LLLG" (36 window layers of 128 positions, 12
+# full), 64 query and 8 KV heads of 128 at hidden 6144, layer 0 a dense
+# SwiGLU of 18432, layers 1-47 128 experts of 2048 with top-8 sigmoid
+# routing (normalized, x 2.5) and one shared expert. Its MTP layer is not
+# held. ``dataclasses.replace(K_EXAONE_236B, held_experts=32)`` is one
+# card's share of an EP4 host.
+K_EXAONE_236B = ModelConfig(
+    name="k-exaone-236b-a23b",
+    moe=MoEConfig("k-exaone-236b-a23b", 128, 6144, 2048, 8,
+                  description="K-EXAONE-236B-A23B MoE layer geometry"),
+    num_layers=48, num_heads=64, num_kv_heads=8, head_dim=128, vocab_size=153600,
+    max_seq_len=262144, rope_theta=1e6, rms_eps=1e-5, hidden_size=6144,
+    windows=(128, 128, 128, 0) * 12, dense_layers=1, dense_ffn=18432, shared_ffn=2048,
+    router="sigmoid", routed_scale=2.5, block="exaone4",
+)
+
+MODEL_CONFIGS: Dict[str, ModelConfig] = {K_EXAONE_236B.name: K_EXAONE_236B}

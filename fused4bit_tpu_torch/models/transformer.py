@@ -16,14 +16,27 @@ per group (kernels K7 and K13, or K8 and K14 after ``as_turbo``).
 
 Every constructor builds on the CUDA card unless ``device`` names another.
 
+Beside Mixtral's decoder the same modules build the port's other decoders
+from a ``ModelConfig`` (``models.config``): window layers whose contiguous
+caches are rings (``layers.kv_cache``) beside full layers; a sigmoid router
+with a selection bias and a routed scale; a shared SwiGLU expert added to
+the routed sum; leading dense SwiGLU layers (:class:`DenseMLP`); an expert
+layer that holds a share of the experts (it routes over all of them and
+computes its own experts' part); and the EXAONE 4.0 block (``block=
+"exaone4"``): RMSNorm over head_dim on q and k, RoPE on the window layers
+only, and each sublayer's output normed before its residual add, with no
+norm before it.
+
 Each layer's work runs inside a layer span (``utils.profiling.span``:
 ``embed``, ``norm``, ``residual``, ``attention.rope``,
-``attention.kv_append``, ``attention.kernel``, ``moe.route``,
-``moe.swiglu``, ``moe.combine``; ``linear`` and ``experts`` in the layers),
+``attention.kv_append``, ``attention.kernel`` (on a window layer inside
+``attention.window``), ``moe.route``, ``moe.swiglu``, ``moe.shared``,
+``moe.combine``, ``mlp.dense``; ``linear`` and ``experts`` in the layers),
 and :meth:`QuantizedTransformer.forward` is a top-level entry of them.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import itertools
 import math
@@ -38,23 +51,27 @@ from ..layers.kv_cache import QuantizedKVCache
 from ..layers.linear import DenseLinear, QuantizedLinear
 from ..layers.paged_kv import PagedKVCache
 from ..layers.moe import (
+    DispatchPlan,
     MoEINT4,
+    RoutingResult,
     combine,
     dispatch,
+    local_routing,
     make_capacity_plan,
     make_dispatch_plan,
+    sigmoid_route,
     topk_route,
 )
-from ..ops.decode_attention import int4_decode_attention, int4_prefill_attention
+from ..ops.decode_attention import int4_decode_attention, int4_prefill_attention, key_mask
 from ..ops.int8_xla import int4_grouped_transient, int8_grouped_capacity, to_int8_resident
 from ..quant.core import dequantize, quantize
 from ..utils.profiling import entry, span
-from .config import ModelConfig
+from .config import ModelConfig, port_config
 
 KVCache = Union[QuantizedKVCache, PagedKVCache]
 
 __all__ = [
-    "QuantizedTransformer", "TransformerBlock", "MoEBlock", "Attention",
+    "QuantizedTransformer", "TransformerBlock", "MoEBlock", "DenseMLP", "Attention",
     "rms_norm", "rotary_embedding", "as_turbo", "as_u4_turbo", "as_xla_turbo",
     "as_per_group",
 ]
@@ -83,9 +100,17 @@ def rotary_embedding(x: torch.Tensor, positions: torch.Tensor, theta: float) -> 
 
 
 class Attention(nn.Module):
+    """GQA attention over the INT4 KV cache. ``window``: the positions a
+    query sees on this layer (0: all), held by the layer's cache (built by
+    ``QuantizedTransformer.init_cache``); ``q_norm``/``k_norm``: RMSNorm
+    weights over head_dim applied to q and k (None: none); ``rope``: whether
+    q and k are rotated."""
+
     def __init__(self, wq: QuantizedLinear, wk: QuantizedLinear, wv: QuantizedLinear,
                  wo: QuantizedLinear, *, num_heads: int, num_kv_heads: int, head_dim: int,
-                 rope_theta: float, use_fused_attention: bool = True):
+                 rope_theta: float, use_fused_attention: bool = True, window: int = 0,
+                 q_norm: Optional[torch.Tensor] = None, k_norm: Optional[torch.Tensor] = None,
+                 rope: bool = True, rms_eps: float = 1e-5):
         super().__init__()
         self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
         self.num_heads = num_heads
@@ -93,17 +118,30 @@ class Attention(nn.Module):
         self.head_dim = head_dim
         self.rope_theta = rope_theta
         self.use_fused_attention = use_fused_attention
+        self.window = window
+        self.register_buffer("q_norm", q_norm)
+        self.register_buffer("k_norm", k_norm)
+        self.rope = rope
+        self.rms_eps = rms_eps
 
     @classmethod
-    def init(cls, cfg: ModelConfig, hidden: int, *, generator=None, device=None) -> "Attention":
+    def init(cls, cfg: ModelConfig, hidden: int, *, layer: int = 0, generator=None,
+             device=None, dtype=torch.bfloat16) -> "Attention":
+        cfg = port_config(cfg)
         hd, nh, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
-        kw = dict(generator=generator, device=resolve_device(device))
+        device = resolve_device(device)
+        kw = dict(generator=generator, device=device)
+        window = cfg.window(layer)
+        exaone = cfg.block == "exaone4"
+        norm = (lambda: torch.ones((hd,), dtype=dtype, device=device)) if exaone else (lambda: None)
         return cls(
             QuantizedLinear.init(hidden, nh * hd, **kw),
             QuantizedLinear.init(hidden, nkv * hd, **kw),
             QuantizedLinear.init(hidden, nkv * hd, **kw),
             QuantizedLinear.init(nh * hd, hidden, **kw),
             num_heads=nh, num_kv_heads=nkv, head_dim=hd, rope_theta=cfg.rope_theta,
+            window=window, q_norm=norm(), k_norm=norm(), rope=bool(window) or not exaone,
+            rms_eps=cfg.rms_eps,
         )
 
     def forward(self, x: torch.Tensor, cache: KVCache,
@@ -113,20 +151,31 @@ class Attention(nn.Module):
         K3'), the golden path reads its logical dequantized view."""
         b, t, _ = x.shape
         nh, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
+        if getattr(cache, "ring", False) and t > cache.max_seq - cache.window:
+            raise ValueError(f"a forward of {t} positions overruns the ring of {cache.max_seq} "
+                             f"slots at window {cache.window}; size the cache for it "
+                             "(QuantizedTransformer.init_cache's max_tokens)")
         q, k, v = self.wq(x), self.wk(x), self.wv(x)
         with span("attention.rope"):
             q = q.reshape(b, t, nh, hd).transpose(1, 2)
             k = k.reshape(b, t, nkv, hd).transpose(1, 2)
             v = v.reshape(b, t, nkv, hd).transpose(1, 2)
-            q = rotary_embedding(q, positions, self.rope_theta)
-            k = rotary_embedding(k, positions, self.rope_theta)
+            if self.q_norm is not None:
+                q = rms_norm(q, self.q_norm, self.rms_eps)
+                k = rms_norm(k, self.k_norm, self.rms_eps)
+            if self.rope:
+                q = rotary_embedding(q, positions, self.rope_theta)
+                k = rotary_embedding(k, positions, self.rope_theta)
 
         # Cache index == sequence position: row b writes at positions[b, 0].
         with span("attention.kv_append"):
             cache = cache.append(k, v, start=positions[:, 0])
 
         if self.use_fused_attention:
-            with span("attention.kernel"):
+            # a window layer's call sits inside ``attention.window``, so that
+            # ``attention.kernel``'s own nodes are every K3 call
+            with (span("attention.window") if self.window else contextlib.nullcontext()), \
+                    span("attention.kernel"):
                 if t == 1:
                     out = int4_decode_attention(q[:, :, 0, :], cache)      # [B, nh, D]
                 else:
@@ -135,13 +184,13 @@ class Attention(nn.Module):
             return self.wo(out), cache
 
         # Golden path: dequantize the whole (logical) cache, dense masked attention.
-        kd, vd = cache.dequantize(dtype=q.dtype)                  # [B, nkv, S, D]
+        view = cache.logical() if isinstance(cache, PagedKVCache) else cache
+        kd, vd = view.dequantize(dtype=q.dtype)                   # [B, nkv, S, D]
         rep = nh // nkv
         kd = kd.repeat_interleave(rep, dim=1)
         vd = vd.repeat_interleave(rep, dim=1)
         scores = torch.einsum("bhtd,bhsd->bhts", q, kd) / math.sqrt(hd)
-        cols = torch.arange(cache.max_seq, device=x.device)
-        causal = cols[None, None, :] <= positions[:, :, None]    # [B, T, S]
+        causal = key_mask(view, positions.long())                  # [B, T, S]
         scores = torch.where(causal[:, None], scores.float(), torch.tensor(-1e30, device=x.device))
         probs = torch.softmax(scores, dim=-1).to(q.dtype)
         out = torch.einsum("bhts,bhsd->bhtd", probs, vd)
@@ -161,19 +210,35 @@ class MoEBlock(nn.Module):
     resident (xla) i8 weights. ``router``: a ``QuantizedLinear``, or the
     ``DenseLinear`` (a plain matmul) that ``models.convert`` builds by
     default; the mode converters pass a ``DenseLinear`` through unchanged.
+
+    ``router_bias`` (f32 [E]): the router is a sigmoid one
+    (``layers.moe.sigmoid_route``: this bias added for the selection,
+    weights scaled by ``routed_scale``); None: softmax top-k. The expert
+    stacks may hold a share of the ``num_experts`` the router routes over,
+    experts [``first_expert``, ``first_expert`` + E_held): every path then
+    computes their part alone (the grouped path through
+    ``layers.moe.local_routing``, the capacity paths on the whole block's
+    plan cut to their segment), with no exchange. ``shared``: a
+    :class:`DenseMLP` every token runs, added to the routed sum.
     """
 
     def __init__(self, router: Union[QuantizedLinear, DenseLinear], w_gate: MoEINT4,
                  w_up: MoEINT4, w_down: MoEINT4, *, num_experts: int, top_k: int,
                  tile_m: int = 16, prefill_threshold: int = 512, prefill_impl: str = "grouped",
                  prefill_tile_m: int = 128, capacity_factor: float = 2.0,
-                 moe_impl: str = "kernel"):
+                 moe_impl: str = "kernel", router_bias: Optional[torch.Tensor] = None,
+                 routed_scale: float = 1.0, first_expert: int = 0,
+                 shared: Optional["DenseMLP"] = None):
         super().__init__()
         if prefill_impl not in ("grouped", "einsum"):
             raise ValueError(f"prefill_impl={prefill_impl!r} is not 'grouped' or 'einsum'")
         if moe_impl not in ("kernel", "u4_turbo", "xla_turbo"):
             raise ValueError(f"moe_impl={moe_impl!r} is not 'kernel', 'u4_turbo' or 'xla_turbo'")
         self.router, self.w_gate, self.w_up, self.w_down = router, w_gate, w_up, w_down
+        self.register_buffer("router_bias", router_bias)
+        self.routed_scale = routed_scale
+        self.first_expert = first_expert
+        self.shared = shared
         self.num_experts = num_experts
         self.top_k = top_k
         self.tile_m = tile_m
@@ -185,23 +250,69 @@ class MoEBlock(nn.Module):
 
     @classmethod
     def init(cls, num_experts: int, hidden: int, ffn: int, top_k: int, tile_m: int = 16,
-             *, generator=None, device=None) -> "MoEBlock":
+             *, generator=None, device=None, cfg: Optional[ModelConfig] = None,
+             dtype=torch.bfloat16) -> "MoEBlock":
+        """Random weights. ``cfg`` (optional) adds its router rule, its share
+        of the experts and its shared expert: a sigmoid router is a bf16
+        ``DenseLinear`` with a zero bias, as checkpoints leave the gate."""
         device = resolve_device(device)
+        held, first = (cfg.held, cfg.first_expert) if cfg else (num_experts, 0)
 
         def experts(n, k):
-            w = torch.randn((num_experts, n, k), generator=generator, device=device,
+            w = torch.randn((held, n, k), generator=generator, device=device,
                             dtype=torch.float32) * (k ** -0.5)
             return MoEINT4.from_dense(w)
 
-        router = QuantizedLinear.init(hidden, num_experts, generator=generator, device=device)
+        kw = {}
+        if cfg is not None and cfg.router == "sigmoid":
+            w = torch.randn((num_experts, hidden), generator=generator, device=device,
+                            dtype=torch.float32) * (hidden ** -0.5)
+            router = DenseLinear(w.to(dtype))
+            kw = dict(router_bias=torch.zeros((num_experts,), dtype=torch.float32,
+                                              device=device),
+                      routed_scale=cfg.routed_scale)
+        else:
+            router = QuantizedLinear.init(hidden, num_experts, generator=generator, device=device)
+        if cfg is not None and cfg.shared_ffn:
+            kw["shared"] = DenseMLP.init(hidden, cfg.shared_ffn, span_name="moe.shared",
+                                         generator=generator, device=device)
         return cls(router, experts(ffn, hidden), experts(ffn, hidden), experts(hidden, ffn),
-                   num_experts=num_experts, top_k=top_k, tile_m=tile_m)
+                   num_experts=num_experts, top_k=top_k, tile_m=tile_m, first_expert=first,
+                   **kw)
+
+    def route(self, logits: torch.Tensor) -> RoutingResult:
+        """The routing over all ``num_experts`` from router logits [T, E]."""
+        if self.router_bias is None:
+            return topk_route(logits, self.top_k, self.num_experts)
+        return sigmoid_route(logits, self.router_bias, self.top_k, self.num_experts,
+                             self.routed_scale)
+
+    @property
+    def held(self) -> int:
+        """The routed experts this block's stacks hold."""
+        return self.w_gate.packed.shape[0]
+
+    def _first_held(self) -> int:
+        """The global id of the first expert the stacks hold."""
+        return self.first_expert
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, H]
+        return self._with_shared(self._routed(x), x)
+
+    def _with_shared(self, out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """The routed experts' sum ``out`` plus the shared expert's output."""
+        if self.shared is None:
+            return out
+        shared = self.shared(x)
+        with span("moe.combine"):
+            return out + shared
+
+    def _routed(self, x: torch.Tensor) -> torch.Tensor:
+        """The routed experts' part [B, T, H] (the held experts' alone)."""
         b, t, h = x.shape
         with span("moe.route"):
             xf = x.reshape(b * t, h)
-            routing = topk_route(self.router(xf), self.top_k, self.num_experts)
+            routing = self.route(self.router(xf))
         # per_group scales cannot fold past an integer dot: under u4_turbo
         # such experts take the dropless grouped path at every size (JAX's
         # transient_ok rule)
@@ -221,8 +332,12 @@ class MoEBlock(nn.Module):
 
     def _grouped_forward(self, xf, routing, tile_m: int) -> torch.Tensor:
         """Dropless path: tile-packed dispatch -> grouped kernel -> combine,
-        over the routing's experts."""
+        over the experts held here (their pairs alone, when the stacks hold a
+        share)."""
         with span("moe.route"):
+            if self.held != self.num_experts:
+                routing = local_routing(routing.expert_indices, routing.expert_weights,
+                                        self._first_held(), self.held)
             plan = make_dispatch_plan(routing, routing.tokens_per_expert.shape[0], tile_m=tile_m)
             xs = dispatch(xf, routing, plan)                   # [T_pad, H]
         g = self.w_gate(xs, plan.tile_group_ids, tile_m=tile_m)
@@ -240,7 +355,15 @@ class MoEBlock(nn.Module):
         cf = self.capacity_factor
         cap = int(-(-cf * tk // self.num_experts // self.tile_m)) * self.tile_m
         plan = make_capacity_plan(routing, self.num_experts, capacity=cap, tile_m=self.tile_m)
-        return cap, plan
+        if self.held == self.num_experts:
+            return cap, plan
+        # the held experts' segment of the whole block's plan: a pair is kept
+        # or dropped as in the whole block
+        t_pad = self.held * cap
+        rows = plan.rows - self._first_held() * cap
+        rows = torch.where((rows >= 0) & (rows < t_pad), rows, torch.full_like(rows, t_pad))
+        return cap, DispatchPlan(rows, plan.tile_group_ids[:t_pad // self.tile_m], t_pad,
+                                 self.tile_m, drops=True)
 
     def _capacity_i8_forward(self, xf, routing, *, transient: bool) -> torch.Tensor:
         """Capacity layout + integer GEMMs per expert: on transient i8 weights
@@ -274,17 +397,59 @@ class MoEBlock(nn.Module):
         return combine(d.reshape(xs.shape), routing, plan)
 
 
+class DenseMLP(nn.Module):
+    """A dense SwiGLU, ``down(silu(gate(x)) * up(x))``, on the INT4 linears:
+    a leading dense layer's feed-forward (span ``mlp.dense``) or a MoE
+    block's shared expert (``moe.shared``)."""
+
+    def __init__(self, w_gate: QuantizedLinear, w_up: QuantizedLinear, w_down: QuantizedLinear,
+                 *, span_name: str = "mlp.dense"):
+        super().__init__()
+        self.w_gate, self.w_up, self.w_down = w_gate, w_up, w_down
+        self.span_name = span_name
+
+    @classmethod
+    def init(cls, hidden: int, ffn: int, *, span_name: str = "mlp.dense", generator=None,
+             device=None) -> "DenseMLP":
+        kw = dict(generator=generator, device=resolve_device(device))
+        return cls(QuantizedLinear.init(hidden, ffn, **kw), QuantizedLinear.init(hidden, ffn, **kw),
+                   QuantizedLinear.init(ffn, hidden, **kw), span_name=span_name)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with span(self.span_name):
+            g, u = self.w_gate(x), self.w_up(x)
+            h = (F.silu(g.float()) * u.float()).to(x.dtype)
+            return self.w_down(h)
+
+
 class TransformerBlock(nn.Module):
+    """Attention, then the feed-forward sublayer ``moe`` (a :class:`MoEBlock`,
+    or a :class:`DenseMLP` in a leading dense layer). Pre-norm (Mixtral):
+    ``h = x + attn(norm_a(x)); y = h + moe(norm_f(h))``; ``post_norm``
+    (EXAONE 4.0): ``h = x + norm_a(attn(x)); y = h + norm_f(moe(h))``."""
+
     def __init__(self, attn_norm: torch.Tensor, attn: Attention, moe_norm: torch.Tensor,
-                 moe: MoEBlock, *, rms_eps: float):
+                 moe: Union[MoEBlock, DenseMLP], *, rms_eps: float, post_norm: bool = False):
         super().__init__()
         self.register_buffer("attn_norm", attn_norm)
         self.attn = attn
         self.register_buffer("moe_norm", moe_norm)
         self.moe = moe
         self.rms_eps = rms_eps
+        self.post_norm = post_norm
 
     def forward(self, x, cache, positions):
+        if self.post_norm:
+            h, cache = self.attn(x, cache, positions)
+            with span("norm"):
+                h = rms_norm(h, self.attn_norm, self.rms_eps)
+            with span("residual"):
+                x = x + h
+            h = self.moe(x)
+            with span("norm"):
+                h = rms_norm(h, self.moe_norm, self.rms_eps)
+            with span("residual"):
+                return x + h, cache
         with span("norm"):
             h = rms_norm(x, self.attn_norm, self.rms_eps)
         h, cache = self.attn(h, cache, positions)
@@ -320,17 +485,25 @@ class QuantizedTransformer(nn.Module):
         """Random weights drawn from ``generator``, built on ``device`` (None:
         the CUDA card; ``device="cpu"`` builds for the plain versions)."""
         device = resolve_device(device)
-        hidden = cfg.num_heads * cfg.head_dim
+        cfg = port_config(cfg)
+        hidden = cfg.hidden
         kw = dict(generator=generator, device=device)
+
+        def ffn(layer):
+            if layer < cfg.dense_layers:
+                return DenseMLP.init(hidden, cfg.dense_ffn, **kw)
+            return MoEBlock.init(cfg.moe.num_experts, hidden, cfg.moe.ffn_dim, cfg.moe.top_k,
+                                 cfg=cfg, dtype=dtype, **kw)
+
         blocks = [
             TransformerBlock(
                 torch.ones((hidden,), dtype=dtype, device=device),
-                Attention.init(cfg, hidden, **kw),
+                Attention.init(cfg, hidden, layer=layer, dtype=dtype, **kw),
                 torch.ones((hidden,), dtype=dtype, device=device),
-                MoEBlock.init(cfg.moe.num_experts, hidden, cfg.moe.ffn_dim, cfg.moe.top_k, **kw),
-                rms_eps=cfg.rms_eps,
+                ffn(layer),
+                rms_eps=cfg.rms_eps, post_norm=cfg.block == "exaone4",
             )
-            for _ in range(cfg.num_layers)
+            for layer in range(cfg.num_layers)
         ]
         embed = (torch.randn((cfg.vocab_size, hidden), generator=generator, device=device,
                              dtype=torch.float32) * 0.02).to(dtype)
@@ -348,22 +521,29 @@ class QuantizedTransformer(nn.Module):
         return sum(t.numel() * t.element_size()
                    for _, t in self.named_buffers(remove_duplicate=False))
 
-    def init_cache(self, cfg: ModelConfig, batch: int, max_seq: int) -> Tuple[QuantizedKVCache, ...]:
+    def init_cache(self, cfg: ModelConfig, batch: int, max_seq: int,
+                   max_tokens: Optional[int] = None) -> Tuple[QuantizedKVCache, ...]:
+        """One contiguous cache per layer, of ``max_seq`` positions; a window
+        layer's is a ring of its window plus ``max_tokens``, the most
+        positions one forward appends (None: ``max_seq``)."""
         return tuple(
-            QuantizedKVCache.init(batch, cfg.num_kv_heads, max_seq, cfg.head_dim, device=self.device)
-            for _ in self.blocks
+            QuantizedKVCache.init(batch, cfg.num_kv_heads, max_seq, cfg.head_dim,
+                                  device=self.device, window=blk.attn.window,
+                                  max_tokens=max_tokens)
+            for blk in self.blocks
         )
 
     def init_paged_cache(self, cfg: ModelConfig, batch: int, *, num_pages: int, page_size: int,
                          max_pages_per_slot: int) -> Tuple[PagedKVCache, ...]:
         """Paged KV caches, one page pool per layer (``layers.paged_kv``).
         Page ids are pool-local, so the serving engine runs one allocator
-        and applies the same assignment to every layer."""
+        and applies the same assignment to every layer. A window layer's
+        pages hold every position and its window is a mask."""
         return tuple(
             PagedKVCache.init(batch, cfg.num_kv_heads, cfg.head_dim, num_pages=num_pages,
                               page_size=page_size, max_pages_per_slot=max_pages_per_slot,
-                              device=self.device)
-            for _ in self.blocks
+                              device=self.device, window=blk.attn.window)
+            for blk in self.blocks
         )
 
     def forward(self, tokens: torch.Tensor, caches, positions: torch.Tensor):
@@ -391,15 +571,31 @@ def _converted_copy(model: QuantizedTransformer) -> QuantizedTransformer:
     return copy.deepcopy(model, memo)
 
 
+def _moe_blocks(model: QuantizedTransformer):
+    return [blk.moe for blk in model.blocks if isinstance(blk.moe, MoEBlock)]
+
+
+def _mlps(model: QuantizedTransformer):
+    """The dense SwiGLUs: leading dense layers' and shared experts'."""
+    for blk in model.blocks:
+        mlp = blk.moe.shared if isinstance(blk.moe, MoEBlock) else blk.moe
+        if mlp is not None:
+            yield mlp
+
+
 def _linears(model: QuantizedTransformer):
     for blk in model.blocks:
-        yield from (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.attn.wo, blk.moe.router)
+        yield from (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.attn.wo)
+        if isinstance(blk.moe, MoEBlock):
+            yield blk.moe.router
+    for mlp in _mlps(model):
+        yield from (mlp.w_gate, mlp.w_up, mlp.w_down)
     yield model.lm_head
 
 
 def _experts(model: QuantizedTransformer):
-    for blk in model.blocks:
-        yield from (blk.moe.w_gate, blk.moe.w_up, blk.moe.w_down)
+    for moe in _moe_blocks(model):
+        yield from (moe.w_gate, moe.w_up, moe.w_down)
 
 
 def as_u4_turbo(model: QuantizedTransformer) -> QuantizedTransformer:
@@ -418,9 +614,9 @@ def as_u4_turbo(model: QuantizedTransformer) -> QuantizedTransformer:
             lin.as_u4_turbo()
     for ex in _experts(model):
         ex.activation = "int8"
-    for blk in model.blocks:
-        blk.moe.tile_m = 32
-        blk.moe.moe_impl = "u4_turbo"
+    for moe in _moe_blocks(model):
+        moe.tile_m = 32
+        moe.moe_impl = "u4_turbo"
     return model
 
 
@@ -435,8 +631,8 @@ def as_turbo(model: QuantizedTransformer) -> QuantizedTransformer:
             lin.activation = "int8"
     for ex in _experts(model):
         ex.activation = "int8"
-    for blk in model.blocks:
-        blk.moe.tile_m = 32
+    for moe in _moe_blocks(model):
+        moe.tile_m = 32
     return model
 
 
@@ -454,8 +650,8 @@ def as_xla_turbo(model: QuantizedTransformer) -> QuantizedTransformer:
         if ex.w8_q8 is None:
             w8 = to_int8_resident(ex.weight)
             ex.w8_q8, ex.w8_scales = w8.q8, w8.scales
-    for blk in model.blocks:
-        blk.moe.moe_impl = "xla_turbo"
+    for moe in _moe_blocks(model):
+        moe.moe_impl = "xla_turbo"
     return model
 
 
@@ -495,7 +691,11 @@ def as_per_group(model: QuantizedTransformer, group_size: int = 128) -> Quantize
     for blk in model.blocks:
         for name in ("wq", "wk", "wv", "wo"):
             setattr(blk.attn, name, linear(getattr(blk.attn, name)))
+    for moe in _moe_blocks(model):
         for name in ("w_gate", "w_up", "w_down"):
-            setattr(blk.moe, name, experts(getattr(blk.moe, name)))
+            setattr(moe, name, experts(getattr(moe, name)))
+    for mlp in _mlps(model):
+        for name in ("w_gate", "w_up", "w_down"):
+            setattr(mlp, name, linear(getattr(mlp, name)))
     model.lm_head = linear(model.lm_head)
     return model

@@ -53,11 +53,11 @@ _SIGNATURES = {
     "f4b_grouped_int4_matmul_wg_bf16": [_P] * 7 + [_I] * 6 + [_P],
     "f4b_grouped_int4_matmul_pg_wg_bf16": [_P] * 8 + [_I] * 7 + [_P],
     # q, kp, ks, kz, vp, vs, vz, lengths, starts, out, partial; B, Hkv, G, Tq, S, D, QT, seg
-    "f4b_int4_attention_bf16": [_P] * 11 + [_I] * 8 + [_P],
-    "f4b_int4_attention_f32": [_P] * 10 + [_I] * 7 + [_P],
+    "f4b_int4_attention_bf16": [_P] * 11 + [_I] * 10 + [_P],
+    "f4b_int4_attention_f32": [_P] * 10 + [_I] * 9 + [_P],
     # ..., table, lengths, starts, out, partial; B, Hkv, G, Tq, page, max_pages, D, QT, seg
-    "f4b_paged_int4_attention_bf16": [_P] * 12 + [_I] * 9 + [_P],
-    "f4b_paged_int4_attention_f32": [_P] * 11 + [_I] * 8 + [_P],
+    "f4b_paged_int4_attention_bf16": [_P] * 12 + [_I] * 10 + [_P],
+    "f4b_paged_int4_attention_f32": [_P] * 11 + [_I] * 9 + [_P],
     # x, xq, sx, sums, used; M, K, gsum, fused; stream (K4, K5, K8, K10, K11, K14)
     "f4b_a8_prepass_bf16": [_P] * 5 + [_I] * 4 + [_P],
     "f4b_a8_prepass_f32": [_P] * 5 + [_I] * 4 + [_P],

@@ -19,6 +19,12 @@ G = Hq / Hkv query heads per kv head. Query t of row b sits at position
 ``s < lengths[b]``; the cache must already hold the T new steps.
 ``int4_decode_attention`` and ``int4_prefill_attention`` take either cache
 and dispatch on its type, as the JAX package does.
+
+A cache with a ``window`` narrows that to ``starts[b] + t - window < p``,
+where p is the position the key's slot holds: its slot on a paged cache, on
+a window layer's contiguous ring the newest position at that slot
+(``QuantizedKVCache.positions``). A cache without one runs as before, the
+same kernels and the same bits.
 """
 from __future__ import annotations
 
@@ -109,11 +115,8 @@ def _attention_math(q: torch.Tensor, cache, starts: torch.Tensor, g: int) -> tor
         raw = torch.matmul(qf, kc.transpose(-1, -2))                       # [B, Hq, T, S]
     qsum = qf.sum(dim=-1, keepdim=True)
     scores = (raw * ks - qsum * ksz) * torch.tensor(1.0 / math.sqrt(d), device=q.device)
-    span = torch.arange(cache.max_seq, device=q.device)
     qpos = starts.to(q.device).long()[:, None] + torch.arange(t, device=q.device)  # [B, T]
-    lengths = cache.lengths.to(q.device).long()
-    mask = ((span[None, None, :] <= qpos[:, :, None])
-            & (span[None, None, :] < lengths[:, None, None]))[:, None]  # [B, 1, T, S]
+    mask = key_mask(cache, qpos)[:, None]                                  # [B, 1, T, S]
     scores = scores.masked_fill(~mask, float("-inf"))
     row_max = scores.amax(dim=-1, keepdim=True).clamp(min=-1e30)   # finite for empty rows
     p = torch.exp(scores - row_max)                         # masked entries: exactly 0
@@ -123,6 +126,20 @@ def _attention_math(q: torch.Tensor, cache, starts: torch.Tensor, g: int) -> tor
         num = torch.matmul(ps, vc) - (ps * vz).sum(dim=-1, keepdim=True)
     out = torch.where(denom > 0, num / denom, torch.zeros_like(num))
     return out.to(q.dtype)
+
+
+def key_mask(cache, qpos: torch.Tensor) -> torch.Tensor:
+    """[B, T, S]: whether query t of row b, at position ``qpos`` [B, T],
+    sees the key in slot s of the contiguous ``cache``: the slot is written
+    and holds a position at or before the query, and inside the cache's
+    window where it has one."""
+    kpos, written = cache.positions()
+    kpos, written = kpos.to(qpos.device)[:, None, :], written.to(qpos.device)[:, None, :]
+    q = qpos[:, :, None]
+    mask = written & (kpos <= q)
+    if cache.window:
+        mask = mask & (kpos > q - cache.window)
+    return mask
 
 
 def int4_attention_reference(
@@ -164,10 +181,11 @@ paged_int4_attention_reference.calls = 0
 
 
 def _launch(kernels: dict, q: torch.Tensor, g: int, operands, sizes,
-            positions: int) -> torch.Tensor:
+            positions: int, masks: tuple) -> torch.Tensor:
     """Check the operands of K3 or K3' (``kernels``: its C entry point per
     query dtype) and launch it; q [B, Hq, T, D] over a cache of
-    ``positions`` logical positions per row."""
+    ``positions`` logical positions per row; ``masks``: the window and, for
+    K3, the ring flag."""
     d = q.shape[-1]
     if q.dtype not in kernels:
         raise TypeError(f"K3 takes bf16 or f32 queries, got {q.dtype}")
@@ -198,6 +216,7 @@ def _launch(kernels: dict, q: torch.Tensor, g: int, operands, sizes,
                                dtype=torch.float32, device=q.device) if z > 1 else None)
         partial = [None if scratch is None else scratch.data_ptr()]
         tail = (d, qt, seg)
+    tail += masks
     with torch.cuda.device(q.device):
         err = getattr(_build.library(), kernel)(
             q.data_ptr(), *(tensor.data_ptr() for _, tensor, _ in operands),
@@ -226,12 +245,15 @@ def int4_attention(q: torch.Tensor, cache, starts: torch.Tensor) -> torch.Tensor
     operands = _cache_operands(cache, "packed") + [
         ("lengths", cache.lengths, torch.int32), ("starts", starts, torch.int32)]
     out = _launch(_KERNELS, q, g, operands,
-                  (b, hq // g, g, t, cache.max_seq), cache.max_seq)
+                  (b, hq // g, g, t, cache.max_seq), cache.max_seq,
+                  (cache.window, int(cache.ring)))
     int4_attention.launches += 1
+    int4_attention.window_launches += bool(cache.window)
     return out
 
 
 int4_attention.launches = 0
+int4_attention.window_launches = 0    # the share of .launches over a window layer's cache
 
 
 def paged_int4_attention(q: torch.Tensor, cache: PagedKVCache,
@@ -254,12 +276,14 @@ def paged_int4_attention(q: torch.Tensor, cache: PagedKVCache,
         ("lengths", cache.lengths, torch.int32), ("starts", starts, torch.int32)]
     out = _launch(_PAGED_KERNELS, q, g, operands,
                   (b, hq // g, g, t, page, cache.max_pages_per_slot),
-                  page * cache.max_pages_per_slot)
+                  page * cache.max_pages_per_slot, (cache.window,))
     paged_int4_attention.launches += 1
+    paged_int4_attention.window_launches += bool(cache.window)
     return out
 
 
 paged_int4_attention.launches = 0
+paged_int4_attention.window_launches = 0
 
 
 def paged_int4_decode_attention(q: torch.Tensor, cache: PagedKVCache) -> torch.Tensor:

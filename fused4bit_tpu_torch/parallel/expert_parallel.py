@@ -37,7 +37,9 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
-from ..layers.moe import RoutingResult, combine, dispatch, make_dispatch_plan, topk_route
+from ..layers.moe import (
+    RoutingResult, combine, dispatch, local_routing, make_dispatch_plan, topk_route,
+)
 from ..ops.grouped_matmul import grouped_int4_matmul, grouped_int4_matmul_per_group
 from ..ops.int4_matmul import int4_matmul, int4_matmul_per_group
 from ..quant.core import QuantizedTensor
@@ -82,19 +84,6 @@ def _counts(ids: torch.Tensor, n: int) -> torch.Tensor:
     ids = ids.reshape(-1).long()
     return torch.zeros(n, dtype=torch.int32, device=ids.device).scatter_add_(
         0, ids, torch.ones_like(ids, dtype=torch.int32))
-
-
-def local_routing(expert_indices: torch.Tensor, expert_weights: torch.Tensor, lo: int,
-                  e_local: int) -> RoutingResult:
-    """The global routing seen by the rank holding experts [lo, lo + e_local):
-    foreign pairs go to local expert 0 with weight 0, so their rows flow
-    through the kernel and add nothing after weighting."""
-    local_ids = expert_indices - lo
-    mine = (local_ids >= 0) & (local_ids < e_local)
-    local_ids = torch.where(mine, local_ids, 0).to(torch.int32)
-    weights = torch.where(mine, expert_weights, 0.0)
-    tpe = _counts(local_ids, e_local)
-    return RoutingResult(local_ids, weights, tpe, _offsets(tpe))
 
 
 def _local_contrib(xblk, eids, weights, lo, e_local, qt_loc, tile_m) -> torch.Tensor:

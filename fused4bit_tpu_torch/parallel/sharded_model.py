@@ -23,9 +23,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from ..layers.moe import DispatchPlan
 from ..models.transformer import MoEBlock, QuantizedTransformer
-from .expert_parallel import local_routing
 from .mesh import all_gather_dim, axis_index, axis_size, psum
 from .sharding import Shard, shard_tensor
 
@@ -40,7 +38,10 @@ def model_pspecs(model: QuantizedTransformer,
     expert stacks' tensors (packed, scales, zero points, and the resident i8
     copy where there is one) split their E dim over ``expert_axis``; the
     rest is replicated (None)."""
-    return {name: Shard(expert_axis, 0) if any(f".moe.{f}." in name for f in _EXPERT_FIELDS)
+    moe = [f"blocks.{i}.moe." for i, blk in enumerate(model.blocks)
+           if isinstance(blk.moe, MoEBlock)]
+    return {name: Shard(expert_axis, 0)
+            if any(name.startswith(pre + f + ".") for pre in moe for f in _EXPERT_FIELDS)
             else None
             for name in model.state_dict()}
 
@@ -50,13 +51,14 @@ class EPMoEBlock(MoEBlock):
     block's E, its output summed over ``axis`` in rank order.
 
     The router is replicated and routes over the global experts, and every
-    path of ``MoEBlock.forward`` runs on the local experts: the dropless
-    grouped path sees the local filter (``expert_parallel.local_routing``:
-    foreign pairs go to local expert 0 with weight 0); the capacity paths
-    (``moe_impl`` u4_turbo and xla_turbo, ``prefill_impl="einsum"``) take
-    the whole block's capacity plan cut to the rank's segment, so a pair
-    is kept or dropped as on one card. At one rank along ``axis`` this is
-    the block's own forward, bit for bit. Its checkpoint description is the
+    path of ``MoEBlock.forward`` runs on the local experts, as a block that
+    holds a share of them does: the dropless grouped path
+    sees the local filter (``layers.moe.local_routing``: foreign pairs are
+    dropped); the capacity paths (``moe_impl`` u4_turbo and xla_turbo,
+    ``prefill_impl="einsum"``) take the whole block's capacity plan cut to
+    the rank's segment, so a pair is kept or dropped as on one card. A
+    shared expert, replicated, is added after the sum. At one rank along ``axis`` this is the block's own forward, bit for
+    bit. Its checkpoint description is the
     whole block's (``num_experts`` stays global, the EP state is private), so
     a checkpoint moves between placed and whole models."""
 
@@ -67,30 +69,21 @@ class EPMoEBlock(MoEBlock):
                          num_experts=block.num_experts, top_k=block.top_k, tile_m=block.tile_m,
                          prefill_threshold=block.prefill_threshold,
                          prefill_impl=block.prefill_impl, prefill_tile_m=block.prefill_tile_m,
-                         capacity_factor=block.capacity_factor, moe_impl=block.moe_impl)
+                         capacity_factor=block.capacity_factor, moe_impl=block.moe_impl,
+                         router_bias=block.router_bias, routed_scale=block.routed_scale,
+                         first_expert=block.first_expert, shared=block.shared)
         self._mesh, self._axis = mesh, axis
-        self._e_local = block.w_gate.packed.shape[0]
+        self._rank_first = axis_index(mesh, axis) * self.held
         ranks = axis_size(mesh, axis)
-        if self._e_local * ranks != block.num_experts:
-            raise ValueError(f"{self._e_local} local experts x {ranks} ranks != "
+        if self.held * ranks != block.num_experts:
+            raise ValueError(f"{self.held} local experts x {ranks} ranks != "
                              f"{block.num_experts} experts")
-        self._first = axis_index(mesh, axis) * self._e_local
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return psum(super().forward(x), self._mesh, self._axis)
+        return self._with_shared(psum(self._routed(x), self._mesh, self._axis), x)
 
-    def _grouped_forward(self, xf, routing, tile_m: int) -> torch.Tensor:
-        rt = local_routing(routing.expert_indices, routing.expert_weights, self._first,
-                           self._e_local)
-        return super()._grouped_forward(xf, rt, tile_m)
-
-    def _capacity_plan(self, xf, routing):
-        cap, whole = super()._capacity_plan(xf, routing)
-        t_pad = self._e_local * cap
-        rows = whole.rows - self._first * cap
-        rows = torch.where((rows >= 0) & (rows < t_pad), rows, torch.full_like(rows, t_pad))
-        return cap, DispatchPlan(rows, whole.tile_group_ids[:t_pad // self.tile_m], t_pad,
-                                 self.tile_m, drops=True)
+    def _first_held(self) -> int:
+        return self.first_expert + self._rank_first
 
 
 def place_model(model: QuantizedTransformer, mesh: DeviceMesh,
@@ -110,7 +103,8 @@ def place_model(model: QuantizedTransformer, mesh: DeviceMesh,
         spec = specs[name] if buf.dim() else None
         setattr(placed.get_submodule(mod_name), attr, shard_tensor(buf, mesh, spec))
     for blk in placed.blocks:
-        blk.moe = EPMoEBlock(blk.moe, mesh, expert_axis)
+        if isinstance(blk.moe, MoEBlock):
+            blk.moe = EPMoEBlock(blk.moe, mesh, expert_axis)
     return placed
 
 
@@ -126,7 +120,8 @@ def sharded_decode_step(
     """One forward step of the sharded model. Returns (logits [B, T, V], the
     whole batch's, gathered over ``data_axis`` in rank order; the rank's
     caches, updated in place)."""
-    if not all(isinstance(blk.moe, EPMoEBlock) for blk in model.blocks):
+    if not all(isinstance(blk.moe, EPMoEBlock) for blk in model.blocks
+               if isinstance(blk.moe, MoEBlock)):
         raise ValueError("place the model on the mesh with place_model first")
     logits, caches = model(tokens, caches, positions)
     if data_axis in mesh.mesh_dim_names:

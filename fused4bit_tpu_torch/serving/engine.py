@@ -164,6 +164,10 @@ class ServingEngine:
         if mesh is not None:
             if paged:
                 raise ValueError("paged KV is single-chip for now (no mesh)")
+            if any(blk.attn.window for blk in model.blocks):
+                # the sharded prefill parks the other rows' writes at the end
+                # of the cache, which on a window layer's ring are live slots
+                raise ValueError("window layers are single-chip for now (no mesh)")
             if draft_model is not None:
                 raise ValueError("speculative serving is single-chip contiguous-cache for now")
             if not isinstance(mesh, DeviceMesh):
@@ -215,7 +219,10 @@ class ServingEngine:
                                                  page_size=page_size,
                                                  max_pages_per_slot=max_pages)
         else:
-            self.caches = model.init_cache(cfg, self._local_slots, max_seq)
+            # a window layer's ring holds its window plus the longest forward:
+            # a prefill chunk, or a speculative verify of gamma + 1 positions
+            max_tokens = max(prefill_bucket, spec_gamma + 1 if draft_model is not None else 1)
+            self.caches = model.init_cache(cfg, self._local_slots, max_seq, max_tokens=max_tokens)
         self.queue: Deque[GenerationRequest] = deque()
         self.active: Dict[int, GenerationRequest] = {}   # slot -> request
         self.generated: Dict[int, List[int]] = {}        # uid -> tokens
@@ -241,7 +248,8 @@ class ServingEngine:
             self._spec = SpeculativeDecoder(model, draft_model, cfg, self.draft_cfg,
                                             gamma=spec_gamma)
             self.spec_stats = SpecStats()
-            self.draft_caches = draft_model.init_cache(self.draft_cfg, num_slots, max_seq)
+            self.draft_caches = draft_model.init_cache(self.draft_cfg, num_slots, max_seq,
+                                                       max_tokens=max_tokens)
         if decode_block < 1:
             raise ValueError(f"decode_block must be >= 1, got {decode_block}")
         self.decode_block = decode_block

@@ -245,9 +245,11 @@ from fused4bit_tpu_torch.ops import _build
 from fused4bit_tpu_torch.ops.grouped_matmul import _ksplit_mma_launch, _ksplit_splits
 from fused4bit_tpu_torch.ops.int4_matmul import (
     _MMA_TALL_M,
+    _PG_MMA_KERNEL,
     _a8_mma_launch,
     _fold_mma_launch,
     _k7_on_tensor_cores,
+    _launch_mma,
     _mma_launch,
     _pg_a8_on_tensor_cores,
 )
@@ -455,11 +457,12 @@ def build() -> float:
 # (csrc/decode_attention.cu) for K3 and K3', each at head_dim 64 and 128; the
 # int8 body (csrc/int8_mma.cuh) for K10 (K11, K5 and K4 run its
 # instantiation) and for K14 with 16- and 8-byte runs (K8 runs K14's two);
-# the warpgroup body (csrc/grouped_wgmma.cu, wgmma: HGMMA) for K2 and K13.
+# the warpgroup body (csrc/grouped_wgmma.cu, wgmma: HGMMA) for K2 and K13
+# and, without grouped addressing, for K7's tall calls.
 TENSOR_CORE_KERNELS = {"int4_mma_kernel": (12, "HMMA"),
                        "int4_attention_mma_kernel": (4, "HMMA"),
                        "int8_mma_kernel": (3, "IMMA"),
-                       "int4_mma_kernel_wg": (2, "HGMMA")}
+                       "int4_mma_kernel_wg": (3, "HGMMA")}
 
 
 def _tensor_core_body(fn: str):
@@ -849,7 +852,10 @@ def check_linear_pg(device, results, timer, gen):
     version bit for bit; bf16 rows print the main kernel's device time.
     Then K7 at gs 64 (the tensor-core body) and gs 32 (the CUDA-core loop),
     and K8 at gs 64 and 32 (the int8 body's 16- and 8-byte runs) and gs 16
-    (the CUDA-core loop)."""
+    (the CUDA-core loop). At 640 rows bf16 K7 runs the warpgroup body at
+    these widths, so last K7 at 640 rows on N=960, a width in no whole
+    slices of 128, which keeps the tall tile (``int4_mma_kernel<GroupFold,
+    8, false>``), held to the plain version."""
     for n, k in ((4096, 4096), (1024, 4096), (8192, 4096)):
         qt = _pg_quantize(torch.randn((n, k), generator=gen, device=device) * k ** -0.5)
         x640 = torch.randn((640, k), generator=gen, device=device).bfloat16()
@@ -913,6 +919,18 @@ def check_linear_pg(device, results, timer, gen):
                  ops.int4_matmul_per_group_a8(x, qt), ref, _a8_tol(ref), results, None, None,
                  None, exact=True)
         del qt
+    n, k = 960, 4096
+    qt = _pg_quantize(torch.randn((n, k), generator=gen, device=device) * k ** -0.5)
+    x = torch.randn((640, k), generator=gen, device=device).bfloat16()
+    before = ops.int4_matmul_per_group.wg_launches
+    y = ops.int4_matmul_per_group(x, qt)
+    if ops.int4_matmul_per_group.wg_launches != before:
+        raise AssertionError(f"int4_matmul_per_group M=640 N={n}: took the warpgroup body")
+    ref = ops.int4_matmul_per_group_reference(x, qt)
+    _compare("int4_matmul_per_group", f"M=640 N={n} K={k} bf16 (tall tile)", y, ref,
+             _a16_tol(ref), results, timer, lambda: ops.int4_matmul_per_group(x, qt),
+             lambda: ops.int4_matmul_per_group_reference(x, qt), iters=5,
+             work=linear_bound(x, qt))
 
 
 def check_grouped_pg(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
@@ -1095,6 +1113,55 @@ def check_grouped_wg(device, results, timer, gen, e=8):
                 print(f"    tokens per expert {loads}, T_pad {plan.t_pad}")
             same_across_tile_m(f"{name} (warpgroup body)", op, qt, k, e, gen, device,
                                tiles=(16, 32, 64, 128), t=384)
+            del qt
+            torch.cuda.empty_cache()
+
+
+# (N, K) of the per-group cells' K7 linears by their rows: K-EXAONE-236B's
+# q, k and v, o, the shared expert's gate/up and down, the dense layer's
+# gate/up and down and the LM head at 896; Mixtral-8x22B's q and o, k and v
+# and the LM head at 384
+PG_LINEAR_SHAPES = {896: ((8192, 6144), (1024, 6144), (6144, 8192), (2048, 6144), (6144, 2048),
+                          (18432, 6144), (6144, 18432), (153600, 6144)),
+                    384: ((6144, 6144), (1024, 6144), (32768, 6144))}
+
+
+def check_pg_linear_wg(device, results, timer, gen):
+    """K7's tall calls on the warpgroup body (``csrc/grouped_wgmma.cu``) at
+    the per-group cells' linear shapes (PG_LINEAR_SHAPES), each through the
+    public wrapper (which must choose the body) against the plain version,
+    a second launch bit-equal to the first; rows print the main kernel's
+    device time, the bound and the library call's time. Then the tall tile
+    (``int4_mma_kernel<GroupFold, 8, false>``, the launch K7 had at these
+    rows before the body, and still has above 64 rows where N is in no
+    whole slices of 128) on the same inputs, held to the plain version at
+    the same bar and timed."""
+    for m, shapes in PG_LINEAR_SHAPES.items():
+        for n, k in shapes:
+            qt = _pg_quantize(torch.randn((n, k), generator=gen, device=device) * k ** -0.5)
+            x = torch.randn((m, k), generator=gen, device=device).bfloat16()
+            before = ops.int4_matmul_per_group.wg_launches
+            y = ops.int4_matmul_per_group(x, qt)
+            again = ops.int4_matmul_per_group(x, qt)
+            if ops.int4_matmul_per_group.wg_launches != before + 2:
+                raise AssertionError(f"int4_matmul_per_group M={m} N={n}: not the warpgroup body")
+            torch.cuda.synchronize()
+            if not torch.equal(y, again):
+                raise AssertionError(f"int4_matmul_per_group M={m} N={n}: two launches differ")
+            ref = ops.int4_matmul_per_group_reference(x, qt)
+            _compare("int4_matmul_per_group", f"M={m} N={n} K={k} wg", y, ref, _a16_tol(ref),
+                     results, timer, lambda: ops.int4_matmul_per_group(x, qt),
+                     lambda: ops.int4_matmul_per_group_reference(x, qt), iters=10,
+                     work=linear_bound(x, qt), library=int4pack_yardstick(x, qt),
+                     main="int4_mma_kernel_wg" if timer else None)
+
+            def tall():
+                return _launch_mma(x, qt, _PG_MMA_KERNEL, "int4_matmul_per_group",
+                                   qt.group_size, decode=_fold_mma_launch)
+            _compare("int4_matmul_per_group", f"M={m} N={n} K={k} tall tile", tall(), ref,
+                     _a16_tol(ref), results, None, None, None)
+            if timer:
+                print(f"    tall tile {timer(tall, iters=10):.4f} ms")
             del qt
             torch.cuda.empty_cache()
 
@@ -1571,6 +1638,7 @@ def check_kernels(device="cuda", timing=True):
     check_linear_pg(device, results, timer, gen)
     check_grouped_pg(device, results, timer, gen)
     check_grouped_wg(device, results, timer, gen)
+    check_pg_linear_wg(device, results, timer, gen)
     check_linear_planar_pg(device, results, timer, gen)
     check_grouped_planar_pg(device, results, timer, gen)
     check_ksplit(device, results, timer, gen)
@@ -3165,7 +3233,7 @@ def traced_replay(loop, tok0) -> tuple:
         prof = device_op_times(replay, trace_dir=trace_dir)
     seen = sum(t.count for name, t in prof.by_op.items() if any(k in name for k in _MAIN_KERNELS))
     # the ``*_wg`` and ``*_window`` counters count a share of K2's, K13's,
-    # K3's and K3''s launches again
+    # K7's, K3's and K3''s launches again
     launched = sum(v for k, v in loop.launches.items()
                    if k in ops.launch_counts() and not k.endswith(("_wg", "_window")))
     if seen != launched:

@@ -62,6 +62,8 @@ from . import _build
 from .int4_matmul import (
     _A8_PREPASS,
     _MMA_TALL_M,
+    _WG_CHUNK,
+    _WG_SLICE,
     _a8_mma_launch,
     _a8_product,
     _check_per_group,
@@ -256,10 +258,6 @@ def _ksplit_mma_launch(n: int, k: int, sms: int) -> tuple:
     return ws, 1, -(-8 * chunks // ws)
 
 
-# The warpgroup body's output features per work item and packed bytes per
-# chunk of K/2 (csrc/grouped_wgmma.cu: kWgSlice, kChunkBytes).
-_WG_SLICE = 128
-_WG_CHUNK = 64
 # Routed rows an expert from which a bf16 K2 or K13 call runs the warpgroup
 # body: ``T_pad - E * tile_m`` (a dropless plan's T_pad less the tile of
 # padding it gives each expert, fixed at capture) over E. Measured on the

@@ -24,7 +24,9 @@ Counterpart of ``fused4bit_tpu/ops/int4_matmul.py``:
   in the planar_groups layout, on a CUDA tensor it launches
   ``csrc/int4_matmul_pg.cu``, K7 (the port of ``_int4_group_bp_kernel``;
   bf16 at ``gs % 64 == 0`` on the tensor-core body of ``csrc/int4_mma.cuh``
-  at the launch shape of :func:`_fold_mma_launch`, else the CUDA-core loop
+  at the launch shape of :func:`_fold_mma_launch`, from
+  :data:`WG_MIN_LINEAR_ROWS` rows the warpgroup body of
+  ``csrc/grouped_wgmma.cu`` (:func:`_k7_wg_body`), else the CUDA-core loop
   of ``csrc/int4_rows_pg.cuh``), on a CPU tensor it runs
   :func:`int4_matmul_per_group_reference`; in the
   planar layout (what ``models.convert`` produces), K6 in
@@ -455,6 +457,109 @@ def _k7_on_tensor_cores(dtype: torch.dtype, group_size: int) -> bool:
     return dtype == torch.bfloat16 and group_size % _FOLD_GS == 0
 
 
+# K7's tall calls on the warpgroup body (csrc/grouped_wgmma.cu, its GroupFold
+# instance without grouped addressing). The body's output features per work
+# item, K7's rows of x per item and packed bytes per chunk of K/2 (kWgSlice,
+# WgShape<GroupFold>::kRows, kChunkBytes; grouped_matmul's K2 and K13 share
+# the slice and the chunk).
+_PG_WG_KERNEL = "f4b_int4_matmul_pg_wg_bf16"
+_WG_SLICE = 128
+_WG_ROWS = 128
+_WG_CHUNK = 64
+_WG_MAX_SPLITS = 8
+# Rows of x from which a bf16 K7 call runs the warpgroup body, measured:
+# scripts/linear_sweep.py --pg on an H100 80GB HBM3 at 700 W times the body
+# against the tall tile at 65, 72, 80, 96, 128, ... rows, and the body wins
+# at every per-group cell's linear from the first of them (1.3-2.5x at 65;
+# PERF.md section 6 has the readings). Below 65 K7 keeps its decode tile.
+WG_MIN_LINEAR_ROWS = 65
+# The split rule's model of the body, fitted to the same sweep's launch
+# timings (``launch_ms``: the body at 896 and 384 rows under each candidate
+# launch; PERF.md section 6): a CTA's microseconds per chunk of an item (the
+# whole-item launches read 1.87-1.94 at 896 rows), per item (ring fill and
+# epilogue: what a launch of more, shorter items adds), and per f32 partial
+# element of the second pass (written, then read back, at ~3 TB/s of
+# HBM). tests/test_torch_pg_linear_wg.py pins the rule's pick at each cell
+# shape to the fastest launch that sweep read there.
+_WG_CHUNK_US = 1.9
+_WG_ITEM_US = 3.0
+_WG_PARTIAL_US = 8 / 3.0e6
+
+
+def _k7_wg_body(dtype: torch.dtype, group_size: int, m: int, n: int, k: int) -> bool:
+    """Whether a K7 call (planar_groups, per group of ``group_size``) runs the
+    warpgroup body rather than :func:`_launch_mma`'s tall tile: bf16 x at
+    ``gs % 64 == 0`` (:func:`_k7_on_tensor_cores`), N in whole slices of
+    128, K/2 in whole chunks of 64 bytes, and at least
+    :data:`WG_MIN_LINEAR_ROWS` rows (above :data:`_MMA_TALL_M`: never at
+    decode or the verify, whose 64-row tile K7 keeps). It reads the call's
+    type and shape only."""
+    return (_k7_on_tensor_cores(dtype, group_size) and m >= WG_MIN_LINEAR_ROWS
+            and n % _WG_SLICE == 0 and (k // 2) % _WG_CHUNK == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _wg_linear_launch(m: int, n: int, k: int, sms: int) -> tuple:
+    """K7's launch ``(full, splits, grid)`` on the warpgroup body for M rows of
+    x and an [N, K] weight on a card of ``sms`` SMs. Its items are (slice of
+    128 features, block of 128 rows): the first ``full`` (whole slices) take
+    all of K/2 and write y; each slice after them is cut into ``splits``
+    ranges of whole chunks (none empty), whose f32 partials the second pass
+    adds in order. ``grid`` persistent CTAs take the items in turn.
+
+    Whole items alone leave a ragged last wave where their count is no
+    multiple of the SMs (Mixtral-8x22B's q and o at 384 rows: 144 items on
+    132 SMs), or fall short of the card (K-EXAONE's k and v at 896 rows: 56).
+    The rule times each candidate by walking its items over the CTAs as the
+    kernel does, a CTA's time per item that of its chunks plus a fixed cost,
+    the partials' traffic added: all items whole, or for each ``splits`` in
+    2 .. :data:`_WG_MAX_SPLITS` no whole item or as many whole slices as fill
+    whole waves; the least time wins, ties to the earlier. It reads (M, N,
+    K, SMs) only."""
+    slices, blocks = n // _WG_SLICE, -(-m // _WG_ROWS)
+    items = slices * blocks
+    chunks = (k // 2) // _WG_CHUNK
+    waved = (items // sms * sms) // blocks * blocks          # whole slices in whole waves
+    candidates = [(items, 1)] + [(full, s) for s in range(2, min(_WG_MAX_SPLITS, chunks) + 1)
+                                 for full in dict.fromkeys((0, waved))
+                                 if full < items and (s - 1) * -(-chunks // s) < chunks]
+    best = None
+    for full, s in candidates:
+        span = -(-chunks // s)
+        z = torch.arange((items - full) * s, dtype=torch.float64) // blocks % s  # a piece's range
+        costs = torch.cat([torch.full((full,), float(chunks), dtype=torch.float64),
+                           torch.clamp(chunks - z * span, max=span)]) * _WG_CHUNK_US
+        grid = min(len(costs), sms)
+        costs = torch.nn.functional.pad(costs + _WG_ITEM_US, (0, -len(costs) % grid))
+        t = (costs.reshape(-1, grid).sum(0).max().item()
+             + (full < items) * s * m * (n - full // blocks * _WG_SLICE) * _WG_PARTIAL_US)
+        if best is None or t < best[0]:
+            best = (t, full, s, grid)
+    return best[1:]
+
+
+def _launch_pg_wg(x2: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """K7 on the warpgroup body at :func:`_wg_linear_launch`'s launch: the
+    persistent main kernel, then where slices are cut into ranges the
+    ordered second pass. Operands checked, x 16-byte aligned."""
+    m, k = x2.shape
+    n = qt.out_dim
+    if qt.packed.data_ptr() % 16:
+        raise ValueError("the warpgroup body needs 16-byte aligned packed weights")
+    full, splits, grid = _wg_linear_launch(m, n, k, _sm_count(x2.device.index))
+    y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+    tail = n - full // -(-m // _WG_ROWS) * _WG_SLICE            # features cut into ranges
+    partial = (torch.empty((splits, m, tail), dtype=torch.float32, device=x2.device)
+               if tail else None)
+    with torch.cuda.device(x2.device):
+        err = getattr(_build.library(), _PG_WG_KERNEL)(
+            x2.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(), qt.zero_points.data_ptr(),
+            y.data_ptr(), None if partial is None else partial.data_ptr(), m, n, k,
+            qt.group_size, full, splits, grid, _build.stream_of(x2))
+    _build.check(err, "int4_matmul_per_group")
+    return y
+
+
 def int4_matmul_per_group(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """``x @ dequant(qt)^T`` for per-group weights, at every row count (the
     JAX per-group linear has no dequantize fallback).
@@ -483,8 +588,20 @@ def int4_matmul_per_group(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     m = x2.shape[0]
     if m == 0:
         return x.new_empty((*lead, n))
-    x2 = _aligned(x2)
-    if planar and x2.dtype == torch.bfloat16:
+    return _launch_per_group(_aligned(x2), qt).reshape(*lead, n)
+
+
+def _launch_per_group(x2: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """K6 or K7 on the body the operands choose, and its launch counted.
+    Operands checked, x 16-byte aligned, M > 0."""
+    planar = qt.layout == "planar"
+    kernels = _PLANAR_PG_KERNELS if planar else _PG_KERNELS
+    m, k = x2.shape
+    n = qt.out_dim
+    wg = not planar and _k7_wg_body(x2.dtype, qt.group_size, m, n, k)
+    if wg:
+        y = _launch_pg_wg(x2, qt)
+    elif planar and x2.dtype == torch.bfloat16:
         y = _launch_mma(x2, qt, kernels[x2.dtype], "int4_matmul_per_group", qt.group_size)
     elif _k7_on_tensor_cores(x2.dtype, qt.group_size):
         y = _launch_mma(x2, qt, _PG_MMA_KERNEL, "int4_matmul_per_group", qt.group_size,
@@ -502,11 +619,13 @@ def int4_matmul_per_group(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
         int4_matmul_per_group.planar_launches += 1
     else:
         int4_matmul_per_group.launches += 1
-    return y.reshape(*lead, n)
+        int4_matmul_per_group.wg_launches += wg
+    return y
 
 
 int4_matmul_per_group.launches = 0         # K7
 int4_matmul_per_group.planar_launches = 0  # K6
+int4_matmul_per_group.wg_launches = 0      # of K7's, on the warpgroup body
 
 _LANES = 32   # lanes of a warp, each over its own runs of 16 packed bytes
 _RUN = 16

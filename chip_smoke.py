@@ -241,18 +241,18 @@ from fused4bit_tpu_torch.models import (
     flagship_model_config,
     load_safetensors,
 )
-from fused4bit_tpu_torch.ops import _build
-from fused4bit_tpu_torch.ops.grouped_matmul import _ksplit_mma_launch, _ksplit_splits
-from fused4bit_tpu_torch.ops.int4_matmul import (
+from fused4bit_tpu_torch.ops import _build, _mma
+from fused4bit_tpu_torch.ops._int8 import _a8_mma_launch
+from fused4bit_tpu_torch.ops._mma import (
     _MMA_TALL_M,
-    _PG_MMA_KERNEL,
-    _a8_mma_launch,
     _fold_mma_launch,
-    _k7_on_tensor_cores,
-    _launch_mma,
+    _grouped_mma_launch,
+    _ksplit_mma_launch,
     _mma_launch,
-    _pg_a8_on_tensor_cores,
 )
+from fused4bit_tpu_torch.ops._rows import _ksplit_splits
+from fused4bit_tpu_torch.ops.grouped_matmul import _body as _grouped_body
+from fused4bit_tpu_torch.ops.int4_matmul import _body as _linear_body
 from fused4bit_tpu_torch.quant import (
     dequantize,
     dequantize_fp4,
@@ -657,7 +657,7 @@ def same_as_linear(name, xs, gids, qt, tile_m, y, launch=None):
     whether the shape is the linear rule's."""
     e, n, k = qt.shape
     sms = torch.cuda.get_device_properties(xs.device).multi_processor_count
-    launch = launch or ops.grouped_matmul._grouped_mma_launch(n, k, sms)
+    launch = launch or _grouped_mma_launch(n, k, sms)
     linear_rule = _fold_mma_launch if qt.layout == "planar_groups" else _mma_launch
     token = (xs.abs().sum(dim=1) != 0).reshape(-1, tile_m)
     for ex in torch.unique(gids[token.any(dim=1)]).tolist():
@@ -897,7 +897,7 @@ def check_linear_pg(device, results, timer, gen):
     x40 = torch.randn((40, k), generator=gen, device=device).bfloat16()
     for gs in (64, 32):
         qt = quantize(w, granularity="per_group", layout="planar_groups", group_size=gs)
-        body = ("tensor cores" if _k7_on_tensor_cores(torch.bfloat16, gs)
+        body = ("tensor cores" if _linear_body("K7", True, torch.bfloat16, gs, 8, n, k) == "mma"
                 else "CUDA cores")
         rows = {}
         for m in (8, 40):
@@ -913,7 +913,8 @@ def check_linear_pg(device, results, timer, gen):
     x = x40[:8].contiguous()
     for gs in (64, 32, 16):
         qt = quantize(w, granularity="per_group", layout="planar_groups", group_size=gs)
-        body = "int8 body" if _pg_a8_on_tensor_cores(gs) else "CUDA-core loop"
+        body = ("int8 body" if _linear_body("K8", True, torch.bfloat16, gs, 8, n, k) == "int8"
+                else "CUDA-core loop")
         ref = ops.int4_matmul_per_group_a8_reference(x, qt)
         _compare("int4_matmul_per_group_a8", f"M=8 N={n} K={k} gs {gs} bf16 ({body})",
                  ops.int4_matmul_per_group_a8(x, qt), ref, _a8_tol(ref), results, None, None,
@@ -987,7 +988,8 @@ def check_grouped_pg(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
     xs = dispatch(torch.randn((8, hidden), generator=gen, device=device).bfloat16(), routing, plan)
     for gs in (32, 16):
         qt = quantize(w, granularity="per_group", layout="planar_groups", group_size=gs)
-        body = "int8 body" if _pg_a8_on_tensor_cores(gs) else "CUDA-core loop"
+        body = ("int8 body" if _grouped_body("K14", True, torch.bfloat16, gs, plan.t_pad, e, 32,
+                                             1024, hidden) == "int8" else "CUDA-core loop")
         ref = ops.grouped_int4_matmul_per_group_a8_reference(xs, plan.tile_group_ids, qt, tile_m=32)
         _compare("grouped_int4_matmul_per_group_a8", f"T=8 tile_m=32 N=1024 K={hidden} gs {gs}",
                  ops.grouped_int4_matmul_per_group_a8(xs, plan.tile_group_ids, qt, tile_m=32),
@@ -1156,8 +1158,7 @@ def check_pg_linear_wg(device, results, timer, gen):
                      main="int4_mma_kernel_wg" if timer else None)
 
             def tall():
-                return _launch_mma(x, qt, _PG_MMA_KERNEL, "int4_matmul_per_group",
-                                   qt.group_size, decode=_fold_mma_launch)
+                return _mma._launch(x, qt, "K7")
             _compare("int4_matmul_per_group", f"M={m} N={n} K={k} tall tile", tall(), ref,
                      _a16_tol(ref), results, None, None, None)
             if timer:
@@ -2976,7 +2977,7 @@ def serve_mesh(model, cfg, mesh, ref, counts, card_line, device="cuda"):
     """ServingEngine(mesh=...) on phase 4's 12 requests against the
     single-card engine's tokens. Where they differ, the mesh engine's
     full-batch prefill (8 x 32 rows) went through K1's tall launch
-    (ops.int4_matmul._MMA_TALL_M) where the single-card prefill (32 rows)
+    (ops._mma._MMA_TALL_M) where the single-card prefill (32 rows)
     took the decode launch: the differing requests' prefill logits are then
     held to the model bar (MODEL_REL_TOL of their max, the first token in the
     single-card top-2)."""

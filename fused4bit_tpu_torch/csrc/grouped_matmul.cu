@@ -24,7 +24,7 @@
 // (q - zp)) in registers, the scales and zero points [E, N, K/gs] offset by
 // the block's expert). A first pass flags the rows in use, then the main
 // kernel runs at the launch shape of the Python wrapper's rule
-// (ops.grouped_matmul: _grouped_mma_launch for K2 and K12 at tile_m <= 64,
+// (ops._mma: _grouped_mma_launch for K2 and K12 at tile_m <= 64,
 // _ksplit_mma_launch for K9 at every tile_m, which read N, K and the SM
 // count only, so a token row's bits do not depend on its dispatch; K2's and
 // K12's 64-row tile of _mma_tall_launch at tile_m 128), and with splits > 1

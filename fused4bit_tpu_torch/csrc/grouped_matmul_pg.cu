@@ -7,7 +7,7 @@
 // int4_mma.cuh (K7's GroupFold arithmetic with grouped addressing: the raw
 // codes as mma operand A, each 64-byte chunk's f32 partials folded with its
 // group's scale and zero point, a first pass that flags the rows in use, the
-// launch shape of ops.grouped_matmul._grouped_mma_launch, which reads N, K
+// launch shape of ops._mma._grouped_mma_launch, which reads N, K
 // and the SM count only, or the 64-row tile at tile_m 128); in f32 or at the
 // other group sizes planar_groups allows, the CUDA-core kernel of
 // int4_rows_pg.cuh. K14 replaces _grouped_pg_bp_a8_kernel (w4a8): at gs % 32

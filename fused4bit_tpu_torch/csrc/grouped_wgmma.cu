@@ -13,8 +13,8 @@
 // kernel fused4bit_tpu/ops/int4_matmul.py:_int4_group_bp_kernel. Only the
 // order of the sums inside the tensor core differs from int4_mma.cuh's body,
 // which keeps the small calls (decode and the speculative verify;
-// ops.grouped_matmul._wg_body and ops.int4_matmul._k7_wg_body choose by
-// shape).
+// ops.grouped_matmul._body and ops.int4_matmul._body choose by shape,
+// ops._wg._wg_takes says what this body takes).
 //
 // What bounds it on the H100: a step of the benchmark's cells routes 96
 // (Mixtral-8x22B) or 144 (8x7B) rows to each expert, 4 x 96 or 4 x 144
@@ -43,7 +43,7 @@
 //   no first pass. The first `full` items (whole slices) walk all of K/2;
 //   the slices after them are cut into `splits` ranges of K/2's chunks,
 //   whose f32 partials int4_linear_reduce_kernel adds in order z = 0, 1, ...
-//   ops.int4_matmul._wg_linear_launch picks (full, splits, grid) from (M,
+//   ops._wg._wg_linear_launch picks (full, splits, grid) from (M,
 //   N, K, SMs) so that the last wave is not left ragged.
 // * A ring of stages in shared memory, one 64-byte chunk of K/2 each: the
 //   item's 128 x 64 weight bytes (TMA, 64-byte swizzle) and the pass's x at
@@ -82,10 +82,10 @@
 //   routing, the pass or the bank it lands in. No float atomics; y is
 //   written in full.
 //
-// Launch (ops.grouped_matmul._launch_grouped_wg): a first pass (K2:
+// Launch (ops._wg._launch, over a tile map): a first pass (K2:
 // int4_mma.cuh's rows_used_kernel; K13: fold_rows_used_kernel, which also
 // writes X), then int4_mma_kernel_wg<P, true> on grid CTAs of 384 threads.
-// K7 (ops.int4_matmul._launch_pg_wg): int4_mma_kernel_wg<GroupFold, false>,
+// K7 (ops._wg._launch, no tile map): int4_mma_kernel_wg<GroupFold, false>,
 // then where slices are cut into ranges int4_linear_reduce_kernel.
 // Requires bf16 x, N % 128 == 0, K/2 % 64 == 0, tile_m % 16 == 0, 16-byte
 // aligned x and weights, and for K13 and K7 gs % 64 == 0 dividing K/2.

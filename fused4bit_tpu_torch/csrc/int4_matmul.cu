@@ -11,7 +11,7 @@
 //
 // bf16 x runs the tensor-core body of int4_mma.cuh (its note gives the design
 // and the bound); the launch shape (ws, kw, splits, mt) comes from the Python
-// wrapper's rule, ops.int4_matmul._mma_launch, and partial is f32 scratch of
+// wrapper's rule, ops._mma._mma_launch, and partial is f32 scratch of
 // splits * M * N when splits > 1. f32 x stays on the CUDA-core loop of
 // int4_rows.cuh: an f32 tensor-core product would be TF32.
 //

@@ -13,7 +13,7 @@
 // low and high halves in separate MMA steps, each chunk's f32 partials
 // folded with its group's (s, c) and the per-row sums of the staged x. The
 // launch shape (ws, kw, splits, mt) comes from the Python wrapper's rule,
-// ops.int4_matmul._fold_mma_launch (decode, whole chunks per warp, reads
+// ops._mma._fold_mma_launch (decode, whole chunks per warp, reads
 // N, K and the SM count only) or _mma_tall_launch (above 64 rows), and
 // partial is f32 scratch of splits * M * N when splits > 1.
 //
@@ -22,7 +22,7 @@
 // TPU wrapper's arithmetic and sums each row per group, then K14's entry
 // point (f4b_grouped_int4_matmul_pg_a8_mma, grouped_matmul_pg.cu) runs the
 // linear as one expert with no tile map (gids NULL, any M), at the launch
-// shape of ops.int4_matmul._linear_a8_launch (N, K, gs and the SM count only).
+// shape of ops._int8._linear_a8_launch (N, K, gs and the SM count only).
 //
 // K7 in f32 (an f32 tensor-core product would be TF32) or at the other
 // group sizes planar_groups allows (gs % 16 == 0), and K8 at gs % 32 != 0

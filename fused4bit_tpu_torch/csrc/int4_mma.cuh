@@ -73,8 +73,8 @@
 //   splits K into `splits` ranges of kw * ws steps. A warp walks its slice in
 //   stages of up to 32 steps; in stage i the CTA's kw warps take kw
 //   consecutive runs of the stage's steps, warp 0 first. The launch rule
-//   (ops.int4_matmul._mma_launch; K7: _fold_mma_launch, whole chunks per
-//   warp; K2, K12, K13: ops.grouped_matmul._grouped_mma_launch; K9:
+//   (ops._mma._mma_launch; K7: _fold_mma_launch, whole chunks per
+//   warp; K2, K12, K13: _grouped_mma_launch; K9:
 //   _ksplit_mma_launch, at least two CTAs along K) picks (ws, kw, splits)
 //   from (N, K, SM count) only, so every row's sum runs in the same order
 //   whatever rows sit beside it: a row's output does not depend on M up to
@@ -95,7 +95,7 @@
 //   from L2). Above 64 rows (prefill) it takes 64, so each A fragment feeds
 //   8 MMAs, and its warps (one per row tile) walk their range of K in stages
 //   of 32 k steps; there K is split across CTAs only until every SM has one
-//   (ops.int4_matmul._mma_tall_launch; K2, K12 and K13 at tile_m 128; K9
+//   (ops._mma._mma_tall_launch; K2, K12 and K13 at tile_m 128; K9
 //   keeps its own split there).
 // * Grouped addressing (K2, K9, K12, K13): a CTA's block of rows lies in one tile
 //   (tile_m % 16 == 0, or % 64 with the tall tile) and reads its expert from

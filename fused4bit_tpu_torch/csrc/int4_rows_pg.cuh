@@ -32,7 +32,7 @@
 //   acc += a_lo * f32(P_lo); acc += c_lo * f32(X_lo);
 //   acc += a_hi * f32(P_hi); acc += c_hi * f32(X_hi)
 // over its runs in chunk order, then the xor-butterfly warp sum, then
-// y = acc * sx: the plain version (ops.int4_matmul._pg_a8_product) repeats
+// y = acc * sx: the plain version (ops._rows._pg_a8_product) repeats
 // these operations one for one, so the two agree bit for bit.
 //
 // Work split, as in int4_rows.cuh: a CTA of 8 warps owns 32 output rows (4

@@ -34,9 +34,9 @@
 //        another order).
 // The epilogues use __fmul_rn / __fadd_rn / __fsub_rn so that nvcc cannot
 // contract them into FMAs. K10, K11, K4 and K5 equal
-// ops.int4_matmul._a8_product bit for bit for any split of K (their integers
+// ops._int8._a8_product bit for bit for any split of K (their integers
 // are exact), so K4's and K5's launch rule may read M; K14 and K8 equal
-// ops.int4_matmul._pg_a8_fold_product at
+// ops._int8._pg_a8_fold_product at
 // the same launch shape.
 //
 // What bounds it on the H100: at decode (T = 8 tokens, top-2) a block of 16
@@ -74,7 +74,7 @@
 // * Filling the card: a CTA of 8 warps takes 16 rows of xq and 8 / kw row
 //   tiles of 16 output rows, kw warps along K each on a slice of ws chunks;
 //   grid z splits K into `splits` ranges of kw * ws chunks (K14, K8: whole
-//   groups). The launch rules (ops.int4_matmul._a8_mma_launch; K8:
+//   groups). The launch rules (ops._int8._a8_mma_launch; K8:
 //   _linear_a8_launch, more warps along K and no split) read (N, K, gs, SM
 //   count) only, never M, T, tile_m or the routing, so a row's output
 //   bits do not depend on the tile, the T or the M it sits in (K4's and

@@ -24,7 +24,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-__all__ = ["library", "library_path", "check", "stream_of", "BUILD_DIR", "CSRC"]
+__all__ = ["library", "library_path", "check", "launch", "stream_of", "BUILD_DIR", "CSRC"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -170,3 +170,14 @@ def check(err: int, what: str) -> None:
 def stream_of(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, as a pointer-sized int."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(on: torch.Tensor, name: str, *args, what: str = "") -> None:
+    """Call the C entry point ``name`` on ``on``'s device and current stream:
+    each tensor among ``args`` passed as its data pointer (None as NULL), the
+    stream last; raise if it returned a CUDA error, named ``what`` (by
+    default ``name``)."""
+    with torch.cuda.device(on.device):
+        err = getattr(library(), name)(
+            *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args), stream_of(on))
+    check(err, what or name)

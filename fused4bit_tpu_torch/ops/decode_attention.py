@@ -36,7 +36,7 @@ from ..layers.kv_cache import _unpack_pairs
 from ..layers.paged_kv import PagedKVCache
 from ..quant.reference import full_precision
 from . import _build
-from .int4_matmul import _sm_count
+from ._front import _sm_count
 
 __all__ = [
     "int4_attention",
@@ -217,12 +217,8 @@ def _launch(kernels: dict, q: torch.Tensor, g: int, operands, sizes,
         partial = [None if scratch is None else scratch.data_ptr()]
         tail = (d, qt, seg)
     tail += masks
-    with torch.cuda.device(q.device):
-        err = getattr(_build.library(), kernel)(
-            q.data_ptr(), *(tensor.data_ptr() for _, tensor, _ in operands),
-            out.data_ptr(), *partial, *sizes, *tail, _build.stream_of(q),
-        )
-    _build.check(err, kernel)
+    _build.launch(q, kernel, q, *(tensor for _, tensor, _ in operands), out, *partial, *sizes,
+                  *tail)
     return out
 
 

@@ -24,7 +24,7 @@ It calls only the public wrappers, so the same script times a parent tree
 (``cd <parent checkout> && env PYTHONPATH=. python3 <this script>``).
 
 ``--sweep`` launches the int8 tensor-core body (``csrc/int8_mma.cuh``) at
-the launch rule's shape (``ops.int4_matmul._a8_mma_launch``) and at the
+the launch rule's shape (``ops._int8._a8_mma_launch``) and at the
 other candidate shapes (ws chunks per warp, kw warps along K per CTA, splits
 CTAs along K), each held bit for bit against the rule's output (K10's integers
 are exact; K14's f32 fold is compared with its plain version at the same
@@ -57,7 +57,7 @@ SLICES = ((1, 1), (2, 2), (4, 4), (8, 8), (8, 4), (16, 8))
 def candidates(k: int, gs: int) -> list:
     """Launch shapes ``(ws, kw, splits)`` timed beside the rule's, in whole
     chunks (whole groups for K14) of K/2."""
-    from fused4bit_tpu_torch.ops.int4_matmul import _i8_chunk
+    from fused4bit_tpu_torch.ops._int8 import _i8_chunk
 
     cb = _i8_chunk(gs)
     unit = gs // cb if gs else 1
@@ -149,9 +149,9 @@ def profile_wrappers(gen, card) -> None:
 
 
 def sweep_shapes(gen, card) -> None:
-    # the int8 body's launcher and rule (in ops.int4_matmul since K8 runs the
-    # body too; --profile alone also times older trees)
-    from fused4bit_tpu_torch.ops.int4_matmul import _a8_mma_launch, _launch_a8_mma
+    # the int8 body's launcher and rule (ops._int8; --profile alone also times
+    # older trees)
+    from fused4bit_tpu_torch.ops._int8 import _a8_mma_launch, _launch
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     timer = cs.Timer("cuda")
@@ -164,13 +164,12 @@ def sweep_shapes(gen, card) -> None:
             for kernel, qt in weights.items():
                 gs = qt.group_size if kernel == "K14" else 0
                 rule = _a8_mma_launch(n, k, gs, sms)
-                fused = kernel == "K14"    # the first pass's quantizer: K14 multiplies
-                ref = _launch_a8_mma(xs, gids, qt, tile_m, *rule, fused=fused)
+                ref = _launch(xs, qt, kernel, gids=gids, tile_m=tile_m, launch=rule)
                 line = dict(kernel=kernel, projection=proj, shape=shape, n=n, k=k,
                             tokens_per_expert=loads, rule=list(rule), card=card)
                 for cand in dict.fromkeys([rule, *candidates(k, gs)]):
-                    fn = lambda: _launch_a8_mma(xs, gids, qt, tile_m, *cand,  # noqa: E731
-                                                fused=fused)
+                    fn = lambda: _launch(xs, qt, kernel, gids=gids,  # noqa: E731
+                                         tile_m=tile_m, launch=cand)
                     y = fn()
                     if kernel == "K10" or cand == rule:
                         same = torch.equal(y, ref)

@@ -26,7 +26,7 @@ a parent tree (``cd <parent checkout> && env PYTHONPATH=. python3 <this
 script> --profile``).
 
 ``--sweep`` launches the tensor-core body at decode (T=8, tile_m 16) at the
-launch rule's shape (``ops.grouped_matmul._grouped_mma_launch``), at the
+launch rule's shape (``ops._mma._grouped_mma_launch``), at the
 linear rule's (K1's and K6's ``_mma_launch``, K7's ``_fold_mma_launch``) and at other
 candidate shapes (ws k steps per warp, kw warps along K per CTA, splits CTAs
 along K), each held bit for bit against the linear body at the same shape
@@ -34,8 +34,8 @@ on each expert's weights (``chip_smoke.same_as_linear``), and times each
 cold and under the profiler.
 
 ``--crossover`` times K2 and K13 on both bodies, ``csrc/int4_mma.cuh``'s
-(``ops.grouped_matmul._launch_grouped_mma``) and the warpgroup body of
-``csrc/grouped_wgmma.cu`` (``_launch_grouped_wg``), under random routing:
+(``ops._mma._launch``) and the warpgroup body of
+``csrc/grouped_wgmma.cu`` (``ops._wg._launch``), under random routing:
 at 8 experts top-2 at the benchmark cells' widths (K2: Mixtral-8x7B's
 gate/up N=14336 K=4096 and down N=4096 K=14336; K13 per group of 128:
 Mixtral-8x22B's N=16384 K=6144 and N=6144 K=16384), T tokens at tile_m 16
@@ -46,7 +46,7 @@ tile_m 16, decode (T=8) and the self-draft verify (T=40) among them. Each
 call is timed with CUDA events, the L2 flushed before it; the two bodies'
 outputs are held to each other within the bf16 bar, and each line gives
 the routed rows an expert (``(T_pad - E * tile_m) / E``) and names the body
-``_wg_body`` chooses (``ops.grouped_matmul.WG_MIN_EXPERT_ROWS`` comes from
+``ops.grouped_matmul._body`` chooses (``WG_MIN_EXPERT_ROWS`` there comes from
 this sweep).
 
 One JSON line per measurement; the card's name and power limit lead the
@@ -62,6 +62,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
 from fused4bit_tpu_torch import ops
+from fused4bit_tpu_torch.ops import _mma, _wg
 from fused4bit_tpu_torch.layers import dispatch, make_dispatch_plan, topk_route
 from fused4bit_tpu_torch.quant import quantize
 
@@ -168,7 +169,7 @@ def candidates(n, k, sms, fold) -> list:
     the slices of :data:`SLICES`, in whole chunks."""
     chunks = -(-(k // 2) // 64)
     linear = cs._fold_mma_launch if fold else cs._mma_launch
-    out = [ops.grouped_matmul._grouped_mma_launch(n, k, sms), linear(n, k, sms)]
+    out = [_mma._grouped_mma_launch(n, k, sms), linear(n, k, sms)]
     for slices, kw in SLICES:
         if slices <= chunks:
             ws = 8 * -(-chunks // slices)
@@ -179,7 +180,6 @@ def candidates(n, k, sms, fold) -> list:
 def sweep_shapes(gen, card) -> None:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     timer = cs.Timer("cuda")
-    launch = ops.grouped_matmul._launch_grouped_mma
     tile_m = 16
     for proj, (n, k) in PROJECTIONS.items():
         weights = _weights(gen, n, k)
@@ -190,12 +190,13 @@ def sweep_shapes(gen, card) -> None:
                           plan)
             gids = plan.tile_group_ids
             for kernel, qt in weights.items():
-                rule = ops.grouped_matmul._grouped_mma_launch(n, k, sms)
+                rule = _mma._grouped_mma_launch(n, k, sms)
                 line = dict(kernel=kernel, projection=proj, routing=routing_name, n=n, k=k,
                             tokens_per_expert=routing.tokens_per_expert.tolist(),
                             rule=list(rule), card=card)
                 for cand in candidates(n, k, sms, kernel == "K13"):
-                    fn = lambda: launch(xs, gids, qt, tile_m, launch=cand)  # noqa: E731
+                    fn = lambda: _mma._launch(xs, qt, kernel, gids=gids,  # noqa: E731
+                                              tile_m=tile_m, launch=cand)
                     cs.same_as_linear(f"{kernel} {cand}", xs, gids, qt, tile_m, fn(), cand)
                     line[str(list(cand))] = dict(cold_ms=timer(fn),
                                                  device_ms=device_parts(fn, timer.flush))
@@ -232,16 +233,16 @@ def crossover(gen, card) -> None:
                 plan = make_dispatch_plan(routing, e, tile_m=tile_m)
                 x = torch.randn((t, k), generator=gen, device="cuda").bfloat16()
                 xs, gids = dispatch(x, routing, plan), plan.tile_group_ids
-                old = lambda: gm._launch_grouped_mma(xs, gids, qt, tile_m)  # noqa: E731
-                new = lambda: gm._launch_grouped_wg(xs, gids, qt, tile_m)  # noqa: E731
+                old = lambda: _mma._launch(xs, qt, kernel, gids=gids, tile_m=tile_m)  # noqa: E731
+                new = lambda: _wg._launch(xs, qt, kernel, gids=gids, tile_m=tile_m)  # noqa: E731
                 y_old, y_new = old(), new()
                 tol = cs.BF16_REL_TOL * y_old.float().abs().max().item()
                 diff = (y_old.float() - y_new.float()).abs().max().item()
                 if diff > 2 * tol:
                     raise AssertionError(f"{kernel} {proj} E={e} T={t}: the bodies differ by "
                                          f"{diff}")
-                chosen = gm._wg_body(torch.bfloat16, qt.granularity, qt.group_size or 0,
-                                     plan.t_pad, e, tile_m, n, k)
+                chosen = gm._body(kernel, True, torch.bfloat16, qt.group_size, plan.t_pad, e,
+                                  tile_m, n, k) == "wg"
                 line = dict(kernel=kernel, projection=proj, experts=e, top_k=top_k, n=n, k=k,
                             t=t, tile_m=tile_m, t_pad=plan.t_pad,
                             rows_an_expert=(plan.t_pad - e * tile_m) / e,

@@ -10,7 +10,7 @@ The `layer2` down projection's experts (8 x [4096, 14336], random weights
 from a seed, per row) at T = 8 and 64 tokens (tile_m 16) and T = 600
 (tile_m 128), skewed routing, bf16. Per T: K2 through its wrapper (its own
 launch rule), then the body with grouped addressing
-(``ops.grouped_matmul._launch_grouped_mma(..., launch=)``) at K9's rule
+(``ops._mma._launch(..., launch=)``) at K9's rule
 (``_ksplit_mma_launch``) and at each candidate of :data:`CANDIDATES`, then K2
 again. Each is timed as ``chip_smoke.Timer`` times (CUDA events, L2 flushed,
 median), its device time split under ``torch.profiler`` into the first pass
@@ -28,7 +28,7 @@ import torch
 import chip_smoke as cs
 from fused4bit_tpu_torch import ops
 from fused4bit_tpu_torch.layers import dispatch
-from fused4bit_tpu_torch.ops.grouped_matmul import _ksplit_mma_launch, _launch_grouped_mma
+from fused4bit_tpu_torch.ops._mma import _ksplit_mma_launch, _launch
 from fused4bit_tpu_torch.quant import quantize
 from grouped_mma_sweep import device_parts
 
@@ -79,7 +79,7 @@ def main() -> None:
             cands = [rule] + [shape_of(k, s, w) for s, w in CANDIDATES]
             for cand in dict.fromkeys(cands):
                 def k9(cand=cand):
-                    return _launch_grouped_mma(xs, gids, qt, tile_m, launch=cand)
+                    return _launch(xs, qt, "K9", gids=gids, tile_m=tile_m, launch=cand)
 
                 y = k9()
                 torch.cuda.synchronize()

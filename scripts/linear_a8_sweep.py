@@ -27,12 +27,12 @@ the public wrappers, so the same script times a parent tree (``cd <parent
 checkout> && env PYTHONPATH=. python3 <this script> --profile``).
 
 ``--sweep`` launches the int8 body at M = 8 and 640 at the launch rule's
-shape (``ops.int4_matmul._linear_a8_launch``) and at other candidates (ws
+shape (``ops._int8._linear_a8_launch``) and at other candidates (ws
 chunks per warp, kw warps along K per CTA, splits CTAs along K; whole
 groups), each held bit for bit against the plain version at the same shape
 (``int4_matmul_per_group_a8_reference(..., launch=)``), and times each cold
 and under the profiler; the same for K4 at deep K at its rule's shape
-(``ops.int4_matmul._row_a8_launch``) and per-row candidates, each held bit for
+(``ops._int8._row_a8_launch``) and per-row candidates, each held bit for
 bit against ``int4_matmul_a8_reference(..., fuse_quant=False)`` (its int32
 sums are exact at every shape).
 
@@ -65,7 +65,7 @@ def candidates(k: int, gs: int) -> list:
     """Launch shapes ``(ws, kw, splits)`` timed beside the rule's: K/2 in
     whole groups (``gs`` 0, per row: chunks of 64 packed bytes), cut into the
     slices of :data:`SLICES`."""
-    from fused4bit_tpu_torch.ops.int4_matmul import _i8_chunk
+    from fused4bit_tpu_torch.ops._int8 import _i8_chunk
 
     unit = gs // _i8_chunk(gs) if gs else 1          # chunks per group
     groups = -(-(k // 2) // (gs or 64))
@@ -122,7 +122,7 @@ def profile_wrapper(gen, card) -> None:
 def sweep_shapes(gen, card) -> None:
     # the int8 body's launcher and K8's rule (absent from trees before K8 ran
     # the int8 body, which --profile alone can time)
-    from fused4bit_tpu_torch.ops.int4_matmul import _launch_a8_mma, _linear_a8_launch
+    from fused4bit_tpu_torch.ops._int8 import _launch, _linear_a8_launch
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     timer = cs.Timer("cuda")
@@ -135,7 +135,7 @@ def sweep_shapes(gen, card) -> None:
             line = dict(kernel="K8", projection=proj, m=m, n=n, k=K, gs=GS, rule=list(rule),
                         **cs.linear_bound(x, qt, a8=True), card=card)
             for cand in dict.fromkeys([rule, *candidates(K, GS)]):
-                fn = lambda: _launch_a8_mma(x, None, qt, 0, *cand, fused=True)  # noqa: E731
+                fn = lambda: _launch(x, qt, "K8", launch=cand)  # noqa: E731
                 if not torch.equal(fn(), ops.int4_matmul_per_group_a8_reference(x, qt,
                                                                                  launch=cand)):
                     raise AssertionError(f"K8 {proj} M={m} {cand}: not bit-equal to its plain "
@@ -150,7 +150,7 @@ def sweep_shapes(gen, card) -> None:
 def sweep_k4(gen, card) -> None:
     """K4 at deep K: the rule's shape and the per-row candidates, M 8 and
     640, each bit for bit against the plain version."""
-    from fused4bit_tpu_torch.ops.int4_matmul import _launch_a8_mma, _row_a8_launch
+    from fused4bit_tpu_torch.ops._int8 import _launch, _row_a8_launch
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     timer = cs.Timer("cuda")
@@ -164,7 +164,7 @@ def sweep_k4(gen, card) -> None:
         line = dict(kernel="K4", projection="deep_k", m=m, n=n, k=k, rule=list(rule),
                     **cs.linear_bound(x, qt, a8=True), card=card)
         for cand in dict.fromkeys([rule, *candidates(k, 0)]):
-            fn = lambda: _launch_a8_mma(x, None, qt, 0, *cand, fused=False)  # noqa: E731
+            fn = lambda: _launch(x, qt, "K4", launch=cand)  # noqa: E731
             if not torch.equal(fn(), want):
                 raise AssertionError(f"K4 deep K M={m} {cand}: not bit-equal to its plain "
                                      "version")

@@ -47,6 +47,7 @@ import torch
 
 from chip_smoke import PG_LINEAR_SHAPES, Timer, _pg_quantize, card, linear_bound
 from fused4bit_tpu_torch import ops
+from fused4bit_tpu_torch.ops import _wg
 from fused4bit_tpu_torch.quant import quantize
 
 im = importlib.import_module("fused4bit_tpu_torch.ops.int4_matmul")
@@ -71,11 +72,11 @@ def _held(full: int, s: int):
     """The body's launch rule held at ``full`` whole items (None: all) and
     ``s`` ranges of K/2 for the other slices."""
     def rule(m, n, k, sms):
-        blocks = -(-m // im._WG_ROWS)
-        items = (n // im._WG_SLICE) * blocks
+        blocks = -(-m // _wg._WG_ROWS)
+        items = (n // _wg._WG_SLICE) * blocks
         whole = items if full is None else full
         return whole, s, min(whole + (items - whole) * s, sms)
-    return mock.patch.object(im, "_wg_linear_launch", rule)
+    return mock.patch.object(_wg, "_wg_linear_launch", rule)
 
 
 def pg_main() -> None:
@@ -101,9 +102,9 @@ def pg_main() -> None:
                                           new_roofline=100 * bound / min(ms["new"]))), flush=True)
                 wins[f"{n}x{k}"] = faster
                 x = torch.randn((cell_m, k), generator=gen, device="cuda").bfloat16()
-                rule = im._wg_linear_launch(cell_m, n, k, sms)
+                rule = _wg._wg_linear_launch(cell_m, n, k, sms)
                 launch_ms = {"rule": timer(lambda: _k7(x, qt, True), iters=10)}
-                chunks = (k // 2) // im._WG_CHUNK
+                chunks = (k // 2) // _wg._WG_CHUNK
                 for full, s in ((None, 1), (0, 2), (0, 3), (0, 4), (rule[0], rule[1] + 1),
                                 (rule[0], max(2, rule[1] - 1))):
                     if (s - 1) * -(-chunks // s) >= chunks:

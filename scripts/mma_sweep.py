@@ -9,7 +9,7 @@ For each `layer2` linear shape (q/o 4096 x 4096, k/v 1024 x 4096, the INT4
 router 8 x 4096, the LM head 8192 x 4096; random weights from a seed), K1
 (per row) and K6 (per group of 128), and M in (8, 40) (a decode step of 8
 slots, the self-draft verify of gamma 4), launches the body at the rule's
-shape (``ops.int4_matmul._mma_launch``) and at the other candidate shapes
+shape (``ops._mma._mma_launch``) and at the other candidate shapes
 (ws k steps per warp, kw warps along K per CTA, splits CTAs along K), each
 held against the rule's output at BF16_REL_TOL of its largest value, and
 times each: "cold" with the L2 cache flushed before every call
@@ -21,17 +21,15 @@ limit lead the output. Imports nothing of JAX.
 """
 from __future__ import annotations
 
-import importlib
 import json
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
-from fused4bit_tpu_torch.ops import _build
+from fused4bit_tpu_torch.ops import _build, _mma
 from fused4bit_tpu_torch.quant import quantize
 
-linear = importlib.import_module("fused4bit_tpu_torch.ops.int4_matmul")
 
 CANDIDATES = {
     4096: [(32, 1, 8), (32, 2, 4), (32, 4, 2), (32, 8, 1), (16, 8, 2)],
@@ -88,7 +86,7 @@ def main() -> None:
             for k6 in (False, True):
                 qt = (quantize(w, granularity="per_group", layout="planar", group_size=128) if k6
                       else quantize(w))
-                rule = linear._mma_launch(n, K, sms)
+                rule = _mma._mma_launch(n, K, sms)
                 for m in (8, 40):
                     x = torch.randn((m, K), generator=gen, device="cuda").bfloat16()
                     ref = launch(lib, x, qt, *rule, k6)

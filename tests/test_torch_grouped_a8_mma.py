@@ -35,14 +35,13 @@ from fused4bit_tpu.ops.grouped_matmul import (
 )
 from fused4bit_tpu_torch import ops
 from fused4bit_tpu_torch.layers import dispatch, make_dispatch_plan, topk_route
-from fused4bit_tpu_torch.ops.int4_matmul import (
+from fused4bit_tpu_torch.ops._int8 import (
     _a8_mma_launch,
     _a8_product,
     _i8_chunk,
     _pg_a8_fold_product,
-    _pg_a8_on_tensor_cores,
-    _pg_a8_product,
 )
+from fused4bit_tpu_torch.ops._rows import _pg_a8_product
 from fused4bit_tpu_torch.ops.int8_xla import _quantize_acts
 from fused4bit_tpu_torch.quant import dequantize, quantize
 from test_torch_per_group import A8_TOL, _TORCH, _jax_pg, _port_qt
@@ -365,7 +364,7 @@ def test_fragment_model_k14_equals_the_fold_plain_version(rng, gs, run):
 
 def test_k14_body_choice_reads_the_group_size():
     """K14's body: the int8 body at gs % 32 == 0, else the CUDA-core loop
-    (and its per-run plain version)."""
-    assert [_pg_a8_on_tensor_cores(gs) for gs in (16, 32, 48, 64, 96, 128)] == [
-        False, True, False, True, True, True]
+    (and its per-run plain version; test_torch_body_choice holds the
+    cases); on the int8 body a chunk of a row is 64 packed bytes at gs %
+    64 == 0, else 32."""
     assert [_i8_chunk(gs) for gs in (0, 32, 64, 96, 128)] == [64, 32, 64, 32, 64]

@@ -35,14 +35,10 @@ from fused4bit_tpu.layers.moe import topk_route as jax_topk_route
 from fused4bit_tpu.ops.grouped_matmul import grouped_int4_matmul as jax_grouped
 from fused4bit_tpu.ops.grouped_matmul import grouped_int4_matmul_per_group as jax_grouped_pg
 from fused4bit_tpu.quant.core import quantize as jax_quantize
+from fused4bit_tpu_torch.ops import _build, _mma, _rows, _wg
 from fused4bit_tpu_torch.ops import grouped_matmul as gm
-from fused4bit_tpu_torch.ops.int4_matmul import (
-    _MMA_TALL_M,
-    _fold_mma_launch,
-    _k7_on_tensor_cores,
-    _mma_launch,
-    planar_pg_weight,
-)
+from fused4bit_tpu_torch.ops._mma import _MMA_TALL_M, _fold_mma_launch, _mma_launch
+from fused4bit_tpu_torch.ops.int4_matmul import planar_pg_weight
 from fused4bit_tpu_torch.quant import planar_groups_to_planar, quantize, unpack_planar
 from test_torch_pg_mma import CHUNK, SMS, _chunk_sums
 
@@ -175,7 +171,7 @@ def test_grouped_launch_reads_n_k_and_sms_only():
     a token row's sums run in one order in every dispatch at tile_m up to
     64 (K9: at every tile_m), so its bits do not depend on the T, the tile
     or the tile_m it sits in."""
-    for rule in (gm._grouped_mma_launch, gm._ksplit_mma_launch):
+    for rule in (_mma._grouped_mma_launch, _mma._ksplit_mma_launch):
         assert list(inspect.signature(rule).parameters) == ["n", "k", "sms"]
     assert _MMA_TALL_M == 64
 
@@ -187,7 +183,7 @@ def test_grouped_launch_covers_k_in_whole_chunks(n, k):
     K/2 walked exactly once in each warp's order, no CTA beyond K; at the
     layer2 shapes every CTA's range is whole groups of 128 (16 k steps), and
     every SM gets two warps from one block of 16 rows."""
-    ws, kw, splits = gm._grouped_mma_launch(n, k, SMS)
+    ws, kw, splits = _mma._grouped_mma_launch(n, k, SMS)
     chunks = (k // 2) // CHUNK
     assert ws % STEPS == 0 and kw in (1, 2, 4, 8) and splits >= 1
     assert (splits - 1) * kw * ws < chunks * STEPS <= splits * kw * ws
@@ -205,34 +201,30 @@ def test_ksplit_launch_splits_k_across_ctas(n, k):
     chunk of K/2 walked once, no CTA beyond K, and K split across at least
     two CTAs wherever K/2 holds two chunks (K=128: one chunk, one CTA), with
     at least as many slices of K as K2's rule takes."""
-    launch = ws, kw, splits = gm._ksplit_mma_launch(n, k, SMS)
+    launch = ws, kw, splits = _mma._ksplit_mma_launch(n, k, SMS)
     chunks = (k // 2) // CHUNK
     assert ws % STEPS == 0 and kw in (1, 2, 4, 8) and splits >= 1
     assert (splits - 1) * kw * ws < chunks * STEPS <= splits * kw * ws
     walked = [c for per_warp in warp_chunks(launch, chunks) for mine in per_warp for c in mine]
     assert sorted(walked) == list(range(chunks))
     assert splits >= 2 if chunks >= 2 else splits == 1
-    k2_ws, k2_kw, k2_splits = gm._grouped_mma_launch(n, k, SMS)
+    k2_ws, k2_kw, k2_splits = _mma._grouped_mma_launch(n, k, SMS)
     assert kw * splits >= min(chunks, k2_kw * k2_splits)
 
 
 def test_body_choice_reads_dtype_and_group_size_only():
     """K13 takes the tensor-core body where K7 does, by the operands' format
     alone (bf16 x, gs % 64 == 0); K2 and K12 take it for bf16 x (K12 at every
-    planar group size, gs % 128 == 0), f32 x keeps the CUDA-core loop."""
-    assert list(inspect.signature(_k7_on_tensor_cores).parameters) == ["dtype", "group_size"]
-    for gs in (64, 128, 256):
-        assert _k7_on_tensor_cores(torch.bfloat16, gs)
-        assert not _k7_on_tensor_cores(torch.float32, gs)
-    for gs in (16, 32, 48, 96):
-        assert not _k7_on_tensor_cores(torch.bfloat16, gs)
-    assert list(inspect.signature(gm._k12_on_tensor_cores).parameters) == ["dtype"]
-    assert gm._k12_on_tensor_cores(torch.bfloat16)
-    assert not gm._k12_on_tensor_cores(torch.float32)
-    assert gm._KERNELS[torch.bfloat16] == "f4b_grouped_int4_matmul_mma_bf16"
-    assert gm._PG_MMA_KERNEL == "f4b_grouped_int4_matmul_pg_mma_bf16"
-    assert gm._PLANAR_PG_MMA_KERNEL == "f4b_grouped_int4_matmul_planar_pg_mma_bf16"
-    assert list(gm._PLANAR_PG_KERNELS) == [torch.float32]
+    planar group size, gs % 128 == 0), f32 x keeps the CUDA-core loop, which
+    K12 has in f32 alone (test_torch_body_choice holds the cases). Each
+    kernel's entry points on the two bodies."""
+    assert _mma._ENTRIES["K2"] == _mma._ENTRIES["K9"] == "f4b_grouped_int4_matmul_mma_bf16"
+    assert _mma._ENTRIES["K13"] == "f4b_grouped_int4_matmul_pg_mma_bf16"
+    assert _mma._ENTRIES["K12"] == "f4b_grouped_int4_matmul_planar_pg_mma_bf16"
+    for kernel, dtypes in (("K2", ["f32"]), ("K9", ["f32"]), ("K12", ["f32"]),
+                           ("K13", ["bf16", "f32"]), ("K14", ["bf16", "f32"])):
+        assert [d for d in ("bf16", "f32")
+                if f"{_rows._ENTRIES[kernel]}_{d}" in _build._SIGNATURES] == dtypes
 
 
 # --- the warpgroup body (csrc/grouped_wgmma.cu) --------------------------------
@@ -251,65 +243,20 @@ def _t_pad(t, e, tile_m, top_k=2):
 
 
 def test_wg_body_choice_reads_shape_and_format_only():
-    """The body choice reads dtype, granularity, group size, T_pad, E,
+    """The body choice reads the kernel, device, dtype, group size, T_pad, E,
     tile_m, N and K, never the tile map's contents, the rows' or the
-    routing. The cells' calls take the warpgroup body (Mixtral-8x22B's K13
-    at 384 tokens: T_pad 896 at tile_m 16; Mixtral-8x7B's K2 at 576: T_pad
-    2176 at tile_m 128); decode (T=8) and the self-draft verify (T=40) at
-    tile_m 16 keep the old body, as do f32, K7's other group sizes, N off
-    whole slices and K off whole chunks."""
-    params = list(inspect.signature(gm._wg_body).parameters)
-    assert set(params) <= {"dtype", "granularity", "group_size", "t_pad", "e", "tile_m", "n",
-                           "k", "sms"}
-    bf16 = torch.bfloat16
+    routing (test_torch_body_choice holds the cases: the cells' calls take
+    the warpgroup body, Mixtral-8x22B's K13 at 384 tokens, T_pad 896 at
+    tile_m 16, and Mixtral-8x7B's K2 at 576, T_pad 2176 at tile_m 128;
+    decode and the verify keep the old body). Each kernel's entry point."""
+    params = list(inspect.signature(gm._body).parameters)
+    assert set(params) <= {"kernel", "cuda", "dtype", "group_size", "t_pad", "e", "tile_m", "n",
+                           "k"}
     assert _t_pad(384, 8, 16) == 896 and _t_pad(576, 8, 128) == 2176
-    for n, k in ((16384, 6144), (6144, 16384)):
-        assert gm._wg_body(bf16, "per_group", 128, 896, 8, 16, n, k)
-        assert gm._wg_body(bf16, "per_group", 64, 896, 8, 16, n, k)
-    for n, k in ((14336, 4096), (4096, 14336)):
-        assert gm._wg_body(bf16, "per_row", 0, 2176, 8, 128, n, k)
-    for t in (8, 40):
-        t_pad = _t_pad(t, 8, 16)
-        assert t_pad - 8 * 16 < 8 * gm.WG_MIN_EXPERT_ROWS
-        for n, k in WG_SHAPES:
-            assert not gm._wg_body(bf16, "per_row", 0, t_pad, 8, 16, n, k)
-            assert not gm._wg_body(bf16, "per_group", 128, t_pad, 8, 16, n, k)
     assert 8 * gm.WG_MIN_EXPERT_ROWS <= 896 - 8 * 16
-    assert not gm._wg_body(torch.float32, "per_row", 0, 2176, 8, 128, 14336, 4096)
-    for gs in (16, 32, 48, 96):
-        assert not gm._wg_body(bf16, "per_group", gs, 896, 8, 16, 16384, 6144)
-    assert not gm._wg_body(bf16, "per_group", 128, 896, 8, 16, 320, 512)   # N: 2.5 slices
-    assert not gm._wg_body(bf16, "per_row", 0, 2176, 8, 128, 4096, 4160)   # K/2: 32.5 chunks
-    assert gm._WG_KERNELS == {"per_row": "f4b_grouped_int4_matmul_wg_bf16",
-                              "per_group": "f4b_grouped_int4_matmul_pg_wg_bf16"}
-
-
-@pytest.mark.parametrize("e,top_k,hidden,ffn", [
-    (8, 2, 4096, 14336),       # Mixtral-8x7B
-    (16, 2, 4096, 14336),
-    (64, 8, 4096, 11008),      # DEEPSEEK_V3, QWEN3_235B (models/config.py)
-    (128, 8, 5120, 13696),     # GLM_5
-])
-def test_wg_body_same_for_decode_and_verify_at_every_expert_count(e, top_k, hidden, ffn):
-    """Decode (T=8) and the self-draft verify (T=40) choose the same body,
-    the old one, at the port's expert counts and widths (which the warpgroup
-    body would take), at tile_m 16, 32 and 64: the verify's rows stay the
-    decode's bits. The padding a dispatch gives each expert does not count
-    as rows, so at 8 to 128 experts the body starts at the same rows an
-    expert, whatever E: 24 (96 tokens at 8 experts top-2, 192 at 64 top-8)."""
-    for n, k in ((ffn, hidden), (hidden, ffn)):
-        for gran, gs in (("per_row", 0), ("per_group", 128)):
-            if (k // 2) % max(gs, 1):
-                continue                # GLM_5's down: K/2 is no whole number of groups of 128
-            assert gm._wg_body(torch.bfloat16, gran, gs, 1 << 20, e, 16, n, k)
-            for tile_m in (16, 32, 64):
-                chosen = {gm._wg_body(torch.bfloat16, gran, gs, _t_pad(t, e, tile_m, top_k), e,
-                                      tile_m, n, k) for t in (8, 40)}
-                assert chosen == {False}
-            start = e * gm.WG_MIN_EXPERT_ROWS // top_k
-            assert gm._wg_body(torch.bfloat16, gran, gs, _t_pad(start, e, 16, top_k), e, 16, n, k)
-            assert not gm._wg_body(torch.bfloat16, gran, gs, _t_pad(start - 8, e, 16, top_k), e,
-                                   16, n, k)
+    assert _wg._ENTRIES == {"K2": "f4b_grouped_int4_matmul_wg_bf16",
+                            "K13": "f4b_grouped_int4_matmul_pg_wg_bf16",
+                            "K7": "f4b_int4_matmul_pg_wg_bf16"}
 
 
 @pytest.mark.parametrize("n,k", WG_SHAPES)
@@ -318,20 +265,20 @@ def test_wg_launch_covers_k_in_whole_chunks_and_n_in_whole_slices(n, k):
     the call; its persistent grid (E, N and SMs only, a CTA per SM at most)
     walks every (expert, slice of 128 features) item exactly once, and each
     item walks K/2 in whole chunks of 64 bytes (whole groups of 128 in K13)."""
-    assert gm._wg_body(torch.bfloat16, "per_row", 0, 4096, 8, 16, n, k)
-    assert gm._wg_body(torch.bfloat16, "per_group", 128, 4096, 8, 16, n, k)
-    assert list(inspect.signature(gm._wg_grid).parameters) == ["e", "n", "sms"]
+    for kernel, gs in (("K2", 0), ("K13", 128)):
+        assert gm._body(kernel, True, torch.bfloat16, gs, 4096, 8, 16, n, k) == "wg"
+    assert list(inspect.signature(_wg._wg_grid).parameters) == ["e", "n", "sms"]
     for e in (4, 8):
-        grid = gm._wg_grid(e, n, SMS)
-        items = e * n // gm._WG_SLICE
+        grid = _wg._wg_grid(e, n, SMS)
+        items = e * n // _wg._WG_SLICE
         assert 1 <= grid <= min(SMS, items)
         walked = sorted(i for cta in range(grid) for i in range(cta, items, grid))
         assert walked == list(range(items))
-        covered = sorted((i // (n // gm._WG_SLICE), (i % (n // gm._WG_SLICE)) * gm._WG_SLICE + f)
-                         for i in walked for f in range(gm._WG_SLICE))
+        covered = sorted((i // (n // _wg._WG_SLICE), (i % (n // _wg._WG_SLICE)) * _wg._WG_SLICE + f)
+                         for i in walked for f in range(_wg._WG_SLICE))
         assert covered == [(ex, f) for ex in range(e) for f in range(n)]
-    chunks = (k // 2) // gm._WG_CHUNK
-    assert chunks * gm._WG_CHUNK == k // 2 and (chunks * gm._WG_CHUNK) % 128 == 0
+    chunks = (k // 2) // _wg._WG_CHUNK
+    assert chunks * _wg._WG_CHUNK == k // 2 and (chunks * _wg._WG_CHUNK) % 128 == 0
 
 
 def _family_rules():
@@ -478,7 +425,7 @@ LAYOUT = {"K13": "planar_groups", "K12": "planar"}   # per group of 128; K2, K9 
 
 def _launch(kernel):
     """The launch rule of ``kernel`` at the tests' shape."""
-    rule = gm._ksplit_mma_launch if kernel == "K9" else gm._grouped_mma_launch
+    rule = _mma._ksplit_mma_launch if kernel == "K9" else _mma._grouped_mma_launch
     return rule(N, KDIM, SMS)
 
 

@@ -70,8 +70,8 @@ def test_wg_body_matches_plain_version(card, kernel, n, k, skew):
         loads = routing.tokens_per_expert.tolist()
         assert not skew or (max(loads) > 256 and min(loads) == 0), loads
         plan = make_dispatch_plan(routing, E, tile_m=tile_m)
-        assert gm._wg_body(torch.bfloat16, qt.granularity, qt.group_size or 0, plan.t_pad, E,
-                           tile_m, n, k)
+        assert gm._body(kernel, True, torch.bfloat16, qt.group_size, plan.t_pad, E, tile_m,
+                        n, k) == "wg"
         xs = dispatch(torch.randn((t, k), generator=gen, device=card).bfloat16(), routing, plan)
         before = op.wg_launches
         y = op(xs, plan.tile_group_ids, qt, tile_m=tile_m)

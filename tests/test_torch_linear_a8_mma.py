@@ -17,7 +17,7 @@ shape; ``chip_smoke.check_linear_a8`` holds the kernel to its plain version
 bit for bit on the card. No tolerance is used here: every comparison is
 exact.
 """
-import importlib
+import contextlib
 import inspect
 
 import numpy as np
@@ -25,7 +25,8 @@ import pytest
 import torch
 
 from fused4bit_tpu_torch import ops
-from fused4bit_tpu_torch.ops.int4_matmul import (
+from fused4bit_tpu_torch.ops import _build, _front
+from fused4bit_tpu_torch.ops._int8 import (
     _a8_mma_launch,
     _a8_product,
     _linear_a8_launch,
@@ -35,9 +36,6 @@ from fused4bit_tpu_torch.ops.int8_xla import _quantize_acts
 from fused4bit_tpu_torch.quant import quantize
 from test_torch_grouped_a8_mma import _model_warp, _scatter
 
-# the ops modules (the package's names of the same spelling are the wrappers)
-linear_mod = importlib.import_module("fused4bit_tpu_torch.ops.int4_matmul")
-grouped_mod = importlib.import_module("fused4bit_tpu_torch.ops.grouped_matmul")
 SMS = 132   # the H100's SMs
 K = 4096    # the layer2 linears' K
 LAYER2_LINEARS = {"q_o": 4096, "k_v": 1024, "lm_head": 8192, "router": 8}
@@ -144,24 +142,44 @@ class _OnCard(torch.Tensor):
         return True
 
 
+class _StubLibrary:
+    """Records each C entry point called and its arguments; returns 0."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls.append((name, args))
+            return 0
+        return call
+
+
 @pytest.fixture
-def first_pass_calls(monkeypatch):
-    """Replace the int8 body's launcher with a recorder of (caller, fused)
-    and the card's SM count with the H100's."""
-    calls = []
+def int8_launches(monkeypatch):
+    """Replace the kernel library with a stub and the card's SM count with
+    the H100's; returns a reader of the int8 body's launches so far, each
+    (tile map, granularity, tile_m, launch shape, fused): its main kernel's
+    tile map (None: a linear), weights, tile_m and shape, and its first
+    pass's quantizer."""
+    lib = _StubLibrary()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(_front, "_sm_count", lambda index: SMS)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
 
-    def launch(x, tile_group_ids, qt, tile_m, ws, kw, splits, *, fused):
-        grouped = tile_group_ids is not None
-        calls.append(("grouped" if grouped else "linear", qt.granularity, fused))
-        return torch.zeros((x.shape[0], qt.shape[-2]), dtype=x.dtype)
+    def launches():
+        out = []
+        for (first, a), (main, b) in zip(lib.calls[::2], lib.calls[1::2]):
+            assert first.startswith("f4b_a8_prepass_") and main.endswith("a8_mma"), (first, main)
+            pg = int("_pg_" in main)              # the group size follows K
+            out.append((b[4], "per_group" if pg else "per_row", b[13 + pg],
+                        tuple(b[15 + pg:18 + pg]), bool(a[8])))
+        return out
+    return launches
 
-    for mod in (linear_mod, grouped_mod):
-        monkeypatch.setattr(mod, "_launch_a8_mma", launch)
-        monkeypatch.setattr(mod, "_sm_count", lambda index: SMS)
-    return calls
 
-
-def test_each_wrapper_hands_the_first_pass_its_quantizer(rng, first_pass_calls):
+def test_each_wrapper_hands_the_first_pass_its_quantizer(rng, int8_launches):
     """K5 (at a decode step's 8 rows and at 80, past its launch rule's
     switch) and K11 pass ``fused=True``, K10 and K4 ``fused=False``, K8 and
     K14 ``fused=True``: a slip gives rows off in the last bit."""
@@ -182,10 +200,11 @@ def test_each_wrapper_hands_the_first_pass_its_quantizer(rng, first_pass_calls):
     ops.grouped_int4_matmul_a8(on_card, gids, qe, tile_m=tile_m)                      # K10
     ops.int4_matmul_per_group_a8(on_card[:8], pg)                                     # K8
     ops.grouped_int4_matmul_per_group_a8(on_card, gids, pge, tile_m=tile_m)           # K14
-    assert first_pass_calls == [("linear", "per_row", True), ("linear", "per_row", True),
-                                ("linear", "per_row", False),
-                                ("grouped", "per_row", True), ("grouped", "per_row", False),
-                                ("linear", "per_group", True), ("grouped", "per_group", True)]
+    assert [("linear" if gids is None else "grouped", gran, fused)
+            for gids, gran, _, _, fused in int8_launches()] == [
+        ("linear", "per_row", True), ("linear", "per_row", True), ("linear", "per_row", False),
+        ("grouped", "per_row", True), ("grouped", "per_row", False),
+        ("linear", "per_group", True), ("grouped", "per_group", True)]
 
 
 @pytest.mark.parametrize("m, k, fuse_quant", [
@@ -193,26 +212,18 @@ def test_each_wrapper_hands_the_first_pass_its_quantizer(rng, first_pass_calls):
     (80, K, False),      # past the launch rule's switch at 64 rows
     (8, 6400, None),     # deep K: the JAX fuse gate picks K4 by itself
 ])
-def test_k4_launches_the_int8_body_with_the_dividing_first_pass(rng, monkeypatch, m, k,
+def test_k4_launches_the_int8_body_with_the_dividing_first_pass(rng, int8_launches, m, k,
                                                                  fuse_quant):
     """K4 on a CUDA tensor reaches the int8 body's launcher once, one expert
     (no tile map), per-row weights, at ``_row_a8_launch``'s shape, with the
     host quantizer's division (``fused=False``), and counts one K4 launch and
     no K5 launch."""
-    calls = []
-
-    def launch(x, tile_group_ids, qt, tile_m, ws, kw, splits, *, fused):
-        calls.append((tile_group_ids, qt.granularity, tile_m, (ws, kw, splits), fused))
-        return torch.zeros((x.shape[0], qt.shape[-2]), dtype=x.dtype)
-
-    monkeypatch.setattr(linear_mod, "_launch_a8_mma", launch)
-    monkeypatch.setattr(linear_mod, "_sm_count", lambda index: SMS)
     n = 64
     qt = quantize(torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)))
     x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).bfloat16()
     before = (ops.int4_matmul_a8.launches, ops.int4_matmul_a8.fused_launches)
     y = ops.int4_matmul_a8(x.as_subclass(_OnCard), qt, fuse_quant=fuse_quant)
     assert y.shape == (m, n)
-    assert calls == [(None, "per_row", 0, _row_a8_launch(n, k, m, SMS), False)]
+    assert int8_launches() == [(None, "per_row", 0, _row_a8_launch(n, k, m, SMS), False)]
     assert (ops.int4_matmul_a8.launches, ops.int4_matmul_a8.fused_launches) == (
         before[0] + 1, before[1])

@@ -1,7 +1,7 @@
 """The tensor-core body of K1 and K6 (``csrc/int4_mma.cuh``), in what the CPU
 can check: its register dequantization, modelled bit for bit in plain torch,
 against the port's and the JAX package's weights; the launch rule
-``ops.int4_matmul._mma_launch``; and K1's row threshold.
+``ops._mma._mma_launch``; and K1's row threshold.
 
 Tolerances: the dequantization model is held bit for bit. The threshold test
 holds the port's plain version (bf16 and f32 activations, either side of the
@@ -18,10 +18,8 @@ import torch
 from fused4bit_tpu.ops.int4_matmul import int4_matmul as jax_int4_matmul
 from fused4bit_tpu.ops.int4_matmul import int4_matmul_per_group as jax_pg
 from fused4bit_tpu.quant.core import quantize as jax_quantize
+from fused4bit_tpu_torch.ops._mma import _MMA_TALL_M, _mma_launch, _mma_tall_launch
 from fused4bit_tpu_torch.ops.int4_matmul import (
-    _MMA_TALL_M,
-    _mma_launch,
-    _mma_tall_launch,
     int4_matmul,
     int4_matmul_reference,
     planar_pg_weight,

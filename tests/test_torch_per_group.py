@@ -45,7 +45,7 @@ from fused4bit_tpu_torch.models import (
     model_from_jax,
 )
 from fused4bit_tpu_torch import ops
-from fused4bit_tpu_torch.ops.int4_matmul import _pg_a8_product
+from fused4bit_tpu_torch.ops._rows import _pg_a8_product
 from fused4bit_tpu_torch.ops.int8_xla import _quantize_acts
 from fused4bit_tpu_torch.quant import (
     QuantizedTensor,

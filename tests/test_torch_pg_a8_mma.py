@@ -14,6 +14,7 @@ Tolerances: against JAX, A8_TOL of ``test_torch_per_group.py``: the same
 quantizer and exact integer partials, the f32 terms summed in another order
 (JAX adds the c.X terms of every group first, then the a.P terms).
 """
+import importlib
 import inspect
 
 import jax.numpy as jnp
@@ -23,16 +24,13 @@ import torch
 
 from fused4bit_tpu.ops.int4_matmul import int4_matmul_per_group_a8 as jax_pg_a8
 from fused4bit_tpu_torch import ops
-from fused4bit_tpu_torch.ops.int4_matmul import (
-    _i8_chunk,
-    _linear_a8_launch,
-    _pg_a8_fold_product,
-    _pg_a8_on_tensor_cores,
-    _pg_a8_product,
-)
+from fused4bit_tpu_torch.ops._int8 import _i8_chunk, _linear_a8_launch, _pg_a8_fold_product
+from fused4bit_tpu_torch.ops._rows import _pg_a8_product
 from fused4bit_tpu_torch.ops.int8_xla import _quantize_acts
 from fused4bit_tpu_torch.quant import quantize
 from test_torch_per_group import A8_TOL, _TORCH, _assert_close, _jax_pg, _port_qt
+
+im = importlib.import_module("fused4bit_tpu_torch.ops.int4_matmul")
 
 SMS = 132                  # the H100's SMs, which the plain version assumes on the CPU
 N, KDIM = 384, 1024        # N > 256; K/2 = 512 = 4 groups of 128
@@ -104,9 +102,11 @@ def test_k8_body_choice_reads_the_group_size_only(rng):
     other multiples of 16, by the group size alone (as K14); its plain
     version follows: the per-run fold of the CUDA-core loop at gs 16, the
     int8 body's per-group fold at gs 32."""
-    assert list(inspect.signature(_pg_a8_on_tensor_cores).parameters) == ["group_size"]
-    assert [_pg_a8_on_tensor_cores(gs) for gs in (16, 32, 48, 64, 96, 128, 256)] == [
-        False, True, False, True, True, True, True]
+    for dtype in (torch.bfloat16, torch.float32):
+        for m in (8, 640):
+            assert [im._body("K8", True, dtype, gs, m, N, KDIM)
+                    for gs in (16, 32, 48, 64, 96, 128, 256)] == [
+                "rows", "int8", "rows", "int8", "int8", "int8", "int8"]
     w = torch.from_numpy(rng.standard_normal((64, 512)).astype(np.float32))
     x = torch.from_numpy(rng.standard_normal((5, 512)).astype(np.float32))
     xq, sx = _quantize_acts(x, fused=True)

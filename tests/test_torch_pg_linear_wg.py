@@ -32,7 +32,7 @@ import torch
 from chip_smoke import PG_LINEAR_SHAPES
 from fused4bit_tpu.ops.int4_matmul import int4_matmul_per_group as jax_pg
 from fused4bit_tpu_torch import ops
-from fused4bit_tpu_torch.ops import _build
+from fused4bit_tpu_torch.ops import _build, _front, _mma, _wg
 from fused4bit_tpu_torch.quant import quantize
 from test_torch_pg_mma import CHUNK, SMS, _jax_pg, _t, k7_fold_model
 
@@ -48,15 +48,20 @@ def _pg(w, gs=128):
     return quantize(w, granularity="per_group", layout="planar_groups", group_size=gs)
 
 
+def _wg_body(dtype, gs, m, n, k):
+    """Whether a K7 call takes the warpgroup body on the card."""
+    return im._body("K7", True, dtype, gs, m, n, k) == "wg"
+
+
 def test_body_choice_reads_the_call_type_and_shape_only():
-    """The choice reads (dtype, gs, M, N, K), the launch (M, N, K, SMs):
-    never the model, the layer or an environment variable."""
-    assert list(inspect.signature(im._k7_wg_body).parameters) == ["dtype", "group_size", "m",
-                                                                  "n", "k"]
-    assert list(inspect.signature(im._wg_linear_launch).parameters) == ["m", "n", "k", "sms"]
-    assert im._MMA_TALL_M < im.WG_MIN_LINEAR_ROWS <= 320
+    """The choice reads (kernel, device, dtype, gs, M, N, K), the launch (M,
+    N, K, SMs): never the model, the layer or an environment variable."""
+    assert list(inspect.signature(im._body).parameters) == [
+        "kernel", "cuda", "dtype", "group_size", "m", "n", "k", "prefill_threshold"]
+    assert list(inspect.signature(_wg._wg_linear_launch).parameters) == ["m", "n", "k", "sms"]
+    assert _mma._MMA_TALL_M < im.WG_MIN_LINEAR_ROWS <= 320
     for m, n, k in CELL_SHAPES:
-        assert im._k7_wg_body(BF16, 128, m, n, k)
+        assert _wg_body(BF16, 128, m, n, k)
 
 
 @pytest.mark.parametrize("m,n,k", CELL_SHAPES)
@@ -65,14 +70,14 @@ def test_decode_verify_routers_and_other_formats_keep_their_launch(m, n, k):
     crossover, 8x22B's router (N=8), N in no whole slices of 128, group
     sizes off 64, and f32 x never take the body."""
     for rows in {1, 8, 40, 64, im.WG_MIN_LINEAR_ROWS - 1}:
-        assert not im._k7_wg_body(BF16, 128, rows, n, k)
-    assert im._k7_wg_body(BF16, 128, im.WG_MIN_LINEAR_ROWS, n, k)
-    assert im._k7_wg_body(BF16, 64, m, n, k)
-    assert not im._k7_wg_body(BF16, 128, m, 8, k)                      # the router
-    assert not im._k7_wg_body(BF16, 128, m, n - 64, k)                # N off 128
+        assert not _wg_body(BF16, 128, rows, n, k)
+    assert _wg_body(BF16, 128, im.WG_MIN_LINEAR_ROWS, n, k)
+    assert _wg_body(BF16, 64, m, n, k)
+    assert not _wg_body(BF16, 128, m, 8, k)                      # the router
+    assert not _wg_body(BF16, 128, m, n - 64, k)                # N off 128
     for gs in (16, 32, 96):
-        assert not im._k7_wg_body(BF16, gs, m, n, k)
-    assert not im._k7_wg_body(torch.float32, 128, m, n, k)
+        assert not _wg_body(BF16, gs, m, n, k)
+    assert not _wg_body(torch.float32, 128, m, n, k)
 
 
 def _walk(m, n, k, full, splits, grid):
@@ -80,20 +85,20 @@ def _walk(m, n, k, full, splits, grid):
     CTA b takes items b, b + grid, ...; item -> (n0, r0, c0, c1, z): the
     first ``full`` over all of K/2 (z -1), then ``splits`` ranges of each
     slice left; slices outermost, then ranges, the row blocks innermost."""
-    chunks = (k // 2) // im._WG_CHUNK
-    blocks = -(-m // im._WG_ROWS)
+    chunks = (k // 2) // _wg._WG_CHUNK
+    blocks = -(-m // _wg._WG_ROWS)
     span = -(-chunks // splits)
-    items = full + (n // im._WG_SLICE - full // blocks) * splits * blocks
+    items = full + (n // _wg._WG_SLICE - full // blocks) * splits * blocks
     out = []
     for cta in range(grid):
         for item in range(cta, items, grid):
             if item < full:
                 s, b = divmod(item, blocks)
-                out.append((s * im._WG_SLICE, b * im._WG_ROWS, 0, chunks, -1))
+                out.append((s * _wg._WG_SLICE, b * _wg._WG_ROWS, 0, chunks, -1))
                 continue
             s, rest = divmod(item - full, splits * blocks)
             z, b = divmod(rest, blocks)
-            out.append(((full // blocks + s) * im._WG_SLICE, b * im._WG_ROWS, z * span,
+            out.append(((full // blocks + s) * _wg._WG_SLICE, b * _wg._WG_ROWS, z * span,
                         min(chunks, (z + 1) * span), z))
     return out
 
@@ -105,20 +110,20 @@ def test_launch_covers_every_output_once(m, n, k):
     the other slices lies in exactly one item of each range, and the ranges
     cut K/2's chunks in order into non-empty runs; the grid never exceeds
     the SMs or the items."""
-    full, splits, grid = im._wg_linear_launch(m, n, k, SMS)
+    full, splits, grid = _wg._wg_linear_launch(m, n, k, SMS)
     chunks = (k // 2) // CHUNK
-    blocks = -(-m // im._WG_ROWS)
-    slices = n // im._WG_SLICE
+    blocks = -(-m // _wg._WG_ROWS)
+    slices = n // _wg._WG_SLICE
     whole = full // blocks
     items = full + (slices - whole) * splits * blocks
-    assert 1 <= splits <= im._WG_MAX_SPLITS and 1 <= grid <= min(SMS, items)
+    assert 1 <= splits <= _wg._WG_MAX_SPLITS and 1 <= grid <= min(SMS, items)
     assert full % blocks == 0 and 0 <= full <= slices * blocks
     assert splits > 1 or full == slices * blocks
     walked = _walk(m, n, k, full, splits, grid)
     assert len(walked) == items == len(set(walked))
-    rows = range(0, blocks * im._WG_ROWS, im._WG_ROWS)
+    rows = range(0, blocks * _wg._WG_ROWS, _wg._WG_ROWS)
     assert sorted((n0, r0) for n0, r0, _, _, z in walked if z < 0) == \
-        [(s * im._WG_SLICE, r0) for s in range(whole) for r0 in rows]
+        [(s * _wg._WG_SLICE, r0) for s in range(whole) for r0 in rows]
     assert all((c0, c1) == (0, chunks) for _, _, c0, c1, z in walked if z < 0)
     if whole < slices:
         ranges = sorted({(c0, c1, z) for _, _, c0, c1, z in walked if z >= 0},
@@ -129,8 +134,8 @@ def test_launch_covers_every_output_once(m, n, k):
         assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
         for z in range(splits):
             tiles = sorted((n0, r0) for n0, r0, _, _, zz in walked if zz == z)
-            assert tiles == [(s * im._WG_SLICE, r0) for s in range(whole, slices) for r0 in rows]
-    assert blocks * im._WG_ROWS - m < im._WG_ROWS                      # rows past M: one block's
+            assert tiles == [(s * _wg._WG_SLICE, r0) for s in range(whole, slices) for r0 in rows]
+    assert blocks * _wg._WG_ROWS - m < _wg._WG_ROWS                      # rows past M: one block's
 
 
 def test_launch_fills_the_card_where_whole_items_do_not():
@@ -140,11 +145,11 @@ def test_launch_fills_the_card_where_whole_items_do_not():
     whole and the rest are cut: 8x22B's q and o (144 items: one wave of 132
     whole, 4 slices in ranges); 8x22B's LM head (768 items) stays whole."""
     for m in (896, 384):
-        full, splits, grid = im._wg_linear_launch(m, 1024, 6144, SMS)
+        full, splits, grid = _wg._wg_linear_launch(m, 1024, 6144, SMS)
         assert full == 0 and splits > 1 and grid > 8 * -(-m // 128)
-    full, splits, grid = im._wg_linear_launch(384, 6144, 6144, SMS)
+    full, splits, grid = _wg._wg_linear_launch(384, 6144, 6144, SMS)
     assert (full, grid) == (SMS, SMS) and splits > 1
-    assert im._wg_linear_launch(384, 32768, 6144, SMS) == (768, 1, SMS)
+    assert _wg._wg_linear_launch(384, 32768, 6144, SMS) == (768, 1, SMS)
 
 
 # Milliseconds of the body at each cell shape under the launches
@@ -180,7 +185,7 @@ def test_launch_rule_picks_the_fastest_timed_launch(m, n, k):
     (the readings' noise between near-equal launches); a change to a
     constant must keep that."""
     timed = TIMED_LAUNCHES[(m, n, k)]
-    full, splits, _ = im._wg_linear_launch(m, n, k, SMS)
+    full, splits, _ = _wg._wg_linear_launch(m, n, k, SMS)
     assert (full, splits) in timed
     assert timed[(full, splits)] <= 1.01 * min(timed.values())
 
@@ -189,7 +194,7 @@ def body_launch(m, n, k, splits=None):
     """The body's order as ``k7_fold_model``'s launch: one warp along K,
     ``splits`` CTAs along K (the ranges, the rule's by default) of
     ceil(chunks / splits) chunks each, added in order z = 0, 1, ..."""
-    splits = splits or im._wg_linear_launch(m, n, k, SMS)[1]
+    splits = splits or _wg._wg_linear_launch(m, n, k, SMS)[1]
     chunks = (k // 2) // CHUNK
     return 8 * -(-chunks // splits), 1, splits
 
@@ -331,18 +336,21 @@ def stub(monkeypatch):
     lib = _StubLibrary()
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(_build, "stream_of", lambda t: 0)
-    monkeypatch.setattr(im, "_sm_count", lambda index: SMS)
+    monkeypatch.setattr(_front, "_sm_count", lambda index: SMS)
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    body = im._body
+    monkeypatch.setattr(im, "_body", lambda kernel, cuda, *a: body(kernel, True, *a))
     return lib
 
 
 @pytest.mark.parametrize("m", [8, 40, 64, 65, 127, 128, 384, 896])
 def test_wrappers_reach_their_entry_points(stub, m):
-    """What each launcher calls at M rows (CPU tensors, a stub library): K7
-    at bf16 the body from WG_MIN_LINEAR_ROWS rows (N=1024) at the rule's
-    launch, with an f32 partial where slices are cut into ranges, else the
-    tall or decode tile, and never for the router (N=8), gs 32, f32 x, K6 or K1;
-    the ``wg_launches`` counter counts the body's launches alone."""
+    """What each wrapper calls at M rows (CPU tensors taking the card's
+    bodies, a stub library): K7 at bf16 the body from WG_MIN_LINEAR_ROWS
+    rows (N=1024) at the rule's launch, with an f32 partial where slices are
+    cut into ranges, else the tall or decode tile, and never for the router
+    (N=8), gs 32, f32 x, K6 or K1; the ``wg_launches`` counter counts the
+    body's launches alone."""
     k = 1024
     gen = torch.Generator().manual_seed(m)
     w = torch.randn((1024, k), generator=gen) * k ** -0.5
@@ -353,16 +361,16 @@ def test_wrappers_reach_their_entry_points(stub, m):
     ops.reset_counts()
     for name, qt, xx in cases:
         stub.calls.clear()
-        im._launch_per_group(xx, qt)
+        ops.int4_matmul_per_group(xx, qt)
         (entry, args), = stub.calls
         wg = name == "K7" and m >= im.WG_MIN_LINEAR_ROWS
-        assert (entry == im._PG_WG_KERNEL) == wg, (name, entry)
+        assert (entry == _wg._ENTRIES["K7"]) == wg, (name, entry)
         if wg:
-            full, splits, grid = im._wg_linear_launch(m, 1024, k, SMS)
+            full, splits, grid = _wg._wg_linear_launch(m, 1024, k, SMS)
             assert args[6:13] == (m, 1024, k, 128, full, splits, grid)
             assert (args[5] is None) == (full == 8 * -(-m // 128))
     stub.calls.clear()
-    im._launch(x, quantize(w))
+    ops.int4_matmul(x, quantize(w), prefill_threshold=m)
     assert [entry for entry, _ in stub.calls] == ["f4b_int4_matmul_bf16"]
     counts = ops.launch_counts()
     assert counts["int4_matmul_per_group_wg"] == int(m >= im.WG_MIN_LINEAR_ROWS)

@@ -9,16 +9,13 @@ CUDA card. On the card, from the repository's root:
 ``chip_smoke.check_pg_linear_wg`` runs the same shapes with device times.
 Imports nothing of JAX.
 """
-import importlib
-
 import pytest
 import torch
 
 from chip_smoke import BF16_REL_TOL, PG_LINEAR_SHAPES
 from fused4bit_tpu_torch import ops
+from fused4bit_tpu_torch.ops import _mma
 from fused4bit_tpu_torch.quant import quantize
-
-im = importlib.import_module("fused4bit_tpu_torch.ops.int4_matmul")
 
 # (M, N, K): K-EXAONE-236B's K7 linears at 896 rows, Mixtral-8x22B's at 384
 CELL_SHAPES = [(m, n, k) for m, shapes in PG_LINEAR_SHAPES.items() for n, k in shapes]
@@ -63,14 +60,13 @@ def test_wg_body_matches_plain_version_and_repeats_its_bits(card, m, n, k):
 def test_calls_off_the_body_keep_their_launch_bits(card, m, n, k):
     """64 rows (decode's tile) and a width in no whole slices of 128 (the tall
     tile at 384 rows) do not take the body, and equal the launch they always
-    had (``_launch_mma`` at the decode or tall shape) bit for bit."""
+    had (``_mma._launch`` at the decode or tall shape) bit for bit."""
     gen = torch.Generator(device=card).manual_seed(k - n)
     qt = _weights(n, k, gen, card)
     x = torch.randn((m, k), generator=gen, device=card).bfloat16()
     before = ops.int4_matmul_per_group.wg_launches
     y = ops.int4_matmul_per_group(x, qt)
-    old = im._launch_mma(x, qt, im._PG_MMA_KERNEL, "int4_matmul_per_group", qt.group_size,
-                         decode=im._fold_mma_launch)
+    old = _mma._launch(x, qt, "K7")
     torch.cuda.synchronize()
     assert ops.int4_matmul_per_group.wg_launches == before
     assert torch.equal(y, old)

@@ -18,6 +18,7 @@ Tolerances: the register values are held bit for bit; the model against
 JAX's interpret-mode K7 at 1e-3 of the largest output in f32 and 2e-2 in
 bf16 (one bf16 rounding of each side, and the f32 sums in another order).
 """
+import importlib
 import inspect
 
 import jax.numpy as jnp
@@ -27,16 +28,11 @@ import torch
 
 from fused4bit_tpu.ops.int4_matmul import int4_matmul_per_group as jax_pg
 from fused4bit_tpu.quant.core import quantize as jax_quantize
-from fused4bit_tpu_torch.ops.int4_matmul import (
-    _FOLD_GS,
-    _fold_mma_launch,
-    _k7_on_tensor_cores,
-    _mma_launch,
-    _mma_tall_launch,
-    planar_pg_weight,
-)
+from fused4bit_tpu_torch.ops._mma import _FOLD_GS, _fold_mma_launch, _mma_launch, _mma_tall_launch
+from fused4bit_tpu_torch.ops.int4_matmul import planar_pg_weight
 from fused4bit_tpu_torch.quant import planar_groups_to_planar, unpack_planar
 
+im = importlib.import_module("fused4bit_tpu_torch.ops.int4_matmul")
 BYTES = torch.arange(256, dtype=torch.int32)
 SMS = 132                      # the H100's SMs
 CHUNK = 64                     # packed bytes per chunk (8 k steps of the body)
@@ -180,14 +176,17 @@ def test_k7_fold_is_not_k6_dequantization(rng):
 def test_k7_body_is_chosen_by_dtype_and_group_size_only():
     """The tensor-core body for bf16 activations at gs % 64 == 0, the
     CUDA-core loop for f32 activations and for the other group sizes
-    planar_groups takes (gs % 16 == 0); nothing else is read."""
-    assert list(inspect.signature(_k7_on_tensor_cores).parameters) == ["dtype", "group_size"]
+    planar_groups takes (gs % 16 == 0), at decode and the verify's rows; the
+    choice reads the call's kernel, device, type, group size and shape."""
+    assert set(inspect.signature(im._body).parameters) <= {
+        "kernel", "cuda", "dtype", "group_size", "m", "n", "k", "prefill_threshold"}
     assert _FOLD_GS == CHUNK
-    for gs in (64, 128, 256, 512):
-        assert _k7_on_tensor_cores(torch.bfloat16, gs)
-        assert not _k7_on_tensor_cores(torch.float32, gs)
-    for gs in (16, 32, 48, 80, 96, 160):
-        assert not _k7_on_tensor_cores(torch.bfloat16, gs)
+    for m in (8, 40):
+        for gs in (64, 128, 256, 512):
+            assert im._body("K7", True, torch.bfloat16, gs, m, 4096, 4096) == "mma"
+            assert im._body("K7", True, torch.float32, gs, m, 4096, 4096) == "rows"
+        for gs in (16, 32, 48, 80, 96, 160):
+            assert im._body("K7", True, torch.bfloat16, gs, m, 4096, 4096) == "rows"
 
 
 # The K7 linears of `layer2` in the per_group mode: q and o, k and v, the LM

@@ -27,7 +27,9 @@ from fused4bit_tpu.ops.int4_matmul import int4_matmul_per_group as jax_pg
 from fused4bit_tpu.quant.core import quantize as jax_quantize
 from fused4bit_tpu_torch import ops
 from fused4bit_tpu_torch.layers import MoEINT4, QuantizedLinear
-from fused4bit_tpu_torch.ops.grouped_matmul import MODES, _ksplit_mma_launch, _ksplit_splits
+from fused4bit_tpu_torch.ops._mma import _ksplit_mma_launch
+from fused4bit_tpu_torch.ops._rows import _ksplit_splits
+from fused4bit_tpu_torch.ops.grouped_matmul import MODES
 from fused4bit_tpu_torch.quant import QuantizedTensor, dequantize, quantize, reference_linear_qt
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}

@@ -45,7 +45,11 @@ Phases, each of which raises on failure:
      at Mixtral-8x22B's, T_pad 896 at tile_m 16; K2 at Mixtral-8x7B's, T_pad
      2176 at tile_m 128), under spread and skewed routing (one expert past
      256 rows, some with none), padding rows exactly 0, and a token's rows
-     the same bits at tile_m 16, 32, 64 and 128.
+     the same bits at tile_m 16, 32, 64 and 128. K1's and K7's tall calls
+     on the same body are held to their plain versions at the cells'
+     linear shapes (K1: Mixtral-8x7B's at 576 and 65 rows, two replays of a
+     CUDA graph bit-equal to the eager call, the router off the body; K7:
+     the per-group cells', two launches bit-equal).
      Beside each
      kernel's time at its main shape stand its bound (the least time the card
      could take: bytes over 3.35 TB/s or operations over the peak of their
@@ -241,7 +245,7 @@ from fused4bit_tpu_torch.models import (
     flagship_model_config,
     load_safetensors,
 )
-from fused4bit_tpu_torch.ops import _build, _mma
+from fused4bit_tpu_torch.ops import _build, _front, _mma, _wg
 from fused4bit_tpu_torch.ops._int8 import _a8_mma_launch
 from fused4bit_tpu_torch.ops._mma import (
     _MMA_TALL_M,
@@ -252,7 +256,7 @@ from fused4bit_tpu_torch.ops._mma import (
 )
 from fused4bit_tpu_torch.ops._rows import _ksplit_splits
 from fused4bit_tpu_torch.ops.grouped_matmul import _body as _grouped_body
-from fused4bit_tpu_torch.ops.int4_matmul import _body as _linear_body
+from fused4bit_tpu_torch.ops.int4_matmul import WG_MIN_LINEAR_ROWS, _body as _linear_body
 from fused4bit_tpu_torch.quant import (
     dequantize,
     dequantize_fp4,
@@ -458,11 +462,11 @@ def build() -> float:
 # int8 body (csrc/int8_mma.cuh) for K10 (K11, K5 and K4 run its
 # instantiation) and for K14 with 16- and 8-byte runs (K8 runs K14's two);
 # the warpgroup body (csrc/grouped_wgmma.cu, wgmma: HGMMA) for K2 and K13
-# and, without grouped addressing, for K7's tall calls.
+# and, without grouped addressing, for K1's and K7's tall calls.
 TENSOR_CORE_KERNELS = {"int4_mma_kernel": (12, "HMMA"),
                        "int4_attention_mma_kernel": (4, "HMMA"),
                        "int8_mma_kernel": (3, "IMMA"),
-                       "int4_mma_kernel_wg": (3, "HGMMA")}
+                       "int4_mma_kernel_wg": (4, "HGMMA")}
 
 
 def _tensor_core_body(fn: str):
@@ -1167,6 +1171,84 @@ def check_pg_linear_wg(device, results, timer, gen):
             torch.cuda.empty_cache()
 
 
+# (N, K) of Mixtral-8x7B's K1 linears: q and o, k and v, the LM head (on the
+# warpgroup body at its cell's 576 rows) and the router (N=8, off it)
+K1_LINEAR_SHAPES = ((4096, 4096), (1024, 4096), (32000, 4096))
+K1_ROUTER_SHAPE = (8, 4096)
+K1_CELL_ROWS = 576
+
+
+def _replays(fn):
+    """``fn()``'s output after each of two replays of one CUDA graph that
+    captured it (warmed on a side stream first)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    return first, out.clone()
+
+
+def check_linear_wg(device, results, timer, gen):
+    """K1's tall calls on the warpgroup body (``csrc/grouped_wgmma.cu``,
+    ``int4_mma_kernel_wg<RowScale, false>``) at Mixtral-8x7B's linear shapes
+    at its cell's 576 rows and at 65, each through the public wrapper (which
+    must choose the body) against the plain version at the bf16 bar, equal
+    bit for bit to two replays of a CUDA graph that captured it; at least
+    one shape's launch cuts slices into ranges of K (the ordered second
+    pass). At 576 rows the rows print the main kernel's device time, the
+    bound, the library call's time and the dense path's (dequantize +
+    matmul, the path these calls had before the body). The router's width
+    (N=8) keeps its path: no launch on the body."""
+    sms = _front._sm_count(torch.device(device).index or 0)
+    cut = 0
+    for n, k in K1_LINEAR_SHAPES:
+        qt = quantize(torch.randn((n, k), generator=gen, device=device) * k ** -0.5)
+        for m in (K1_CELL_ROWS, WG_MIN_LINEAR_ROWS):
+            x = torch.randn((m, k), generator=gen, device=device).bfloat16()
+            before = ops.int4_matmul.wg_launches
+            y = ops.int4_matmul(x, qt)
+            if ops.int4_matmul.wg_launches != before + 1:
+                raise AssertionError(f"int4_matmul M={m} N={n}: not the warpgroup body")
+            first, second = _replays(lambda: ops.int4_matmul(x, qt))
+            if not (torch.equal(y, first) and torch.equal(y, second)):
+                raise AssertionError(f"int4_matmul M={m} N={n}: graph replays differ")
+            full, splits, _ = _wg._wg_linear_launch(m, n, k, sms, "K1")
+            cut += full < (n // _wg._WG_SLICE) * -(-m // _wg._WG_ROWS)
+            ref = ops.int4_matmul_reference(x, qt)
+            cell = m == K1_CELL_ROWS
+            _compare("int4_matmul", f"M={m} N={n} K={k} wg {full},{splits}", y, ref,
+                     _a16_tol(ref), results, timer if cell else None,
+                     lambda: ops.int4_matmul(x, qt), lambda: ops.int4_matmul_reference(x, qt),
+                     iters=10, work=linear_bound(x, qt),
+                     library=int4pack_yardstick(x, qt) if cell else None,
+                     main="int4_mma_kernel_wg" if timer and cell else None)
+            if timer and cell:
+                dense = timer(lambda: ops.int4_matmul(x, qt, prefill_threshold=0), iters=10)
+                print(f"    dense path {dense:.4f} ms")
+        del qt
+        torch.cuda.empty_cache()
+    if not cut:
+        raise AssertionError("int4_matmul: no launch cut a slice into ranges of K")
+    n, k = K1_ROUTER_SHAPE
+    qt = quantize(torch.randn((n, k), generator=gen, device=device) * k ** -0.5)
+    x = torch.randn((K1_CELL_ROWS, k), generator=gen, device=device).bfloat16()
+    before = ops.int4_matmul.wg_launches
+    y = ops.int4_matmul(x, qt)
+    if ops.int4_matmul.wg_launches != before:
+        raise AssertionError(f"int4_matmul M={K1_CELL_ROWS} N={n}: the router took the body")
+    ref = ops.int4_matmul_reference(x, qt)
+    _compare("int4_matmul", f"M={K1_CELL_ROWS} N={n} K={k} router", y, ref, _a16_tol(ref),
+             results, None, None, None)
+
+
 def check_grouped_planar_pg(device, results, timer, gen, e=8, ffn=14336, hidden=4096):
     """K12 at the expert shapes, planar weights per group of 128: decode
     (T=8, tile_m 16; f32 too) and the prefill (T=600, tile_m 128), skewed
@@ -1640,6 +1722,7 @@ def check_kernels(device="cuda", timing=True):
     check_grouped_pg(device, results, timer, gen)
     check_grouped_wg(device, results, timer, gen)
     check_pg_linear_wg(device, results, timer, gen)
+    check_linear_wg(device, results, timer, gen)
     check_linear_planar_pg(device, results, timer, gen)
     check_grouped_planar_pg(device, results, timer, gen)
     check_ksplit(device, results, timer, gen)
@@ -1958,7 +2041,7 @@ PREFILL_MODES = (
     ("turbo", lambda m, pg: as_turbo(m), ("int4_matmul_a8_fused", "grouped_int4_matmul_a8"), ()),
     ("xla_turbo", lambda m, pg: as_xla_turbo(m), (), ("int8_linear", "int8_grouped_capacity")),
     ("per_group", lambda m, pg: pg,
-     ("int4_matmul_per_group", "grouped_int4_matmul_per_group"), ()),
+     ("int4_matmul_per_group", "grouped_int4_matmul_per_group", "int4_matmul"), ()),
     ("pg_turbo", lambda m, pg: as_turbo(pg),
      ("int4_matmul_per_group_a8", "grouped_int4_matmul_per_group_a8"), ()),
 )
@@ -1979,7 +2062,9 @@ def long_prefill(model, pg, cfg, device="cuda", b=2, t=320):
     package as in the port (tests/test_torch_model.py), and per-group
     requantization moves every weight, so they are measurements here, not
     bars. The per-group modes must run K7/K8 at 640 rows and K13/K14 at
-    tile_m 128 and give finite logits."""
+    tile_m 128 and give finite logits; per_group also K1, its per-row
+    router's kernel (640 rows lie under K1's PREFILL_THRESHOLD), which the
+    other modes must not launch."""
     tokens = torch.from_numpy(np.random.default_rng(4).integers(1, cfg.vocab_size, (b, t))
                               ).to(device)
     logits, all_launches = {}, {}
@@ -1996,7 +2081,8 @@ def long_prefill(model, pg, cfg, device="cuda", b=2, t=320):
             if not all(paths[name] for name in called):
                 raise AssertionError(f"long prefill [{mode}]: prefill paths not taken {paths}")
             _expect_launches(f"long prefill [{mode}]", launches, launched,
-                             ("int4_matmul", "grouped_int4_matmul"))
+                             [k for k in ("int4_matmul", "grouped_int4_matmul")
+                              if k not in launched])
             print(f"long prefill [{mode}] {b}x{t}: vs default, {_cosines(got, base)[2]}; "
                   f"launches {launches}, integer-GEMM calls {paths}")
             logits[mode] = got
@@ -2976,9 +3062,10 @@ def decode_ms_alternating(model, placed, cfg, mesh, card_line, rounds=3):
 def serve_mesh(model, cfg, mesh, ref, counts, card_line, device="cuda"):
     """ServingEngine(mesh=...) on phase 4's 12 requests against the
     single-card engine's tokens. Where they differ, the mesh engine's
-    full-batch prefill (8 x 32 rows) went through K1's tall launch
-    (ops._mma._MMA_TALL_M) where the single-card prefill (32 rows)
-    took the decode launch: the differing requests' prefill logits are then
+    full-batch prefill (8 x 32 rows) went through K1's tall calls (above
+    ops._mma._MMA_TALL_M rows: the warpgroup body where it takes the shape,
+    else the tall tile) where the single-card prefill (32 rows) took the
+    decode launch: the differing requests' prefill logits are then
     held to the model bar (MODEL_REL_TOL of their max, the first token in the
     single-card top-2)."""
     placed = par.place_model(model, mesh)
@@ -3025,12 +3112,14 @@ def serve_mesh(model, cfg, mesh, ref, counts, card_line, device="cuda"):
     wq = model.blocks[0].attn.wq.weight
     rows_same = torch.equal(ops.int4_matmul(x.bfloat16(), wq)[:32],
                             ops.int4_matmul(x[:32].bfloat16(), wq))
+    tall = _linear_body("K1", True, torch.bfloat16, 0, 8 * 32, wq.out_dim, wq.in_dim)
     print(f"serve [mesh (1, 1)]: the differing requests' prefill logits within the model bar, "
           f"worst max|d|/tol {worst:.3f}, first tokens in the single-card top-2; the mesh "
           f"prefill's logits {'equal' if same_as_model else 'differ from'} the model's own "
           f"forward on the same 8-row batch bit for bit; K1's rows 0-31 at {8 * 32} rows (the "
-          f"tall launch above {_MMA_TALL_M} rows) {'equal' if rows_same else 'differ from'} "
-          f"those of a 32-row call (the decode launch)")
+          f"{'warpgroup body' if tall == 'wg' else 'tall tile'} above {_MMA_TALL_M} rows) "
+          f"{'equal' if rows_same else 'differ from'} those of a 32-row call (the decode "
+          f"launch)")
 
 
 def parallel_layer(card_line, ref, device="cuda", scale="layer2"):

@@ -1,7 +1,8 @@
 // K2 and K13 on Hopper's warpgroup tensor cores: the grouped w4a16 expert
 // products at serving and prefill sizes, where an expert holds tens to
-// hundreds of routed rows; and K7's tall calls, the per-group linears at
-// WG_MIN_LINEAR_ROWS rows and above.
+// hundreds of routed rows; and K1's and K7's tall calls, the per-row and
+// per-group linears from WG_MIN_LINEAR_ROWS rows (K1: up to its
+// PREFILL_THRESHOLD).
 //
 //   K2:  y[m, n] = s[n] * sum_k x[m, k] * (q[n, k] - zp[n])          (RowScale)
 //   K13: y[m, n] = sum over chunks c of 64 packed bytes, in order, of
@@ -9,8 +10,9 @@
 // over the weights of expert e = gids[m / tile_m], the arithmetic of
 // int4_mma.cuh's RowScale and GroupFold policies (its note gives the terms;
 // the TPU kernels fused4bit_tpu/ops/grouped_matmul.py:_grouped_kernel and
-// _grouped_pg_bp_kernel). K7 (G false) is K13's sum over one weight, the TPU
-// kernel fused4bit_tpu/ops/int4_matmul.py:_int4_group_bp_kernel. Only the
+// _grouped_pg_bp_kernel). K1 and K7 (G false) are K2's and K13's sums over
+// one weight, the TPU kernels fused4bit_tpu/ops/int4_matmul.py:
+// _int4_matmul_kernel and _int4_group_bp_kernel. Only the
 // order of the sums inside the tensor core differs from int4_mma.cuh's body,
 // which keeps the small calls (decode and the speculative verify;
 // ops.grouped_matmul._body and ops.int4_matmul._body choose by shape,
@@ -21,7 +23,8 @@
 // operations per weight byte, above the card's ~295: the floor is the
 // tensor-core work (13.1 ms a step in both cells), with the weight bytes
 // close behind (11.4 and 6.8 ms). K7's tall calls run 384 (8x22B) or 896
-// (K-EXAONE) rows, 4 x M operations per weight byte: the tensor cores alone.
+// (K-EXAONE) rows, K1's 576 (8x7B), 4 x M operations per weight byte: the
+// tensor cores alone.
 // int4_mma.cuh's body takes 16 (or 64) rows a CTA, so it streams and
 // dequantizes the weights once per block of rows, with mma.sync and no
 // overlap of loads and products. Here:
@@ -36,7 +39,7 @@
 //   dequantized once per pass (once per call unless an expert holds more
 //   rows than a pass). The rows of a run after its last flagged row are
 //   written as exactly 0; an expert with no flagged row loads no weights.
-// * Work items (K7): (slice of 128 features, block of 128 rows of x), the
+// * Work items (K1, K7): (slice of 128 features, block of 128 rows of x), the
 //   row blocks of one slice next to each other in the walk, so the CTAs
 //   that run side by side share the slice's weights: they come from HBM once
 //   a call, from L2 for the other blocks. Every row of a dense call is used:
@@ -44,7 +47,7 @@
 //   the slices after them are cut into `splits` ranges of K/2's chunks,
 //   whose f32 partials int4_linear_reduce_kernel adds in order z = 0, 1, ...
 //   ops._wg._wg_linear_launch picks (full, splits, grid) from (M,
-//   N, K, SMs) so that the last wave is not left ragged.
+//   N, K, SMs) and the policy so that the last wave is not left ragged.
 // * A ring of stages in shared memory, one 64-byte chunk of K/2 each: the
 //   item's 128 x 64 weight bytes (TMA, 64-byte swizzle) and the pass's x at
 //   the chunk's 64 low columns and 64 high columns (TMA, 128-byte swizzle,
@@ -56,7 +59,7 @@
 //   mbarriers; two consumer warpgroups (64 output features each, 232
 //   registers a thread after setmaxnreg) dequantize from shared memory and
 //   run wgmma, and free a stage when its products are done.
-// * wgmma m64n32k16 (K7: m64n128k16, one instruction per k step over the
+// * wgmma m64n32k16 (K1, K7: m64n128k16, one instruction per k step over the
 //   block's 128 rows) with A, the weights, from registers and B, x, from
 //   shared memory: each warp dequantizes its 16 rows into the m16n8k16
 //   fragment layout with int4_mma.cuh's nibble trick (bf16 bits 0x4300 | v =
@@ -73,22 +76,29 @@
 //   pass the turn), so one folds while the other's products run. On the
 //   H100 the body runs at 22-32 % of its bound at the cells' shapes; the
 //   CUDA-core work (the fold and the X sums) sets the pace, not the tensor
-//   cores or the bytes (PERF.md §6).
+//   cores or the bytes (PERF.md §6). K1 has no fold: its consumers run K2's
+//   loop (no turns; the low half's wgmmas, then the high half's, straight
+//   into the accumulator), and the producer warpgroup's three other warps
+//   have nothing to sum.
 // * Sums: a row's products run over K in chunk order and, inside a chunk,
-//   over its 4 low k steps, then its 4 high ones (K2), or the low ones into
-//   P (zeroed by the first), folded, then the high ones, folded (K13, K7,
-//   with the fold's fmaf order of int4_mma.cuh). That order is fixed by (N,
-//   K) (K7: and its ranges), so a row's bits do not depend on T, tile_m, the
-//   routing, the pass or the bank it lands in. No float atomics; y is
-//   written in full.
+//   over its 4 low k steps, then its 4 high ones (K2, K1), or the low ones
+//   into P (zeroed by the first), folded, then the high ones, folded (K13,
+//   K7, with the fold's fmaf order of int4_mma.cuh). That order is fixed by
+//   (N, K) (K1, K7: and their ranges), so a row's bits do not depend on T,
+//   tile_m, the routing, the pass or the bank it lands in. K1's s[n]
+//   multiplies the f32 sum over all of K/2 once: in the epilogue of a whole
+//   item, or in the second pass after it adds the ranges' raw partials in
+//   order, so a cut slice's y is s[n] * (P_0 + P_1 + ...). No float
+//   atomics; y is written in full.
 //
 // Launch (ops._wg._launch, over a tile map): a first pass (K2:
 // int4_mma.cuh's rows_used_kernel; K13: fold_rows_used_kernel, which also
 // writes X), then int4_mma_kernel_wg<P, true> on grid CTAs of 384 threads.
-// K7 (ops._wg._launch, no tile map): int4_mma_kernel_wg<GroupFold, false>,
-// then where slices are cut into ranges int4_linear_reduce_kernel.
-// Requires bf16 x, N % 128 == 0, K/2 % 64 == 0, tile_m % 16 == 0, 16-byte
-// aligned x and weights, and for K13 and K7 gs % 64 == 0 dividing K/2.
+// K1 and K7 (ops._wg._launch, no tile map): int4_mma_kernel_wg<RowScale,
+// false> or <GroupFold, false>, then where slices are cut into ranges
+// int4_linear_reduce_kernel. Requires bf16 x, N % 128 == 0, K/2 % 64 == 0,
+// tile_m % 16 == 0, 16-byte aligned x and weights, and for K13 and K7 gs %
+// 64 == 0 dividing K/2.
 #include <cuda.h>
 
 #include "int4_mma.cuh"
@@ -104,27 +114,29 @@ constexpr int kXBox = kBank * 128;      // bytes of one TMA box of x: 32 rows x 
 constexpr int kWTile = kWgSlice * kChunkBytes;  // bytes of one stage's weights
 constexpr int kMaxStages = 8;
 constexpr int kXsumThreads = 96;        // K7: the producer warpgroup's warps 1-3 sum x
+constexpr int kLinearRows = 4 * kBank;  // x rows of a linear's item (K1, K7): one m64n128k16
 
 // x rows per pass and stages of the ring: K13 keeps its P sums beside the
 // accumulator, so it takes half K2's rows (per consumer thread: 4 banks x 16
-// f32 of acc + 16 of P, against K2's 8 x 16 of acc).
-template <class P>
+// f32 of acc + 16 of P, against K2's 8 x 16 of acc); a linear's item (G
+// false) takes kLinearRows.
+template <class P, bool G = true>
 struct WgShape {
-  static constexpr int kRows = P::kFold ? 128 : 256;
+  static constexpr int kRows = !G ? kLinearRows : (P::kFold ? 128 : 256);
   static constexpr int kBanks = kRows / kBank;
   static constexpr int kXsBytes = P::kFold ? 2 * kRows * 4 : 0;  // X of both halves
   static constexpr int kStageBytes = 2 * kRows * 128 + kWTile + kXsBytes;
 };
 
 struct WgArgs {
-  const int32_t* gids;    // [T / tile_m]; K7: null
-  const int32_t* used;    // [T] the first pass's row flags; K7: null
+  const int32_t* gids;    // [T / tile_m]; K1, K7: null
+  const int32_t* used;    // [T] the first pass's row flags; K1, K7: null
   const float* xsum;      // K13: [2 * K/128][T] X per (chunk, half) and row; else null
-  const float* scales;    // [E, N] (K2) or [E, N, K/gs] (K13; K7 E = 1)
+  const float* scales;    // [E, N] (K2; K1 E = 1) or [E, N, K/gs] (K13; K7 E = 1)
   const float* zps;       // the same shape
   __nv_bfloat16* y;       // [T, N]
   int T, N, K, E, gs, tile_m, stages;
-  // K7: items over all of K/2, ranges of K/2's chunks of the slices after
+  // K1, K7: items over all of K/2, ranges of K/2's chunks of the slices after
   // them, blocks of kRows rows of x, and the ranges' f32 partials [splits,
   // T, N - full / blocks * 128] (null where no slice is cut)
   int full, splits, blocks;
@@ -646,39 +658,40 @@ __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty, uint6
   __syncthreads();
 }
 
-// A K7 work item: output features n0 .. n0 + 127, x rows r0 .. r0 + 127 (those
-// below T), chunks c0 .. c1 of K/2, range z (-1: all of K/2, y written
-// directly). The first p.full items take all of K/2, the slices after them
-// p.splits ranges each; items run slice by slice, then range by range, the
-// row blocks innermost.
+// A linear's work item (K1, K7): output features n0 .. n0 + 127, x rows r0 ..
+// r0 + 127 (those below T), chunks c0 .. c1 of K/2, range z (-1: all of K/2,
+// y written directly). The first p.full items take all of K/2, the slices
+// after them p.splits ranges each; items run slice by slice, then range by
+// range, the row blocks innermost.
 struct LinearItem {
   int n0, r0, c0, c1, z;
 };
 
 __device__ __forceinline__ LinearItem linear_item(const WgArgs& p, int item, int chunks) {
-  constexpr int kRows = WgShape<GroupFold>::kRows;
   if (item < p.full) {
     const int slice = item / p.blocks, block = item - slice * p.blocks;
-    return LinearItem{slice * kWgSlice, block * kRows, 0, chunks, -1};
+    return LinearItem{slice * kWgSlice, block * kLinearRows, 0, chunks, -1};
   }
   const int j = item - p.full, per_slice = p.splits * p.blocks;
   const int slice = p.full / p.blocks + j / per_slice, rest = j % per_slice;
   const int z = rest / p.blocks, block = rest - z * p.blocks;
   const int span = (chunks + p.splits - 1) / p.splits;
-  return LinearItem{slice * kWgSlice, block * kRows, z * span, min(chunks, (z + 1) * span), z};
+  return LinearItem{slice * kWgSlice, block * kLinearRows, z * span, min(chunks, (z + 1) * span),
+                    z};
 }
 
-// The items of a K7 launch: p.full whole, then p.splits ranges of each slice
-// left.
+// The items of a linear's launch: p.full whole, then p.splits ranges of each
+// slice left.
 __device__ __forceinline__ int linear_items(const WgArgs& p) {
   return p.full + (p.N / kWgSlice - p.full / p.blocks) * p.splits * p.blocks;
 }
 
-// K7's second pass: y[m, n0 + n] = the ranges' f32 partials [splits, M, N -
-// n0] added in order z = 0, 1, ..., a CTA per row of y and 256 of its columns.
+// A linear's second pass: y[m, n0 + n] = the ranges' f32 partials [splits, M,
+// N - n0] added in order z = 0, 1, ..., then (K1: scales not null) times
+// s[n0 + n]; a CTA per row of y and 256 of its columns.
 __global__ void __launch_bounds__(kMmaThreads) int4_linear_reduce_kernel(
-    const float* __restrict__ partial, __nv_bfloat16* __restrict__ y, int M, int N, int n0,
-    int splits) {
+    const float* __restrict__ partial, const float* __restrict__ scales,
+    __nv_bfloat16* __restrict__ y, int M, int N, int n0, int splits) {
   const int m = blockIdx.x;
   const int n = blockIdx.y * kMmaThreads + threadIdx.x;
   const int nt = N - n0;
@@ -686,19 +699,52 @@ __global__ void __launch_bounds__(kMmaThreads) int4_linear_reduce_kernel(
   const size_t mn = static_cast<size_t>(M) * nt, at = static_cast<size_t>(m) * nt + n;
   float v = partial[at];
   for (int z = 1; z < splits; ++z) v += partial[z * mn + at];
+  if (scales != nullptr) v = __ldg(scales + n0 + n) * v;
   y[static_cast<size_t>(m) * N + n0 + n] = __float2bfloat16(v);
 }
 
-// K7: the producer warp, the three warps that sum the staged x (X of each
-// row, chunk and half, in int4_mma.cuh's order: 8 vectors of 8 as trees, the
-// 8 in order), and the consumer warpgroups taking the wgmma turns.
+// A linear item's outputs: y[m, n] = (K1: s[n] *) acc (all of K/2), or the
+// range's raw f32 partial.
+template <class P>
+__device__ __forceinline__ void linear_store(const WgArgs& p, const LinearItem& it,
+                                             const float (&acc)[4][16], int na, int nb, int t,
+                                             float s_a, float s_b) {
+  const int rows = min(kLinearRows, p.T - it.r0);
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = kBank * b + 8 * i + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int mm = m + (j & 1);
+        if (mm < rows) {
+          const size_t at = static_cast<size_t>(it.r0 + mm) * p.N + ((j >> 1) ? nb : na);
+          const float v = acc[b][4 * i + j];
+          if (it.z < 0) {
+            p.y[at] = __float2bfloat16(P::kFold ? v : ((j >> 1) ? s_b : s_a) * v);
+          } else {
+            const int nt = p.N - p.full / p.blocks * kWgSlice;
+            p.partial[(static_cast<size_t>(it.z) * p.T + it.r0 + mm) * nt +
+                      ((j >> 1) ? nb : na) - (p.N - nt)] = v;
+          }
+        }
+      }
+    }
+  }
+}
+
+// K1 and K7: the producer warp; K7's three warps that sum the staged x (X of
+// each row, chunk and half, in int4_mma.cuh's order: 8 vectors of 8 as
+// trees, the 8 in order); and the consumer warpgroups, K7's taking the
+// wgmma turns.
 template <class P>
 __device__ __forceinline__ void linear_body(const CUtensorMap& xmap, const CUtensorMap& wmap,
                                             const WgArgs& p, uint64_t* full, uint64_t* empty,
                                             uint64_t* xfull, uint32_t ring,
                                             unsigned char* ring_ptr) {
-  using S = WgShape<P>;
-  static_assert(S::kRows == 4 * kBank, "a K7 block is one m64n128k16 wide");
+  using S = WgShape<P, false>;
+  static_assert(S::kRows == kLinearRows, "a linear's block is one m64n128k16 wide");
   const int kh = p.K / 2;
   const int chunks = kh / kChunkBytes;
   const int items = linear_items(p);
@@ -719,9 +765,13 @@ __device__ __forceinline__ void linear_body(const CUtensorMap& xmap, const CUten
           if (lane == 0) {
             const uint32_t bar = smem_u32(&full[stage]);
             const uint32_t base = ring + stage * S::kStageBytes;
-            const int g = c * kChunkBytes / p.gs;
             mbar_expect(bar, bytes);
-            tma_3d(base + 2 * S::kRows * 128, &wmap, bar, c * kChunkBytes - g * p.gs, it.n0, g);
+            if constexpr (P::kFold) {
+              const int g = c * kChunkBytes / p.gs;
+              tma_3d(base + 2 * S::kRows * 128, &wmap, bar, c * kChunkBytes - g * p.gs, it.n0, g);
+            } else {
+              tma_2d(base + 2 * S::kRows * 128, &wmap, bar, c * kChunkBytes, it.n0);
+            }
             for (int b = 0; b < boxes; ++b) {
               tma_2d(base + b * kXBox, &xmap, bar, c * kChunkBytes, it.r0 + b * kBank);
               tma_2d(base + S::kRows * 128 + b * kXBox, &xmap, bar, kh + c * kChunkBytes,
@@ -737,33 +787,35 @@ __device__ __forceinline__ void linear_body(const CUtensorMap& xmap, const CUten
       }
       return;
     }
-    // X of the staged rows, a thread per (half, row): row r's 16-byte vector
-    // u sits at u ^ (r % 8) (the 128-byte swizzle). Rows of a box past T are
-    // TMA's zeros; rows past the boxes are never stored.
-    const int tx = threadIdx.x - (kWgConsumerWarps + 1) * 32;
-    for (int item = blockIdx.x; item < items; item += gridDim.x) {
-      const LinearItem it = linear_item(p, item, chunks);
-      const int xrows = (min(S::kRows, p.T - it.r0) + kBank - 1) / kBank * kBank;
-      for (int c = it.c0; c < it.c1; ++c) {
-        mbar_wait(smem_u32(&full[stage]), phase);
-        const unsigned char* st = ring_ptr + stage * S::kStageBytes;
-        float* xs = reinterpret_cast<float*>(const_cast<unsigned char*>(st) + 2 * S::kRows * 128 +
-                                             kWTile);
-        for (int e = tx; e < 2 * S::kRows; e += kXsumThreads) {
-          const int h = e / S::kRows, r = e - h * S::kRows;
-          if (r < xrows) {
-            const unsigned char* row = st + h * S::kRows * 128 + r * 128;
-            float sum = 0.f;
+    // K7: X of the staged rows, a thread per (half, row): row r's 16-byte
+    // vector u sits at u ^ (r % 8) (the 128-byte swizzle). Rows of a box past
+    // T are TMA's zeros; rows past the boxes are never stored. K1 has none.
+    if constexpr (P::kFold) {
+      const int tx = threadIdx.x - (kWgConsumerWarps + 1) * 32;
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const LinearItem it = linear_item(p, item, chunks);
+        const int xrows = (min(S::kRows, p.T - it.r0) + kBank - 1) / kBank * kBank;
+        for (int c = it.c0; c < it.c1; ++c) {
+          mbar_wait(smem_u32(&full[stage]), phase);
+          const unsigned char* st = ring_ptr + stage * S::kStageBytes;
+          float* xs = reinterpret_cast<float*>(const_cast<unsigned char*>(st) +
+                                               2 * S::kRows * 128 + kWTile);
+          for (int e = tx; e < 2 * S::kRows; e += kXsumThreads) {
+            const int h = e / S::kRows, r = e - h * S::kRows;
+            if (r < xrows) {
+              const unsigned char* row = st + h * S::kRows * 128 + r * 128;
+              float sum = 0.f;
 #pragma unroll
-            for (int u = 0; u < 8; ++u)
-              sum += tree8(*reinterpret_cast<const uint4*>(row + ((u ^ (r & 7)) << 4)));
-            xs[e] = sum;
+              for (int u = 0; u < 8; ++u)
+                sum += tree8(*reinterpret_cast<const uint4*>(row + ((u ^ (r & 7)) << 4)));
+              xs[e] = sum;
+            }
           }
-        }
-        mbar_arrive(smem_u32(&xfull[stage]));
-        if (++stage == p.stages) {
-          stage = 0;
-          phase ^= 1u;
+          mbar_arrive(smem_u32(&xfull[stage]));
+          if (++stage == p.stages) {
+            stage = 0;
+            phase ^= 1u;
+          }
         }
       }
     }
@@ -772,120 +824,151 @@ __device__ __forceinline__ void linear_body(const CUtensorMap& xmap, const CUten
 
   // The consumer warpgroups: warpgroup q takes output features 64q .. 64q + 63
   // of the item's slice, warp w (of 4) its 16 rows na = .. + 16w + g and
-  // nb = na + 8. Warpgroup q waits for its turn on barrier 1 + q and passes
-  // it on barrier 2 - q; warpgroup 0 has the first.
+  // nb = na + 8. K7: warpgroup q waits for its turn on barrier 1 + q and
+  // passes it on barrier 2 - q; warpgroup 0 has the first.
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   const int q = warp >> 2, w = warp & 3;
   const int g = lane >> 2, t = lane & 3;
   const int row_a = 64 * q + 16 * w + g;      // in the slice
   const uint32_t sel = (t & 1) ? 0x4342u : 0x4140u;
   const int xo = (g >> 1) & 3;                // the 64-byte swizzle of rows row_a, row_a + 8
-  const int ng = p.K / p.gs;
-  const int mine = 1 + q, other = 2 - q;
+  const unsigned char* wrow = ring_ptr + 2 * S::kRows * 128 + row_a * kChunkBytes;
   int stage = 0;
   uint32_t phase = 0;
-  if (q == 1) turn_pass(other);
 
-  for (int item = blockIdx.x; item < items; item += gridDim.x) {
-    const LinearItem it = linear_item(p, item, chunks);
-    const int na = it.n0 + row_a, nb = na + 8;
-    const float* sa = p.scales + static_cast<size_t>(na) * ng;
-    const float* sb = p.scales + static_cast<size_t>(nb) * ng;
-    const float* za = p.zps + static_cast<size_t>(na) * ng;
-    const float* zb = p.zps + static_cast<size_t>(nb) * ng;
-    // acc[b][4i + j]: (row na for j < 2 else nb, x row r0 + 32b + 8i + 2t + (j & 1))
-    float acc[4][16];
+  if constexpr (!P::kFold) {
+    // K1: K2's loop per chunk: the low half's wgmmas | the high half's A
+    // fragments; the high half's wgmmas | the next chunk's low A fragments
+    // (once the low half's are done); free the stage. s[n] waits for the
+    // epilogue or the second pass.
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const LinearItem it = linear_item(p, item, chunks);
+      const int na = it.n0 + row_a, nb = na + 8;
+      const uint32_t zpa = zp_pair(__ldg(p.zps + na)), zpb = zp_pair(__ldg(p.zps + nb));
+      // acc[b][4i + j]: (row na for j < 2 else nb, x row r0 + 32b + 8i + 2t + (j & 1))
+      float acc[4][16];
 #pragma unroll
-    for (int b = 0; b < 4; ++b)
+      for (int b = 0; b < 4; ++b)
 #pragma unroll
-      for (int i = 0; i < 16; ++i) acc[b][i] = 0.f;
+        for (int i = 0; i < 16; ++i) acc[b][i] = 0.f;
 
-    uint32_t alo[4][4], ahi[4][4];
-    const unsigned char* wrow = ring_ptr + 2 * S::kRows * 128 + row_a * kChunkBytes;
-    if (it.c0 < it.c1) {
-      mbar_wait(smem_u32(&full[stage]), phase);
-      dequant_half<P, false>(alo, wrow + stage * S::kStageBytes, xo, t, sel, 0u, 0u);
-    }
-    for (int c = it.c0; c < it.c1; ++c) {
-      // [s_lo, c_lo, s_hi, c_hi] of rows na, nb
-      const int gl = c * kChunkBytes / p.gs, gh = ng / 2 + gl;
-      const float sla = __ldg(sa + gl), sha = __ldg(sa + gh);
-      const float slb = __ldg(sb + gl), shb = __ldg(sb + gh);
-      const float zla = __ldg(za + gl), zha = __ldg(za + gh);
-      const float zlb = __ldg(zb + gl), zhb = __ldg(zb + gh);
-      const float fa[4] = {sla, -sla * zla, sha, sha * (8.f - zha)};
-      const float fb[4] = {slb, -slb * zlb, shb, shb * (8.f - zhb)};
-      const uint32_t base = ring + stage * S::kStageBytes;
-      const uint64_t dlo = sw128_desc(base), dhi = sw128_desc(base + S::kRows * 128);
-      const float* xs = reinterpret_cast<const float*>(ring_ptr + stage * S::kStageBytes +
-                                                       2 * S::kRows * 128 + kWTile);
-      const uint32_t xbar = smem_u32(&xfull[stage]);
-      const uint32_t xphase = phase;
-      float part[4][16];  // P of a half, zeroed by its first k step
-
-      turn_wait(mine);
-      wg_fence();
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wgmma_n128(part, alo[j], dlo + 2 * j, j);
-      wg_commit();
-      turn_pass(other);
-      dequant_half<P, true>(ahi, wrow + stage * S::kStageBytes, xo, t, sel, 0u, 0u);
-      mbar_wait(xbar, xphase);
-      wg_wait_all();
-      reg_fence(part);
-#pragma unroll
-      for (int b = 0; b < 4; ++b) fold_bank(acc[b], part[b], xs + kBank * b + 2 * t, fa, fb, 0);
-      reg_fence(part);
-
-      turn_wait(mine);
-      wg_fence();
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wgmma_n128(part, ahi[j], dhi + 2 * j, j);
-      wg_commit();
-      turn_pass(other);
-      const int done = stage;
-      if (++stage == p.stages) {
-        stage = 0;
-        phase ^= 1u;
+      uint32_t alo[4][4], ahi[4][4];
+      if (it.c0 < it.c1) {
+        mbar_wait(smem_u32(&full[stage]), phase);
+        dequant_half<P, false>(alo, wrow + stage * S::kStageBytes, xo, t, sel, zpa, zpb);
       }
-      if (c + 1 < it.c1) {
+      for (int c = it.c0; c < it.c1; ++c) {
+        const uint32_t base = ring + stage * S::kStageBytes;
+        const uint64_t dlo = sw128_desc(base), dhi = sw128_desc(base + S::kRows * 128);
+        reg_fence(acc);
+        wg_fence();
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wgmma_n128(acc, alo[j], dlo + 2 * j, 1);
+        wg_commit();
+        dequant_half<P, true>(ahi, wrow + stage * S::kStageBytes, xo, t, sel, zpa, zpb);
+        wg_fence();
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wgmma_n128(acc, ahi[j], dhi + 2 * j, 1);
+        wg_commit();
+        const int done = stage;
+        if (++stage == p.stages) {
+          stage = 0;
+          phase ^= 1u;
+        }
+        if (c + 1 < it.c1) {
+          wg_wait_one();  // the low half's wgmmas: alo is free
+          mbar_wait(smem_u32(&full[stage]), phase);
+          dequant_half<P, false>(alo, wrow + stage * S::kStageBytes, xo, t, sel, zpa, zpb);
+        }
+        wg_wait_all();
+        reg_fence(acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(smem_u32(&empty[done]));
+      }
+      linear_store<P>(p, it, acc, na, nb, t, __ldg(p.scales + na), __ldg(p.scales + nb));
+    }
+  } else {
+    const int ng = p.K / p.gs;
+    const int mine = 1 + q, other = 2 - q;
+    if (q == 1) turn_pass(other);
+
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const LinearItem it = linear_item(p, item, chunks);
+      const int na = it.n0 + row_a, nb = na + 8;
+      const float* sa = p.scales + static_cast<size_t>(na) * ng;
+      const float* sb = p.scales + static_cast<size_t>(nb) * ng;
+      const float* za = p.zps + static_cast<size_t>(na) * ng;
+      const float* zb = p.zps + static_cast<size_t>(nb) * ng;
+      // acc[b][4i + j]: (row na for j < 2 else nb, x row r0 + 32b + 8i + 2t + (j & 1))
+      float acc[4][16];
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+#pragma unroll
+        for (int i = 0; i < 16; ++i) acc[b][i] = 0.f;
+
+      uint32_t alo[4][4], ahi[4][4];
+      if (it.c0 < it.c1) {
         mbar_wait(smem_u32(&full[stage]), phase);
         dequant_half<P, false>(alo, wrow + stage * S::kStageBytes, xo, t, sel, 0u, 0u);
       }
-      wg_wait_all();
-      reg_fence(part);
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        fold_bank(acc[b], part[b], xs + S::kRows + kBank * b + 2 * t, fa, fb, 1);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(smem_u32(&empty[done]));
-    }
+      for (int c = it.c0; c < it.c1; ++c) {
+        // [s_lo, c_lo, s_hi, c_hi] of rows na, nb
+        const int gl = c * kChunkBytes / p.gs, gh = ng / 2 + gl;
+        const float sla = __ldg(sa + gl), sha = __ldg(sa + gh);
+        const float slb = __ldg(sb + gl), shb = __ldg(sb + gh);
+        const float zla = __ldg(za + gl), zha = __ldg(za + gh);
+        const float zlb = __ldg(zb + gl), zhb = __ldg(zb + gh);
+        const float fa[4] = {sla, -sla * zla, sha, sha * (8.f - zha)};
+        const float fb[4] = {slb, -slb * zlb, shb, shb * (8.f - zhb)};
+        const uint32_t base = ring + stage * S::kStageBytes;
+        const uint64_t dlo = sw128_desc(base), dhi = sw128_desc(base + S::kRows * 128);
+        const float* xs = reinterpret_cast<const float*>(ring_ptr + stage * S::kStageBytes +
+                                                         2 * S::kRows * 128 + kWTile);
+        const uint32_t xbar = smem_u32(&xfull[stage]);
+        const uint32_t xphase = phase;
+        float part[4][16];  // P of a half, zeroed by its first k step
 
-    // y[m, n] = acc (all of K/2), or the range's f32 partial
-    const int rows = min(S::kRows, p.T - it.r0);
+        turn_wait(mine);
+        wg_fence();
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
+        for (int j = 0; j < 4; ++j) wgmma_n128(part, alo[j], dlo + 2 * j, j);
+        wg_commit();
+        turn_pass(other);
+        dequant_half<P, true>(ahi, wrow + stage * S::kStageBytes, xo, t, sel, 0u, 0u);
+        mbar_wait(xbar, xphase);
+        wg_wait_all();
+        reg_fence(part);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = kBank * b + 8 * i + 2 * t;
+        for (int b = 0; b < 4; ++b) fold_bank(acc[b], part[b], xs + kBank * b + 2 * t, fa, fb, 0);
+        reg_fence(part);
+
+        turn_wait(mine);
+        wg_fence();
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int mm = m + (j & 1);
-          if (mm < rows) {
-            const size_t at = static_cast<size_t>(it.r0 + mm) * p.N + ((j >> 1) ? nb : na);
-            if (it.z < 0) {
-              p.y[at] = __float2bfloat16(acc[b][4 * i + j]);
-            } else {
-              const int nt = p.N - p.full / p.blocks * kWgSlice;
-              p.partial[(static_cast<size_t>(it.z) * p.T + it.r0 + mm) * nt +
-                        ((j >> 1) ? nb : na) - (p.N - nt)] = acc[b][4 * i + j];
-            }
-          }
+        for (int j = 0; j < 4; ++j) wgmma_n128(part, ahi[j], dhi + 2 * j, j);
+        wg_commit();
+        turn_pass(other);
+        const int done = stage;
+        if (++stage == p.stages) {
+          stage = 0;
+          phase ^= 1u;
         }
+        if (c + 1 < it.c1) {
+          mbar_wait(smem_u32(&full[stage]), phase);
+          dequant_half<P, false>(alo, wrow + stage * S::kStageBytes, xo, t, sel, 0u, 0u);
+        }
+        wg_wait_all();
+        reg_fence(part);
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          fold_bank(acc[b], part[b], xs + S::kRows + kBank * b + 2 * t, fa, fb, 1);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(smem_u32(&empty[done]));
       }
+      linear_store<P>(p, it, acc, na, nb, t, 1.f, 1.f);
     }
+    if (q == 0) turn_wait(mine);  // the turn warpgroup 1 passed last
   }
-  if (q == 0) turn_wait(mine);  // the turn warpgroup 1 passed last
 }
 
 template <class P, bool G>
@@ -893,8 +976,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) int4_mma_kernel_wg(
     const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
     const WgArgs p) {
   // G names the grouped addressing, as int4_mma.cuh's flag does; the
-  // benchmark's kernel families read it from the symbol (K7: false).
-  static_assert(G || P::kFold, "the warpgroup body's linear is K7's");
+  // benchmark's kernel families read it from the symbol (K1, K7: false).
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages];
   // The ring, 1024-byte aligned for the 128-byte swizzle: stage i holds
@@ -908,7 +990,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) int4_mma_kernel_wg(
     grouped_body<P>(xmap, wmap, p, full, empty, ring, ring_ptr);
   } else {
     __shared__ __align__(8) uint64_t xfull[kMaxStages];  // K7: X of the stage summed
-    init_ring(full, empty, xfull, p.stages);
+    init_ring(full, empty, P::kFold ? xfull : nullptr, p.stages);
     linear_body<P>(xmap, wmap, p, full, empty, xfull, ring, ring_ptr);
   }
 }
@@ -967,11 +1049,21 @@ inline bool encode_groups(EncodeTiled fn, CUtensorMap* map, const void* packed, 
                 CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
+// planar bytes [E * N, K/2] in boxes of 64 bytes x 128 rows, 64-byte swizzle.
+inline bool encode_rows(EncodeTiled fn, CUtensorMap* map, const void* packed, int N, int K,
+                        int E) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K / 2), static_cast<cuuint64_t>(E) * N};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K / 2)};
+  const cuuint32_t box[2] = {kChunkBytes, kWgSlice};
+  return encode(fn, map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, packed, dims, strides, box,
+                CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
 // As many stages as the card's shared memory holds, at most kMaxStages, and
 // the kernel allowed that much dynamic shared memory (once per device).
 template <class P, bool G>
 int wg_ring(int& stages, size_t& smem) {
-  using S = WgShape<P>;
+  using S = WgShape<P, G>;
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -1011,18 +1103,9 @@ int launch_int4_mma_wg(const void* x, const void* gids, const void* packed, cons
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap xmap, wmap;
   if (!encode_x(fn, &xmap, x, T, K)) return static_cast<int>(cudaErrorInvalidValue);
-  if (P::kFold) {
-    if (!encode_groups(fn, &wmap, packed, N, K, E, gs))
-      return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K / 2),
-                                static_cast<cuuint64_t>(E) * N};
-    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K / 2)};
-    const cuuint32_t box[2] = {kChunkBytes, kWgSlice};
-    if (!encode(fn, &wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, packed, dims, strides, box,
-                CU_TENSOR_MAP_SWIZZLE_64B))
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!(P::kFold ? encode_groups(fn, &wmap, packed, N, K, E, gs)
+                  : encode_rows(fn, &wmap, packed, N, K, E)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   if (P::kFold) {
@@ -1044,25 +1127,26 @@ int launch_int4_mma_wg(const void* x, const void* gids, const void* packed, cons
   return static_cast<int>(cudaGetLastError());
 }
 
-// K7: `grid` persistent CTAs over M rows in blocks of 128: the first `full`
-// items (whole slices) over all of K/2, the other slices' in `splits` ranges
-// of whole chunks (none empty), then with those the ordered second pass over
-// partial, f32 scratch of splits * M * (N - full / blocks * 128). x [M, K]
-// bf16; packed [K/2/gs, N, gs] u8; scales/zps [N, K/gs].
+// K1 and K7: `grid` persistent CTAs over M rows in blocks of 128: the first
+// `full` items (whole slices) over all of K/2, the other slices' in `splits`
+// ranges of whole chunks (none empty), then with those the ordered second
+// pass over partial, f32 scratch of splits * M * (N - full / blocks * 128).
+// x [M, K] bf16; packed [N, K/2] (K1, gs 0) or [K/2/gs, N, gs] (K7) u8;
+// scales/zps [N] or [N, K/gs].
+template <class P>
 int launch_int4_linear_wg(const void* x, const void* packed, const void* scales, const void* zps,
                           void* y, void* partial, int M, int N, int K, int gs, int full, int splits,
                           int grid, void* stream) {
-  constexpr int kRows = WgShape<GroupFold>::kRows;
   const int chunks = K > 0 ? (K / 2) / kChunkBytes : 0;
   const int span = splits > 0 ? (chunks + splits - 1) / splits : 0;
-  const int blocks = (M + kRows - 1) / kRows;
+  const int blocks = (M + kLinearRows - 1) / kLinearRows;
   const int slices = N / kWgSlice;
   const bool tail = full < slices * blocks;
   const bool ok = M >= 0 && N > 0 && N % kWgSlice == 0 && K > 0 && (K / 2) % kChunkBytes == 0 &&
-                  gs > 0 && gs % kChunkBytes == 0 && (K / 2) % gs == 0 && splits >= 1 &&
-                  (splits - 1) * span < chunks && full >= 0 && full <= slices * blocks &&
-                  (blocks == 0 || full % blocks == 0) && (!tail || splits > 1) &&
-                  (!tail || partial != nullptr) && grid > 0 &&
+                  (P::kFold ? gs > 0 && gs % kChunkBytes == 0 && (K / 2) % gs == 0 : gs == 0) &&
+                  splits >= 1 && (splits - 1) * span < chunks && full >= 0 &&
+                  full <= slices * blocks && (blocks == 0 || full % blocks == 0) &&
+                  (!tail || splits > 1) && (!tail || partial != nullptr) && grid > 0 &&
                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(packed) % 16 == 0;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
@@ -1070,22 +1154,25 @@ int launch_int4_linear_wg(const void* x, const void* packed, const void* scales,
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap xmap, wmap;
-  if (!encode_x(fn, &xmap, x, M, K) || !encode_groups(fn, &wmap, packed, N, K, 1, gs))
+  if (!encode_x(fn, &xmap, x, M, K) ||
+      !(P::kFold ? encode_groups(fn, &wmap, packed, N, K, 1, gs)
+                 : encode_rows(fn, &wmap, packed, N, K, 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   int stages = 0;
   size_t smem = 0;
-  if (const int e = wg_ring<GroupFold, false>(stages, smem)) return e;
+  if (const int e = wg_ring<P, false>(stages, smem)) return e;
   const WgArgs args{nullptr, nullptr, nullptr, static_cast<const float*>(scales),
                     static_cast<const float*>(zps), static_cast<__nv_bfloat16*>(y), M, N, K, 1,
                     gs, 0, stages, full, splits, blocks, static_cast<float*>(partial)};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int4_mma_kernel_wg<GroupFold, false><<<grid, kWgThreads, smem, st>>>(xmap, wmap, args);
+  int4_mma_kernel_wg<P, false><<<grid, kWgThreads, smem, st>>>(xmap, wmap, args);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !tail) return static_cast<int>(err);
   const int n0 = full / blocks * kWgSlice;
   const dim3 rgrid(M, (N - n0 + kMmaThreads - 1) / kMmaThreads);
   int4_linear_reduce_kernel<<<rgrid, kMmaThreads, 0, st>>>(
-      static_cast<const float*>(partial), static_cast<__nv_bfloat16*>(y), M, N, n0, splits);
+      static_cast<const float*>(partial), P::kFold ? nullptr : static_cast<const float*>(scales),
+      static_cast<__nv_bfloat16*>(y), M, N, n0, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1114,6 +1201,17 @@ extern "C" int f4b_grouped_int4_matmul_pg_wg_bf16(const void* x, const void* gid
                                                  N, K, E, gs, tile_m, grid, stream);
 }
 
+// K1 on the warpgroup body: x [M, K] bf16; packed [N, K/2] u8; scales/zps
+// [N]; full: items over all of K/2 (whole slices); partial: f32 scratch of
+// splits * M * (N - full / ceil(M / 128) * 128) where slices are left for the
+// ranges; grid: persistent CTAs.
+extern "C" int f4b_int4_matmul_wg_bf16(const void* x, const void* packed, const void* scales,
+                                       const void* zps, void* y, void* partial, int M, int N,
+                                       int K, int full, int splits, int grid, void* stream) {
+  return f4b::launch_int4_linear_wg<f4b::RowScale>(x, packed, scales, zps, y, partial, M, N, K, 0,
+                                                   full, splits, grid, stream);
+}
+
 // K7 on the warpgroup body: x [M, K] bf16; packed [K/2/gs, N, gs] u8;
 // scales/zps [N, K/gs]; full: items over all of K/2 (whole slices); partial:
 // f32 scratch of splits * M * (N - full / ceil(M / 128) * 128) where slices
@@ -1122,6 +1220,6 @@ extern "C" int f4b_int4_matmul_pg_wg_bf16(const void* x, const void* packed, con
                                           const void* zps, void* y, void* partial, int M, int N,
                                           int K, int gs, int full, int splits, int grid,
                                           void* stream) {
-  return f4b::launch_int4_linear_wg(x, packed, scales, zps, y, partial, M, N, K, gs, full, splits,
-                                    grid, stream);
+  return f4b::launch_int4_linear_wg<f4b::GroupFold>(x, packed, scales, zps, y, partial, M, N, K,
+                                                    gs, full, splits, grid, stream);
 }

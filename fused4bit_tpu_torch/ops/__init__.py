@@ -88,7 +88,7 @@ __all__ = [
 ]
 
 # (name, wrapper, attribute) of every kernel's launch counter; K1-K14, K3',
-# then the share of K2's, K13's and K7's launches that ran the warpgroup body
+# then the share of K2's, K13's, K7's and K1's launches that ran the warpgroup body
 # and the share of K3's and K3''s launches over a window layer's cache
 _LAUNCH_COUNTERS = (
     ("int4_matmul", int4_matmul, "launches"),                                  # K1
@@ -111,6 +111,7 @@ _LAUNCH_COUNTERS = (
     ("grouped_int4_matmul_per_group_wg", grouped_int4_matmul_per_group,
      "wg_launches"),                                                            # of K13
     ("int4_matmul_per_group_wg", int4_matmul_per_group, "wg_launches"),        # of K7
+    ("int4_matmul_wg", int4_matmul, "wg_launches"),                            # of K1
     ("int4_attention_window", int4_attention, "window_launches"),              # of K3
     ("paged_int4_attention_window", paged_int4_attention, "window_launches"),  # of K3'
 )

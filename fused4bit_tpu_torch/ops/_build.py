@@ -76,7 +76,8 @@ _SIGNATURES = {
     # x, packed, scales, zps, y, partial; M, N, K, gs, ws, kw, splits, mt; stream
     "f4b_int4_matmul_planar_pg_bf16": [_P] * 6 + [_I] * 8 + [_P],
     "f4b_int4_matmul_pg_mma_bf16": [_P] * 6 + [_I] * 8 + [_P],
-    # x, packed, scales, zps, y, partial; M, N, K, gs, full, splits, grid; stream
+    # x, packed, scales, zps, y, partial; M, N, K, (gs,) full, splits, grid; stream
+    "f4b_int4_matmul_wg_bf16": [_P] * 6 + [_I] * 6 + [_P],
     "f4b_int4_matmul_pg_wg_bf16": [_P] * 6 + [_I] * 7 + [_P],
     "f4b_int4_matmul_planar_pg_f32": [_P] * 5 + [_I] * 4 + [_P],
     "f4b_grouped_int4_matmul_planar_pg_f32": [_P] * 7 + [_I] * 5 + [_P],

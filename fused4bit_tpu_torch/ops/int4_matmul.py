@@ -11,7 +11,8 @@ body of ``csrc/int8_mma.cuh`` (``_int8``) or the CUDA-core loops of
 version instead.
 
 * ``int4_matmul`` (w4a16): K1 through ``csrc/int4_matmul.cu`` (the port of
-  the TPU kernel ``_int4_matmul_kernel``), plain version
+  the TPU kernel ``_int4_matmul_kernel``), bf16 from
+  :data:`WG_MIN_LINEAR_ROWS` rows on the warpgroup body; plain version
   :func:`int4_matmul_reference`. Above ``prefill_threshold`` rows, as in the
   JAX package, the product is computed outside any kernel: dequantize once,
   then a dense matmul.
@@ -63,15 +64,19 @@ __all__ = [
 # quantizer's arithmetic (K4 divides by 127, K5 multiplies by f32(1/127)),
 # and with it the bits JAX gives.
 _SHALLOW_KH = 3072
-# K1's row threshold, measured on the H100 (scripts/linear_sweep.py): at the
-# `layer2` shapes the kernel beats dequantize + matmul at every M up to 512,
-# and the dense path first wins at 640 rows (k and v, N=1024).
-PREFILL_THRESHOLD = 512
-# Rows of x from which a bf16 K7 call runs the warpgroup body, measured:
-# scripts/linear_sweep.py --pg on an H100 80GB HBM3 at 700 W times the body
-# against the tall tile at 65, 72, 80, 96, 128, ... rows, and the body wins
-# at every per-group cell's linear from the first of them (1.3-2.5x at 65;
-# PERF.md section 6 has the readings). Below 65 K7 keeps its decode tile.
+# K1's row threshold, measured on the H100 (scripts/linear_sweep.py): the
+# largest M it sweeps below every shape's crossover, the first M at which
+# dequantize + matmul beats the kernel (the warpgroup body at N % 128 == 0,
+# else the tall tile), at the `layer2` and Mixtral-8x7B linears. The body
+# beats the dense path at every M swept (65-4096 rows; 5.3x at 576 on q,
+# 1.7x at 4096 on the LM head); the router (N=8, the tall tile) first loses
+# at 4096 rows (PERF.md section 6).
+PREFILL_THRESHOLD = 2048
+# Rows of x from which a bf16 K1 or K7 call runs the warpgroup body, measured:
+# scripts/linear_sweep.py (K1) and --pg (K7) on an H100 80GB HBM3 at 700 W
+# time the body against the tall tile at 65 rows and above, and the body
+# wins at every linear from 65 (K7 1.3-2.5x; PERF.md section 6 has the
+# readings). Below 65 K1 and K7 keep their decode tile.
 WG_MIN_LINEAR_ROWS = 65
 
 _BODIES = {"mma": _mma, "wg": _wg, "int8": _int8, "rows": _rows}
@@ -93,9 +98,9 @@ def _body(kernel: str, cuda: bool, dtype: torch.dtype, group_size: int, m: int, 
       64 packed bytes never straddles a group);
     * ``"rows"``: f32 x on the other kernels (an f32 tensor-core product
       would be TF32), K8 at the other multiples of 16, K7 at those off 64;
-    * ``"wg"``: K7 from :data:`WG_MIN_LINEAR_ROWS` rows (above
-      ``_mma._MMA_TALL_M``: never at decode or the verify, whose 64-row tile
-      K7 keeps) where the warpgroup body takes the format and shape;
+    * ``"wg"``: K1 and K7 from :data:`WG_MIN_LINEAR_ROWS` rows (above
+      ``_mma._MMA_TALL_M``: never at decode or the verify, whose decode tile
+      they keep) where the warpgroup body takes the format and shape;
     * ``"mma"``: else (bf16 K1, K6, and K7 at ``gs % 64 == 0``), on the
       decode or tall tile that ``_mma._tile_rows`` gives M."""
     if kernel == "K1" and m > prefill_threshold:
@@ -106,7 +111,8 @@ def _body(kernel: str, cuda: bool, dtype: torch.dtype, group_size: int, m: int, 
         return "int8"
     if dtype != torch.bfloat16 or kernel == "K8" or kernel == "K7" and group_size % _mma._FOLD_GS:
         return "rows"
-    if kernel == "K7" and m >= WG_MIN_LINEAR_ROWS and _wg._wg_takes(dtype, group_size, n, k):
+    if kernel in ("K1", "K7") and m >= WG_MIN_LINEAR_ROWS and _wg._wg_takes(dtype, group_size,
+                                                                            n, k):
         return "wg"
     return "mma"
 
@@ -162,6 +168,7 @@ def int4_matmul(
 
 
 int4_matmul.launches = 0
+int4_matmul.wg_launches = 0  # of which on the warpgroup body
 
 
 def quantized_linear(x: torch.Tensor, qt: QuantizedTensor, **kw) -> torch.Tensor:

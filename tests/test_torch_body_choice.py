@@ -4,7 +4,8 @@ with ``_mma._tile_rows`` for the tensor-core body's decode or tall tile.
 
 One row per call of each benchmark cell, one per edge of a choice (64 and 65
 rows; 23 and 24 rows an expert; N off whole slices of 128; the group sizes;
-f32; the planar layout; the CPU; K1's row threshold), and the rows that pin
+f32; the planar layout; the CPU; K1's row threshold, ``PREFILL_THRESHOLD``
+and one row above it), and the rows that pin
 the warpgroup body's choice at the port's expert counts. The choice reads the
 call's kernel, device, type, group size, rows (T_pad, E and tile_m for the
 experts), N and K: never the tile map's contents or the routing, so a CUDA
@@ -21,6 +22,7 @@ from fused4bit_tpu_torch.ops import grouped_matmul as gm
 
 im = importlib.import_module("fused4bit_tpu_torch.ops.int4_matmul")
 BF16, F32 = torch.bfloat16, torch.float32
+T = im.PREFILL_THRESHOLD
 LINEAR = ("K1", "K4", "K5", "K6", "K7", "K8")
 READS = {"kernel", "cuda", "dtype", "group_size", "m", "t_pad", "e", "tile_m", "n", "k",
          "prefill_threshold"}
@@ -48,9 +50,10 @@ def grp(name, kernel, dtype, gs, t_pad, e, tile_m, n, k, want, cuda=True):
 
 
 CELLS = [
-    # mixtral-8x7b.offline_isl2k: 576 rows, per row
-    *(lin(f"8x7B K1 {n}x{k} at 576", "K1", BF16, 0, 576, n, k, "dense")
-      for n, k in ((4096, 4096), (1024, 4096), (8, 4096), (32000, 4096))),
+    # mixtral-8x7b.offline_isl2k: 576 rows, per row; the router (N=8) off the body
+    *(lin(f"8x7B K1 {n}x{k} at 576", "K1", BF16, 0, 576, n, k, want)
+      for n, k, want in ((4096, 4096, "wg"), (1024, 4096, "wg"), (8, 4096, "mma tall"),
+                         (32000, 4096, "wg"))),
     *(grp(f"8x7B K2 {n}x{k} at 2176/128", "K2", BF16, 0, 2176, 8, 128, n, k, "wg")
       for n, k in ((14336, 4096), (4096, 14336))),
     # mixtral-8x22b-pg128.offline_isl2k: 384 rows, per group of 128; the router per row
@@ -72,7 +75,9 @@ EDGES = [
     lin("K7 at 64", "K7", BF16, 128, 64, 1024, 6144, "mma"),
     lin("K7 at 65", "K7", BF16, 128, 65, 1024, 6144, "wg"),
     lin("K1 at 64", "K1", BF16, 0, 64, 1024, 6144, "mma"),
-    lin("K1 at 65", "K1", BF16, 0, 65, 1024, 6144, "mma tall"),
+    lin("K1 at 65", "K1", BF16, 0, 65, 1024, 6144, "wg"),
+    lin("K1 router at 65", "K1", BF16, 0, 65, 8, 6144, "mma tall"),
+    lin("K1 f32 at 65", "K1", F32, 0, 65, 1024, 6144, "rows"),
     lin("K6 at 64", "K6", BF16, 128, 64, 1024, 6144, "mma"),
     lin("K6 at 65", "K6", BF16, 128, 65, 1024, 6144, "mma tall"),
     lin("K5 at 64", "K5", BF16, 0, 64, 1024, 6144, "int8"),
@@ -82,8 +87,10 @@ EDGES = [
     grp("K2 at 24 rows an expert", "K2", BF16, 0, 256 + 16 * 24, 16, 16, 14336, 4096, "wg"),
     grp("K13 at 23 rows an expert", "K13", BF16, 128, 256 + 16 * 23, 16, 16, 16384, 6144, "mma"),
     grp("K13 at 24 rows an expert", "K13", BF16, 128, 256 + 16 * 24, 16, 16, 16384, 6144, "wg"),
-    # N in no whole slices of 128
+    # N in no whole slices of 128, K/2 in no whole chunks of 64 bytes
     lin("K7 N=960 at 640", "K7", BF16, 128, 640, 960, 4096, "mma tall"),
+    lin("K1 N=960 at 576", "K1", BF16, 0, 576, 960, 4096, "mma tall"),
+    lin("K1 K=4160 at 576", "K1", BF16, 0, 576, 4096, 4160, "mma tall"),
     grp("K13 N=960 at 896/16", "K13", BF16, 128, 896, 8, 16, 960, 4096, "mma"),
     grp("K2 N=960 at 2176/128", "K2", BF16, 0, 2176, 8, 128, 960, 4096, "mma tall"),
     # K9 takes the tensor-core body at its own launch, at every row count
@@ -131,11 +138,21 @@ EDGES = [
       for kn, gs in (("K2", 0), ("K9", 0), ("K10", 0), ("K11", 0), ("K12", 128), ("K13", 128),
                      ("K14", 128))),
     lin("CPU K1 at 512", "K1", BF16, 0, 512, 1024, 6144, "plain", cuda=False),
-    lin("CPU K1 at 513", "K1", BF16, 0, 513, 1024, 6144, "dense", cuda=False),
-    # K1's row threshold
-    lin("K1 at 512", "K1", BF16, 0, 512, 1024, 6144, "mma tall"),
-    lin("K1 at 513", "K1", BF16, 0, 513, 1024, 6144, "dense"),
-    lin("K1 f32 at 513", "K1", F32, 0, 513, 1024, 6144, "dense"),
+    lin("CPU K1 at 513", "K1", BF16, 0, 513, 1024, 6144, "plain" if T > 512 else "dense",
+        cuda=False),
+    lin("CPU K1 at PREFILL_THRESHOLD", "K1", BF16, 0, T, 1024, 6144, "plain", cuda=False),
+    lin("CPU K1 above PREFILL_THRESHOLD", "K1", BF16, 0, T + 1, 1024, 6144, "dense", cuda=False),
+    # K1's row threshold: the warpgroup body (the tall tile off whole slices)
+    # up to it, on either device the dense path above it
+    lin("K1 at 512", "K1", BF16, 0, 512, 1024, 6144, "wg"),
+    lin("K1 at 513", "K1", BF16, 0, 513, 1024, 6144, "wg" if T > 512 else "dense"),
+    lin("K1 f32 at 513", "K1", F32, 0, 513, 1024, 6144, "rows" if T > 512 else "dense"),
+    lin("K1 at PREFILL_THRESHOLD", "K1", BF16, 0, T, 1024, 6144, "wg"),
+    lin("K1 above PREFILL_THRESHOLD", "K1", BF16, 0, T + 1, 1024, 6144, "dense"),
+    lin("K1 router at PREFILL_THRESHOLD", "K1", BF16, 0, T, 8, 6144, "mma tall"),
+    lin("K1 router above PREFILL_THRESHOLD", "K1", BF16, 0, T + 1, 8, 6144, "dense"),
+    lin("K1 f32 at PREFILL_THRESHOLD", "K1", F32, 0, T, 1024, 6144, "rows"),
+    lin("K1 f32 above PREFILL_THRESHOLD", "K1", F32, 0, T + 1, 1024, 6144, "dense"),
 ]
 
 # The warpgroup body at the port's expert widths: decode (T=8) and the

@@ -256,6 +256,7 @@ def test_wg_body_choice_reads_shape_and_format_only():
     assert 8 * gm.WG_MIN_EXPERT_ROWS <= 896 - 8 * 16
     assert _wg._ENTRIES == {"K2": "f4b_grouped_int4_matmul_wg_bf16",
                             "K13": "f4b_grouped_int4_matmul_pg_wg_bf16",
+                            "K1": "f4b_int4_matmul_wg_bf16",
                             "K7": "f4b_int4_matmul_pg_wg_bf16"}
 
 

@@ -58,7 +58,8 @@ def test_body_choice_reads_the_call_type_and_shape_only():
     N, K, SMs): never the model, the layer or an environment variable."""
     assert list(inspect.signature(im._body).parameters) == [
         "kernel", "cuda", "dtype", "group_size", "m", "n", "k", "prefill_threshold"]
-    assert list(inspect.signature(_wg._wg_linear_launch).parameters) == ["m", "n", "k", "sms"]
+    assert list(inspect.signature(_wg._wg_linear_launch).parameters) == [
+        "m", "n", "k", "sms", "kernel"]
     assert _mma._MMA_TALL_M < im.WG_MIN_LINEAR_ROWS <= 320
     for m, n, k in CELL_SHAPES:
         assert _wg_body(BF16, 128, m, n, k)
@@ -110,7 +111,13 @@ def test_launch_covers_every_output_once(m, n, k):
     the other slices lies in exactly one item of each range, and the ranges
     cut K/2's chunks in order into non-empty runs; the grid never exceeds
     the SMs or the items."""
-    full, splits, grid = _wg._wg_linear_launch(m, n, k, SMS)
+    assert_launch_covers(m, n, k, "K7")
+
+
+def assert_launch_covers(m, n, k, kernel):
+    """The checks of :func:`test_launch_covers_every_output_once` on
+    ``kernel``'s launch at (M, N, K)."""
+    full, splits, grid = _wg._wg_linear_launch(m, n, k, SMS, kernel)
     chunks = (k // 2) // CHUNK
     blocks = -(-m // _wg._WG_ROWS)
     slices = n // _wg._WG_SLICE
@@ -145,11 +152,11 @@ def test_launch_fills_the_card_where_whole_items_do_not():
     whole and the rest are cut: 8x22B's q and o (144 items: one wave of 132
     whole, 4 slices in ranges); 8x22B's LM head (768 items) stays whole."""
     for m in (896, 384):
-        full, splits, grid = _wg._wg_linear_launch(m, 1024, 6144, SMS)
+        full, splits, grid = _wg._wg_linear_launch(m, 1024, 6144, SMS, "K7")
         assert full == 0 and splits > 1 and grid > 8 * -(-m // 128)
-    full, splits, grid = _wg._wg_linear_launch(384, 6144, 6144, SMS)
+    full, splits, grid = _wg._wg_linear_launch(384, 6144, 6144, SMS, "K7")
     assert (full, grid) == (SMS, SMS) and splits > 1
-    assert _wg._wg_linear_launch(384, 32768, 6144, SMS) == (768, 1, SMS)
+    assert _wg._wg_linear_launch(384, 32768, 6144, SMS, "K7") == (768, 1, SMS)
 
 
 # Milliseconds of the body at each cell shape under the launches
@@ -185,7 +192,7 @@ def test_launch_rule_picks_the_fastest_timed_launch(m, n, k):
     (the readings' noise between near-equal launches); a change to a
     constant must keep that."""
     timed = TIMED_LAUNCHES[(m, n, k)]
-    full, splits, _ = _wg._wg_linear_launch(m, n, k, SMS)
+    full, splits, _ = _wg._wg_linear_launch(m, n, k, SMS, "K7")
     assert (full, splits) in timed
     assert timed[(full, splits)] <= 1.01 * min(timed.values())
 
@@ -194,7 +201,7 @@ def body_launch(m, n, k, splits=None):
     """The body's order as ``k7_fold_model``'s launch: one warp along K,
     ``splits`` CTAs along K (the ranges, the rule's by default) of
     ceil(chunks / splits) chunks each, added in order z = 0, 1, ..."""
-    splits = splits or _wg._wg_linear_launch(m, n, k, SMS)[1]
+    splits = splits or _wg._wg_linear_launch(m, n, k, SMS, "K7")[1]
     chunks = (k // 2) // CHUNK
     return 8 * -(-chunks // splits), 1, splits
 
@@ -283,27 +290,29 @@ def _family_rules():
 
 
 def test_kernel_names_fall_in_the_linears_family():
-    """Every kernel the path launches (the body's GroupFold instance with the
-    grouped flag false, then where slices are cut into ranges the ordered
-    second pass), mangled as
-    nvcc names it and demangled as the profiler may give it, is counted
-    among the linears and not among the experts; the second pass joins the
-    main kernel it follows."""
+    """Every kernel the path launches (the body's GroupFold instance, and
+    K1's RowScale one, with the grouped flag false, then where slices are
+    cut into ranges the ordered second pass), mangled as nvcc names it and
+    demangled as the profiler may give it, is counted among the linears and
+    not among the experts; the second pass joins the main kernel it
+    follows."""
     from portbench import trace
 
     src = (_build.CSRC / "grouped_wgmma.cu").read_text()
     body = src[src.index("int launch_int4_linear_wg("):]
     body = body[:body.index("\n}\n")]
     launched = re.findall(r"(\w+(?:<[^<>]*>)?)<<<", body)
-    assert launched == ["int4_mma_kernel_wg<GroupFold, false>", "int4_linear_reduce_kernel"]
+    assert launched == ["int4_mma_kernel_wg<P, false>", "int4_linear_reduce_kernel"]
+    assert re.findall(r"launch_int4_linear_wg<f4b::(\w+)>", src) == ["RowScale", "GroupFold"]
     ns = "_ZN3f4b49_GLOBAL__N__3a36cd68_16_grouped_wgmma_cu_f47962b8"
     anon = "f4b::(anonymous namespace)::"
-    mains = (f"{ns}18int4_mma_kernel_wgINS0_9GroupFoldELb0EEEv14CUtensorMap_stS3_NS0_6WgArgsE",
-             f"void {anon}int4_mma_kernel_wg<{anon}GroupFold, false>(CUtensorMap_st, "
-             f"CUtensorMap_st, {anon}WgArgs)")
-    seconds = (f"{ns}25int4_linear_reduce_kernelEPKfP13__nv_bfloat16iiii",
-               f"{anon}int4_linear_reduce_kernel(float const*, __nv_bfloat16*, int, int, int, "
-               "int)")
+    mains = tuple(name for policy in ("GroupFold", "RowScale") for name in (
+        f"{ns}18int4_mma_kernel_wgINS0_{len(policy)}{policy}ELb0EEEv14CUtensorMap_stS3_NS0_6WgArgsE",
+        f"void {anon}int4_mma_kernel_wg<{anon}{policy}, false>(CUtensorMap_st, "
+        f"CUtensorMap_st, {anon}WgArgs)"))
+    seconds = (f"{ns}25int4_linear_reduce_kernelEPKfS2_P13__nv_bfloat16iiii",
+               f"{anon}int4_linear_reduce_kernel(float const*, float const*, __nv_bfloat16*, "
+               "int, int, int, int)")
     rules = _family_rules()
     for main in mains:
         assert trace.grouped_flag(main) is False
@@ -349,8 +358,8 @@ def test_wrappers_reach_their_entry_points(stub, m):
     bodies, a stub library): K7 at bf16 the body from WG_MIN_LINEAR_ROWS
     rows (N=1024) at the rule's launch, with an f32 partial where slices are
     cut into ranges, else the tall or decode tile, and never for the router
-    (N=8), gs 32, f32 x, K6 or K1; the ``wg_launches`` counter counts the
-    body's launches alone."""
+    (N=8), gs 32, f32 x or K6; K1 its own entry on the body from the same
+    rows; the ``wg_launches`` counters count the body's launches alone."""
     k = 1024
     gen = torch.Generator().manual_seed(m)
     w = torch.randn((1024, k), generator=gen) * k ** -0.5
@@ -366,14 +375,16 @@ def test_wrappers_reach_their_entry_points(stub, m):
         wg = name == "K7" and m >= im.WG_MIN_LINEAR_ROWS
         assert (entry == _wg._ENTRIES["K7"]) == wg, (name, entry)
         if wg:
-            full, splits, grid = _wg._wg_linear_launch(m, 1024, k, SMS)
+            full, splits, grid = _wg._wg_linear_launch(m, 1024, k, SMS, "K7")
             assert args[6:13] == (m, 1024, k, 128, full, splits, grid)
             assert (args[5] is None) == (full == 8 * -(-m // 128))
     stub.calls.clear()
     ops.int4_matmul(x, quantize(w), prefill_threshold=m)
-    assert [entry for entry, _ in stub.calls] == ["f4b_int4_matmul_bf16"]
+    wg = m >= im.WG_MIN_LINEAR_ROWS
+    assert [entry for entry, _ in stub.calls] == [
+        _wg._ENTRIES["K1"] if wg else "f4b_int4_matmul_bf16"]
     counts = ops.launch_counts()
-    assert counts["int4_matmul_per_group_wg"] == int(m >= im.WG_MIN_LINEAR_ROWS)
+    assert counts["int4_matmul_per_group_wg"] == counts["int4_matmul_wg"] == int(wg)
     assert counts["int4_matmul_per_group"] == 4 and counts["int4_matmul_per_group_planar"] == 1
     ops.reset_counts()
     assert ops.launch_counts()["int4_matmul_per_group_wg"] == 0

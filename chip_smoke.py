@@ -79,7 +79,16 @@ Phases, each of which raises on failure:
      full pages with the window a mask; one decode step of a small
      K-EXAONE-shaped model, the counters reset just before it, must launch
      K3 8 times, 6 of them over a window (the JSON line's
-     "window_launches");
+     "window_launches"). K15 (mla_attention_kernel) is held to its plain
+     version at the DeepSeek-V3 cell's shapes (256 sequences of 2049-2080
+     positions, 128 heads, a latent of 512 and a RoPE key of 64; timed,
+     beside its bound and scaled_dot_product_attention over the latent
+     dequantized to bf16), two launches bit-equal, over a ragged batch of
+     lengths 1-4095 cut in two segments, and a 4-query chunk whose rows
+     equal decode calls bit for bit; the absorption's grouped calls
+     (W_UK^T on K2, W_UV on K13) at the cell's shapes; one decode step of a
+     small DeepSeek-V3-shaped model must launch K15 once a layer and no
+     plain version (its launches in the JSON line);
   4. serve 12 requests on the `layer2` model (random weights from a seeded
      generator) with 8 slots, in the default (w4a16) mode and then, on the
      same weights, in the `as_u4_turbo` (w4a8), `as_per_group` (w4a16,
@@ -193,7 +202,7 @@ Phases, each of which raises on failure:
      the twin's JSON line.
 The line before the last is a JSON summary of the kernels, with each
 kernel's launches counted over the phase that drives it (4, 5 or 7; K3' over
-the first paged serve) and, beside them, its launches in phase 11's parallel
+the first paged serve; K15 over phase 3's small DeepSeek-V3 step) and, beside them, its launches in phase 11's parallel
 calls (``parallel_launches``), in phase 12 (``graft_launches``) and in phase
 13 (``bench_launches``); the last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX.
@@ -206,6 +215,7 @@ import dataclasses
 import datetime
 import functools
 import json
+import math
 import os
 import pathlib
 import shutil
@@ -221,6 +231,7 @@ import torch.nn.functional as F
 from fused4bit_tpu_torch import bench, native, ops
 from fused4bit_tpu_torch import parallel as par
 from fused4bit_tpu_torch.layers import (
+    LatentKVCache,
     MoEINT4,
     PagedKVCache,
     QuantizedDense,
@@ -231,6 +242,8 @@ from fused4bit_tpu_torch.layers import (
     topk_route,
 )
 from fused4bit_tpu_torch.models import (
+    DEEPSEEK_V3_671B,
+    MLAttention,
     ModelConfig,
     MoEConfig,
     QuantizedTransformer,
@@ -257,6 +270,7 @@ from fused4bit_tpu_torch.ops._mma import (
 from fused4bit_tpu_torch.ops._rows import _ksplit_splits
 from fused4bit_tpu_torch.ops.grouped_matmul import _body as _grouped_body
 from fused4bit_tpu_torch.ops.int4_matmul import WG_MIN_LINEAR_ROWS, _body as _linear_body
+from fused4bit_tpu_torch.ops.mla_attention import _mla_segment
 from fused4bit_tpu_torch.quant import (
     dequantize,
     dequantize_fp4,
@@ -344,6 +358,8 @@ SOURCES = {
                                    "fused4bit_tpu/ops/grouped_matmul.py:241"),
     "grouped_int4_matmul_per_group_planar": ("fused4bit_tpu_torch/csrc/int4_mma.cuh",
                                              "fused4bit_tpu/ops/grouped_matmul.py:859"),
+    "mla_attention": ("fused4bit_tpu_torch/csrc/mla_attention.cu",
+                      "none: the JAX package runs no latent attention"),
 }
 # Each kernel's decode shape on the serving path: its ms / plain_ms in the
 # JSON summary.
@@ -363,6 +379,7 @@ MAIN_SHAPE = {
     "int4_matmul_per_group_planar": "M=8 N=4096 K=4096 bf16",
     "grouped_int4_matmul_ksplit": "T=8 tile_m=16 N=4096 K=14336",
     "grouped_int4_matmul_per_group_planar": "T=8 tile_m=16 N=14336 K=4096",
+    "mla_attention": "decode B=256 H=128 lengths 2049-2080",
 }
 # The card's published rates (NVIDIA's H100 SXM data sheet, dense, at the
 # 700 W limit; utils.roofline.H100_SXM): a kernel's bound is the larger of its
@@ -1703,6 +1720,223 @@ def check_window_attention(device="cuda", timer=None, results=None):
     launches = window_model_launches(device)
     print(f"    windowed K3 launches of one k-exaone-small decode step: "
           f"{launches['int4_attention_window']} of {launches['int4_attention']}")
+    return launches
+
+# DeepSeek-V3's latent attention (K15) at its cell's shapes: 256 sequences
+# of 2049-2080 positions in latent caches of 2176, 128 heads, a latent of
+# 512 and a RoPE key of 64, at the model's softmax scale (192^-0.5 times
+# YaRN's mscale(40, 1) squared)
+MLA_SHAPE = dict(b=256, heads=128, latent=512, rope=64, capacity=2176, lengths=(2049, 2081))
+MLA_SCALE = 192 ** -0.5 * (0.1 * math.log(40.0) + 1.0) ** 2
+
+
+def latent_cache(gen, device, b, capacity, lengths):
+    """A latent cache whose rows hold ``lengths`` positions of seeded c_KV
+    (of unit RMS, as the model's RMSNorm leaves it) and k_pe."""
+    sh = MLA_SHAPE
+    cache = LatentKVCache.init(b, capacity, sh["latent"], sh["rope"], device=device)
+    top = int(lengths.max())
+    c = torch.randn((b, top, sh["latent"]), generator=gen, device=device).bfloat16()
+    pe = torch.randn((b, top, sh["rope"]), generator=gen, device=device).bfloat16()
+    cache.append(c, pe, start=torch.zeros(b, dtype=torch.int32, device=device))
+    cache.lengths.copy_(lengths.to(torch.int32))
+    return cache
+
+
+def mla_queries(gen, device, b, t):
+    """(q_lat [H, B * T, L], q_pe [B, T, H, R]) in bf16, seeded."""
+    sh = MLA_SHAPE
+    q_lat = (torch.randn((sh["heads"], b * t, sh["latent"]), generator=gen, device=device)
+             * 0.3).bfloat16()
+    q_pe = torch.randn((b, t, sh["heads"], sh["rope"]), generator=gen, device=device).bfloat16()
+    return q_lat, q_pe
+
+
+def mla_bound(q_lat, q_pe, cache, starts, t) -> dict:
+    """Latent attention of t query rows a slot from ``starts``: each seen
+    position's codes, scale, zero point and k_pe read once (a chunk's rows
+    share them), q read and the output written once; per (head, query,
+    seen position) 2 (L + R) operations for the scores and 2 L for the
+    output."""
+    h, _, l = q_lat.shape
+    r = q_pe.shape[-1]
+    used = int((starts.long() + t).sum())
+    pairs = sum(t * int(s) + t * (t + 1) // 2 for s in starts.tolist())
+    cached = used * (l // 2 + 8 + 2 * r)
+    return bound(cached + 2 * nbytes(q_lat) + nbytes(q_pe), 2.0 * h * (2 * l + r) * pairs, "bf16")
+
+
+def mla_sdpa_yardstick(q_lat, q_pe, cache, scale):
+    """One PyTorch call for decode latent attention (a library yardstick,
+    used nowhere in the port): ``scaled_dot_product_attention`` over the
+    latent dequantized to bf16 beforehand, with the heads as the query rows
+    of one KV head (q = [q_lat | q_pe], k = [c_KV | k_pe], v = c_KV) and
+    each slot's length as the mask. It reads bf16 c_KV, four times the
+    codes' bytes. [H, B, L] out."""
+    h, b, l = q_lat.shape
+    c, pe = cache.dequantize(dtype=torch.bfloat16)
+    k, v = torch.cat([c, pe], dim=-1)[:, None], c[:, None]                # [B, 1, S, .]
+    q = torch.cat([q_lat.transpose(0, 1), q_pe[:, 0]], dim=-1)[:, None]   # [B, 1, H, L + R]
+    mask = (torch.arange(c.shape[1], device=c.device)[None, None, None, :]
+            < cache.lengths[:, None, None, None])
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)[
+        :, 0].transpose(0, 1)
+
+
+def _mla_tol(ref):
+    return BF16_REL_TOL * float(ref.float().abs().max())
+
+
+def check_mla_cell(device="cuda", timer=None, results=None):
+    """K15 at the DeepSeek-V3 cell's shapes against its plain version
+    (``ops.mla_attention_reference``, the same sum in f32 on the card) at
+    chip_smoke's bf16 bar; two launches bit-equal. With a timer, K15, the
+    plain version and the SDPA yardstick are timed beside K15's bound."""
+    results = [] if results is None else results
+    gen = torch.Generator(device=device).manual_seed(26)
+    sh = MLA_SHAPE
+    b = sh["b"]
+    lengths = torch.randint(*sh["lengths"], (b,), generator=gen, device=device)
+    cache = latent_cache(gen, device, b, sh["capacity"], lengths)
+    q_lat, q_pe = mla_queries(gen, device, b, 1)
+    starts = (lengths - 1).to(torch.int32)
+    before = ops.mla_attention.launches
+    y = ops.mla_attention(q_lat, q_pe, cache, starts, MLA_SCALE)
+    again = ops.mla_attention(q_lat, q_pe, cache, starts, MLA_SCALE)
+    if ops.mla_attention.launches != before + 2:
+        raise AssertionError("mla_attention: two calls did not count two launches")
+    if not torch.equal(y, again):
+        raise AssertionError("mla_attention: two launches on the same inputs differ")
+    ref = ops.mla_attention_reference(q_lat, q_pe, cache, starts, MLA_SCALE)
+    _compare("mla_attention", MAIN_SHAPE["mla_attention"], y, ref, _mla_tol(ref), results, timer,
+             lambda: ops.mla_attention(q_lat, q_pe, cache, starts, MLA_SCALE),
+             lambda: ops.mla_attention_reference(q_lat, q_pe, cache, starts, MLA_SCALE),
+             work=mla_bound(q_lat, q_pe, cache, starts, 1),
+             library=mla_sdpa_yardstick(q_lat, q_pe, cache, MLA_SCALE))
+    print("    mla_attention: two launches bit-equal")
+    return results
+
+
+def check_mla_ragged(device="cuda", results=None):
+    """K15 over a ragged batch of lengths 1-4095 in caches of 4096: two
+    segments a row, merged in order; two launches bit-equal."""
+    results = [] if results is None else results
+    gen = torch.Generator(device=device).manual_seed(27)
+    b = 24
+    lengths = torch.randint(1, 4096, (b,), generator=gen, device=device)
+    lengths[0], lengths[1] = 1, 4095
+    cache = latent_cache(gen, device, b, 4096, lengths)
+    if -(-cache.max_seq // _mla_segment(cache.max_seq)) != 2:
+        raise AssertionError(f"a latent cache of {cache.max_seq} is not cut in two segments")
+    q_lat, q_pe = mla_queries(gen, device, b, 1)
+    starts = (lengths - 1).to(torch.int32)
+    y = ops.mla_attention(q_lat, q_pe, cache, starts, MLA_SCALE)
+    ref = ops.mla_attention_reference(q_lat, q_pe, cache, starts, MLA_SCALE)
+    _compare("mla_attention", f"decode B={b} H=128 lengths 1-4095, 2 segments", y, ref,
+             _mla_tol(ref), results, None, None, None)
+    if not torch.equal(y, ops.mla_attention(q_lat, q_pe, cache, starts, MLA_SCALE)):
+        raise AssertionError("mla_attention over two segments: two launches differ")
+    return results
+
+
+def check_mla_prefill_rows(device="cuda", results=None):
+    """A chunk of 4 queries a row against the plain version, and each of
+    its rows equal to a decode call at that position bit for bit (the
+    segments read neither T nor the lengths)."""
+    results = [] if results is None else results
+    gen = torch.Generator(device=device).manual_seed(28)
+    b, t, h, l = 8, 4, MLA_SHAPE["heads"], MLA_SHAPE["latent"]
+    lengths = torch.randint(100, 4000, (b,), generator=gen, device=device)
+    cache = latent_cache(gen, device, b, 4096, lengths)
+    q_lat, q_pe = mla_queries(gen, device, b, t)
+    starts = (lengths - t).to(torch.int32)
+    y = ops.mla_attention(q_lat, q_pe, cache, starts, MLA_SCALE)
+    ref = ops.mla_attention_reference(q_lat, q_pe, cache, starts, MLA_SCALE)
+    _compare("mla_attention", f"prefill B={b} T={t} H=128", y, ref, _mla_tol(ref), results,
+             None, None, None)
+    rows = y.reshape(h, b, t, l)
+    for i in range(t):
+        one = ops.mla_attention(q_lat.reshape(h, b, t, l)[:, :, i].contiguous(),
+                                q_pe[:, i:i + 1].contiguous(), cache, starts + i, MLA_SCALE)
+        if not torch.equal(one, rows[:, :, i]):
+            raise AssertionError(f"mla_attention: prefill row {i} differs from its decode call")
+    print(f"    mla_attention: the {t} rows of a T={t} chunk equal decode calls bit for bit")
+    return results
+
+
+def check_mla_absorption(device="cuda", results=None):
+    """W_UK^T (128 heads of [512, 128] per row: K2, one chunk of K) and
+    W_UV (128 heads of [128, 512] per group of 128: K13) over 256 rows a
+    head, as ``MLAttention`` calls them, against the grouped matmul's plain
+    versions."""
+    results = [] if results is None else results
+    gen = torch.Generator(device=device).manual_seed(29)
+    h, l, rows, tile = MLA_SHAPE["heads"], MLA_SHAPE["latent"], MLA_SHAPE["b"], MLAttention.TILE_M
+    kv_b = torch.randn((h * 256, l), generator=gen, device=device) * l ** -0.5
+    w_uk, w_uv = MLAttention.absorbed(kv_b, h, 128)
+    if (w_uk.weight.granularity, w_uv.weight.granularity) != ("per_row", "per_group"):
+        raise AssertionError(f"absorbed layout {w_uk.weight.granularity}, "
+                             f"{w_uv.weight.granularity}")
+    gids = torch.div(torch.arange(h * rows // tile, dtype=torch.int32, device=device),
+                     rows // tile, rounding_mode="floor")
+    for name, w, op, plain, k in (
+            ("W_UK^T", w_uk, ops.grouped_int4_matmul, ops.grouped_int4_matmul_reference, 128),
+            ("W_UV", w_uv, ops.grouped_int4_matmul_per_group,
+             ops.grouped_int4_matmul_per_group_reference, l)):
+        x = torch.randn((h * rows, k), generator=gen, device=device).bfloat16()
+        ref = plain(x, gids, w.weight, tile_m=tile)
+        _compare(op.__name__, f"absorb {name} H={h} rows {rows} tile_m={tile}",
+                 op(x, gids, w.weight, tile_m=tile), ref, _mla_tol(ref), results, None, None,
+                 None)
+    return results
+
+
+def mla_model_launches(device) -> dict:
+    """The main path's K15 launches: one decode step of a small
+    DeepSeek-V3-shaped model (K15's widths: 64 heads, a latent of 512, a
+    RoPE key of 64, YaRN x40; hidden 512, q rank 256, one dense layer and
+    two MoE layers of 16 experts in 4 groups, the best 2 kept, top-4, a
+    shared expert, experts 4-7 held) through its own forward after a
+    20-token prefill, the counters reset just before it: one K15 launch a
+    layer, no plain version."""
+    cfg = dataclasses.replace(
+        DEEPSEEK_V3_671B, name="deepseek-v3-small",
+        moe=MoEConfig("deepseek-v3-small", 16, 512, 512, 4), num_layers=3, num_heads=64,
+        num_kv_heads=64, vocab_size=512, max_seq_len=64, hidden_size=512, dense_layers=1,
+        dense_ffn=1024, shared_ffn=512, n_group=4, topk_group=2, q_lora_rank=256,
+        first_expert=4, held_experts=4)
+    model = QuantizedTransformer.init(cfg, generator=torch.Generator(device=device).manual_seed(7),
+                                      device=device)
+    caches = model.init_cache(cfg, 4, cfg.max_seq_len)
+    tokens = torch.randint(1, cfg.vocab_size, (4, 21), device=device,
+                           generator=torch.Generator(device=device).manual_seed(8))
+    model(tokens[:, :20], caches, torch.arange(20, device=device))
+    _reset_counts()
+    logits = model(tokens[:, 20:], caches, torch.tensor([20], device=device))[0]
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _launch_counts().items() if v}
+    if launches.get("mla_attention") != cfg.num_layers or _plain_calls():
+        raise AssertionError(f"deepseek-v3-small decode step: launches {launches}, plain "
+                             f"versions {_plain_calls()}; want {cfg.num_layers} K15 launches")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("deepseek-v3-small decode step: non-finite logits")
+    return launches
+
+
+def check_mla_attention(device="cuda", timer=None, results=None):
+    """K15 against its plain version at the DeepSeek-V3 cell's shapes
+    (timed, beside its bound and the SDPA yardstick), over two segments,
+    a chunk's rows against decode calls, the absorption's grouped calls at
+    the cell's shapes; then the main path's K15 launch count."""
+    results = [] if results is None else results
+    check_mla_cell(device, timer, results)
+    check_mla_ragged(device, results)
+    check_mla_prefill_rows(device, results)
+    check_mla_absorption(device, results)
+    torch.cuda.empty_cache()
+    launches = mla_model_launches(device)
+    print(f"    K15 launches of one deepseek-v3-small decode step: "
+          f"{launches['mla_attention']} ({launches})")
     return launches
 
 
@@ -3482,6 +3716,7 @@ def main() -> None:
         print(f"kernels vs plain versions (times: median, L2 flushed, on {card_line}):")
         results = check_kernels()
         window_launches = check_window_attention(timer=Timer("cuda"), results=results)
+        mla_launches = check_mla_attention(timer=Timer("cuda"), results=results)
     model, cfg = build_layer2()
     pg_kernels = tuple(fn.__name__ for fn in _PG_OPS)
     launches, eng, _ = serve(model, cfg, "default", card_line)
@@ -3490,6 +3725,7 @@ def main() -> None:
                      ("int4_matmul_a8_fused", "grouped_int4_matmul_a8", "paged_int4_attention",
                       "grouped_int4_matmul_ksplit", "int4_matmul_per_group_planar",
                       "grouped_int4_matmul_per_group_planar") + pg_kernels)
+    launches["mla_attention"] = mla_launches["mla_attention"]
     ref = dict(eng.finished)
     launches["paged_int4_attention"] = serve_paged(model, cfg, ref, card_line)[
         "paged_int4_attention"]

@@ -1,5 +1,5 @@
 from .flax_compat import QuantizedDense
-from .kv_cache import QuantizedKVCache, dequantize_kv, quantize_kv
+from .kv_cache import LatentKVCache, QuantizedKVCache, dequantize_kv, quantize_kv
 from .linear import DenseLinear, QuantizedLinear
 from .paged_kv import PagedKVCache
 from .moe import (
@@ -22,6 +22,7 @@ __all__ = [
     "MoEINT4",
     "PagedKVCache",
     "QuantizedDense",
+    "LatentKVCache",
     "QuantizedKVCache",
     "QuantizedLinear",
     "QuantizedMoE",

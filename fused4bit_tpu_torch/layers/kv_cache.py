@@ -20,6 +20,13 @@ lies in slot ``p % max_seq``. ``lengths`` still counts positions, so it
 grows past the ring; an append longer than the ring keeps its last
 positions. Attention masks each key by the position its slot holds
 (:meth:`QuantizedKVCache.positions`) to ``q - window < p <= q``.
+
+:class:`LatentKVCache` is the second kind: multi-head latent attention's
+cache (DeepSeek-V3's). It holds one latent vector ``c_KV`` a position, in the
+same INT4 per-vector format with one head (pair-packed codes, a scale and a
+zero point per position), and beside it the position's RoPE key ``k_pe`` in
+bf16, unquantized, as DeepSeek's own FP8 cache keeps those dimensions. It is
+updated in place like the other and has the same slot methods.
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ import torch
 from .._device import resolve_device
 from ..quant.core import _affine_params, pack_planar, unpack_planar
 
-__all__ = ["QuantizedKVCache", "quantize_kv", "dequantize_kv"]
+__all__ = ["QuantizedKVCache", "LatentKVCache", "quantize_kv", "dequantize_kv"]
 
 _MAXQ = 15
 
@@ -266,3 +273,108 @@ class QuantizedKVCache:
 
         return (dq(self.k_packed, self.k_scale, self.k_zp),
                 dq(self.v_packed, self.v_scale, self.v_zp))
+
+
+# The latent cache's capacity is a whole number of the blocks of positions
+# the MLA kernel reads (``csrc/mla_attention.cu``).
+LATENT_BLOCK = 32
+
+
+@dataclasses.dataclass
+class LatentKVCache:
+    """Per-layer latent cache of multi-head latent attention, static capacity,
+    per-slot lengths:
+
+    * ``c_packed`` [B, 1, S/2, L] u8: the latent vectors' INT4 codes,
+      pair-packed along positions as :class:`QuantizedKVCache`'s (one head);
+    * ``c_scale``/``c_zp`` [B, 1, S] f32, per position;
+    * ``k_pe`` [B, S, R] bf16: each position's RoPE key, shared by the heads;
+    * ``lengths`` [B] i32, the filled positions of each slot.
+    """
+
+    c_packed: torch.Tensor
+    c_scale: torch.Tensor
+    c_zp: torch.Tensor
+    k_pe: torch.Tensor
+    lengths: torch.Tensor
+
+    _FIELDS = ("c_packed", "c_scale", "c_zp", "k_pe", "lengths")
+
+    @classmethod
+    def init(cls, batch: int, max_seq: int, latent_dim: int, rope_dim: int,
+             device: Optional[torch.device] = None) -> "LatentKVCache":
+        """An empty cache on ``device`` (None: the CUDA card) of ``max_seq``
+        positions a slot, rounded up to a whole block of
+        :data:`LATENT_BLOCK`."""
+        s = -(-max_seq // LATENT_BLOCK) * LATENT_BLOCK
+        device = resolve_device(device)
+
+        def zf():
+            return torch.zeros((batch, 1, s), dtype=torch.float32, device=device)
+        return cls(torch.zeros((batch, 1, s // 2, latent_dim), dtype=torch.uint8, device=device),
+                   zf(), zf(),
+                   torch.zeros((batch, s, rope_dim), dtype=torch.bfloat16, device=device),
+                   torch.zeros((batch,), dtype=torch.int32, device=device))
+
+    @property
+    def max_seq(self) -> int:
+        return self.c_packed.shape[2] * 2
+
+    @property
+    def latent_dim(self) -> int:
+        return self.c_packed.shape[3]
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the codes, planes and RoPE keys (the lengths aside)."""
+        return sum(getattr(self, f).numel() * getattr(self, f).element_size()
+                   for f in self._FIELDS[:4])
+
+    def append(self, c_kv: torch.Tensor, k_pe: torch.Tensor,
+               start: Optional[torch.Tensor] = None) -> "LatentKVCache":
+        """Quantize and insert new positions, in place; returns ``self``.
+        c_kv [B, T, L], k_pe [B, T, R]; row b is written at positions
+        [start[b], start[b] + T), ``start`` defaulting to the row's length
+        (clamped into the cache as :class:`QuantizedKVCache` clamps it)."""
+        t_new = c_kv.shape[1]
+        start = (self.lengths if start is None else start).to(self.lengths.device)
+        q, scale, zp = _affine(c_kv[:, None])
+        _merge_packed(self.c_packed, q, start)
+        _update_positions(self.c_scale, scale, start)
+        _update_positions(self.c_zp, zp, start)
+        b, s, r = self.k_pe.shape
+        first = torch.clamp(start.long(), 0, s - t_new)
+        rows = (first[:, None] + torch.arange(t_new, device=first.device))[:, :, None]
+        self.k_pe.scatter_(1, rows.expand(b, t_new, r), k_pe.to(self.k_pe.dtype))
+        self.lengths.copy_((start + t_new).to(torch.int32))
+        return self
+
+    def reset_slot(self, slot: int) -> "LatentKVCache":
+        """Mark one batch slot empty (its stale data is masked by length)."""
+        self.lengths[slot] = 0
+        return self
+
+    def slice_slot(self, slot: int) -> "LatentKVCache":
+        """Batch-1 view of one slot; writes to it land in this cache."""
+        return dataclasses.replace(self, **{f: getattr(self, f)[slot:slot + 1]
+                                            for f in self._FIELDS})
+
+    def merge_slot(self, part: "LatentKVCache", slot: int) -> "LatentKVCache":
+        """Write a batch-1 cache back into ``slot`` (nothing to copy when
+        ``part`` is this slot's own :meth:`slice_slot` view)."""
+        for f in self._FIELDS:
+            dst = getattr(self, f)[slot:slot + 1]
+            src = getattr(part, f)
+            if dst.data_ptr() != src.data_ptr():
+                dst.copy_(src)
+        return self
+
+    def codes(self) -> torch.Tensor:
+        """The latent codes [B, S, L] u8 (0..15), position-major."""
+        return _unpack_pairs(self.c_packed)[:, 0]
+
+    def dequantize(self, dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(c_KV [B, S, L], k_pe [B, S, R]) by position, in ``dtype``
+        (unwritten positions are junk)."""
+        c = (self.codes().float() - self.c_zp[:, 0, :, None]) * self.c_scale[:, 0, :, None]
+        return c.to(dtype), self.k_pe.to(dtype)

@@ -2,8 +2,9 @@
 
 Counterpart of ``fused4bit_tpu/layers/moe.py``: top-k softmax routing with
 renormalized weights (and the port's own sigmoid routing with a selection
-bias, :func:`sigmoid_route`), the view of a routing from a layer that holds
-a share of the experts (:func:`local_routing`), and two dispatch plans:
+bias, optionally limited to the best groups of experts,
+:func:`sigmoid_route`), the view of a routing from a layer that holds a
+share of the experts (:func:`local_routing`), and two dispatch plans:
 
 * dropless (``make_dispatch_plan``): every expert's group is padded to a
   ``tile_m`` boundary inside a buffer of static size
@@ -98,13 +99,25 @@ def topk_route(logits: torch.Tensor, top_k: int, num_experts: int) -> RoutingRes
 
 
 def sigmoid_route(logits: torch.Tensor, bias: torch.Tensor, top_k: int, num_experts: int,
-                  scale: float = 1.0) -> RoutingResult:
-    """Sigmoid routing with a selection bias (DeepSeek-V3's ``noaux_tc`` at
-    one group, as K-EXAONE routes): the top-k of ``sigmoid(logits) + bias``
-    are chosen; their weights are the unbiased sigmoid scores, divided by
-    their sum and multiplied by ``scale``."""
+                  scale: float = 1.0, n_group: int = 1, topk_group: int = 1) -> RoutingResult:
+    """Sigmoid routing with a selection bias (DeepSeek-V3's ``noaux_tc``): the
+    top-k of ``sigmoid(logits) + bias`` are chosen; their weights are the
+    unbiased sigmoid scores, divided by their sum and multiplied by
+    ``scale``. With ``n_group`` > 1 the experts fall into ``n_group`` equal
+    groups in id order, a group scores the sum of its two best biased
+    scores, and the top-k are chosen inside the ``topk_group`` best groups
+    alone (the others' scores masked to -inf, as DeepSeek's ``Gate`` does).
+    At one group (K-EXAONE's) it is the plain biased top-k."""
     scores = torch.sigmoid(logits.float())
-    indices = torch.topk(scores + bias.float(), top_k, dim=-1).indices
+    biased = scores + bias.float()
+    if n_group > 1:
+        grouped = biased.reshape(*biased.shape[:-1], n_group, -1)
+        best = torch.topk(torch.topk(grouped, 2, dim=-1).values.sum(dim=-1), topk_group,
+                          dim=-1).indices
+        kept = torch.zeros(grouped.shape[:-1], dtype=torch.bool, device=logits.device)
+        kept.scatter_(-1, best, True)
+        biased = grouped.masked_fill(~kept[..., None], float("-inf")).reshape(biased.shape)
+    indices = torch.topk(biased, top_k, dim=-1).indices
     weights = scores.gather(-1, indices)
     weights = weights / weights.sum(dim=-1, keepdim=True) * scale
     return _routing(indices, weights, num_experts)

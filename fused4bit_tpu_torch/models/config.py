@@ -4,14 +4,15 @@ A copy of ``fused4bit_tpu/models/config.py``: plain dataclasses, so both
 packages describe a model with the same fields and the same registry.
 ``ModelConfig``'s fields past ``rms_eps`` are the port's own: they describe
 decoders other than Mixtral's (a hidden size of their own, window layers,
-leading dense layers, a shared expert, a sigmoid router, the EXAONE 4.0
-block, a share of the experts), and their defaults leave a Mixtral config
-as it was. ``MODEL_CONFIGS`` holds such models at their published widths.
+leading dense layers, a shared expert, a sigmoid router limited to groups
+of experts, the EXAONE 4.0 block, multi-head latent attention with YaRN
+RoPE, a share of the experts), and their defaults leave a Mixtral config as
+it was. ``MODEL_CONFIGS`` holds such models at their published widths.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 __all__ = [
     "MoEConfig",
@@ -26,7 +27,9 @@ __all__ = [
     "MIXTRAL_BENCHMARK_CONFIGS",
     "get_config_by_name",
     "K_EXAONE_236B",
+    "DEEPSEEK_V3_671B",
     "MODEL_CONFIGS",
+    "YaRN",
     "port_config",
 ]
 
@@ -56,6 +59,22 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class YaRN:
+    """YaRN's RoPE scaling (``rope_scaling`` of type "yarn" in a Hugging Face
+    config): the rotary frequencies stretched by ``factor`` below the
+    correction range of ``beta_fast``/``beta_slow`` rotations over
+    ``original_max_position_embeddings``, and the attention's softmax scale
+    times ``mscale(factor, mscale_all_dim)`` squared."""
+
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Full decoder geometry for the flagship model slice."""
 
@@ -80,6 +99,14 @@ class ModelConfig:
     block: str = "mixtral"           # "exaone4": QK-norm, RoPE on window layers, post-norms
     first_expert: int = 0            # the experts held here: [first_expert,
     held_experts: int = 0            #   first_expert + held_experts); 0: all of them
+    n_group: int = 1                 # the sigmoid router picks experts inside the
+    topk_group: int = 1              #   topk_group best of n_group groups
+    q_lora_rank: int = 0             # multi-head latent attention (MLA): q's latent width ...
+    kv_lora_rank: int = 0            # ... the cached latent c_KV's width (> 0: MLA) ...
+    qk_nope_dim: int = 0             # ... a head's q/k width without RoPE, ...
+    qk_rope_dim: int = 0             # ... with RoPE (one key of it shared by every head) ...
+    v_head_dim: int = 0              # ... and a head's value width
+    yarn: Optional[YaRN] = None      # MLA's RoPE scaling (None: plain RoPE)
 
     @property
     def hidden(self) -> int:
@@ -262,4 +289,26 @@ K_EXAONE_236B = ModelConfig(
     router="sigmoid", routed_scale=2.5, block="exaone4",
 )
 
-MODEL_CONFIGS: Dict[str, ModelConfig] = {K_EXAONE_236B.name: K_EXAONE_236B}
+# DeepSeek-V3 (huggingface.co/deepseek-ai/DeepSeek-V3, config.json): 61
+# layers of multi-head latent attention (128 heads; q through a latent of
+# 1536, keys and values through a cached latent of 512 beside one shared
+# 64-wide RoPE key; heads of 128 + 64 for q and k, 128 for v; YaRN RoPE x40
+# over 4096 original positions) at hidden 7168; layers 0-2 dense SwiGLUs of
+# 18432, layers 3-60 256 experts of 2048 with top-8 sigmoid routing inside the
+# 4 best of 8 groups (normalized, x 2.5) and one shared expert. Its MTP layer
+# is not held. ``dataclasses.replace(DEEPSEEK_V3_671B, held_experts=32)`` is
+# one card's share of an EP8 host.
+DEEPSEEK_V3_671B = ModelConfig(
+    name="deepseek-v3-671b",
+    moe=MoEConfig("deepseek-v3-671b", 256, 7168, 2048, 8,
+                  description="DeepSeek-V3 MoE layer geometry"),
+    num_layers=61, num_heads=128, num_kv_heads=128, head_dim=192, vocab_size=129280,
+    max_seq_len=163840, rope_theta=10000.0, rms_eps=1e-6, hidden_size=7168,
+    dense_layers=3, dense_ffn=18432, shared_ffn=2048, router="sigmoid", routed_scale=2.5,
+    n_group=8, topk_group=4, q_lora_rank=1536, kv_lora_rank=512,
+    qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128,
+    yarn=YaRN(factor=40.0, original_max_position_embeddings=4096, beta_fast=32.0,
+              beta_slow=1.0, mscale=1.0, mscale_all_dim=1.0),
+)
+
+MODEL_CONFIGS: Dict[str, ModelConfig] = {c.name: c for c in (K_EXAONE_236B, DEEPSEEK_V3_671B)}

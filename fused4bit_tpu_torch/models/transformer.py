@@ -25,13 +25,18 @@ layer that holds a share of the experts (it routes over all of them and
 computes its own experts' part); and the EXAONE 4.0 block (``block=
 "exaone4"``): RMSNorm over head_dim on q and k, RoPE on the window layers
 only, and each sublayer's output normed before its residual add, with no
-norm before it.
+norm before it; DeepSeek-V3's multi-head latent attention
+(:class:`MLAttention`, a config with a ``kv_lora_rank``) over a latent
+cache, with YaRN RoPE, and its router limited to the best groups of
+experts.
 
 Each layer's work runs inside a layer span (``utils.profiling.span``:
 ``embed``, ``norm``, ``residual``, ``attention.rope``,
 ``attention.kv_append``, ``attention.kernel`` (on a window layer inside
-``attention.window``), ``moe.route``, ``moe.swiglu``, ``moe.shared``,
-``moe.combine``, ``mlp.dense``; ``linear`` and ``experts`` in the layers),
+``attention.window``; on a latent layer these three and
+``attention.mla.absorb`` inside ``attention.mla``), ``moe.route``,
+``moe.swiglu``, ``moe.shared``, ``moe.combine``, ``mlp.dense``; ``linear``
+and ``experts`` in the layers),
 and :meth:`QuantizedTransformer.forward` is a top-level entry of them.
 """
 from __future__ import annotations
@@ -47,7 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import resolve_device
-from ..layers.kv_cache import QuantizedKVCache
+from ..layers.kv_cache import LatentKVCache, QuantizedKVCache
 from ..layers.linear import DenseLinear, QuantizedLinear
 from ..layers.paged_kv import PagedKVCache
 from ..layers.moe import (
@@ -63,17 +68,19 @@ from ..layers.moe import (
     topk_route,
 )
 from ..ops.decode_attention import int4_decode_attention, int4_prefill_attention, key_mask
+from ..ops.grouped_matmul import grouped_int4_matmul, grouped_int4_matmul_per_group
+from ..ops.mla_attention import mla_attention
 from ..ops.int8_xla import int4_grouped_transient, int8_grouped_capacity, to_int8_resident
 from ..quant.core import dequantize, quantize
 from ..utils.profiling import entry, span
-from .config import ModelConfig, port_config
+from .config import ModelConfig, YaRN, port_config
 
-KVCache = Union[QuantizedKVCache, PagedKVCache]
+KVCache = Union[QuantizedKVCache, PagedKVCache, LatentKVCache]
 
 __all__ = [
     "QuantizedTransformer", "TransformerBlock", "MoEBlock", "DenseMLP", "Attention",
-    "rms_norm", "rotary_embedding", "as_turbo", "as_u4_turbo", "as_xla_turbo",
-    "as_per_group",
+    "MLAttention", "rms_norm", "rotary_embedding", "yarn_inv_freq", "yarn_mscale", "as_turbo",
+    "as_u4_turbo", "as_xla_turbo", "as_per_group",
 ]
 
 
@@ -97,6 +104,48 @@ def rotary_embedding(x: torch.Tensor, positions: torch.Tensor, theta: float) -> 
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def yarn_mscale(scale: float, mscale: float = 1.0) -> float:
+    """YaRN's attention factor: ``0.1 mscale ln(scale) + 1`` above a scale
+    of 1, else 1 (DeepSeek-V3's ``yarn_get_mscale``)."""
+    return 0.1 * mscale * math.log(scale) + 1.0 if scale > 1 else 1.0
+
+
+def yarn_inv_freq(dim: int, theta: float, yarn: Optional[YaRN], device=None) -> torch.Tensor:
+    """The rotary frequencies [dim / 2] (f32) of a RoPE of ``dim`` channels:
+    ``theta^(-2i/dim)``, and with YaRN those of the channels below the
+    correction range of ``beta_fast``..``beta_slow`` rotations over the
+    original positions divided by ``factor``, a linear ramp between
+    (DeepSeek-V3's ``precompute_freqs_cis``)."""
+    freqs = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim))
+    if yarn is None:
+        return freqs
+
+    def correction_dim(rotations):
+        return dim * math.log(yarn.original_max_position_embeddings
+                              / (rotations * 2 * math.pi)) / (2 * math.log(theta))
+
+    low = max(math.floor(correction_dim(yarn.beta_fast)), 0)
+    high = min(math.ceil(correction_dim(yarn.beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32, device=device) - low)
+                       / (high - low), 0, 1)
+    return freqs / yarn.factor * ramp + freqs * (1 - ramp)
+
+
+def rotary_interleaved(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor,
+                       factor: float = 1.0) -> torch.Tensor:
+    """RoPE over channel pairs (2i, 2i + 1) of x [B, T, ..., R] at positions
+    [B, T] (the published DeepSeek-V3 code's layout), cos and sin times
+    ``factor``; computed in f32, returned in x.dtype."""
+    angles = positions.float()[..., None] * inv_freq                       # [B, T, R/2]
+    angles = angles.reshape(*angles.shape[:2], *([1] * (x.dim() - 3)), angles.shape[-1])
+    cos, sin = torch.cos(angles) * factor, torch.sin(angles) * factor
+    xf = x.float()
+    x1, x2 = xf[..., 0::2], xf[..., 1::2]
+    return torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).flatten(-2).to(x.dtype)
 
 
 class Attention(nn.Module):
@@ -123,6 +172,9 @@ class Attention(nn.Module):
         self.register_buffer("k_norm", k_norm)
         self.rope = rope
         self.rms_eps = rms_eps
+
+    # the projections, by attribute name (the mode converters walk them)
+    LINEARS = ("wq", "wk", "wv", "wo")
 
     @classmethod
     def init(cls, cfg: ModelConfig, hidden: int, *, layer: int = 0, generator=None,
@@ -197,6 +249,127 @@ class Attention(nn.Module):
         return self.wo(out.transpose(1, 2).reshape(b, t, nh * hd)), cache
 
 
+class MLAttention(nn.Module):
+    """DeepSeek-V3's multi-head latent attention over a :class:`LatentKVCache`.
+
+    Per layer: ``c_q = RMSNorm(W_DQ x)`` (``wq_a``), ``[q_nope, q_pe] = W_UQ
+    c_q`` per head (``wq_b``); ``[c_KV, k_pe] = W_DKV x`` (``wkv_a``),
+    ``c_KV = RMSNorm(c_KV)``, ``k_pe = RoPE(k_pe)`` shared by every head;
+    ``q_pe = RoPE(q_pe)``; attention over ``q_nope . k_nope + q_pe . k_pe``
+    with ``k_nope, v = W_UKV c_KV``, then ``wo``. RoPE is YaRN's over channel
+    pairs; the softmax scale ``(qk_nope + qk_rope)^-0.5 mscale^2``.
+
+    Every forward, decode and prefill alike, runs the absorbed form: the
+    cache holds c_KV and k_pe; each head's q_nope is taken into latent space
+    by ``W_UK^T`` (``w_uk``: [H, L, qk_nope], one group of 128 a row along
+    its input, per row on K2), kernel K15 (``ops.mla_attention``) attends in
+    latent space, and ``W_UV`` (``w_uv``: [H, v, L], per group of 128 along L,
+    K13) takes each head's output back. Both absorptions run the grouped
+    matmul with the heads as its groups, each head taking every row, in
+    tiles of :attr:`TILE_M` rows (the rows padded to a whole tile). The mode
+    converters convert :attr:`LINEARS`; ``w_uk`` and ``w_uv`` keep their
+    layout and bf16 activations in every mode."""
+
+    window = 0               # every position is seen
+    LINEARS = ("wq_a", "wq_b", "wkv_a", "wo")
+    TILE_M = 16
+    UV_GROUP = 128
+
+    def __init__(self, wq_a, q_norm: torch.Tensor, wq_b, wkv_a, kv_norm: torch.Tensor,
+                 w_uk: MoEINT4, w_uv: MoEINT4, wo, *, num_heads: int, qk_nope_dim: int,
+                 qk_rope_dim: int, v_head_dim: int, rope_theta: float,
+                 yarn: Optional[YaRN] = None, rms_eps: float = 1e-6):
+        super().__init__()
+        self.wq_a, self.wq_b, self.wkv_a, self.wo = wq_a, wq_b, wkv_a, wo
+        self.register_buffer("q_norm", q_norm)
+        self.register_buffer("kv_norm", kv_norm)
+        self.w_uk, self.w_uv = w_uk, w_uv
+        self.num_heads = num_heads
+        self.qk_nope_dim, self.qk_rope_dim, self.v_head_dim = qk_nope_dim, qk_rope_dim, v_head_dim
+        self.kv_lora_rank = kv_norm.shape[0]
+        self.register_buffer("inv_freq", yarn_inv_freq(qk_rope_dim, rope_theta, yarn,
+                                                       device=q_norm.device), persistent=False)
+        self.rope_factor = (yarn_mscale(yarn.factor, yarn.mscale)
+                            / yarn_mscale(yarn.factor, yarn.mscale_all_dim)) if yarn else 1.0
+        mscale = yarn_mscale(yarn.factor, yarn.mscale_all_dim) if yarn else 1.0
+        self.softmax_scale = (qk_nope_dim + qk_rope_dim) ** -0.5 * mscale * mscale
+        self.rms_eps = rms_eps
+
+    @staticmethod
+    def absorbed(kv_b: torch.Tensor, num_heads: int,
+                 qk_nope_dim: int) -> Tuple[MoEINT4, MoEINT4]:
+        """(``w_uk``, ``w_uv``) from a dense ``W_UKV`` [H (qk_nope + v), L]
+        (``kv_b_proj``, head-major): ``W_UK^T`` [H, L, qk_nope] quantized per
+        row (one group along qk_nope), ``W_UV`` [H, v, L] per group of
+        :attr:`UV_GROUP` along L."""
+        w = kv_b.reshape(num_heads, -1, kv_b.shape[-1])
+        w_uk = MoEINT4.from_dense(w[:, :qk_nope_dim].transpose(1, 2).contiguous())
+        return w_uk, MoEINT4.from_dense(w[:, qk_nope_dim:].contiguous(), granularity="per_group",
+                                        group_size=MLAttention.UV_GROUP)
+
+    @classmethod
+    def init(cls, cfg: ModelConfig, hidden: int, *, generator=None, device=None,
+             dtype=torch.bfloat16) -> "MLAttention":
+        device = resolve_device(device)
+        kw = dict(generator=generator, device=device)
+        nh, dn, dr, dv = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        lr = cfg.kv_lora_rank
+        kv_b = torch.randn((nh * (dn + dv), lr), generator=generator, device=device,
+                           dtype=torch.float32) * (lr ** -0.5)
+        w_uk, w_uv = cls.absorbed(kv_b, nh, dn)
+        return cls(QuantizedLinear.init(hidden, cfg.q_lora_rank, **kw),
+                   torch.ones((cfg.q_lora_rank,), dtype=dtype, device=device),
+                   QuantizedLinear.init(cfg.q_lora_rank, nh * (dn + dr), **kw),
+                   QuantizedLinear.init(hidden, lr + dr, **kw),
+                   torch.ones((lr,), dtype=dtype, device=device), w_uk, w_uv,
+                   QuantizedLinear.init(nh * dv, hidden, **kw),
+                   num_heads=nh, qk_nope_dim=dn, qk_rope_dim=dr, v_head_dim=dv,
+                   rope_theta=cfg.rope_theta, yarn=cfg.yarn, rms_eps=cfg.rms_eps)
+
+    def _grouped(self, x: torch.Tensor, w: MoEINT4) -> torch.Tensor:
+        """x [H, rows, K] -> [H, rows_pad, N]: each head's rows times its own
+        weight, through the grouped matmul (rows padded to whole tiles)."""
+        h, rows, k = x.shape
+        tile = self.TILE_M
+        tiles = -(-rows // tile)
+        if tiles * tile > rows:
+            x = F.pad(x, (0, 0, 0, tiles * tile - rows))
+        xs = x.reshape(h * tiles * tile, k)
+        gids = torch.div(torch.arange(h * tiles, dtype=torch.int32, device=x.device), tiles,
+                         rounding_mode="floor")
+        qt = w.weight
+        op = grouped_int4_matmul if qt.granularity == "per_row" else grouped_int4_matmul_per_group
+        return op(xs, gids, qt, tile_m=tile).reshape(h, tiles * tile, -1)
+
+    def forward(self, x: torch.Tensor, cache: LatentKVCache,
+                positions: torch.Tensor) -> Tuple[torch.Tensor, LatentKVCache]:
+        """x [B, T, H]; positions [B, T] (per-slot offsets)."""
+        b, t, _ = x.shape
+        nh, dn, lr = self.num_heads, self.qk_nope_dim, self.kv_lora_rank
+        with span("attention.mla"):
+            cq, kv = self.wq_a(x), self.wkv_a(x)
+            with span("attention.rope"):
+                cq = rms_norm(cq, self.q_norm, self.rms_eps)
+            q = self.wq_b(cq).reshape(b, t, nh, -1)
+            with span("attention.rope"):
+                c_kv = rms_norm(kv[..., :lr], self.kv_norm, self.rms_eps)
+                k_pe = rotary_interleaved(kv[..., lr:], positions, self.inv_freq,
+                                          self.rope_factor)
+                q_pe = rotary_interleaved(q[..., dn:], positions, self.inv_freq,
+                                          self.rope_factor)
+            with span("attention.kv_append"):
+                cache = cache.append(c_kv, k_pe, start=positions[:, 0])
+            with span("attention.mla.absorb"):
+                q_lat = self._grouped(q[..., :dn].reshape(b * t, nh, dn).transpose(0, 1),
+                                      self.w_uk)                             # [H, rows_pad, L]
+            with span("attention.kernel"):
+                o_lat = mla_attention(q_lat, q_pe, cache, positions[:, 0], self.softmax_scale)
+            with span("attention.mla.absorb"):
+                o = self._grouped(o_lat, self.w_uv)[:, :b * t]              # [H, rows, v]
+                o = o.transpose(0, 1).reshape(b, t, -1)
+            return self.wo(o), cache
+
+
 class MoEBlock(nn.Module):
     """SwiGLU experts on the grouped INT4 kernels.
 
@@ -220,6 +393,8 @@ class MoEBlock(nn.Module):
     ``layers.moe.local_routing``, the capacity paths on the whole block's
     plan cut to their segment), with no exchange. ``shared``: a
     :class:`DenseMLP` every token runs, added to the routed sum.
+    ``n_group``/``topk_group``: the sigmoid router chooses inside the
+    ``topk_group`` best of ``n_group`` groups of experts.
     """
 
     def __init__(self, router: Union[QuantizedLinear, DenseLinear], w_gate: MoEINT4,
@@ -228,7 +403,7 @@ class MoEBlock(nn.Module):
                  prefill_tile_m: int = 128, capacity_factor: float = 2.0,
                  moe_impl: str = "kernel", router_bias: Optional[torch.Tensor] = None,
                  routed_scale: float = 1.0, first_expert: int = 0,
-                 shared: Optional["DenseMLP"] = None):
+                 shared: Optional["DenseMLP"] = None, n_group: int = 1, topk_group: int = 1):
         super().__init__()
         if prefill_impl not in ("grouped", "einsum"):
             raise ValueError(f"prefill_impl={prefill_impl!r} is not 'grouped' or 'einsum'")
@@ -239,6 +414,7 @@ class MoEBlock(nn.Module):
         self.routed_scale = routed_scale
         self.first_expert = first_expert
         self.shared = shared
+        self.n_group, self.topk_group = n_group, topk_group
         self.num_experts = num_experts
         self.top_k = top_k
         self.tile_m = tile_m
@@ -270,7 +446,8 @@ class MoEBlock(nn.Module):
             router = DenseLinear(w.to(dtype))
             kw = dict(router_bias=torch.zeros((num_experts,), dtype=torch.float32,
                                               device=device),
-                      routed_scale=cfg.routed_scale)
+                      routed_scale=cfg.routed_scale, n_group=cfg.n_group,
+                      topk_group=cfg.topk_group)
         else:
             router = QuantizedLinear.init(hidden, num_experts, generator=generator, device=device)
         if cfg is not None and cfg.shared_ffn:
@@ -285,7 +462,7 @@ class MoEBlock(nn.Module):
         if self.router_bias is None:
             return topk_route(logits, self.top_k, self.num_experts)
         return sigmoid_route(logits, self.router_bias, self.top_k, self.num_experts,
-                             self.routed_scale)
+                             self.routed_scale, self.n_group, self.topk_group)
 
     @property
     def held(self) -> int:
@@ -498,7 +675,8 @@ class QuantizedTransformer(nn.Module):
         blocks = [
             TransformerBlock(
                 torch.ones((hidden,), dtype=dtype, device=device),
-                Attention.init(cfg, hidden, layer=layer, dtype=dtype, **kw),
+                (MLAttention.init(cfg, hidden, dtype=dtype, **kw) if cfg.kv_lora_rank
+                 else Attention.init(cfg, hidden, layer=layer, dtype=dtype, **kw)),
                 torch.ones((hidden,), dtype=dtype, device=device),
                 ffn(layer),
                 rms_eps=cfg.rms_eps, post_norm=cfg.block == "exaone4",
@@ -522,11 +700,15 @@ class QuantizedTransformer(nn.Module):
                    for _, t in self.named_buffers(remove_duplicate=False))
 
     def init_cache(self, cfg: ModelConfig, batch: int, max_seq: int,
-                   max_tokens: Optional[int] = None) -> Tuple[QuantizedKVCache, ...]:
+                   max_tokens: Optional[int] = None) -> Tuple[KVCache, ...]:
         """One contiguous cache per layer, of ``max_seq`` positions; a window
         layer's is a ring of its window plus ``max_tokens``, the most
-        positions one forward appends (None: ``max_seq``)."""
+        positions one forward appends (None: ``max_seq``); a latent layer's
+        (:class:`MLAttention`) a :class:`LatentKVCache`."""
         return tuple(
+            LatentKVCache.init(batch, max_seq, blk.attn.kv_lora_rank, blk.attn.qk_rope_dim,
+                               device=self.device)
+            if isinstance(blk.attn, MLAttention) else
             QuantizedKVCache.init(batch, cfg.num_kv_heads, max_seq, cfg.head_dim,
                                   device=self.device, window=blk.attn.window,
                                   max_tokens=max_tokens)
@@ -538,7 +720,11 @@ class QuantizedTransformer(nn.Module):
         """Paged KV caches, one page pool per layer (``layers.paged_kv``).
         Page ids are pool-local, so the serving engine runs one allocator
         and applies the same assignment to every layer. A window layer's
-        pages hold every position and its window is a mask."""
+        pages hold every position and its window is a mask. A model with
+        latent layers raises: the pool holds no latent cache yet."""
+        if any(isinstance(blk.attn, MLAttention) for blk in self.blocks):
+            raise ValueError("the paged cache does not hold multi-head latent attention's "
+                             "latent cache yet: serve an MLA model on contiguous caches")
         return tuple(
             PagedKVCache.init(batch, cfg.num_kv_heads, cfg.head_dim, num_pages=num_pages,
                               page_size=page_size, max_pages_per_slot=max_pages_per_slot,
@@ -585,7 +771,7 @@ def _mlps(model: QuantizedTransformer):
 
 def _linears(model: QuantizedTransformer):
     for blk in model.blocks:
-        yield from (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.attn.wo)
+        yield from (getattr(blk.attn, name) for name in blk.attn.LINEARS)
         if isinstance(blk.moe, MoEBlock):
             yield blk.moe.router
     for mlp in _mlps(model):
@@ -689,7 +875,7 @@ def as_per_group(model: QuantizedTransformer, group_size: int = 128) -> Quantize
         return ex if qt is None else MoEINT4(qt, activation=ex.activation, w8=ex.w8)
 
     for blk in model.blocks:
-        for name in ("wq", "wk", "wv", "wo"):
+        for name in blk.attn.LINEARS:
             setattr(blk.attn, name, linear(getattr(blk.attn, name)))
     for moe in _moe_blocks(model):
         for name in ("w_gate", "w_up", "w_down"):

@@ -39,6 +39,7 @@ from .int4_matmul import (
     int4_matmul_reference,
     quantized_linear,
 )
+from .mla_attention import mla_attention, mla_attention_reference
 from .int8_xla import (
     Int8Resident,
     int4_grouped_transient,
@@ -75,6 +76,8 @@ __all__ = [
     "int4_matmul_reference",
     "int4_prefill_attention",
     "launch_counts",
+    "mla_attention",
+    "mla_attention_reference",
     "plain_calls",
     "reset_counts",
     "int8_grouped_capacity",
@@ -87,7 +90,7 @@ __all__ = [
     "to_int8_resident",
 ]
 
-# (name, wrapper, attribute) of every kernel's launch counter; K1-K14, K3',
+# (name, wrapper, attribute) of every kernel's launch counter; K1-K15, K3',
 # then the share of K2's, K13's, K7's and K1's launches that ran the warpgroup body
 # and the share of K3's and K3''s launches over a window layer's cache
 _LAUNCH_COUNTERS = (
@@ -114,6 +117,7 @@ _LAUNCH_COUNTERS = (
     ("int4_matmul_wg", int4_matmul, "wg_launches"),                            # of K1
     ("int4_attention_window", int4_attention, "window_launches"),              # of K3
     ("paged_int4_attention_window", paged_int4_attention, "window_launches"),  # of K3'
+    ("mla_attention", mla_attention, "launches"),                              # K15
 )
 _REFERENCES = (int4_matmul_reference, grouped_int4_matmul_reference, int4_attention_reference,
                paged_int4_attention_reference, int4_matmul_a8_reference,
@@ -121,7 +125,7 @@ _REFERENCES = (int4_matmul_reference, grouped_int4_matmul_reference, int4_attent
                int4_matmul_per_group_a8_reference, grouped_int4_matmul_per_group_reference,
                grouped_int4_matmul_per_group_a8_reference,
                int4_matmul_per_group_planar_reference,
-               grouped_int4_matmul_per_group_planar_reference)
+               grouped_int4_matmul_per_group_planar_reference, mla_attention_reference)
 _PATH_CALLS = (int4_linear_transient, int4_grouped_transient, int8_linear, int8_grouped_capacity)
 
 

@@ -38,8 +38,10 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points and their argument types; every pointer and the stream are
-# void*, every size an int, and each returns a cudaError_t as an int.
+# void*, every size an int (K15's softmax scale a float), and each returns a
+# cudaError_t as an int.
 _SIGNATURES = {
     # x, packed, scales, zps, y, partial; M, N, K, ws, kw, splits, mt; stream
     "f4b_int4_matmul_bf16": [_P] * 6 + [_I] * 7 + [_P],
@@ -83,6 +85,9 @@ _SIGNATURES = {
     "f4b_grouped_int4_matmul_planar_pg_f32": [_P] * 7 + [_I] * 5 + [_P],
     # x, gids, packed, scales, zps, rows_used, partial, y; T, N, K, tile_m, splits
     "f4b_grouped_int4_matmul_ksplit_f32": [_P] * 8 + [_I] * 5 + [_P],
+    # q_lat, q_pe, packed, scale, zp, k_pe, lengths, starts, out, partial;
+    # B, T, H, S, q_lat and q_pe strides, out strides, seg, Z; softmax scale
+    "f4b_mla_attention_bf16": [_P] * 10 + [_I] * 12 + [_F, _P],
     # stream, since, id, last, count: the nodes a capturing stream added after
     # `since` (a host function, no kernel; utils/profiling.py's layer spans)
     "f4b_capture_nodes_since": [_P] * 5,

@@ -162,6 +162,8 @@ class ServingEngine:
         self.mesh = mesh
         data, data_index = 1, 0
         if mesh is not None:
+            if any(hasattr(blk.attn, "kv_lora_rank") for blk in model.blocks):
+                raise ValueError("multi-head latent attention is single-chip for now (no mesh)")
             if paged:
                 raise ValueError("paged KV is single-chip for now (no mesh)")
             if any(blk.attn.window for blk in model.blocks):

@@ -491,9 +491,10 @@ def test_grouped_model_token_rows_equal_in_t8_and_t40(rng, kernel):
 
 def test_ctypes_signatures_match_the_c_entry_points():
     """Every C entry point of ``csrc/`` is declared to ctypes with its own
-    parameters, a pointer for each pointer and an int for each int: ctypes
-    passes arguments beyond the declared ones unconverted, so a count that is
-    one short hands the kernel a size where it reads its stream."""
+    parameters, a pointer for each pointer, a float for each float (K15's
+    softmax scale) and an int for each int: ctypes passes arguments beyond
+    the declared ones unconverted, so a count that is one short hands the
+    kernel a size where it reads its stream."""
     import re
 
     from fused4bit_tpu_torch.ops import _build
@@ -501,5 +502,6 @@ def test_ctypes_signatures_match_the_c_entry_points():
     found = {}
     for src in sorted(_build.CSRC.glob("*.cu")):
         for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
-            found[name] = [_build._P if "*" in p else _build._I for p in params.split(",")]
+            found[name] = [_build._P if "*" in p else _build._F if "float" in p else _build._I
+                           for p in params.split(",")]
     assert found == _build._SIGNATURES
